@@ -8,7 +8,12 @@ setup(
         "BIOSCAN insect images, DNA barcodes, and taxonomic labels"
     ),
     packages=find_packages(include=["bioscan_clip_tpu*"]),
-    package_data={"bioscan_clip_tpu": ["config/*.yaml", "config/**/*.yaml"]},
+    package_data={
+        "bioscan_clip_tpu": ["config/*.yaml", "config/**/*.yaml"],
+        "bioscan_clip_tpu_torch": [
+            "csrc/*.cu", "csrc/*.cuh", "config/*.yaml", "config/**/*.yaml",
+        ],
+    },
     python_requires=">=3.10",
     install_requires=[
         "jax",
@@ -25,5 +30,8 @@ setup(
     extras_require={
         "viz": ["matplotlib", "seaborn", "scikit-learn"],
         "data": ["opencv-python", "scipy"],
+        # the PyTorch/CUDA port (bioscan_clip_tpu_torch); its kernels build
+        # with nvcc from the CUDA toolkit at first use
+        "torch": ["torch", "numpy"],
     },
 )

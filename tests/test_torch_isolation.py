@@ -1,0 +1,77 @@
+"""The port stands alone: no module of bioscan_clip_tpu_torch, and not
+chip_smoke.py, imports JAX or the JAX package; importing the whole port
+leaves them (and the optional host libraries the card's machine lacks) out
+of sys.modules; and entry points refuse to fall back to the CPU silently."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "bioscan_clip_tpu"}
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_forbidden_imports():
+    files = sorted((ROOT / "bioscan_clip_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
+           for p in files for mod, line in _imported_roots(p)
+           if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_import_leaves_jax_out():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import bioscan_clip_tpu_torch as pkg\n"
+        "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import bioscan_clip_tpu_torch.retrieval.service\n"
+        "import chip_smoke\n"
+        "print(' '.join(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout.split()
+    roots = {m.split(".")[0] for m in out}
+    assert "bioscan_clip_tpu_torch" in roots
+    # JAX, the JAX package, and the host libraries the card's machine lacks
+    leaked = roots & (FORBIDDEN | {"yaml", "PIL", "cv2", "h5py",
+                                   "transformers"})
+    assert not leaked, sorted(leaked)
+
+
+def test_entry_points_need_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    from bioscan_clip_tpu_torch.device import resolve_device
+    from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP, load_clip_model
+    from bioscan_clip_tpu_torch.retrieval.engine import PreparedKeys
+    from bioscan_clip_tpu_torch.retrieval.service import RetrievalService
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RetrievalService(MultiModalCLIP())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PreparedKeys([[1.0, 0.0]])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        load_clip_model(None)
+    assert resolve_device("cpu").type == "cpu"
+    assert RetrievalService(MultiModalCLIP(), device="cpu").info()[
+        "backend"] == "cpu"
