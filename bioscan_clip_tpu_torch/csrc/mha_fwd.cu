@@ -6,19 +6,27 @@
 //   K2 `_pallas_mha_split` without dropout (`_split_kernel`,
 //      `_split_bias_kernel`): BERT's separate (B, N, D) q/k/v with an
 //      optional (B, N) fp32 additive key-padding bias.
-// One kernel body serves both layouts: q/k/v are three base pointers that
-// share a row stride (3D packed, D split) and a batch stride.
+//   K2d `_pallas_mha_split` with dropout (`_split_drop_kernel`,
+//      `_split_bias_drop_kernel`, `_row_drop`): K2 with counter-hash
+//      attention-probability dropout, keyed by one scalar seed (batch index
+//      in the counter) or by a (B,) vector of per-row seeds (b = 0).
+// One kernel body serves all three: q/k/v are three base pointers that
+// share a row stride (3D packed, D split) and a batch stride; dropout is one
+// step between the softmax and the rounding of p.
 //
-// Contract (the `xla_mha` reference, attention.py:529-540): per head,
+// Contract (`_attend_one_row`, attention.py:116-150): per head,
 // s = (q . k) * scale [+ bias[b, j]] in fp32, p = exp(s - max) / sum in
-// fp32, p rounded to the input dtype, then o = p . v accumulated in fp32 and
-// written in the input dtype. fp32 inputs use FFMA (never TF32).
+// fp32, [p *= keep(i, j) ? keep_scale : 0], p rounded to the input dtype,
+// then o = p . v accumulated in fp32 and written in the input dtype. fp32
+// inputs use FFMA (never TF32). The dropout threshold and keep_scale come
+// from the wrapper, rounded as the JAX package rounds them.
 //
 // What bounds it on an H100: at the flagship shapes (ViT B=256, N=197,
 // D=768, h=12) the bytes are ~0.31 GB (92 us at 3.35 TB/s) and the
 // arithmetic 30.5 GFLOP, so with tensor cores the kernel would be
 // memory-bound. This first version does the arithmetic in FFMA out of shared
-// memory, which makes it bound by FFMA issue and shared-memory loads.
+// memory, which makes it bound by FFMA issue and shared-memory loads; the
+// dropout hash adds ~10 integer operations per probability.
 // Design: one CTA per (64-query-row block, head, batch row). K_h and V_h of
 // that (batch row, head) are staged once into shared memory as fp32 (K rows
 // padded to HD+4 floats: 16-byte aligned float4 reads without bank
@@ -29,8 +37,7 @@
 // N that is not a power of two (197, 133, 20) needs no padding: the key loop
 // is bounded by N and rows past N are not computed.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "attention_common.cuh"
 
 #include <math.h>
 
@@ -40,34 +47,11 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerBlock = 64;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's .to()
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
+using bscan::Dropout;
+using bscan::from_f32;
+using bscan::to_f32;
+using bscan::warp_max;
+using bscan::warp_sum;
 
 template <int HD>
 __host__ __device__ constexpr int k_stride() {
@@ -79,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
     mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ bias,
                    T* __restrict__ o, int n, int heads, long long row_stride,
-                   long long batch_stride, float scale) {
+                   long long batch_stride, float scale, Dropout drop) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int KS = k_stride<HD>();
   extern __shared__ __align__(16) float smem[];
@@ -105,6 +89,8 @@ __global__ void __launch_bounds__(kThreads)
 
   float* pw = ps + warp * n4;
   const float* bias_row = bias ? bias + (long long)b * n : nullptr;
+  unsigned drop_base = 0, drop_seed = 0;
+  if (drop.on) drop.row(b, h, heads, n, &drop_base, &drop_seed);
   const int d_model = heads * HD;
   const int row_end = min(n, (int)(blockIdx.x + 1) * kRowsPerBlock);
   for (int i = blockIdx.x * kRowsPerBlock + warp; i < row_end; i += kWarps) {
@@ -139,8 +125,11 @@ __global__ void __launch_bounds__(kThreads)
       sum += e;
     }
     sum = warp_sum(sum);
-    for (int j = lane; j < n; j += 32)
-      pw[j] = to_f32(from_f32<T>(pw[j] / sum));
+    for (int j = lane; j < n; j += 32) {
+      float p = pw[j] / sum;
+      if (drop.on) p *= drop.factor(drop_base, drop_seed, i, j, n);
+      pw[j] = to_f32(from_f32<T>(p));
+    }
     __syncwarp();
 
     float acc[HD / 32];
@@ -163,7 +152,7 @@ template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* bias, void* o, int b, int n, int heads,
                    long long row_stride, long long batch_stride, float scale,
-                   cudaStream_t stream) {
+                   const Dropout& drop, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)n * (k_stride<HD>() + HD) +
                        (size_t)kWarps * ((n + 3) & ~3));
@@ -175,7 +164,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   mha_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), bias, static_cast<T*>(o), n, heads,
-      row_stride, batch_stride, scale);
+      row_stride, batch_stride, scale, drop);
   return cudaGetLastError();
 }
 
@@ -184,17 +173,17 @@ cudaError_t dispatch_hd(int head_dim, const void* q, const void* k,
                         const void* v, const float* bias, void* o, int b,
                         int n, int heads, long long row_stride,
                         long long batch_stride, float scale,
-                        cudaStream_t stream) {
+                        const Dropout& drop, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
       return launch<T, 32>(q, k, v, bias, o, b, n, heads, row_stride,
-                           batch_stride, scale, stream);
+                           batch_stride, scale, drop, stream);
     case 64:
       return launch<T, 64>(q, k, v, bias, o, b, n, heads, row_stride,
-                           batch_stride, scale, stream);
+                           batch_stride, scale, drop, stream);
     case 128:
       return launch<T, 128>(q, k, v, bias, o, b, n, heads, row_stride,
-                            batch_stride, scale, stream);
+                            batch_stride, scale, drop, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -205,20 +194,26 @@ cudaError_t dispatch_hd(int head_dim, const void* q, const void* k,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. bias: nullptr or (B, N) float32.
+// drop = 0: no dropout (K1/K2). drop = 1 (K2d): row_seeds is nullptr (one
+// scalar `seed`, batch index in the counter) or (B,) uint32 per-row seeds.
 // Returns the cudaError_t of the launch (0 on success).
 int bscan_mha_fwd(const void* q, const void* k, const void* v,
                   const void* bias, void* o, int b, int n, int heads,
                   int head_dim, long long row_stride, long long batch_stride,
-                  float scale, int dtype, void* stream) {
+                  float scale, int dtype, const void* row_seeds,
+                  unsigned seed, unsigned threshold, float keep_scale,
+                  int drop, void* stream) {
   const float* bias_f = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Dropout dr{static_cast<const unsigned*>(row_seeds), seed, threshold,
+                   keep_scale, drop};
   if (dtype == 0)
     return (int)dispatch_hd<float>(head_dim, q, k, v, bias_f, o, b, n, heads,
-                                   row_stride, batch_stride, scale, s);
+                                   row_stride, batch_stride, scale, dr, s);
   if (dtype == 1)
     return (int)dispatch_hd<__nv_bfloat16>(head_dim, q, k, v, bias_f, o, b,
                                            n, heads, row_stride,
-                                           batch_stride, scale, s);
+                                           batch_stride, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }
 

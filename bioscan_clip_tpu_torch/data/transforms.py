@@ -1,4 +1,5 @@
-"""Host-side eval image preprocessing, torchvision-exact, in numpy.
+"""Host-side eval image preprocessing, torchvision-exact, in numpy, and the
+train-time image input on the device.
 
 Copies of the host eval half of bioscan_clip_tpu/data/transforms.py
 (`tv_resize_size` :34-41, `_pil_triangle_weights`, `host_antialias_resize`
@@ -9,11 +10,17 @@ CenterCrop(224)) runs bit-faithfully on the host in float32: torchvision's
 antialias resize is PIL's separable triangle filter on floats, and so is
 this. The JAX package's device-side batched transform (`eval_transform`,
 served with `image_host_parity=False`) comes in a later slice.
+
+`train_transform_auto` is the `pre_cropped` branch of the JAX
+`train_transform_auto` (transforms.py:316-372): a (B, 224, 224, 3) uint8
+batch that the loader already augmented on the host is scaled to [0, 1] on
+the device, then CLIP-normalized for OpenCLIP towers.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -87,6 +94,27 @@ def host_eval_image(img_u8: np.ndarray, size: int = 224,
             CLIP_STD, np.float32
         )
     return np.ascontiguousarray(x, dtype=np.float32)
+
+
+def train_transform_auto(images, size: int = 224, normalize: bool = False):
+    """The train image input on the images' device. A float batch passes
+    through; a (B, size, size, 3) uint8 batch (host-augmented and cropped)
+    becomes float32 / 255 [-> CLIP normalize]. Any other uint8 frame needs
+    the device-side geometric augmentation, which is not ported yet."""
+    if images.dtype != torch.uint8:
+        return images
+    if tuple(images.shape[1:]) != (size, size, 3):
+        raise NotImplementedError(
+            f"a uint8 train batch of {tuple(images.shape[1:])} needs the "
+            "device-side geometric augmentation (Resize, RandomResizedCrop, "
+            "flips, rotation), which is not ported yet: ROADMAP.md queue 1; "
+            f"feed host-augmented ({size}, {size}, 3) frames")
+    x = images.to(torch.float32) / 255.0
+    if normalize:
+        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
+        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
+        x = (x - mean) / std
+    return x
 
 
 def decode_jpeg(buf: bytes) -> np.ndarray:

@@ -3,7 +3,11 @@
 - `state_dict_from_jax(params)`: a JAX `MultiModalCLIP` param tree (numpy
   arrays) -> the port's `state_dict`. The mapping is a copy of
   bioscan_clip_tpu/interop/torch_export.py:17-147 (the reference SimpleCLIP
-  layout, LoRA-wrapped names when adapters are present).
+  layout, LoRA-wrapped names when adapters are present), plus the train
+  state's optional `logit_scale` leaf (log of the learnable scale,
+  JAX train/loop.py:31-43), which the port keeps as the `logit_scale`
+  parameter of `train.loop.make_logit_scale_param`. Any tree with the
+  params' structure maps the same way, a gradient tree included.
 - `load_reference_pth(path)`: a released SimpleCLIP `.pth` (or one written
   by the JAX package's `save_pth`) -> state dict, with DDP `module.`
   prefixes stripped and a `state_dict` wrapper unwrapped (JAX
@@ -125,6 +129,8 @@ def _bert(params: dict, prefix: str) -> dict:
 def state_dict_from_jax(params: dict) -> dict:
     """JAX MultiModalCLIP params (numpy leaves) -> the port's state dict."""
     sd = {}
+    if "logit_scale" in params:
+        sd["logit_scale"] = np.array(params["logit_scale"], dtype=np.float32)
     if "image_encoder" in params:
         sd.update(_vit(params["image_encoder"]))
     if "dna_encoder" in params:

@@ -1,4 +1,4 @@
-"""BERT encoder (HF geometry) and the two BIOSCAN-CLIP heads on it, eval only.
+"""BERT encoder (HF geometry) and the two BIOSCAN-CLIP heads on it.
 
 Counterpart of bioscan_clip_tpu/models/bert.py:47-358:
 - `BarcodeBertDnaEncoder`: BarcodeBERT (vocab 1027, 12L/768/12 heads), no
@@ -10,8 +10,15 @@ Post-LN residuals with the LN in its own dtype (fp32 by default) and the
 result cast back to the compute dtype (:181-186); attention through
 `ops.attention.mha` with a (B, N) fp32 bias of 0 / -1e9 (:266-270).
 Parameter names are HF's, so `state_dict()` keys match the reference
-checkpoints. Dropout belongs to training, which comes in a later slice:
-switching these modules to train mode raises.
+checkpoints.
+
+Train mode applies hidden and attention dropout (0.1 each by default) in the
+JAX package's row-keyed mode, the port's only one: the towers take
+`row_seeds`, a (B,) uint32 seed per row, and every mask follows from it
+(JAX bert.py:84-291): the embeddings drop on site 0 of the raw salt; each
+layer runs on the advanced salt, with attention probabilities on site 1 (the
+(B,) seed of K2d), the attention output on site 2 and the MLP output on
+site 3. Train mode without `row_seeds` raises.
 """
 
 from __future__ import annotations
@@ -21,9 +28,16 @@ import dataclasses
 import torch
 from torch import nn
 
-from bioscan_clip_tpu_torch.models.common import LayerNorm, dense, gelu_exact
+from bioscan_clip_tpu_torch.models.common import (
+    LayerNorm,
+    dense,
+    gelu_exact,
+    ps_dropout,
+    row_salt_advance,
+    site_seed,
+)
 from bioscan_clip_tpu_torch.models.lora import LoRALinear, project
-from bioscan_clip_tpu_torch.ops.attention import mha
+from bioscan_clip_tpu_torch.ops.attention import mha, u32
 
 NEG_INF = -1e9
 
@@ -38,6 +52,8 @@ class BertConfig:
     max_position_embeddings: int = 512
     type_vocab_size: int = 2
     lora_rank: int = 4
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
     ln_eps: float = 1e-12
 
 
@@ -97,23 +113,36 @@ class BertLayer(nn.Module):
     def __init__(self, c: BertConfig, dtype, ln_dtype):
         super().__init__()
         self.heads = c.num_heads
+        self.hidden_dropout = c.hidden_dropout
+        self.attention_dropout = c.attention_dropout
         self.dtype = dtype
         self.attention = _Attention(c, ln_dtype)
         self.intermediate = _Intermediate(c)
         self.output = _DenseLN(c.intermediate_size, c.hidden_size, c.ln_eps,
                                ln_dtype)
 
-    def forward(self, x, bias):
+    def forward(self, x, bias, row_salt=None):
+        """`row_salt`: this layer's (B,) dropout salt in train mode, None in
+        eval mode (no dropout)."""
         dt = self.dtype
         sa = self.attention.self
         q = project(sa.query, x, dt)
         k = dense(sa.key, x, dt)
         v = project(sa.value, x, dt)
-        y = mha(q, k, v, self.heads, bias=bias)
+        if row_salt is not None and self.attention_dropout > 0:
+            y = mha(q, k, v, self.heads, bias=bias,
+                    dropout_rate=self.attention_dropout,
+                    dropout_seed=site_seed(row_salt, 1))
+        else:
+            y = mha(q, k, v, self.heads, bias=bias)
         out = self.attention.output
-        x = out.LayerNorm(x + dense(out.dense, y, dt)).to(dt)
+        y = ps_dropout(dense(out.dense, y, dt), self.hidden_dropout, row_salt,
+                       2)
+        x = out.LayerNorm(x + y).to(dt)
         y = gelu_exact(dense(self.intermediate.dense, x, dt))
-        return self.output.LayerNorm(x + dense(self.output.dense, y, dt)).to(dt)
+        y = ps_dropout(dense(self.output.dense, y, dt), self.hidden_dropout,
+                       row_salt, 3)
+        return self.output.LayerNorm(x + y).to(dt)
 
 
 class _Layers(nn.Module):
@@ -135,18 +164,21 @@ class BertEncoder(nn.Module):
         self.dtype = dtype
         self.embeddings = _Embeddings(cfg, ln_dtype)
         self.encoder = _Layers(cfg, dtype, ln_dtype)
-        super().train(False)
+        self.train(False)
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(
-                "the BERT towers are eval-only until the training slice "
-                "(dropout, ROADMAP.md queue 1)"
-            )
-        return super().train(False)
-
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                row_seeds=None):
+        """`row_seeds`: (B,) uint32 per-row dropout seeds, required in train
+        mode and ignored in eval mode."""
         dt = self.dtype
+        row_salt = None
+        if self.training:
+            if row_seeds is None:
+                raise ValueError(
+                    "a BERT tower in train mode needs row_seeds: the port "
+                    "has only the row-keyed dropout mode"
+                )
+            row_salt = u32(row_seeds, input_ids.device)
         e = self.embeddings
         n = input_ids.shape[1]
         if token_type_ids is None:
@@ -155,14 +187,18 @@ class BertEncoder(nn.Module):
         x = (e.word_embeddings(input_ids).to(dt)
              + e.position_embeddings(pos).to(dt)
              + e.token_type_embeddings(token_type_ids).to(dt))
-        x = e.LayerNorm(x).to(dt)
+        x = ps_dropout(e.LayerNorm(x).to(dt), self.cfg.hidden_dropout,
+                       row_salt, 0)
         bias = None
         if attention_mask is not None:
             bias = torch.where(attention_mask > 0, 0.0, NEG_INF).to(
                 device=x.device, dtype=torch.float32
             ).contiguous()
         for layer in self.encoder.layer:
-            x = layer(x, bias)
+            # the embeddings used the raw salt; every layer advances first
+            if row_salt is not None:
+                row_salt = row_salt_advance(row_salt)
+            x = layer(x, bias, row_salt)
         return x
 
 
@@ -208,10 +244,11 @@ class BarcodeBertDnaEncoder(nn.Module):
         self.lora_barcode_bert = _BarcodeBert(cfg, output_dim, dtype,
                                               ln_dtype)
 
-    def forward(self, input_ids):
+    def forward(self, input_ids, row_seeds=None):
         dt = self.dtype
         m = self.lora_barcode_bert
-        x = m.bert(input_ids)  # no attention mask (JAX bert.py:311)
+        # no attention mask (JAX bert.py:311)
+        x = m.bert(input_ids, row_seeds=row_seeds)
         p = m.cls.predictions
         x = gelu_exact(dense(p.transform.dense, x, dt))
         x = p.transform.LayerNorm(x)
@@ -232,7 +269,9 @@ class BertTextEncoder(nn.Module):
         self.lora_bert = BertEncoder(cfg, dtype, ln_dtype)
         self.proj = nn.Linear(cfg.hidden_size, output_dim)
 
-    def forward(self, input_ids, attention_mask=None, token_type_ids=None):
+    def forward(self, input_ids, attention_mask=None, token_type_ids=None,
+                row_seeds=None):
         x = self.lora_bert(input_ids, attention_mask=attention_mask,
-                           token_type_ids=token_type_ids)
+                           token_type_ids=token_type_ids,
+                           row_seeds=row_seeds)
         return dense(self.proj, x.mean(dim=1), self.dtype)

@@ -21,6 +21,7 @@ from bioscan_clip_tpu_torch.models.bert import (
     BarcodeBertDnaEncoder,
     BertTextEncoder,
 )
+from bioscan_clip_tpu_torch.models.lora import LORA_A_NAMES, LORA_B_NAMES
 from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
 
 _LATER = "is not ported yet: ROADMAP.md queue 1"
@@ -46,14 +47,17 @@ class MultiModalCLIP(nn.Module):
         """images: (B, H, W, 3) float NHWC, preprocessed."""
         return l2_normalize(self.image_encoder(images).float())
 
-    def encode_dna(self, dna_tokens):
-        return l2_normalize(self.dna_encoder(dna_tokens).float())
+    def encode_dna(self, dna_tokens, row_seeds=None):
+        """`row_seeds`: (B,) uint32 dropout seeds, needed in train mode."""
+        return l2_normalize(self.dna_encoder(dna_tokens,
+                                             row_seeds=row_seeds).float())
 
-    def encode_language(self, language: dict):
+    def encode_language(self, language: dict, row_seeds=None):
         out = self.language_encoder(
             language["input_ids"],
             attention_mask=language.get("attention_mask"),
             token_type_ids=language.get("token_type_ids"),
+            row_seeds=row_seeds,
         )
         return l2_normalize(out.float())
 
@@ -70,7 +74,10 @@ class MultiModalCLIP(nn.Module):
 
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: N(0, 0.02) for matrices, embeddings and the
-    CLS/position tokens, ones and zeros for LayerNorms, zero biases."""
+    CLS/position tokens, ones and zeros for LayerNorms, zero biases. LoRA
+    adapters start as the zero function, as in the JAX package
+    (`lora_a_init`/`lora_b_init`, models/lora.py:22-36): each A is
+    U(-1/sqrt(dim), 1/sqrt(dim)) and each B zero."""
     params = list(model.parameters())
     dev = params[0].device if params else torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -84,7 +91,13 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         for name, p in model.named_parameters():
             if id(p) in ln_params:
                 continue
-            if p.dim() >= 2 or name.endswith(("cls_token", "pos_embed")):
+            module = name.rsplit(".", 2)[-2] if "." in name else ""
+            if module in LORA_A_NAMES:
+                bound = p.shape[1] ** -0.5  # (rank, dim): fan_in = dim
+                p.uniform_(-bound, bound, generator=gen)
+            elif module in LORA_B_NAMES:
+                p.zero_()
+            elif p.dim() >= 2 or name.endswith(("cls_token", "pos_embed")):
                 p.normal_(0.0, 0.02, generator=gen)
             else:
                 p.zero_()

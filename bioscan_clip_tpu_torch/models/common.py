@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bioscan_clip_tpu_torch.ops.attention import _keep_threshold, _mix32, u32
+
 
 def gelu_exact(x):
     """Exact-erf GELU (JAX common.py:31-43). torch's `approximate="none"`
@@ -41,3 +43,47 @@ class LayerNorm(nn.LayerNorm):
             x.to(dt), self.normalized_shape, self.weight.to(dt),
             self.bias.to(dt), self.eps,
         )
+
+
+# --- batch-composition-invariant ("per-sample") dropout -------------------
+#
+# JAX common.py:111-177. Every mask element is keyed by (per-row seed, site,
+# position within the row) through the attention kernels' counter hash, so
+# a row's dropout is the same however rows are grouped into batches. This is
+# the port's only dropout mode: flax's `nn.Dropout` stream cannot be
+# reproduced in torch. Seeds are (B,) int64 tensors holding uint32 values.
+
+_SALT_GOLD = 0x9E3779B9  # golden-ratio increment (splitmix-style chains)
+
+
+def row_seeds_init(base_seed, row_ids):
+    """(B,) per-row seeds from a step-level uint32 seed and the rows'
+    positions in the full logical batch."""
+    rows = u32(row_ids)
+    return _mix32(u32(base_seed, rows.device) ^ _mix32(rows + 1))
+
+
+def row_salt_advance(row_salt):
+    """The next layer's (B,) salt: layer k's streams depend only on
+    (row seed, k)."""
+    return _mix32(row_salt + _SALT_GOLD)
+
+
+def site_seed(row_salt, site: int):
+    """(B,) seed of dropout site `site` of the current layer."""
+    c = (site * 0x85EBCA6B + 0xC2B2AE35) & 0xFFFFFFFF
+    return _mix32(row_salt ^ c)
+
+
+def ps_dropout(x, rate: float, row_salt, site: int):
+    """Dropout over (B, ...) x whose element (b, pos) keeps when
+    _mix32(site_seed[b] ^ _mix32(pos + 1)) >= threshold; kept elements are
+    scaled by 1 / (1 - rate) rounded to x's dtype, as `nn.Dropout`."""
+    if rate <= 0 or row_salt is None:
+        return x
+    pos = torch.arange(x[0].numel(), device=x.device)
+    u = _mix32(site_seed(row_salt, site)[:, None] ^ _mix32(pos + 1)[None, :])
+    keep = (u >= _keep_threshold(rate)).reshape(x.shape)
+    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))

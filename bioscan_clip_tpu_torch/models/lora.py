@@ -20,6 +20,11 @@ from torch import nn
 from bioscan_clip_tpu_torch.models.common import dense
 
 
+# the adapter modules: each A is drawn at init, each B starts at zero
+LORA_A_NAMES = ("linear_a_q", "linear_a_v", "w_a")
+LORA_B_NAMES = ("linear_b_q", "linear_b_v", "w_b")
+
+
 def lora_delta(x, a: nn.Linear, b: nn.Linear, dtype: torch.dtype):
     """(x @ A) @ B in the compute dtype (JAX lora.py:39-44)."""
     return dense(b, dense(a, x, dtype), dtype)

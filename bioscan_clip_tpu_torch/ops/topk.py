@@ -9,7 +9,8 @@ Contract (both versions): scores are full-fp32 Q . K^T (never TF32), keys
 with index >= n_valid never enter, each row comes out sorted descending,
 and among equal values the smaller key index comes first.
 
-`topk.launches` counts kernel launches.
+`topk.launches` counts kernel launches; `topk_reference.calls` counts the
+plain version's calls.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ def topk_reference(queries, keys, n_valid: int, k: int):
     """Plain PyTorch top-k: chunked fp32 products over keys[:n_valid], each
     chunk stably sorted and merged with the running top-k (the
     `engine._topk_scan` scheme, with a stable sort giving the tie rule)."""
+    topk_reference.calls += 1
     vals = idx = None
     for s in range(0, n_valid, REFERENCE_KEY_CHUNK):
         e = min(s + REFERENCE_KEY_CHUNK, n_valid)
@@ -46,6 +48,9 @@ def topk_reference(queries, keys, n_valid: int, k: int):
             v, i = v[:, :k], i[:, :k]
         vals, idx = v, i
     return vals, idx.to(torch.int32)
+
+
+topk_reference.calls = 0
 
 
 @functools.lru_cache(maxsize=None)

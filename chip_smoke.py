@@ -12,9 +12,15 @@ Phases, in order; any failure exits non-zero:
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
             handle_request for dna, text, embedding and embed_images, and
-            HTTP /search and /embed on localhost; every kernel must have
+            HTTP /search and /embed on localhost; K1, K2 and K4 must have
             launched
-  parity    the fp32 port on the card against the same model on the CPU
+  training  the flagship LoRA contrastive step (train.loop.make_train_step
+            driven by train_epoch) at full width, B=400, bf16, frozen
+            weights in bf16, dropout 0.1: 6 steps over one synthetic batch;
+            finite falling loss, frozen weights unchanged, adapters and
+            heads moved, K1, K2d and K3 launched, K2 and no plain version
+  parity    the fp32 port on the card against the same model on the CPU:
+            embeddings, then one train step (loss, gradients, AdamW)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs CUDA: without it the script exits 1
@@ -33,7 +39,8 @@ import time
 # of its bytes over the memory rate and its operations over the peak for
 # their type.
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12}
-ALL_PHASES = ("device", "build", "kernels", "serving", "parity")
+ALL_PHASES = ("device", "build", "kernels", "serving", "training",
+              "parity")
 
 
 def log(msg: str) -> None:
@@ -209,6 +216,149 @@ def _topk_case(gen, bq=256, n=1 << 20, d=768, k=5):
     return keys, row
 
 
+def _rel_err(out, ref):
+    """max |out - ref| over max(1, max |ref|), in fp32."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return err / max(1.0, ref.float().abs().max().item())
+
+
+def _seeds(b, gen):
+    import torch
+
+    return torch.randint(0, 2**32, (b,), device="cuda", generator=gen,
+                         dtype=torch.int64)
+
+
+def _padding_bias(b, n, gen):
+    import torch
+
+    lengths = torch.randint(5, n + 1, (b,), device="cuda", generator=gen)
+    keep = torch.arange(n, device="cuda")[None, :] < lengths[:, None]
+    return torch.where(keep, 0.0, -1e9).float()
+
+
+def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
+    """K2d against its plain version (the same hash): row-keyed (B,) seeds,
+    and one scalar seed for the batch-index keying."""
+    import torch
+    import torch.nn.functional as F
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    hd = d // heads
+    q, k, v = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    bias = _padding_bias(b, n, gen) if with_bias else None
+    seeds = _seeds(b, gen)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = 0.0
+    for seed in (seeds, 0x9E3779B9):
+        out = attention.mha_dropout(q, k, v, heads, seed, rate, bias=bias)
+        torch.cuda.synchronize()
+        ref = attention.mha_reference(q, k, v, heads, bias=bias,
+                                      dropout_rate=rate, dropout_seed=seed)
+        err = max(err, (out.float() - ref.float()).abs().max().item())
+    if not err <= tol:
+        raise AssertionError(f"mha_dropout: max |kernel - plain| {err} > "
+                             f"{tol}")
+
+    def view(t):
+        return t.view(b, n, heads, hd).transpose(1, 2)
+
+    mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = 4 * b * n * d * es + b * 4 + (0 if bias is None else b * n * 4)
+    dname = str(dtype).split(".")[-1]
+    bms, by = bound_ms(n_bytes, 4 * b * heads * n * n * hd, dname)
+    row = {
+        "ms": time_ms(lambda: attention.mha_dropout(q, k, v, heads, seeds,
+                                                    rate, bias=bias)),
+        "plain_ms": time_ms(lambda: attention.mha_reference(
+            q, k, v, heads, bias=bias, dropout_rate=rate,
+            dropout_seed=seeds), reps=3),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            view(q), view(k), view(v), attn_mask=mask, dropout_p=rate)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+    }
+    log(f"  mha_dropout {dname} B={b} N={n} D={d} h={heads} rate={rate}"
+        f"{' bias' if with_bias else ''}: err {err:.3g} (tol {tol:g}), "
+        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"sdpa(dropout_p) {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
+        f"({by})")
+    return row
+
+
+def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
+              with_bias=False, rate=0.0):
+    """K3 against its plain version: every gradient within
+    tol * max(1, max |plain|)."""
+    import torch
+    import torch.nn.functional as F
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    hd = d // heads
+    if packed:
+        qkv = torch.randn(b, n, 3 * d, device="cuda", generator=gen).to(dtype)
+        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    else:
+        q, k, v = (torch.randn(b, n, d, device="cuda",
+                               generator=gen).to(dtype) for _ in range(3))
+    g = torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
+    bias = _padding_bias(b, n, gen) if with_bias else None
+    seeds = _seeds(b, gen) if rate > 0 else None
+    kw = dict(bias=bias, dropout_rate=rate, dropout_seed=seeds)
+
+    def kernel():
+        if packed:
+            return attention.mha_bwd(None, None, None, g, heads,
+                                     packed_qkv=qkv)
+        return attention.mha_bwd(q, k, v, g, heads, need_dbias=with_bias,
+                                 **kw)
+
+    def plain():
+        return attention.mha_bwd_reference(q, k, v, g, heads, **kw)
+
+    out = kernel()
+    torch.cuda.synchronize()
+    ref = plain()
+    if packed:
+        out = (out[..., :d], out[..., d : 2 * d], out[..., 2 * d :], None)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    err = max(_rel_err(o, r) for o, r in zip(out, ref) if r is not None)
+    if not err <= tol:
+        raise AssertionError(f"{name}: max |kernel - plain| / max(1, "
+                             f"max |plain|) {err} > {tol}")
+    del out, ref
+
+    def view(t):
+        return t.detach().view(b, n, heads, hd).transpose(1, 2)
+
+    lq, lk, lv = (view(t).requires_grad_() for t in (q, k, v))
+    mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                        dropout_p=rate)
+    lg = view(g)
+
+    es = torch.tensor([], dtype=dtype).element_size()
+    n_bytes = 7 * b * n * d * es + (0 if bias is None else 2 * b * n * 4)
+    dname = str(dtype).split(".")[-1]
+    bms, by = bound_ms(n_bytes, 10 * b * heads * n * n * hd, dname)
+    row = {
+        "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=2),
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            lo, (lq, lk, lv), lg, retain_graph=True)),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+    }
+    log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
+        f"{' bias+dbias' if with_bias else ''}"
+        f"{f' rate={rate}' if rate else ''}: err/max(1,|plain|) {err:.3g} "
+        f"(tol {tol:g}), kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} "
+        f"ms, bound {bms:.4f} ms ({by})")
+    return row
+
+
 def phase_kernels(rows: dict):
     import torch
 
@@ -224,6 +374,21 @@ def phase_kernels(rows: dict):
             rows["mha"] = r
         _attention_case("mha", 256, 20, 512, 8, dtype, True, gen,
                         packed=False)
+    # K2d and K3 at the flagship config's training batch
+    for dtype in (torch.float32, torch.bfloat16):
+        r = _dropout_case(TRAIN_BATCH, 133, 768, 12, dtype, False, gen)
+        if dtype == torch.bfloat16:
+            rows["mha_dropout"] = r
+        _dropout_case(TRAIN_BATCH, 20, 512, 8, dtype, True, gen)
+        r = _bwd_case("mha_bwd packed", TRAIN_BATCH, 197, 768, 12, dtype,
+                      gen, packed=True)
+        if dtype == torch.bfloat16:
+            rows["mha_bwd"] = r
+        _bwd_case("mha_bwd", TRAIN_BATCH, 133, 768, 12, dtype, gen,
+                  rate=0.1)
+        _bwd_case("mha_bwd", TRAIN_BATCH, 20, 512, 8, dtype, gen,
+                  with_bias=True, rate=0.1)
+        torch.cuda.empty_cache()
     keys, rows["topk"] = _topk_case(gen)
     del keys
     torch.cuda.empty_cache()
@@ -236,24 +401,45 @@ KERNELS = {
                    "bioscan_clip_tpu/ops/attention.py:425"),
     "mha": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
             "bioscan_clip_tpu/ops/attention.py:449"),
+    "mha_dropout": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
+                    "bioscan_clip_tpu/ops/attention.py:449"),
+    "mha_bwd": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd.cu",
+                "bioscan_clip_tpu/ops/attention.py:321"),
     "topk": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
 }
+# the main path whose run gives each kernel's launch count in that line
+KERNEL_PATH = {"mha_packed": "serving", "mha": "serving", "topk": "serving",
+               "mha_dropout": "training", "mha_bwd": "training"}
 
 
 def launch_counts():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
     return {"mha_packed": attention.mha_packed.launches,
-            "mha": attention.mha.launches, "topk": topk.topk.launches}
+            "mha": attention.mha.launches,
+            "mha_dropout": attention.mha_dropout.launches,
+            "mha_bwd": attention.mha_bwd.launches,
+            "topk": topk.topk.launches}
+
+
+def plain_calls():
+    from bioscan_clip_tpu_torch.ops import attention, topk
+
+    return {"mha_reference": attention.mha_reference.calls,
+            "mha_bwd_reference": attention.mha_bwd_reference.calls,
+            "topk_reference": topk.topk_reference.calls}
 
 
 def reset_counts():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
-    attention.mha_packed.launches = 0
-    attention.mha.launches = 0
-    topk.topk.launches = 0
+    for fn in (attention.mha_packed, attention.mha, attention.mha_dropout,
+               attention.mha_bwd, topk.topk):
+        fn.launches = 0
+    for fn in (attention.mha_reference, attention.mha_bwd_reference,
+               topk.topk_reference):
+        fn.calls = 0
 
 
 # The flagship tri-modal model (ViT-B/16 + BarcodeBERT + BERT-small, LoRA
@@ -267,6 +453,8 @@ FLAGSHIP = {
     "load_ckpt": False,
 }
 N_KEYS = 1 << 20
+# model_config/lora_vit_lora_barcode_bert_lora_bert_5m.yaml:2
+TRAIN_BATCH = 400
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "diptera",
          "lepidoptera", "hymenoptera", "coleoptera", "cecidomyiidae",
          "chironomidae", "noctuidae", "sciaridae", "sciara", "bradysia",
@@ -431,12 +619,189 @@ def phase_serving():
         _check_search("HTTP /search", out, 4, 3)
         _check_unit("HTTP /embed", np.asarray(embedded["embeddings"]), 4)
         counts = launch_counts()
-    log(f"  launches on the main path: {counts}")
-    missing = [name for name, c in counts.items() if c <= 0]
+    log(f"  launches on the serving path: {counts}")
+    missing = [name for name, path in KERNEL_PATH.items()
+               if path == "serving" and counts[name] <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
+        raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
     log("phase serving ok")
+    return counts
+
+
+TRAIN_STEPS = 6
+
+
+def _train_batch(rng, b, tiled=True):
+    """One synthetic flagship batch: (224, 224, 3) uint8 frames (as the
+    host augmentation ships them), 658-bp barcodes through the port's DNA
+    tokenizer, 20-token text with padding, instance labels.
+
+    `tiled`: each frame is one random 16x16 tile repeated over the 14x14
+    patch grid. The towers' weights are random, so attention is near uniform
+    and the ViT sees a frame mostly through its mean patch: i.i.d. noise
+    frames would all embed alike and the loss could not fall from log(B); a
+    tiled frame gives every instance its own mean patch. Its patch tokens
+    are all alike, though, so the attention backward's dp - rowsum(dp * p)
+    is a difference of near-equal terms: the fp32 parity check uses i.i.d.
+    noise frames instead."""
+    import numpy as np
+
+    from bioscan_clip_tpu_torch.data.tokenizers import tokenize_dna_batch
+
+    mask = (np.arange(20)[None, :]
+            < rng.integers(6, 21, size=(b, 1))).astype(np.int64)
+    if tiled:
+        tiles = rng.integers(0, 256, size=(b, 16, 16, 3), dtype=np.uint8)
+        frames = np.tile(tiles, (1, 14, 14, 1))
+    else:
+        frames = rng.integers(0, 256, size=(b, 224, 224, 3), dtype=np.uint8)
+    return {
+        "image_u8": frames,
+        "dna": tokenize_dna_batch(_barcodes(rng, b)).astype(np.int64),
+        "language": {"input_ids": rng.integers(0, 30522, size=(b, 20)) * mask,
+                     "token_type_ids": np.zeros((b, 20), np.int64),
+                     "attention_mask": mask},
+        "labels": np.arange(b),
+    }
+
+
+def _profile_step(state, step, batch):
+    """Where one more train step's card time goes (torch.profiler, after
+    the checked run): kernel time by group, and the card's busy share of
+    the step's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bioscan_clip_tpu_torch.train.loop import device_batch
+
+    groups = (("K3 mha_bwd", ("bwd_query_rows", "bwd_key_rows",
+                              "dbias_sum_heads")),
+              ("K1/K2d mha_fwd", ("mha_fwd_kernel",)),
+              ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
+    b = device_batch(batch, "cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, b, 0x600D5EED)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    total, others = {}, []
+    for ev in prof.key_averages():
+        # kernel events only: an operator's own entry repeats its kernels
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = ev.device_time_total / 1e3
+        name = next((g for g, keys in groups
+                     if any(k in ev.key.lower() for k in keys)),
+                    "other kernels")
+        total[name] = total.get(name, 0.0) + ms
+        if name == "other kernels":
+            others.append((ms, ev.count, ev.key[:90]))
+    busy = sum(total.values())
+    if busy <= 0:
+        log("  profiled step: the profiler shows no card time (not measured)")
+        return
+    parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
+                      for k, v in sorted(total.items(), key=lambda kv: -kv[1]))
+    log(f"  profiled step: wall {wall_ms:.1f} ms, card busy {busy:.1f} ms "
+        f"({100 * busy / wall_ms:.1f}%): {parts}")
+    for ms, count, key in sorted(others, reverse=True)[:8]:
+        log(f"    other: {ms:.1f} ms in {count} launches of {key}")
+
+
+def phase_training():
+    """The main path of training: the flagship LoRA contrastive step
+    (make_train_step) driven by train_epoch for TRAIN_STEPS steps over one
+    fixed batch of TRAIN_BATCH, at full width, bf16 compute, frozen weights
+    stored in bf16, dropout 0.1 in both BERT towers. Returns the launch
+    counts of this run."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.models.lora import LORA_A_NAMES
+    from bioscan_clip_tpu_torch.train.loop import make_train_step, train_epoch
+    from bioscan_clip_tpu_torch.train.schedules import build_schedule
+    from bioscan_clip_tpu_torch.train.state import (
+        cast_frozen_params,
+        create_train_state,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = ConfigNode({"model_config": dict(FLAGSHIP)})
+    model = load_clip_model(args, device="cuda", dtype=torch.bfloat16,
+                            seed=0)
+    cast_frozen_params(model)  # tpu.frozen_dtype: bfloat16
+    state = create_train_state(model, build_schedule(args.model_config,
+                                                     TRAIN_STEPS))
+    labels = state.labels
+    params = dict(model.named_parameters())
+    frozen0 = {n: p.detach().clone() for n, p in params.items()
+               if labels[n] == "frozen"}
+    train0 = {n: p.detach().clone() for n, p in params.items()
+              if labels[n] != "frozen"}
+    batch = _train_batch(np.random.default_rng(2), TRAIN_BATCH)
+    step = make_train_step(model)
+    events, snaps = [], []
+
+    def timed_step(st, b, seed):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(st, b, seed)
+        ev[1].record()
+        events.append(ev)
+        if len(snaps) < 2:
+            snaps.append({n: params[n].detach().clone() for n in train0})
+        return out
+
+    reset_counts()  # the training path's launches are counted from here
+    state, stats = train_epoch(state, timed_step, [batch] * TRAIN_STEPS,
+                               torch.Generator().manual_seed(0), epoch=0,
+                               total_epochs=1)
+    torch.cuda.synchronize()
+    counts, plain = launch_counts(), plain_calls()
+    step_ms = [a.elapsed_time(b) for a, b in events]
+    peak = torch.cuda.max_memory_allocated()
+    losses = stats["losses"]
+    log(f"  losses: {[round(x, 5) for x in losses]}")
+    log(f"  step ms (card, CUDA events): {[round(t, 1) for t in step_ms]}; "
+        f"steps 2-{TRAIN_STEPS} mean {np.mean(step_ms[1:]):.1f} ms")
+    log(f"  samples/s {stats['samples_per_s']:.1f}, steady "
+        f"{stats.get('samples_per_s_steady', float('nan')):.1f}, peak "
+        f"memory {peak / 2**30:.2f} GiB (max_memory_allocated), B="
+        f"{TRAIN_BATCH}")
+    log(f"  launches on the training path: {counts}; plain calls {plain}")
+
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"training: losses {losses}")
+    if not np.mean(losses[3:]) < losses[0]:
+        raise AssertionError(f"training: loss did not fall: {losses}")
+    moved = [n for n, p in frozen0.items() if not torch.equal(p, params[n])]
+    if moved:
+        raise AssertionError(f"training: frozen parameters moved: {moved[:5]}")
+    # B and the heads move at step 1; A's gradient is zero while B is zero
+    still = [n for n, p in train0.items()
+             if torch.equal(p, snaps[1 if any(a in n for a in LORA_A_NAMES)
+                                     else 0][n])]
+    if still:
+        raise AssertionError(f"training: trainable parameters did not move: "
+                             f"{still[:5]}")
+    want = ("mha_packed", "mha_dropout", "mha_bwd")
+    if (any(counts[k] <= 0 for k in want) or counts["mha"] != 0
+            or any(plain.values())):
+        raise AssertionError(f"training: launches {counts}, plain {plain}")
+    _profile_step(state, step, batch)
+    log(f"phase training ok: {len(frozen0)} frozen tensors unchanged, "
+        f"{len(train0)} trainable tensors moved")
+    del state, model, step, snaps, frozen0, train0, params
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -486,7 +851,58 @@ def phase_parity():
         log(f"  {name}: max |card - cpu| {err:.3g} (tol 1e-3)")
         if not err <= 1e-3:
             raise AssertionError(f"parity {name}: {err} > 1e-3")
+    _train_step_parity(cpu, gpu)
     log("phase parity ok")
+
+
+def _train_step_parity(cpu, gpu):
+    """One fp32 train step at full width, B=4, dropout 0.1 (row-keyed, the
+    same step seed) on the card against the CPU: the loss within 1e-5
+    relative, each trainable gradient within 1e-4 * max |g| (fp32 sums in
+    another order through 28 layers), and AdamW on the card, given the
+    card's gradients, equal to AdamW on the CPU given the same gradients
+    (atol 1e-6: one fp32 update of parameters of |p| < 1)."""
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.train.loop import device_batch, make_train_step
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    batch = _train_batch(np.random.default_rng(3), 4, tiled=False)
+    seed = 0x5EED1234
+    st_c = create_train_state(cpu, constant(1e-3))
+    st_g = create_train_state(gpu, constant(1e-3))
+    step_c, step_g = make_train_step(cpu), make_train_step(gpu)
+    cpu.train()
+    loss_c = step_c.loss_fn(device_batch(batch, "cpu"), seed)
+    loss_c.backward()
+    _, loss_g = step_g(st_g, device_batch(batch, "cuda"), seed)
+    rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    log(f"  train step loss: card {loss_g.item():.7f}, cpu "
+        f"{loss_c.item():.7f}, rel {rel:.3g} (tol 1e-5)")
+    if not rel <= 1e-5:
+        raise AssertionError(f"parity train loss: rel {rel} > 1e-5")
+    pc, pg = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    worst = (0.0, "")
+    for name, p in pc.items():
+        if not p.requires_grad:
+            continue
+        gc, gg = p.grad, pg[name].grad.cpu()
+        err = (gg - gc).abs().max().item() / max(gc.abs().max().item(),
+                                                 1e-30)
+        worst = max(worst, (err, name))
+        p.grad = gg  # the CPU AdamW below takes the card's gradients
+    log(f"  train step grads: max |card - cpu| / max |g| {worst[0]:.3g} "
+        f"({worst[1]}) (tol 1e-4)")
+    if not worst[0] <= 1e-4:
+        raise AssertionError(f"parity train grads: {worst}")
+    st_c.apply_gradients()
+    err = max((pg[n].detach().cpu() - p.detach()).abs().max().item()
+              for n, p in pc.items())
+    log(f"  params after AdamW: max |card - cpu| {err:.3g} (tol 1e-6)")
+    if not err <= 1e-6:
+        raise AssertionError(f"parity AdamW: {err} > 1e-6")
 
 
 def main(argv=None) -> int:
@@ -510,16 +926,20 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     rows: dict = {}
-    launches = {name: None for name in KERNELS}
+    path_counts = {}
     phase_device()
     phase_build()
     if "kernels" in phases:
         phase_kernels(rows)
     if "serving" in phases:
-        launches = phase_serving()
+        path_counts["serving"] = phase_serving()
+    if "training" in phases:
+        path_counts["training"] = phase_training()
     if "parity" in phases:
         phase_parity()
     log(f"elapsed {time.perf_counter() - t0:.1f} s")
+    launches = {name: path_counts.get(path, {}).get(name)
+                for name, path in KERNEL_PATH.items()}
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():

@@ -74,7 +74,11 @@ def test_mha_rounds_probabilities_to_input_dtype():
 
 
 def test_mha_dropout_raises_until_training_slice():
+    """Attention dropout came with the training slice; what still raises is
+    a dropout rate without a seed, or a rate outside (0, 1)."""
     x = torch.zeros(1, 4, D)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="dropout_seed"):
         attention.mha(x, x, x, HEADS, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="rate"):
+        attention.mha_dropout(x, x, x, HEADS, 7, 1.0)
 

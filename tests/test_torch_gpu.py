@@ -7,7 +7,8 @@ the JAX package, so it also runs on a machine without them:
 
 Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
-before P.V on both sides); top-k values atol 1e-5 on unit vectors.
+before P.V on both sides); the attention backward the same, scaled by
+max(1, max |plain|) per gradient; top-k values atol 1e-5 on unit vectors.
 """
 
 import pytest
@@ -45,6 +46,99 @@ def test_attention_kernels_match_plain(gen, dtype, tol):
         out = attention.mha(q, k, v, 8, bias=b)
         ref = attention.mha_reference(q, k, v, 8, bias=b)
         assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _seeds(gen, b):
+    return torch.randint(0, 2**32, (b,), device="cuda", generator=gen,
+                         dtype=torch.int64)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_dropout_kernel_matches_plain(gen, dtype, tol):
+    """K2d against the plain version with the same hash, for (B,) row seeds
+    and one scalar seed; a mismatched mask element moves an output by
+    ~p * |v| ~ 1e-2, so this also shows the masks equal on the card."""
+    q, k, v = (torch.randn(6, 133, 768, device="cuda", generator=gen).to(dtype)
+               for _ in range(3))
+    bias = torch.zeros(6, 133, device="cuda")
+    bias[:, 100:] = -1e9
+    before = attention.mha_dropout.launches
+    for seed in (_seeds(gen, 6), 0xFEEDBEEF):
+        for b in (None, bias):
+            out = attention.mha(q, k, v, 12, bias=b, dropout_rate=0.1,
+                                dropout_seed=seed)
+            ref = attention.mha_reference(q, k, v, 12, bias=b,
+                                          dropout_rate=0.1,
+                                          dropout_seed=seed)
+            assert (out.float() - ref.float()).abs().max().item() <= tol
+    assert attention.mha_dropout.launches == before + 4
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_backward_kernel_matches_plain(gen, dtype, tol):
+    """K3 against the plain backward, each gradient within tol * max(1,
+    max |plain|): packed, split with dropout, split with bias, dropout and
+    the bias gradient."""
+    def close(out, ref):
+        for o, r in zip(out, ref):
+            scale = max(1.0, r.float().abs().max().item())
+            assert (o.float() - r.float()).abs().max().item() <= tol * scale
+
+    qkv = torch.randn(4, 197, 3 * 768, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(4, 197, 768, device="cuda", generator=gen).to(dtype)
+    before = attention.mha_bwd.launches
+    dqkv = attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv)
+    ref = attention.mha_bwd_reference(qkv[..., :768], qkv[..., 768:1536],
+                                      qkv[..., 1536:], g, 12)
+    close(dqkv.split(768, dim=-1), ref[:3])
+    for n, d, heads, with_bias in ((133, 768, 12, False),
+                                   (20, 512, 8, True)):
+        q, k, v, g = (torch.randn(4, n, d, device="cuda",
+                                  generator=gen).to(dtype) for _ in range(4))
+        bias = None
+        if with_bias:
+            bias = torch.zeros(4, n, device="cuda")
+            bias[1, 9:] = -1e9
+        seeds = _seeds(gen, 4)
+        out = attention.mha_bwd(q, k, v, g, heads, bias=bias,
+                                dropout_rate=0.1, dropout_seed=seeds,
+                                need_dbias=with_bias)
+        ref = attention.mha_bwd_reference(q, k, v, g, heads, bias=bias,
+                                          dropout_rate=0.1,
+                                          dropout_seed=seeds)
+        close([o for o in out if o is not None],
+              [r for r in ref if r is not None])
+    assert attention.mha_bwd.launches == before + 3
+
+
+def test_gradients_flow_through_the_kernels(gen):
+    """autograd through `mha` (K2d forward, K3 backward) and `mha_packed`
+    (K1, K3) on the card: q gets a non-zero gradient equal to the plain
+    backward's."""
+    q, k, v, g = (torch.randn(3, 20, 512, device="cuda", generator=gen)
+                  for _ in range(4))
+    seeds = _seeds(gen, 3)
+    tq = q.clone().requires_grad_()
+    before = attention.mha_bwd.launches
+    attention.mha(tq, k, v, 8, dropout_rate=0.1, dropout_seed=seeds).backward(g)
+    assert attention.mha_bwd.launches == before + 1
+    ref = attention.mha_bwd_reference(q, k, v, g, 8, dropout_rate=0.1,
+                                      dropout_seed=seeds)[0]
+    assert tq.grad is not None and tq.grad.abs().max().item() > 0
+    assert (tq.grad - ref).abs().max().item() <= 1e-5
+
+    qkv = torch.randn(3, 50, 3 * 256, device="cuda",
+                      generator=gen).requires_grad_()
+    g = torch.randn(3, 50, 256, device="cuda", generator=gen)
+    attention.mha_packed(qkv, 4).backward(g)
+    d = 256
+    ref = attention.mha_bwd_reference(qkv[..., :d].detach(),
+                                      qkv[..., d:2 * d].detach(),
+                                      qkv[..., 2 * d:].detach(), g, 4)
+    assert qkv.grad[..., :d].abs().max().item() > 0
+    assert (qkv.grad - torch.cat(ref[:3], -1)).abs().max().item() <= 1e-5
 
 
 def test_attention_wrapper_rejects_what_the_kernel_cannot_take(gen):

@@ -193,6 +193,11 @@ def test_merge_lora_keeps_outputs(params):
 
 
 def test_bert_towers_are_eval_only():
+    """The BERT towers start in eval mode; train mode (dropout) needs the
+    row-keyed seeds, the port's only dropout mode."""
     model = port_model()
-    with pytest.raises(NotImplementedError):
-        model.train()
+    assert not model.dna_encoder.lora_barcode_bert.bert.training
+    assert not model.language_encoder.lora_bert.training
+    model.train()
+    with pytest.raises(ValueError, match="row_seeds"):
+        model.encode_dna(torch.zeros(2, 133, dtype=torch.long))
