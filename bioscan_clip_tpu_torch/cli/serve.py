@@ -16,7 +16,11 @@ a JSON file.
 
 `serve.device` picks the device (default `cuda`, an error without CUDA;
 `cpu` runs the kernels' plain versions). `serve.vocab_path` is the
-BERT-small vocab.txt for text queries.
+BERT-small vocab.txt for text queries. `serve.key_precision=int8` keeps the
+key database as per-row int8 codes on the device (kernel K5, 4x the keys
+of fp32); `serve.key_rescore` picks the host rows its candidates are
+rescored against: `bfloat16` (default, half the host memory), `float32`
+(exact scores) or `none` (no host copy, the quantized scores).
 
 API (also the `serve.once` file schema):
     GET  /healthz                         -> service info
@@ -78,6 +82,7 @@ def build_service(args, out=print):
         openclip_norm=bool(getattr(mc, "for_open_clip", False)),
         image_host_parity=bool(sv.get("image_host_parity", True)),
         key_precision=str(sv.get("key_precision", "high")),
+        key_rescore=str(sv.get("key_rescore", "bfloat16")),
         vocab_path=sv.get("vocab_path"),
     )
     keys_path = sv.get("keys")

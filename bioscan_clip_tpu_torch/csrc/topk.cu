@@ -27,6 +27,20 @@
 //     which gives the tie rule whatever order candidates arrive in.
 // Queries per block (64) amortise each key read over 64 queries, so key
 // traffic stays under the FFMA time at Bq=256.
+//
+// The int8 variant (K5) replaces `pallas_topk_i8` (same file, kernel
+// `_topk_i8_kernel`): rows are symmetric per-row int8 codes with fp32
+// scales, and a score is the EXACT integer dot of the codes (int32
+// accumulation by `__dp4a`, 768 * 127^2 < 2^24, so the int -> fp32
+// conversion is exact too) times the query scale, then times the key scale,
+// each product rounded as fp32 (`__fmul_rn`), in the order the TPU kernel
+// multiplies them. Only pass 1's score tile differs: the scan, the
+// candidate contract, pass 2 and the launch plan are K4's. Bound on an
+// H100: one call reads N x 768 int8 codes plus N fp32 scales (0.80 GB at
+// N = 1,048,576: ~0.24 ms at 3.35 TB/s); its 2 * Bq * N * 768 integer
+// operations take Bq * 0.8 us at the 1,979 TOP/s int8 tensor-core peak, a
+// rate that `__dp4a` (CUDA cores) does not reach: int8 `mma`/`wgmma` is
+// later work.
 
 #include <cuda_runtime.h>
 
@@ -46,6 +60,13 @@ constexpr int SCAN = 4;         // scanning threads per query
 constexpr int kPass2Threads = 128;
 
 constexpr size_t kPass1Smem = sizeof(float) * (DK * QS + DK * KSS + QT * SS);
+
+// int8 pass 1: 64-byte depth chunks held as 32-bit words of 4 codes each
+constexpr int DKB = 64;         // int8 depth of one shared-memory chunk
+constexpr int DKW = DKB / 4;    // the same in 32-bit words
+constexpr int QSW = QT + 4;     // Q chunk row stride (words): int4 reads
+constexpr size_t kPass1I8Smem =
+    sizeof(int) * (DKW * QSW + DKW * KSS) + sizeof(float) * QT * SS;
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
@@ -77,6 +98,44 @@ __device__ __forceinline__ void insert(float (&lv)[MAXK], int (&li)[MAXK],
 }
 
 template <int MAXK>
+__device__ __forceinline__ void init_list(float (&lv)[MAXK], int (&li)[MAXK]) {
+#pragma unroll
+  for (int p = 0; p < MAXK; ++p) {
+    lv[p] = -INFINITY;
+    li[p] = INT_MAX;
+  }
+}
+
+// One scanning thread's pass over the (QT x KT) score tile in shared memory:
+// query row sq, columns sl + SCAN * c; keys >= n_valid never enter.
+template <int MAXK>
+__device__ __forceinline__ void scan_tile(const float* ss, int sq, int sl,
+                                          int key0, int n_valid,
+                                          float (&lv)[MAXK], int (&li)[MAXK]) {
+  const int stop = min(KT, n_valid - key0);
+  for (int c = sl; c < stop; c += SCAN) {
+    const float s = ss[sq * SS + c];
+    if (better(s, key0 + c, lv[MAXK - 1], li[MAXK - 1]))
+      insert<MAXK>(lv, li, s, key0 + c);
+  }
+}
+
+// A scanning thread's first k entries as candidates (query, split, thread, k).
+template <int MAXK>
+__device__ __forceinline__ void emit_candidates(
+    const float (&lv)[MAXK], const int (&li)[MAXK], int row, int split,
+    int sl, int k, float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  const long long o = (((long long)row * gridDim.y + split) * SCAN + sl) * k;
+#pragma unroll
+  for (int p = 0; p < MAXK; ++p) {
+    if (p < k) {
+      cand_v[o + p] = lv[p];
+      cand_i[o + p] = li[p];
+    }
+  }
+}
+
+template <int MAXK>
 __global__ void __launch_bounds__(TPB)
     topk_pass1(const float* __restrict__ q, const float* __restrict__ keys,
                int bq, int n, int d, int n_valid, int k, int tiles_per_split,
@@ -99,11 +158,7 @@ __global__ void __launch_bounds__(TPB)
 
   float lv[MAXK];
   int li[MAXK];
-#pragma unroll
-  for (int p = 0; p < MAXK; ++p) {
-    lv[p] = -INFINITY;
-    li[p] = INT_MAX;
-  }
+  init_list<MAXK>(lv, li);
 
   for (int t = tile0; t < tile1; ++t) {
     const int key0 = t * KT;
@@ -161,27 +216,116 @@ __global__ void __launch_bounds__(TPB)
       for (int j = 0; j < 4; ++j)
         ss[(trow * 8 + i) * SS + tcol + 32 * j] = acc[i][j];
     __syncthreads();
-    if (q0 + sq < bq) {
-      const int stop = min(KT, n_valid - key0);  // keys >= n_valid never enter
-      for (int c = sl; c < stop; c += SCAN) {
-        const float s = ss[sq * SS + c];
-        if (better(s, key0 + c, lv[MAXK - 1], li[MAXK - 1]))
-          insert<MAXK>(lv, li, s, key0 + c);
-      }
-    }
+    if (q0 + sq < bq) scan_tile<MAXK>(ss, sq, sl, key0, n_valid, lv, li);
   }
 
-  if (q0 + sq < bq) {
-    const long long o =
-        (((long long)(q0 + sq) * gridDim.y + split) * SCAN + sl) * k;
+  if (q0 + sq < bq)
+    emit_candidates<MAXK>(lv, li, q0 + sq, split, sl, k, cand_v, cand_i);
+}
+
+// K5's pass 1: as topk_pass1, with the (64 x 128) tile of int32 code dots
+// computed by `__dp4a` (8 queries x 4 keys per thread, 64-byte chunks of Q
+// and K staged in shared memory as words of 4 codes), then scaled in fp32.
+template <int MAXK>
+__global__ void __launch_bounds__(TPB)
+    topk_i8_pass1(const signed char* __restrict__ q,
+                  const float* __restrict__ q_scale,
+                  const signed char* __restrict__ keys,
+                  const float* __restrict__ k_scale, int bq, int n, int d,
+                  int n_valid, int k, int tiles_per_split,
+                  float* __restrict__ cand_v, int* __restrict__ cand_i) {
+  extern __shared__ __align__(16) int smem_w[];
+  int* qs = smem_w;                 // DKW x QSW, transposed Q chunk
+  int* kss = qs + DKW * QSW;        // DKW x KSS, transposed K chunk
+  float* ss = reinterpret_cast<float*>(kss + DKW * KSS);  // QT x SS scores
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * QT;
+  const int split = blockIdx.y;
+  const int n_tiles = (n + KT - 1) / KT;
+  const int tile0 = split * tiles_per_split;
+  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
+  const int trow = tid >> 5;     // product: queries trow*8 .. trow*8+7
+  const int tcol = tid & 31;     // product: keys tcol + 32*j
+  const int sq = tid / SCAN;     // scan: query sq
+  const int sl = tid % SCAN;     // scan: columns sl + SCAN*c
+  constexpr int V = DKB / 16;    // 16-byte vectors per chunk row
+
+  float qsc[8];
 #pragma unroll
-    for (int p = 0; p < MAXK; ++p) {
-      if (p < k) {
-        cand_v[o + p] = lv[p];
-        cand_i[o + p] = li[p];
+  for (int i = 0; i < 8; ++i) {
+    const int r = q0 + trow * 8 + i;
+    qsc[i] = r < bq ? q_scale[r] : 0.f;
+  }
+  float lv[MAXK];
+  int li[MAXK];
+  init_list<MAXK>(lv, li);
+
+  for (int t = tile0; t < tile1; ++t) {
+    const int key0 = t * KT;
+    int acc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+
+    for (int d0 = 0; d0 < d; d0 += DKB) {
+      __syncthreads();  // previous chunk (and previous tile's scan) done
+      for (int f = tid; f < QT * V; f += TPB) {
+        const int r = f / V, c4 = f % V;
+        int4 x = make_int4(0, 0, 0, 0);
+        if (q0 + r < bq)
+          x = *reinterpret_cast<const int4*>(q + (long long)(q0 + r) * d +
+                                             d0 + c4 * 16);
+        qs[(c4 * 4 + 0) * QSW + r] = x.x;
+        qs[(c4 * 4 + 1) * QSW + r] = x.y;
+        qs[(c4 * 4 + 2) * QSW + r] = x.z;
+        qs[(c4 * 4 + 3) * QSW + r] = x.w;
+      }
+      for (int f = tid; f < KT * V; f += TPB) {
+        const int r = f / V, c4 = f % V;
+        int4 x = make_int4(0, 0, 0, 0);
+        if (key0 + r < n)
+          x = *reinterpret_cast<const int4*>(
+              keys + (long long)(key0 + r) * d + d0 + c4 * 16);
+        kss[(c4 * 4 + 0) * KSS + r] = x.x;
+        kss[(c4 * 4 + 1) * KSS + r] = x.y;
+        kss[(c4 * 4 + 2) * KSS + r] = x.z;
+        kss[(c4 * 4 + 3) * KSS + r] = x.w;
+      }
+      __syncthreads();
+#pragma unroll 4
+      for (int dd = 0; dd < DKW; ++dd) {
+        const int4 a0 =
+            *reinterpret_cast<const int4*>(qs + dd * QSW + trow * 8);
+        const int4 a1 =
+            *reinterpret_cast<const int4*>(qs + dd * QSW + trow * 8 + 4);
+        const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        int bk[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) bk[j] = kss[dd * KSS + tcol + 32 * j];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], bk[j], acc[i][j]);
       }
     }
+
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + tcol + 32 * j;
+      const float ksc = key < n ? k_scale[key] : 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        ss[(trow * 8 + i) * SS + tcol + 32 * j] = __fmul_rn(
+            __fmul_rn(__int2float_rn(acc[i][j]), qsc[i]), ksc);
+    }
+    __syncthreads();
+    if (q0 + sq < bq) scan_tile<MAXK>(ss, sq, sl, key0, n_valid, lv, li);
   }
+
+  if (q0 + sq < bq)
+    emit_candidates<MAXK>(lv, li, q0 + sq, split, sl, k, cand_v, cand_i);
 }
 
 template <int MAXK>
@@ -195,11 +339,7 @@ __global__ void __launch_bounds__(kPass2Threads)
 
   float lv[MAXK];
   int li[MAXK];
-#pragma unroll
-  for (int p = 0; p < MAXK; ++p) {
-    lv[p] = -INFINITY;
-    li[p] = INT_MAX;
-  }
+  init_list<MAXK>(lv, li);
   const float* cv = cand_v + (long long)row * n_cand;
   const int* ci = cand_i + (long long)row * n_cand;
   for (int c = lane; c < n_cand; c += 32) {
@@ -237,6 +377,18 @@ __global__ void __launch_bounds__(kPass2Threads)
 }
 
 template <int MAXK>
+cudaError_t launch_pass2(int bq, int splits, int k, const float* cand_v,
+                         const int* cand_i, float* out_v, int* out_i,
+                         cudaStream_t stream) {
+  const int n_cand = splits * SCAN * k;
+  const int warps_per_block = kPass2Threads / 32;
+  const int grid2 = (bq + warps_per_block - 1) / warps_per_block;
+  topk_pass2<MAXK><<<grid2, kPass2Threads, 0, stream>>>(
+      cand_v, cand_i, bq, n_cand, k, out_v, out_i);
+  return cudaGetLastError();
+}
+
+template <int MAXK>
 cudaError_t launch(const float* q, const float* keys, int bq, int n, int d,
                    int n_valid, int k, int splits, int tiles_per_split,
                    float* cand_v, int* cand_i, float* out_v, int* out_i,
@@ -250,12 +402,28 @@ cudaError_t launch(const float* q, const float* keys, int bq, int n, int d,
       q, keys, bq, n, d, n_valid, k, tiles_per_split, cand_v, cand_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int n_cand = splits * SCAN * k;
-  const int warps_per_block = kPass2Threads / 32;
-  const int grid2 = (bq + warps_per_block - 1) / warps_per_block;
-  topk_pass2<MAXK><<<grid2, kPass2Threads, 0, stream>>>(
-      cand_v, cand_i, bq, n_cand, k, out_v, out_i);
-  return cudaGetLastError();
+  return launch_pass2<MAXK>(bq, splits, k, cand_v, cand_i, out_v, out_i,
+                            stream);
+}
+
+template <int MAXK>
+cudaError_t launch_i8(const signed char* q, const float* q_scale,
+                      const signed char* keys, const float* k_scale, int bq,
+                      int n, int d, int n_valid, int k, int splits,
+                      int tiles_per_split, float* cand_v, int* cand_i,
+                      float* out_v, int* out_i, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      topk_i8_pass1<MAXK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kPass1I8Smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid1((bq + QT - 1) / QT, splits);
+  topk_i8_pass1<MAXK><<<grid1, TPB, kPass1I8Smem, stream>>>(
+      q, q_scale, keys, k_scale, bq, n, d, n_valid, k, tiles_per_split,
+      cand_v, cand_i);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return launch_pass2<MAXK>(bq, splits, k, cand_v, cand_i, out_v, out_i,
+                            stream);
 }
 
 }  // namespace
@@ -282,10 +450,39 @@ int bscan_topk_f32(const float* q, const float* keys, int bq, int n, int d,
                          tiles_per_split, cand_v, cand_i, out_v, out_i, s);
 }
 
+// K5. Shapes the wrapper must respect: q (bq, d) and keys (n, d) contiguous
+// int8 codes, 16-byte aligned, d % 64 == 0; q_scale (bq,) and k_scale (n,)
+// fp32; 1 <= k <= 64, k <= n_valid <= n. cand_v / cand_i as for
+// bscan_topk_f32 (the same plan). Returns cudaError_t.
+int bscan_topk_i8(const signed char* q, const float* q_scale,
+                  const signed char* keys, const float* k_scale, int bq,
+                  int n, int d, int n_valid, int k, int splits,
+                  int tiles_per_split, float* cand_v, int* cand_i,
+                  float* out_v, int* out_i, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d % DKB != 0 || k < 1 || k > 64 || n_valid > n)
+    return (int)cudaErrorInvalidValue;
+  if (k <= 8)
+    return (int)launch_i8<8>(q, q_scale, keys, k_scale, bq, n, d, n_valid, k,
+                             splits, tiles_per_split, cand_v, cand_i, out_v,
+                             out_i, s);
+  if (k <= 16)
+    return (int)launch_i8<16>(q, q_scale, keys, k_scale, bq, n, d, n_valid,
+                              k, splits, tiles_per_split, cand_v, cand_i,
+                              out_v, out_i, s);
+  if (k <= 32)
+    return (int)launch_i8<32>(q, q_scale, keys, k_scale, bq, n, d, n_valid,
+                              k, splits, tiles_per_split, cand_v, cand_i,
+                              out_v, out_i, s);
+  return (int)launch_i8<64>(q, q_scale, keys, k_scale, bq, n, d, n_valid, k,
+                            splits, tiles_per_split, cand_v, cand_i, out_v,
+                            out_i, s);
+}
+
 // The launch plan for (bq, n, k) on a card with `sm_count` SMs: key splits
 // so that about two pass-1 blocks per SM are in flight whatever the number
 // of queries, key tiles per split, and the candidate entries (per buffer)
-// the wrapper allocates for bscan_topk_f32.
+// the wrapper allocates for bscan_topk_f32 and bscan_topk_i8.
 void bscan_topk_plan(int bq, int n, int k, int sm_count, int* splits,
                      int* tiles_per_split, long long* n_cand) {
   const int n_tiles = (n + KT - 1) / KT;

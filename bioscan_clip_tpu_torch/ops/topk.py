@@ -1,16 +1,21 @@
-"""Exact fp32 inner-product top-k over a key matrix.
+"""Exact inner-product top-k over a key matrix: fp32 (K4) and int8 (K5).
 
-Counterpart of bioscan_clip_tpu/ops/topk_pallas.py (`pallas_topk` :185 and
-its numpy wrapper `topk_search_pallas` :320). On CUDA tensors `topk`
-launches the hand-written two-pass kernel in `csrc/topk.cu` or raises; on
-CPU tensors it runs `topk_reference`, the plain PyTorch version.
+Counterpart of bioscan_clip_tpu/ops/topk_pallas.py (`pallas_topk` :185, its
+numpy wrapper `topk_search_pallas` :320, `pallas_topk_i8` :253 and
+`quantize_rows_i8` :310). On CUDA tensors `topk` and `topk_i8` launch the
+hand-written two-pass kernels in `csrc/topk.cu` or raise; on CPU tensors
+they run `topk_reference` and `topk_i8_reference`, the plain versions.
 
-Contract (both versions): scores are full-fp32 Q . K^T (never TF32), keys
-with index >= n_valid never enter, each row comes out sorted descending,
-and among equal values the smaller key index comes first.
+Contract (all four): keys with index >= n_valid never enter, each row comes
+out sorted descending, and among equal values the smaller key index comes
+first. fp32 scores are full-fp32 Q . K^T (never TF32); int8 scores are the
+exact integer dot of the codes times the query scale, then times the key
+scale, each product rounded as fp32 (the order of `_topk_i8_kernel`), so
+K5 equals its plain version bit for bit.
 
-`topk.launches` counts kernel launches; `topk_reference.calls` counts the
-plain version's calls.
+`topk.launches` / `topk_i8.launches` count kernel launches;
+`topk_reference.calls` / `topk_i8_reference.calls` the plain versions'
+calls.
 """
 
 from __future__ import annotations
@@ -24,19 +29,33 @@ import torch
 from bioscan_clip_tpu_torch.ops import _build
 
 MAX_K = 32  # the kernel keeps per-thread top-k lists of up to 32 entries
+# K5 keeps lists of up to 64: the engine oversamples int8 searches to
+# max(4k, k + 16), so every k <= 16 fits
+MAX_K_I8 = 64
 REFERENCE_KEY_CHUNK = 65536
 QUERY_CHUNK = 1024
 
 
-def topk_reference(queries, keys, n_valid: int, k: int):
-    """Plain PyTorch top-k: chunked fp32 products over keys[:n_valid], each
-    chunk stably sorted and merged with the running top-k (the
-    `engine._topk_scan` scheme, with a stable sort giving the tie rule)."""
-    topk_reference.calls += 1
+def quantize_rows_i8(x):
+    """Symmetric per-row int8 quantization: returns (int8 codes, (rows, 1)
+    fp32 scales). Zero rows get scale 1 (all-zero codes). A numpy copy of
+    the JAX `quantize_rows_i8`: the same codes and scales, bit for bit."""
+    x = np.asarray(x, dtype=np.float32)
+    scales = np.abs(x).max(axis=1, keepdims=True) / 127.0
+    scales = np.where(scales > 0, scales, 1.0).astype(np.float32)
+    q = np.clip(np.rint(x / scales), -127, 127).astype(np.int8)
+    return q, scales
+
+
+def _chunked_topk(scores, n_valid: int, k: int):
+    """Top-k over key chunks of `scores(s, e)` (Bq, e - s) for keys
+    [s, e) < n_valid: each chunk stably sorted and merged with the running
+    top-k (the `engine._topk_scan` scheme, with a stable sort giving the
+    tie rule)."""
     vals = idx = None
     for s in range(0, n_valid, REFERENCE_KEY_CHUNK):
         e = min(s + REFERENCE_KEY_CHUNK, n_valid)
-        sc = queries @ keys[s:e].T
+        sc = scores(s, e)
         v, i = torch.sort(sc, dim=1, descending=True, stable=True)
         v, i = v[:, :k], i[:, :k] + s
         if vals is not None:
@@ -50,7 +69,33 @@ def topk_reference(queries, keys, n_valid: int, k: int):
     return vals, idx.to(torch.int32)
 
 
+def topk_reference(queries, keys, n_valid: int, k: int):
+    """Plain PyTorch top-k: chunked fp32 products over keys[:n_valid]."""
+    topk_reference.calls += 1
+    return _chunked_topk(lambda s, e: queries @ keys[s:e].T, n_valid, k)
+
+
 topk_reference.calls = 0
+
+
+def topk_i8_reference(q_i8, q_scales, keys_i8, k_scales, n_valid: int,
+                      k: int):
+    """Plain PyTorch int8 top-k: chunked products of the codes cast to fp32
+    (exact integers: 768 * 127^2 < 2^24, in any summation order), times
+    the query scales, then times the key scales."""
+    topk_i8_reference.calls += 1
+    qf = q_i8.to(torch.float32)
+    qsc = q_scales.reshape(-1, 1).to(torch.float32)
+    ksc = k_scales.reshape(-1).to(torch.float32)
+
+    def scores(s, e):
+        dots = qf @ keys_i8[s:e].to(torch.float32).T
+        return (dots * qsc) * ksc[s:e].reshape(1, -1)
+
+    return _chunked_topk(scores, n_valid, k)
+
+
+topk_i8_reference.calls = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,7 +112,32 @@ def _kernel():
         ctypes.POINTER(ctypes.c_longlong),
     ]
     plan.restype = None
-    return lib, fn, plan
+    fn_i8 = lib.bscan_topk_i8
+    fn_i8.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+    )
+    fn_i8.restype = ctypes.c_int
+    return lib, fn, plan, fn_i8
+
+
+def _plan(bq: int, n: int, k: int, dev):
+    """(splits, key tiles per split, candidate entries) for one launch."""
+    _, _, plan, _ = _kernel()
+    splits, per_split = ctypes.c_int(), ctypes.c_int()
+    n_cand = ctypes.c_longlong()
+    plan(bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+         ctypes.byref(splits), ctypes.byref(per_split), ctypes.byref(n_cand))
+    return splits.value, per_split.value, n_cand.value
+
+
+def _check_2d(name, t, dtype, device):
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, queries on {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} dtype {t.dtype}, expected {dtype}")
+    if t.dim() != 2 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 2-D, contiguous and 16-byte "
+                         "aligned")
 
 
 def topk(queries, keys, n_valid: int, k: int):
@@ -81,14 +151,7 @@ def topk(queries, keys, n_valid: int, k: int):
     if queries.device.type == "cpu":
         return topk_reference(queries, keys, n_valid, k)
     for name, t in (("queries", queries), ("keys", keys)):
-        if t.device != queries.device:
-            raise ValueError(f"topk: {name} on {t.device}, queries on "
-                             f"{queries.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"topk: {name} dtype {t.dtype}, expected fp32")
-        if t.dim() != 2 or not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"topk: {name} must be 2-D, contiguous and "
-                             "16-byte aligned")
+        _check_2d(f"topk: {name}", t, torch.float32, queries.device)
     bq, d = queries.shape
     if keys.shape[1] != d or d % 32:
         raise ValueError(f"topk: widths {d} / {keys.shape[1]} must match "
@@ -96,18 +159,15 @@ def topk(queries, keys, n_valid: int, k: int):
     if k > MAX_K:
         raise ValueError(f"topk: kernel takes k <= {MAX_K}, got {k}")
     dev = queries.device
-    lib, fn, plan = _kernel()
-    splits, per_split = ctypes.c_int(), ctypes.c_int()
-    n_cand = ctypes.c_longlong()
-    plan(bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-         ctypes.byref(splits), ctypes.byref(per_split), ctypes.byref(n_cand))
-    cand_v = torch.empty(n_cand.value, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(n_cand.value, dtype=torch.int32, device=dev)
+    lib, fn, _, _ = _kernel()
+    splits, per_split, n_cand = _plan(bq, n, k, dev)
+    cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
     err = fn(
         queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k,
-        splits.value, per_split.value, cand_v.data_ptr(), cand_i.data_ptr(),
+        splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -117,6 +177,55 @@ def topk(queries, keys, n_valid: int, k: int):
 
 
 topk.launches = 0
+
+
+def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
+    """Top-k of int8 query codes (Bq, D) with fp32 scales (Bq,) against
+    int8 key codes (N, D) with fp32 scales (N,), over keys[:n_valid].
+    Returns (values (Bq, k) fp32, indices (Bq, k) int32)."""
+    n_valid = int(n_valid)
+    n = keys_i8.shape[0]
+    if not 1 <= k <= n_valid <= n:
+        raise ValueError(f"topk_i8: need 1 <= k ({k}) <= n_valid "
+                         f"({n_valid}) <= N ({n})")
+    if k > MAX_K_I8:
+        raise ValueError(f"topk_i8: the kernel takes k <= {MAX_K_I8}, got "
+                         f"{k} (an int8 search oversamples k to "
+                         "max(4k, k + 16), so k <= 16)")
+    if q_i8.device.type == "cpu":
+        return topk_i8_reference(q_i8, q_scales, keys_i8, k_scales, n_valid,
+                                 k)
+    dev = q_i8.device
+    for name, t in (("queries", q_i8), ("keys", keys_i8)):
+        _check_2d(f"topk_i8: {name}", t, torch.int8, dev)
+    bq, d = q_i8.shape
+    if keys_i8.shape[1] != d or d % 64:
+        raise ValueError(f"topk_i8: widths {d} / {keys_i8.shape[1]} must "
+                         "match and be a multiple of 64")
+    for name, t, rows in (("q_scales", q_scales, bq),
+                          ("k_scales", k_scales, n)):
+        if (t.device != dev or t.dtype != torch.float32
+                or t.numel() != rows or not t.is_contiguous()):
+            raise ValueError(f"topk_i8: {name} must be {rows} contiguous "
+                             f"fp32 on {dev}")
+    lib, _, _, fn = _kernel()
+    splits, per_split, n_cand = _plan(bq, n, k, dev)
+    cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
+    cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
+    out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    err = fn(
+        q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
+        k_scales.data_ptr(), bq, n, d, n_valid, k, splits, per_split,
+        cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(lib, err, "topk_i8 launch")
+    topk_i8.launches += 1
+    return out_v, out_i
+
+
+topk_i8.launches = 0
 
 
 def topk_search_kernel(query_feature, keys, k: int, device=None):
@@ -140,6 +249,25 @@ def topk_search_kernel(query_feature, keys, k: int, device=None):
     for s in range(0, q.shape[0], QUERY_CHUNK):
         qc = torch.from_numpy(np.ascontiguousarray(q[s : s + QUERY_CHUNK]))
         v, i = topk(qc.to(keys_t.device), keys_t, n_keys, k_eff)
+        sims[s : s + qc.shape[0]] = v.cpu().numpy()
+        idxs[s : s + qc.shape[0]] = i.cpu().numpy()
+    return sims, idxs
+
+
+def topk_search_i8_kernel(query_feature, keys_i8, k_scales, k: int):
+    """numpy fp32 queries in, quantized per row on the host as the JAX
+    engine does; resident int8 key codes (N, D) and fp32 scales (N,) on
+    their device. Returns (sims (Bq, k) fp32, indices (Bq, k) int64)."""
+    q_i8, q_sc = quantize_rows_i8(query_feature)
+    dev = keys_i8.device
+    sims = np.empty((q_i8.shape[0], k), np.float32)
+    idxs = np.empty((q_i8.shape[0], k), np.int64)
+    for s in range(0, q_i8.shape[0], QUERY_CHUNK):
+        qc = torch.from_numpy(np.ascontiguousarray(q_i8[s : s + QUERY_CHUNK]))
+        sc = torch.from_numpy(np.ascontiguousarray(
+            q_sc[s : s + QUERY_CHUNK, 0]))
+        v, i = topk_i8(qc.to(dev), sc.to(dev), keys_i8, k_scales,
+                       keys_i8.shape[0], k)
         sims[s : s + qc.shape[0]] = v.cpu().numpy()
         idxs[s : s + qc.shape[0]] = i.cpu().numpy()
     return sims, idxs

@@ -8,7 +8,12 @@ taxonomy label strings / embeddings in, per-level top-k taxonomy out.
 Inputs run through the towers in power-of-two buckets (excess rows repeat
 the last row and are dropped from the output), as the JAX service does to
 reuse one compiled program per bucket; here it keeps the kernels' shapes to
-a small set. Images take the torchvision-exact host eval path.
+a small set. Images take the torchvision-exact host eval path, or with
+`image_host_parity=False` a shorter-side-256 center crop on the host and
+the antialiased eval transform on the device (`data/transforms.
+eval_transform`). `key_precision="int8"` keeps int8 key codes resident and
+rescores on the host rows kept in `key_rescore` ("bfloat16" by default, as
+the JAX service does; "float32" exact; "none" the quantized scores).
 """
 
 from __future__ import annotations
@@ -43,7 +48,8 @@ class RetrievalService:
     def __init__(self, model, keys=None, key_labels=None, *, device=None,
                  mesh=None, max_k: int = 5, max_batch: int = 256,
                  openclip_norm: bool = False, image_host_parity: bool = True,
-                 key_precision: str = "high", vocab_path=None):
+                 key_precision: str = "high", key_rescore: str = "bfloat16",
+                 vocab_path=None):
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.mesh = mesh
@@ -52,6 +58,7 @@ class RetrievalService:
         self.openclip_norm = openclip_norm
         self.image_host_parity = image_host_parity
         self.key_precision = key_precision
+        self.key_rescore = key_rescore
         self.vocab_path = vocab_path
         self.prepared = None
         self.key_labels = None
@@ -70,6 +77,7 @@ class RetrievalService:
             )
         self.prepared = PreparedKeys(keys, device=self.device,
                                      precision=self.key_precision,
+                                     rescore=self.key_rescore,
                                      mesh=self.mesh)
         self.key_labels = list(key_labels)
 
@@ -105,9 +113,22 @@ class RetrievalService:
             return {k: self._to_device(v) for k, v in x.items()}
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
 
+    def _encoder(self, name: str):
+        """`encode_<name>`; "image_u8" is the image tower behind the device
+        eval transform of a uint8 (B, 256, 256, 3) batch."""
+        if name != "image_u8":
+            return getattr(self.model, f"encode_{name}")
+        from bioscan_clip_tpu_torch.data.transforms import eval_transform
+
+        def encode(x):
+            return self.model.encode_image(
+                eval_transform(x, normalize=self.openclip_norm))
+
+        return encode
+
     def _run_bucketed(self, name: str, x, n: int):
         """Run `encode_<name>` over n rows in power-of-two padded buckets."""
-        encode = getattr(self.model, f"encode_{name}")
+        encode = self._encoder(name)
 
         def rows(a, s, take, b):
             a = a[s : s + take]
@@ -132,31 +153,41 @@ class RetrievalService:
 
     def embed_images(self, images: Sequence,
                      host_parity: Optional[bool] = None) -> np.ndarray:
-        """images: JPEG/PNG bytes or decoded uint8 HWC arrays (any sizes),
-        preprocessed on the host exactly like torchvision's eval path."""
+        """images: JPEG/PNG bytes or decoded uint8 HWC arrays (any sizes).
+
+        `host_parity=True` (default from the constructor): torchvision-
+        exact host eval preprocessing. False: cv2 shorter-side resize to 256
+        (skipped when it already is 256) and a 256x256 center crop on the
+        host, then the antialiased resize/crop on the device."""
         from bioscan_clip_tpu_torch.data.transforms import (
             decode_jpeg,
             host_eval_image,
+            host_resize_shorter,
         )
 
         if self.model.image_encoder is None:
             raise ValueError("model has no image tower")
         if host_parity is None:
             host_parity = self.image_host_parity
-        if not host_parity:
-            raise NotImplementedError(
-                "the device-side eval transform (image_host_parity=false) "
-                "is not ported yet: ROADMAP.md queue 1"
-            )
-        pre = np.stack([
-            host_eval_image(
-                decode_jpeg(im) if isinstance(im, (bytes, bytearray))
-                else np.asarray(im),
-                normalize=self.openclip_norm,
-            )
+        decoded = [
+            decode_jpeg(im) if isinstance(im, (bytes, bytearray))
+            else np.asarray(im)
             for im in images
-        ]).astype(np.float32)
-        return self._run_bucketed("image", pre, pre.shape[0])
+        ]
+        if host_parity:
+            pre = np.stack([
+                host_eval_image(im, normalize=self.openclip_norm)
+                for im in decoded
+            ]).astype(np.float32)
+            return self._run_bucketed("image", pre, pre.shape[0])
+        crops = []
+        for im in decoded:
+            r = host_resize_shorter(np.asarray(im, np.uint8), 256)
+            h, w = r.shape[:2]
+            top, left = (h - 256) // 2, (w - 256) // 2
+            crops.append(r[top : top + 256, left : left + 256])
+        pre = np.stack(crops)
+        return self._run_bucketed("image_u8", pre, pre.shape[0])
 
     def embed_dna(self, barcodes: Sequence[str]) -> np.ndarray:
         """barcodes: raw COI nucleotide strings, 5-mer tokenized as in

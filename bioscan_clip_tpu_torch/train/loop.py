@@ -1,9 +1,10 @@
-"""The contrastive train step and the epoch driver.
+"""The contrastive train step, the epoch loop, and feature extraction.
 
-Counterpart of bioscan_clip_tpu/train/loop.py:25-147 (`make_train_step`)
-and :1072-1241 (`train_epoch`, the plain loop). One step: the three tower
-forwards in train mode, the 6-term soft-label InfoNCE, the backward over the
-trainable set only (frozen parameters have `requires_grad=False`, so no
+Counterpart of bioscan_clip_tpu/train/loop.py:25-147 (`make_train_step`),
+:782-1069 (`make_embed_step`, `extract_features` and the grouped
+extraction) and :1072-1241 (`train_epoch`, the plain loop). One step: the
+three tower forwards in train mode, the 6-term soft-label InfoNCE, the
+backward over the trainable set only (frozen parameters have `requires_grad=False`, so no
 frozen-weight gradient is ever formed), then masked AdamW with the
 scheduled learning rate.
 
@@ -13,6 +14,13 @@ BERT tower's (B,) row seeds as the JAX package does (loop.py:565-576:
 language), so both packages can be handed the same seed. `train_epoch`
 draws the step seeds from an explicit `torch.Generator`.
 
+Extraction runs the towers in eval mode under `torch.inference_mode()`; a
+uint8 image batch goes through the device eval transform first
+(`data/transforms.eval_transform`). Grouped extraction merges loader
+batches into groups of about `group_samples` rows and runs every tower
+once per group: on the card that is 1600 rows by default (as JAX picks on
+the TPU), fewer and larger launches; on the CPU it is off.
+
 Not ported yet, each raising with its ROADMAP.md queue 1 entry: remat,
 `steps_per_call > 1` (a TPU dispatch saver; CUDA graphs are the card's
 counterpart), the accumulation / GradCache / scan steps.
@@ -20,14 +28,19 @@ counterpart), the accumulation / GradCache / scan steps.
 
 from __future__ import annotations
 
+import collections
 import math
 import os
 import time
 
+import numpy as np
 import torch
 from torch import nn
 
-from bioscan_clip_tpu_torch.data.transforms import train_transform_auto
+from bioscan_clip_tpu_torch.data.transforms import (
+    eval_transform,
+    train_transform_auto,
+)
 from bioscan_clip_tpu_torch.losses.contrastive import (
     multimodal_contrastive_loss,
 )
@@ -230,3 +243,169 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
         stats["samples_per_s_steady"] = (
             (n_samples - steady[1]) / sdur if sdur > 0 else 0.0)
     return state, stats
+
+
+def _tower(model, modality: str):
+    return getattr(model, f"{modality}_encoder")
+
+
+def _modality_input(batch: dict, modality: str):
+    if modality == "image":
+        return batch.get("image_u8", batch.get("image"))
+    return batch.get(modality)
+
+
+def _to_device(x, device):
+    """A loader array (or dict of arrays) as tensors on `device`; integer
+    token arrays as int64, as the serving path feeds them."""
+    if isinstance(x, dict):
+        return {k: _to_device(v, device) for k, v in x.items()}
+    a = np.ascontiguousarray(x)
+    if a.dtype.kind in "iu" and a.dtype != np.uint8:
+        a = a.astype(np.int64)
+    return torch.from_numpy(a).to(device, non_blocking=True)
+
+
+def _rows(x) -> int:
+    return (next(iter(x.values())) if isinstance(x, dict) else x).shape[0]
+
+
+def make_embed_step(model, modality: str, openclip_norm: bool = False,
+                    pre_cropped: bool = False):
+    """embed(inputs) -> normalized (B, D) fp32 embeddings of one modality
+    (the hot loop of the reference's get_feature_and_label,
+    inference_epoch.py:8-68). A uint8 image batch gets the deterministic
+    eval transform on its device first; `pre_cropped` for loaders that ship
+    host-center-cropped (224, 224) frames."""
+    method = {
+        "image": model.encode_image,
+        "dna": model.encode_dna,
+        "language": model.encode_language,
+    }[modality]
+
+    def embed(inputs):
+        if modality == "image" and inputs.dtype == torch.uint8:
+            inputs = eval_transform(inputs, normalize=openclip_norm,
+                                    pre_cropped=pre_cropped)
+        return method(inputs)
+
+    return embed
+
+
+def extract_features(model, dataloader,
+                     modalities=("language", "dna", "image"),
+                     for_key_set: bool = False, openclip_norm: bool = False,
+                     progress=None, group_samples=None,
+                     pending_batches: int = 4):
+    """Full-split feature extraction on the model's device -> split dict
+    (the reference's get_features_and_label, inference_and_eval.py:734-783:
+    one pass per modality over the loader, L2-normalized outputs, label
+    dicts and ids collected on the host).
+
+    `group_samples`: merge loader batches until about this many rows are
+    buffered and run every tower once over the group (None: 1600 on the
+    card, 0 = off on the CPU). `pending_batches`: results stay on the
+    device for this many batches before they are fetched, so the host's
+    decode and upload of the next batch overlap the towers."""
+    from bioscan_clip_tpu_torch.retrieval.report import build_split_dict
+
+    device = next(model.parameters()).device
+    if group_samples is None:
+        group_samples = 1600 if device.type == "cuda" else 0
+    model.eval()
+    avail = [m for m in modalities if _tower(model, m) is not None]
+    pre_cropped = bool(getattr(dataloader, "eval_pre_cropped", False))
+    feats = {m: [] for m in avail}
+    label_dicts, ids = [], []
+    pending = collections.deque()  # (modality, device embeddings)
+
+    def drain(limit):
+        while len(pending) > limit:
+            m, emb = pending.popleft()
+            feats[m].append(emb.cpu().numpy())
+
+    with torch.inference_mode():
+        if group_samples and int(group_samples) > 0:
+            _extract_grouped(model, dataloader, avail, openclip_norm,
+                             pre_cropped, progress, int(group_samples),
+                             device, label_dicts, ids, pending, drain)
+        else:
+            steps = {
+                m: make_embed_step(model, m, openclip_norm=openclip_norm,
+                                   pre_cropped=m == "image" and pre_cropped)
+                for m in avail
+            }
+            window = pending_batches * len(steps)
+            t0 = time.perf_counter()
+            for bi, batch in enumerate(dataloader):
+                if progress is not None:
+                    progress(bi, time.perf_counter() - t0)
+                label_dicts.extend(batch.get("label_dicts", []))
+                ids.extend(batch.get("ids", []))
+                for m, step in steps.items():
+                    inp = _modality_input(batch, m)
+                    if inp is not None:
+                        pending.append((m, step(_to_device(inp, device))))
+                drain(window)
+        drain(0)
+    arrays = {m: (np.concatenate(v, axis=0) if v else None)
+              for m, v in feats.items()}
+    return build_split_dict(
+        image=arrays.get("image"),
+        dna=arrays.get("dna"),
+        language=arrays.get("language"),
+        label_list=label_dicts,
+        file_name_list=ids,
+        for_key_set=for_key_set,
+    )
+
+
+def _extract_grouped(model, dataloader, avail, openclip_norm, pre_cropped,
+                     progress, group_samples, device, label_dicts, ids,
+                     pending, drain, pending_groups: int = 2):
+    """Grouped extraction (JAX `_extract_features_grouped`): K loader
+    batches merge into one group of at least `group_samples` rows, and each
+    tower runs once per group. The eval towers are deterministic, so only
+    the products' blocking differs from the per-batch path. Unlike JAX,
+    the last partial group is not padded: eager PyTorch needs no fixed
+    shape."""
+    steps = {m: make_embed_step(model, m, openclip_norm=openclip_norm,
+                                pre_cropped=m == "image" and pre_cropped)
+             for m in avail}
+    buf, rows, capacity = [], 0, None
+
+    def flush():
+        nonlocal buf, rows
+        if not buf:
+            return
+        for m in steps:
+            parts = [d[m] for d in buf if m in d]
+            if not parts:
+                continue
+            if isinstance(parts[0], dict):
+                group = {k: np.concatenate([p[k] for p in parts])
+                         for k in parts[0]}
+            else:
+                group = np.concatenate(parts)
+            pending.append((m, steps[m](_to_device(group, device))))
+        buf, rows = [], 0
+        drain(pending_groups * len(steps))
+
+    t0 = time.perf_counter()
+    for bi, batch in enumerate(dataloader):
+        if progress is not None and not buf:
+            progress(bi, time.perf_counter() - t0)
+        label_dicts.extend(batch.get("label_dicts", []))
+        ids.extend(batch.get("ids", []))
+        d = {m: x for m in avail
+             if (x := _modality_input(batch, m)) is not None}
+        if not d:
+            continue
+        b = _rows(next(iter(d.values())))
+        if capacity is None:
+            capacity = max(1, -(-group_samples // b)) * b
+        buf.append(d)
+        rows += b
+        if rows >= capacity:
+            flush()
+    flush()

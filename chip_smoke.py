@@ -7,13 +7,21 @@ Phases, in order; any failure exits non-zero:
   device    the card's name and power limit (nvidia-smi)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc
   kernels   each kernel against its plain PyTorch version at the flagship
-            shapes (fp32 and bf16 for attention), with the kernel's, the
-            plain version's and one library call's time
+            shapes (fp32 and bf16 for attention; int8 top-k bit for bit at
+            1,048,576 and 5,000,000 keys), with the kernel's, the plain
+            version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
             handle_request for dna, text, embedding and embed_images, and
-            HTTP /search and /embed on localhost; K1, K2 and K4 must have
+            HTTP /search and /embed on localhost; then the same keys as
+            int8 codes under each rescore mode; K1, K2, K4 and K5 must have
             launched
+  eval      the evaluation job at full width: in-memory batches of 24 (all
+            keys 1,920, seen 960, unseen 960 records) through
+            train.loop.extract_features per batch and grouped, then the
+            5 x 6 retrieval sweep (retrieval.report) in high and int8
+            precision; the card's sweep equals the CPU's on the same
+            embeddings; K1, K2, K4 and K5 launched and no plain version
   training  the flagship LoRA contrastive step (train.loop.make_train_step
             driven by train_epoch) at full width, B=400, bf16, frozen
             weights in bf16, dropout 0.1: 6 steps over one synthetic batch;
@@ -38,8 +46,9 @@ import time
 # H100 SXM data-sheet peaks (dense): the bound of each kernel is the larger
 # of its bytes over the memory rate and its operations over the peak for
 # their type.
-PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12}
-ALL_PHASES = ("device", "build", "kernels", "serving", "training",
+PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
+        "int8": 1979e12}
+ALL_PHASES = ("device", "build", "kernels", "serving", "eval", "training",
               "parity")
 
 
@@ -214,6 +223,75 @@ def _topk_case(gen, bq=256, n=1 << 20, d=768, k=5):
         log(f"  topk fp32 Bq={few}: kernel {fms:.4f} ms, bound {fb:.4f} ms "
             f"({fby})")
     return keys, row
+
+
+def _quantize_on_card(x):
+    """ops.topk.quantize_rows_i8 in torch ops on the card (the same
+    arithmetic): (N, D) int8 codes and (N,) fp32 scales."""
+    import torch
+
+    scales = x.abs().amax(dim=1) / 127.0
+    scales = torch.where(scales > 0, scales, torch.ones_like(scales))
+    codes = torch.clamp(torch.round(x / scales[:, None]), -127, 127)
+    return codes.to(torch.int8), scales.contiguous()
+
+
+def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
+    """K5 against its plain version, values and indices bit for bit, at
+    each query count of `bqs`; timed beside torch._int_mm + the two scales
+    + torch.topk (Bq padded to 32 rows, as _int_mm needs more than 16).
+    Returns the row of the first query count."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import topk as topk_mod
+
+    dev = torch.device("cuda")
+    if codes_on_card:  # the BIOSCAN-5M key set's size: 3.8 GB of codes
+        kc = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
+                           dtype=torch.int8)
+        ks = 1e-3 + 1e-3 * torch.rand(n, device=dev, generator=gen)
+    else:
+        x = torch.randn(n, d, device=dev, generator=gen)
+        kc, ks = _quantize_on_card(x / x.norm(dim=1, keepdim=True))
+        del x
+    q = torch.randn(max(bqs), d, device=dev, generator=gen)
+    qc_all, qs_all = _quantize_on_card(q / q.norm(dim=1, keepdim=True))
+    first = None
+    for bq in bqs:
+        qc, qs = qc_all[:bq].contiguous(), qs_all[:bq].contiguous()
+        v, i = topk_mod.topk_i8(qc, qs, kc, ks, n, k)
+        torch.cuda.synchronize()
+        rv, ri = topk_mod.topk_i8_reference(qc, qs, kc, ks, n, k)
+        if not (torch.equal(v, rv) and torch.equal(i, ri)):
+            raise AssertionError(f"topk_i8 N={n} Bq={bq}: kernel != plain "
+                                 f"(max |dv| {(v - rv).abs().max().item()})")
+        qp = torch.zeros(max(32, -(-bq // 8) * 8), d, device=dev,
+                         dtype=torch.int8)
+        qp[:bq] = qc
+
+        def library():
+            s = torch._int_mm(qp, kc.T)[:bq].to(torch.float32)
+            return torch.topk((s * qs[:, None]) * ks[None, :], k, dim=1)
+
+        lib_same = torch.equal(library().values, v)
+        n_bytes = n * d + 4 * n + bq * d + 4 * bq + bq * k * 8
+        bms, by = bound_ms(n_bytes, 2 * bq * n * d, "int8")
+        row = {
+            "ms": time_ms(lambda: topk_mod.topk_i8(qc, qs, kc, ks, n, k),
+                          reps=5, warmup=1),
+            "plain_ms": time_ms(lambda: topk_mod.topk_i8_reference(
+                qc, qs, kc, ks, n, k), reps=2, warmup=1),
+            "library_ms": time_ms(library, reps=5, warmup=1),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0,
+        }
+        log(f"  topk_i8 Bq={bq} N={n} D={d} k={k}: bit-equal to plain, "
+            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"_int_mm+topk {row['library_ms']:.4f} ms (values equal: "
+            f"{lib_same}), bound {bms:.4f} ms ({by})")
+        first = first or row
+    del kc, ks
+    torch.cuda.empty_cache()
+    return first
 
 
 def _rel_err(out, ref):
@@ -392,6 +470,8 @@ def phase_kernels(rows: dict):
     keys, rows["topk"] = _topk_case(gen)
     del keys
     torch.cuda.empty_cache()
+    rows["topk_i8"] = _topk_i8_case(gen, N_KEYS, (256, 64, 1))
+    _topk_i8_case(gen, 5_000_000, (256, 1), codes_on_card=True)
     log("phase kernels ok")
 
 
@@ -407,10 +487,13 @@ KERNELS = {
                 "bioscan_clip_tpu/ops/attention.py:321"),
     "topk": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
+    "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+                "bioscan_clip_tpu/ops/topk_pallas.py:253"),
 }
 # the main path whose run gives each kernel's launch count in that line
 KERNEL_PATH = {"mha_packed": "serving", "mha": "serving", "topk": "serving",
-               "mha_dropout": "training", "mha_bwd": "training"}
+               "topk_i8": "eval", "mha_dropout": "training",
+               "mha_bwd": "training"}
 
 
 def launch_counts():
@@ -420,7 +503,8 @@ def launch_counts():
             "mha": attention.mha.launches,
             "mha_dropout": attention.mha_dropout.launches,
             "mha_bwd": attention.mha_bwd.launches,
-            "topk": topk.topk.launches}
+            "topk": topk.topk.launches,
+            "topk_i8": topk.topk_i8.launches}
 
 
 def plain_calls():
@@ -428,17 +512,18 @@ def plain_calls():
 
     return {"mha_reference": attention.mha_reference.calls,
             "mha_bwd_reference": attention.mha_bwd_reference.calls,
-            "topk_reference": topk.topk_reference.calls}
+            "topk_reference": topk.topk_reference.calls,
+            "topk_i8_reference": topk.topk_i8_reference.calls}
 
 
 def reset_counts():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
     for fn in (attention.mha_packed, attention.mha, attention.mha_dropout,
-               attention.mha_bwd, topk.topk):
+               attention.mha_bwd, topk.topk, topk.topk_i8):
         fn.launches = 0
     for fn in (attention.mha_reference, attention.mha_bwd_reference,
-               topk.topk_reference):
+               topk.topk_reference, topk.topk_i8_reference):
         fn.calls = 0
 
 
@@ -618,15 +703,352 @@ def phase_serving():
                                          {"dna": barcodes[:4], "k": 3})
         _check_search("HTTP /search", out, 4, 3)
         _check_unit("HTTP /embed", np.asarray(embedded["embeddings"]), 4)
+        _serve_int8(service, keys, labels, rows, queries, rng)
         counts = launch_counts()
     log(f"  launches on the serving path: {counts}")
-    missing = [name for name, path in KERNEL_PATH.items()
-               if path == "serving" and counts[name] <= 0]
+    missing = [name for name in ("mha_packed", "mha", "topk", "topk_i8")
+               if counts[name] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the serving path: "
                              f"{missing}")
     log("phase serving ok")
     return counts
+
+
+def _serve_int8(service, keys, labels, rows, queries, rng):
+    """serve.key_precision=int8: the same keys installed as int8 codes
+    under each rescore mode. Each key's own embedding comes first (with
+    self-similarity 1 within 1e-5 under the fp32 rescore), and top-1 of
+    256 queries near keys (cosine ~0.45) agrees with the fp32 service's on
+    at least 99% of them."""
+    import numpy as np
+
+    from bioscan_clip_tpu_torch.retrieval.engine import l2norm_np
+    from bioscan_clip_tpu_torch.retrieval.service import handle_request
+
+    near = l2norm_np(l2norm_np(keys[rows]) + 2.0 * l2norm_np(
+        rng.standard_normal((256, 768), dtype=np.float32)))
+    ref = [p["species"][0] for p in service.search_embeddings(near)[0]]
+    want = [labels[r]["species"] for r in rows]
+    sim_tol = {"float32": 1e-5, "bfloat16": 1e-2, "none": 2e-2}
+    service.key_precision = "int8"
+    for mode in ("float32", "bfloat16", "none"):
+        service.key_rescore = mode
+        _timed(f"set_keys int8 rescore={mode} ({N_KEYS} x 768)",
+               lambda: service.set_keys(keys, labels))
+        out = _timed(f"/search embedding x256 int8 rescore={mode}",
+                     lambda: handle_request(
+                         service, {"embedding": queries.tolist()}))
+        _check_search(f"int8 {mode}", out, 256, 5)
+        if [p["species"][0] for p in out["predictions"]] != want:
+            raise AssertionError(f"int8 {mode}: a key's own embedding did "
+                                 "not find it first")
+        err = np.abs(np.asarray(out["similarities"])[:, 0] - 1.0).max()
+        if not err <= sim_tol[mode]:
+            raise AssertionError(f"int8 {mode}: self-similarity off 1 by "
+                                 f"{err} > {sim_tol[mode]}")
+        top1 = [p["species"][0] for p in service.search_embeddings(near)[0]]
+        agree = float(np.mean([a == b for a, b in zip(top1, ref)]))
+        log(f"  int8 rescore={mode}: self-similarity within {err:.3g} of 1 "
+            f"(tol {sim_tol[mode]:g}); top-1 agrees with fp32 on "
+            f"{100 * agree:.1f}% of 256 near queries")
+        if agree < 0.99:
+            raise AssertionError(f"int8 {mode}: top-1 agrees with fp32 on "
+                                 f"{agree:.3f} < 0.99")
+    service.key_precision, service.key_rescore = "high", "bfloat16"
+
+
+# the evaluation job: inference_and_eval.py sets batch_size = 24 (:126)
+EVAL_BATCH = 24
+N_EVAL_KEYS, N_EVAL_SEEN, N_EVAL_UNSEEN = 1920, 960, 960
+EVAL_FRAME = (256, 341)  # the loader's shorter-side-256 frame: crop branch
+ODD_FRAME = (333, 251)   # one batch through the device resize branch
+
+
+def _mutate(rng, barcode, snps):
+    """`barcode` with `snps` random substitutions: another specimen of the
+    same species."""
+    b = list(barcode)
+    for pos in rng.choice(len(b), size=snps, replace=False):
+        b[pos] = "ACGT"[("ACGT".index(b[pos]) + int(rng.integers(1, 4))) % 4]
+    return "".join(b)
+
+
+def _eval_records(rng, n, frame_hw, like=None, snps=0):
+    """n synthetic records: distinct tiled uint8 frames (a random 16x16 tile
+    per record, repeated), 658-bp barcodes, 20-token text and 4-level
+    labels (4 records per species). `like`: other specimens of these
+    records' species, with their text and labels and their barcodes after
+    `snps` substitutions (0: the same barcodes)."""
+    import numpy as np
+
+    from bioscan_clip_tpu_torch.data.tokenizers import tokenize_dna_batch
+
+    h, w = frame_hw
+    tiles = rng.integers(0, 256, size=(n, 16, 16, 3), dtype=np.uint8)
+    frames = np.tile(tiles, (1, -(-h // 16), -(-w // 16), 1))[:, :h, :w]
+    ids = [f"r{rng.integers(1 << 40)}" for _ in range(n)]
+    if like is not None:
+        barcodes = [_mutate(rng, b, snps) for b in like["barcodes"]]
+        return dict(like, image_u8=np.ascontiguousarray(frames), ids=ids,
+                    barcodes=barcodes, dna=tokenize_dna_batch(barcodes))
+    mask = (np.arange(20)[None, :]
+            < rng.integers(6, 21, size=(n, 1))).astype(np.int32)
+    species = rng.integers(0, 100_000) + np.arange(n) // 4
+    barcodes = _barcodes(rng, n)
+    return {
+        "image_u8": np.ascontiguousarray(frames),
+        "barcodes": barcodes,
+        "dna": tokenize_dna_batch(barcodes),
+        "language": {
+            "input_ids": (rng.integers(0, 30522, size=(n, 20))
+                          * mask).astype(np.int32),
+            "token_type_ids": np.zeros((n, 20), np.int32),
+            "attention_mask": mask},
+        "label_dicts": [{"order": ORDERS[s % 4],
+                         "family": f"{FAMILIES[s % 4]}{s % 40}",
+                         "genus": f"g{s % 4000}", "species": f"s{s}"}
+                        for s in species],
+        "ids": ids,
+    }
+
+
+def _take(rec, idx):
+    """Rows `idx` of a record dict (arrays, dicts of arrays, lists)."""
+    out = {}
+    for k, v in rec.items():
+        if isinstance(v, dict):
+            out[k] = {kk: vv[idx] for kk, vv in v.items()}
+        elif isinstance(v, list):
+            out[k] = [v[i] for i in idx]
+        else:
+            out[k] = v[idx]
+    return out
+
+
+def _batches(rec, n):
+    """The loader's batch dicts of EVAL_BATCH rows over n records."""
+    import numpy as np
+
+    return [_take(rec, np.arange(s, min(s + EVAL_BATCH, n)))
+            for s in range(0, n, EVAL_BATCH)]
+
+
+def _max_diff(a, b):
+    import numpy as np
+
+    return max(float(np.abs(a[k] - b[k]).max()) for k in a
+               if isinstance(a[k], np.ndarray))
+
+
+def phase_eval():
+    """The evaluation job (scripts/inference_and_eval.py) at full width:
+    the flagship (bf16, random seeded weights) embeds all_keys, seen and
+    unseen from in-memory uint8 batches through extract_features, per
+    batch and grouped, then the 5 x 6 sweep runs in high and int8 precision
+    on the card. Checks: grouped equals per-batch within bf16 tolerance;
+    the card's sweep equals the same sweep on the CPU over the same
+    embeddings; int8 top-1 agrees with high on >= 99% of the queries; K1,
+    K2, K4 and K5 launched and no plain version ran. Returns the launch
+    counts of the card's run."""
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.data.transforms import eval_transform
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.retrieval.report import (
+        inference_and_print_result,
+    )
+    from bioscan_clip_tpu_torch.train.loop import extract_features
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(4)
+    keys_rec = _eval_records(rng, N_EVAL_KEYS, EVAL_FRAME)
+    # seen: the key records' specimens again (same barcodes and text), in
+    # new frames; unseen: other specimens of the remaining key species,
+    # 4 substitutions off their barcodes. The random DNA tower maps every
+    # barcode within cosine ~0.999 of every other, so only a near-copy
+    # gives a DNA query a top-1 that a 1e-4 score error cannot reorder.
+    seen_rec = _eval_records(rng, N_EVAL_SEEN, EVAL_FRAME,
+                             like=_take(keys_rec, np.arange(N_EVAL_SEEN)))
+    unseen_rec = _eval_records(
+        rng, N_EVAL_UNSEEN, EVAL_FRAME, snps=4,
+        like=_take(keys_rec, np.arange(N_EVAL_KEYS - N_EVAL_UNSEEN,
+                                       N_EVAL_KEYS)))
+    odd_rec = _eval_records(rng, EVAL_BATCH, ODD_FRAME)
+    loaders = {"keys": _batches(keys_rec, N_EVAL_KEYS),
+               "seen": _batches(seen_rec, N_EVAL_SEEN),
+               "unseen": _batches(unseen_rec, N_EVAL_UNSEEN),
+               "odd": _batches(odd_rec, EVAL_BATCH)}
+    args = ConfigNode({"model_config": dict(FLAGSHIP)})
+    model = load_clip_model(args, device="cuda", dtype=torch.bfloat16,
+                            seed=0)
+
+    # the device transform's resize branch on the card against the CPU
+    odd = torch.from_numpy(odd_rec["image_u8"])
+    err = (eval_transform(odd.cuda()).cpu() - eval_transform(odd)).abs().max()
+    log(f"  eval_transform resize branch {ODD_FRAME}: max |card - cpu| "
+        f"{err.item():.3g} (tol 1e-5)")
+    if not err.item() <= 1e-5:
+        raise AssertionError(f"eval_transform card vs cpu: {err.item()}")
+
+    reset_counts()  # the eval path's launches are counted from here
+    splits, grouped = {}, {}
+    for name, batches in loaders.items():
+        n_rows = sum(len(b["ids"]) for b in batches)
+        for group, out in ((0, splits), (None, grouped)):
+            out[name] = _timed(
+                f"extract_features {name} x{n_rows} "
+                f"({'per batch' if group == 0 else 'grouped'})",
+                lambda: extract_features(model, batches,
+                                         for_key_set=name == "keys",
+                                         group_samples=group))
+        d = splits[name]
+        for k in ("encoded_image_feature", "encoded_dna_feature",
+                  "encoded_language_feature"):
+            _check_unit(f"{name} {k}", d[k], n_rows)
+        diff = _max_diff(splits[name], grouped[name])
+        log(f"  {name}: grouped vs per batch max |diff| {diff:.3g} "
+            "(tol 2e-2, bf16)")
+        if not diff <= 2e-2:
+            raise AssertionError(f"grouped extraction of {name}: {diff}")
+    _time_modalities(model, loaders["keys"][0])
+
+    results = {}
+    for precision in ("high", "int8"):
+        ies = {"retrieval_precision": precision}
+        sweep_args = ConfigNode({"model_config": dict(FLAGSHIP),
+                                 "inference_and_eval_setting": ies})
+        results[precision] = _timed(
+            f"5x6 sweep {precision} on the card",
+            lambda: inference_and_print_result(
+                splits["keys"], splits["seen"], splits["unseen"],
+                args=sweep_args, k_list=[1, 3, 5], device="cuda",
+                out=lambda *_: None))
+    counts, plain = launch_counts(), plain_calls()
+    log(f"  launches on the eval path: {counts}; plain calls {plain}")
+    want = ("mha_packed", "mha", "topk", "topk_i8")
+    if any(counts[k] <= 0 for k in want) or any(plain.values()):
+        raise AssertionError(f"eval: launches {counts}, plain {plain}")
+
+    for precision in ("high", "int8"):
+        ies = {"retrieval_precision": precision}
+        sweep_args = ConfigNode({"model_config": dict(FLAGSHIP),
+                                 "inference_and_eval_setting": ies})
+        cpu = _timed(f"5x6 sweep {precision} on the CPU (reference)",
+                     lambda: inference_and_print_result(
+                         splits["keys"], splits["seen"], splits["unseen"],
+                         args=sweep_args, k_list=[1, 3, 5], device="cpu",
+                         out=lambda *_: None))
+        acc = results[precision][0]
+        same = cpu[0] == acc
+        log(f"  sweep {precision}: card accuracy == cpu: {same}; "
+            "seen top-1 species image->image "
+            f"{acc['encoded_image_feature']['encoded_image_feature']['seen']['micro_acc'][1]['species']:.4f}, "
+            "dna->dna "
+            f"{acc['encoded_dna_feature']['encoded_dna_feature']['seen']['micro_acc'][1]['species']:.4f}")
+        if precision == "int8" and not same:
+            # K5 equals its plain version bit for bit and the rescore is
+            # the same numpy on both: no room for any difference
+            raise AssertionError("sweep int8: the card differs from the CPU")
+        if precision == "high":
+            ties = _high_searches_agree(splits)
+            if not same and not ties:
+                raise AssertionError("sweep high: the card's accuracy "
+                                     "differs from the CPU's with no "
+                                     "near-tie to explain it")
+    agree = total = 0
+    misses = {}
+    for qt, per_key in results["high"][2].items():
+        for kt, preds in per_key.items():
+            for split in ("curr_seen_pred_list", "curr_unseen_pred_list"):
+                hi = preds.get(split, [])
+                lo = results["int8"][2][qt][kt].get(split, [])
+                same = sum(a["species"][0] == b["species"][0]
+                           for a, b in zip(hi, lo))
+                agree += same
+                total += len(hi)
+                if same < len(hi):
+                    misses[f"{qt}->{kt} {split[5:-10]}"] = len(hi) - same
+    worst = sorted(misses.items(), key=lambda kv: -kv[1])[:4]
+    log(f"  int8 top-1 agrees with high on {agree}/{total} queries "
+        f"({100 * agree / total:.2f}%); most misses: {worst}")
+    if agree < 0.99 * total:
+        raise AssertionError(f"int8 top-1 agrees on {agree}/{total}")
+    log("phase eval ok")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _high_searches_agree(splits, k=5, tie=1e-5):
+    """Every fp32 search of the sweep, K4 on the card against its plain
+    version on the CPU: a position may hold another key only when the two
+    keys' float64 scores are within `tie`. K4 sums the 768 products in
+    order, the CPU's BLAS in blocks; for scores near 1 the two differ by up
+    to ~1e-6 (the fp32 error bound of such a dot is 768 * 2^-24 ~ 4.6e-5),
+    and the DNA tower's random-weight embeddings lie within cosine 0.998 of
+    each other, so near-ties abound. Returns the rows that differ."""
+    import numpy as np
+
+    from bioscan_clip_tpu_torch.retrieval.engine import (
+        PreparedKeys,
+        l2norm_np,
+        topk_search,
+    )
+    from bioscan_clip_tpu_torch.retrieval.report import (
+        ALL_TYPE_OF_FEATURES_OF_KEY,
+        ALL_TYPE_OF_FEATURES_OF_QUERY,
+    )
+
+    differ = rows = 0
+    for kt in ALL_TYPE_OF_FEATURES_OF_KEY:
+        kf = splits["keys"].get(kt)
+        if kf is None:
+            continue
+        on_card = PreparedKeys(kf, device="cuda")
+        on_cpu = PreparedKeys(kf, device="cpu")
+        kn = l2norm_np(kf).astype(np.float64)
+        for qt in ALL_TYPE_OF_FEATURES_OF_QUERY:
+            for split in ("seen", "unseen"):
+                q = splits[split].get(qt)
+                if q is None or q.shape[1] != kf.shape[1]:
+                    continue
+                qn = l2norm_np(q)
+                _, ic = topk_search(qn, on_card, k)
+                _, ih = topk_search(qn, on_cpu, k)
+                rows += len(qn)
+                for r in np.nonzero((ic != ih).any(axis=1))[0]:
+                    sc = kn @ qn[r].astype(np.float64)
+                    pos = ic[r] != ih[r]
+                    gap = np.abs(sc[ic[r][pos]] - sc[ih[r][pos]]).max()
+                    if gap > tie:
+                        raise AssertionError(
+                            f"sweep high {qt} x {kt} {split} row {r}: card "
+                            f"{ic[r]} vs cpu {ih[r]}, score gap {gap}")
+                    differ += 1
+    log(f"  sweep high: K4 on the card vs the CPU over {rows} searches: "
+        f"{differ} rows differ, each only by keys within {tie:g} of each "
+        "other (near-ties)")
+    return differ
+
+
+def _time_modalities(model, batch):
+    """Card ms per batch of EVAL_BATCH for each tower (CUDA events)."""
+    import torch
+
+    from bioscan_clip_tpu_torch.train.loop import _to_device, make_embed_step
+
+    parts = []
+    with torch.inference_mode():
+        for m, key in (("image", "image_u8"), ("dna", "dna"),
+                       ("language", "language")):
+            step = make_embed_step(model, m)
+            x = _to_device(batch[key], "cuda")
+            parts.append(f"{m} {time_ms(lambda: step(x), reps=5):.2f} ms")
+    log(f"  towers per batch of {EVAL_BATCH} (card, CUDA events): "
+        + ", ".join(parts))
 
 
 TRAIN_STEPS = 6
@@ -933,6 +1355,8 @@ def main(argv=None) -> int:
         phase_kernels(rows)
     if "serving" in phases:
         path_counts["serving"] = phase_serving()
+    if "eval" in phases:
+        path_counts["eval"] = phase_eval()
     if "training" in phases:
         path_counts["training"] = phase_training()
     if "parity" in phases:

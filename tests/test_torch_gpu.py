@@ -8,7 +8,9 @@ the JAX package, so it also runs on a machine without them:
 Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
 before P.V on both sides); the attention backward the same, scaled by
-max(1, max |plain|) per gradient; top-k values atol 1e-5 on unit vectors.
+max(1, max |plain|) per gradient; top-k values atol 1e-5 on unit vectors;
+int8 top-k (K5) bit-equal to its plain version, values and indices (exact
+integer dots times two scales in the same order, the same tie rule).
 """
 
 import pytest
@@ -165,3 +167,46 @@ def test_topk_kernel_matches_plain(gen):
         assert (i < 99_001).all()
     with pytest.raises(ValueError):
         topk.topk(q, keys, 99_001, topk.MAX_K + 1)
+
+
+def _codes(x):
+    """Per-row int8 codes and (N,) fp32 scales of a (N, D) card tensor."""
+    codes, scales = topk.quantize_rows_i8(x.cpu().numpy())
+    return (torch.from_numpy(codes).to(x.device),
+            torch.from_numpy(scales[:, 0]).to(x.device))
+
+
+def _same_i8(q, keys, n_valid, k):
+    qc, qs = _codes(q)
+    kc, ks = _codes(keys)
+    before = topk.topk_i8.launches
+    v, i = topk.topk_i8(qc, qs, kc, ks, n_valid, k)
+    assert topk.topk_i8.launches == before + 1
+    rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, n_valid, k)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    return v, i
+
+
+@pytest.mark.parametrize("bq,k", [(1, 1), (37, 21), (130, 64)])
+def test_int8_topk_kernel_bit_equal_to_plain(gen, bq, k):
+    keys = torch.randn(50_000, 768, device="cuda", generator=gen)
+    q = torch.randn(bq, 768, device="cuda", generator=gen)
+    _, i = _same_i8(q, keys, 49_001, k)
+    assert (i < 49_001).all()
+
+
+def test_int8_topk_kernel_duplicates_zero_rows_and_k_equal_n_valid(gen):
+    """Ties everywhere: duplicate keys come back in index order, zero rows
+    (scale 1, zero codes) score 0, and k = n_valid returns every key."""
+    keys = torch.randn(3000, 768, device="cuda", generator=gen)
+    keys[1000:1040] = keys[7]
+    keys[2000:2100] = 0.0
+    q = torch.cat([keys[7:8], -keys[7:8], torch.zeros(1, 768, device="cuda")])
+    v, i = _same_i8(q, keys, 3000, 41)
+    assert i[0, :41].tolist() == [7] + list(range(1000, 1040))
+    assert (v[2] == 0).all() and i[2].tolist() == list(range(41))
+    v, i = _same_i8(q, keys[:60], 60, 60)
+    assert sorted(i[0].tolist()) == list(range(60))
+    with pytest.raises(ValueError, match="64"):
+        qc, qs = _codes(q)
+        topk.topk_i8(qc, qs, *_codes(keys), 3000, 65)

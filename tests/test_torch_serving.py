@@ -101,9 +101,14 @@ def test_search_by_embedding(services):
 
 
 def test_device_eval_transform_and_bad_k_raise(services):
-    _, port_svc, _ = services
-    with pytest.raises(NotImplementedError):
-        port_svc.embed_images(_images()[:1], host_parity=False)
+    """image_host_parity=False: host shorter-side-256 crop, then the device
+    eval transform, as the JAX service does (JAX resizes the three frames
+    on the host with the same cv2 call, then its device transform); a k
+    beyond max_k raises."""
+    jax_svc, port_svc, _ = services
+    out = port_svc.embed_images(_images(), host_parity=False)
+    ref = jax_svc.embed_images(_images(), host_parity=False)
+    np.testing.assert_allclose(out, ref, atol=SIM_ATOL)
     with pytest.raises(ValueError):
         port_svc.search(embeddings=np.zeros((1, D_OUT)), k=4)
 

@@ -160,11 +160,20 @@ def test_records_and_predictions_match_jax_engine():
 
 
 def test_int8_mesh_and_streaming_raise():
+    """int8 keys are ported (tests/test_torch_int8.py); a multi-GPU mesh
+    still raises, for fp32 and int8 keys alike, and so do an unknown
+    precision and rescore mode."""
     from bioscan_clip_tpu_torch.retrieval import engine
 
-    ks = np.eye(4, 32, dtype=np.float32)
-    with pytest.raises(NotImplementedError):
-        engine.PreparedKeys(ks, device="cpu", precision="int8")
-    with pytest.raises(NotImplementedError):
-        engine.PreparedKeys(ks, device="cpu", mesh=object())
+    ks = np.eye(4, 64, dtype=np.float32)
+    assert engine.PreparedKeys(ks, device="cpu", precision="int8").int8
+    for precision in ("high", "int8"):
+        with pytest.raises(NotImplementedError):
+            engine.PreparedKeys(ks, device="cpu", precision=precision,
+                                mesh=object())
+    with pytest.raises(ValueError):
+        engine.PreparedKeys(ks, device="cpu", precision="default")
+    with pytest.raises(ValueError):
+        engine.PreparedKeys(ks, device="cpu", precision="int8",
+                            rescore="fp16")
 
