@@ -3,6 +3,9 @@
 // Replaces (TPU Pallas kernels in bioscan_clip_tpu/ops/attention.py):
 //   K1 `_pallas_mha_packed` without a mask (`_packed_kernel`, body
 //      `_attend_one_row`): ViT's packed (B, N, 3D) qkv.
+//   K1m `_pallas_mha_packed` with an (N, N) mask (`_packed_mask_kernel`):
+//      K1 plus an fp32 additive score mask shared across the batch
+//      (OpenCLIP's causal text mask).
 //   K2 `_pallas_mha_split` without dropout (`_split_kernel`,
 //      `_split_bias_kernel`): BERT's separate (B, N, D) q/k/v with an
 //      optional (B, N) fp32 additive key-padding bias.
@@ -10,14 +13,16 @@
 //      `_split_bias_drop_kernel`, `_row_drop`): K2 with counter-hash
 //      attention-probability dropout, keyed by one scalar seed (batch index
 //      in the counter) or by a (B,) vector of per-row seeds (b = 0).
-// One kernel body serves all three: q/k/v are three base pointers that
-// share a row stride (3D packed, D split) and a batch stride; dropout is one
-// step between the softmax and the rounding of p.
+// One kernel body serves all four: q/k/v are three base pointers that
+// share a row stride (3D packed, D split) and a batch stride; the mask is one
+// more term of the score; dropout is one step between the softmax and the
+// rounding of p.
 //
 // Contract (`_attend_one_row`, attention.py:116-150): per head,
-// s = (q . k) * scale [+ bias[b, j]] in fp32, p = exp(s - max) / sum in
-// fp32, [p *= keep(i, j) ? keep_scale : 0], p rounded to the input dtype,
-// then o = p . v accumulated in fp32 and written in the input dtype. fp32
+// s = (q . k) * scale [+ bias[b, j]] [+ mask[i, j]] in fp32, p = exp(s -
+// max) / sum in fp32, [p *= keep(i, j) ? keep_scale : 0], p rounded to the
+// input dtype, then o = p . v accumulated in fp32 and written in the input
+// dtype. A -1e9 mask entry gives exp(-1e9 - max) = 0 exactly. fp32
 // inputs use FFMA (never TF32). The dropout threshold and keep_scale come
 // from the wrapper, rounded as the JAX package rounds them.
 //
@@ -36,6 +41,12 @@
 // per-warp shared row into P.V, where lane owns output dims lane + 32t.
 // N that is not a power of two (197, 133, 20) needs no padding: the key loop
 // is bounded by N and rows past N are not computed.
+// The mask is read from device memory where the score is formed, row i's
+// lanes on neighbouring addresses (one 77 x 77 fp32 mask is 23.7 KB and
+// stays in L1/L2 for the whole grid); it takes no shared memory, so K1m's
+// footprint is K1's and ViT-L/14's N = 257 (144,016 B) still fits. Whether
+// there is a mask is a template parameter: K1, K2 and K2d compile without
+// the mask read.
 
 #include "attention_common.cuh"
 
@@ -58,12 +69,13 @@ __host__ __device__ constexpr int k_stride() {
   return HD + 4;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads)
     mha_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const float* __restrict__ bias,
-                   T* __restrict__ o, int n, int heads, long long row_stride,
-                   long long batch_stride, float scale, Dropout drop) {
+                   const float* __restrict__ mask, T* __restrict__ o, int n,
+                   int heads, long long row_stride, long long batch_stride,
+                   float scale, Dropout drop) {
   static_assert(HD % 32 == 0, "head dim must be a multiple of 32");
   constexpr int KS = k_stride<HD>();
   extern __shared__ __align__(16) float smem[];
@@ -99,6 +111,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int d = 0; d < HD; ++d) qr[d] = to_f32(qg[d]);
 
+    const float* mask_row = HAS_MASK ? mask + (long long)i * n : nullptr;
     float mx = -INFINITY;
     for (int j = lane; j < n; j += 32) {
       const float4* kr = reinterpret_cast<const float4*>(ks + j * KS);
@@ -113,6 +126,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       float s = ((s0 + s1) + (s2 + s3)) * scale;
       if (bias_row) s += bias_row[j];
+      if constexpr (HAS_MASK) s += mask_row[j];
       pw[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -150,39 +164,42 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* bias, void* o, int b, int n, int heads,
-                   long long row_stride, long long batch_stride, float scale,
-                   const Dropout& drop, cudaStream_t stream) {
+                   const float* bias, const float* mask, void* o, int b,
+                   int n, int heads, long long row_stride,
+                   long long batch_stride, float scale, const Dropout& drop,
+                   cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * ((size_t)n * (k_stride<HD>() + HD) +
                        (size_t)kWarps * ((n + 3) & ~3));
+  // K1m is its own instantiation, so K1, K2 and K2d carry no mask branch
+  const auto kernel = mask ? mha_fwd_kernel<T, HD, true>
+                           : mha_fwd_kernel<T, HD, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      mha_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, b);
-  mha_fwd_kernel<T, HD><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), bias, static_cast<T*>(o), n, heads,
+      static_cast<const T*>(v), bias, mask, static_cast<T*>(o), n, heads,
       row_stride, batch_stride, scale, drop);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int head_dim, const void* q, const void* k,
-                        const void* v, const float* bias, void* o, int b,
-                        int n, int heads, long long row_stride,
+                        const void* v, const float* bias, const float* mask,
+                        void* o, int b, int n, int heads, long long row_stride,
                         long long batch_stride, float scale,
                         const Dropout& drop, cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(q, k, v, bias, o, b, n, heads, row_stride,
+      return launch<T, 32>(q, k, v, bias, mask, o, b, n, heads, row_stride,
                            batch_stride, scale, drop, stream);
     case 64:
-      return launch<T, 64>(q, k, v, bias, o, b, n, heads, row_stride,
+      return launch<T, 64>(q, k, v, bias, mask, o, b, n, heads, row_stride,
                            batch_stride, scale, drop, stream);
     case 128:
-      return launch<T, 128>(q, k, v, bias, o, b, n, heads, row_stride,
+      return launch<T, 128>(q, k, v, bias, mask, o, b, n, heads, row_stride,
                             batch_stride, scale, drop, stream);
     default:
       return cudaErrorInvalidValue;
@@ -194,25 +211,28 @@ cudaError_t dispatch_hd(int head_dim, const void* q, const void* k,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. bias: nullptr or (B, N) float32.
+// mask: nullptr or (N, N) float32, shared across the batch (K1m).
 // drop = 0: no dropout (K1/K2). drop = 1 (K2d): row_seeds is nullptr (one
 // scalar `seed`, batch index in the counter) or (B,) uint32 per-row seeds.
 // Returns the cudaError_t of the launch (0 on success).
 int bscan_mha_fwd(const void* q, const void* k, const void* v,
-                  const void* bias, void* o, int b, int n, int heads,
-                  int head_dim, long long row_stride, long long batch_stride,
-                  float scale, int dtype, const void* row_seeds,
-                  unsigned seed, unsigned threshold, float keep_scale,
-                  int drop, void* stream) {
+                  const void* bias, const void* mask, void* o, int b, int n,
+                  int heads, int head_dim, long long row_stride,
+                  long long batch_stride, float scale, int dtype,
+                  const void* row_seeds, unsigned seed, unsigned threshold,
+                  float keep_scale, int drop, void* stream) {
   const float* bias_f = static_cast<const float*>(bias);
+  const float* mask_f = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Dropout dr{static_cast<const unsigned*>(row_seeds), seed, threshold,
                    keep_scale, drop};
   if (dtype == 0)
-    return (int)dispatch_hd<float>(head_dim, q, k, v, bias_f, o, b, n, heads,
-                                   row_stride, batch_stride, scale, dr, s);
+    return (int)dispatch_hd<float>(head_dim, q, k, v, bias_f, mask_f, o, b, n,
+                                   heads, row_stride, batch_stride, scale, dr,
+                                   s);
   if (dtype == 1)
-    return (int)dispatch_hd<__nv_bfloat16>(head_dim, q, k, v, bias_f, o, b,
-                                           n, heads, row_stride,
+    return (int)dispatch_hd<__nv_bfloat16>(head_dim, q, k, v, bias_f, mask_f,
+                                           o, b, n, heads, row_stride,
                                            batch_stride, scale, dr, s);
   return (int)cudaErrorInvalidValue;
 }

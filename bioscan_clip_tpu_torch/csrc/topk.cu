@@ -41,7 +41,24 @@
 // operations take Bq * 0.8 us at the 1,979 TOP/s int8 tensor-core peak, a
 // rate that `__dp4a` (CUDA cores) does not reach: int8 `mma`/`wgmma` is
 // later work.
+//
+// K6 replaces `mm_only` (tools/bench_topk_variants.py, `_mm_only_kernel`),
+// the top-k benchmark's matmul-only control: per query, the maximum over
+// valid keys (index < n_valid) of Q . K^T, broadcast over 128 output
+// columns. Its pass 1 runs K4's (fp32) or K5's (int8) tile product, the
+// same device functions, and keeps a running row max in registers in place
+// of the sorted lists; pass 2 takes the max over the key splits. So K4's or
+// K5's time minus K6's is what the top-k lists cost. fp32 in "high"
+// precision is FFMA; in "default" precision the operands are rounded to
+// bf16 as they are staged (the TPU's single bf16 pass: bf16 products are
+// exact in fp32, accumulated in fp32); int8 is the exact int32 dot
+// converted to fp32, which equals the TPU's bf16 products of the codes
+// summed in fp32 (768 * 127^2 < 2^24). Bound: as K4 (fp32) or K5 (int8).
+//
+// K7 replaces `tiny` (same file, `_tiny_kernel`): x + 1 on (8, 128) fp32,
+// the launch-plus-sync floor of a call through this library.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <limits.h>
@@ -135,6 +152,139 @@ __device__ __forceinline__ void emit_candidates(
   }
 }
 
+// An fp32 value rounded to bf16 and back (round to nearest even), or as it
+// is.
+template <bool ROUND_BF16>
+__device__ __forceinline__ float4 round_f4(float4 x) {
+  if (ROUND_BF16) {
+    x.x = __bfloat162float(__float2bfloat16_rn(x.x));
+    x.y = __bfloat162float(__float2bfloat16_rn(x.y));
+    x.z = __bfloat162float(__float2bfloat16_rn(x.z));
+    x.w = __bfloat162float(__float2bfloat16_rn(x.w));
+  }
+  return x;
+}
+
+// One thread's 8 x 4 share of the (QT x KT) fp32 score tile of queries q0..
+// and keys key0..: acc[i][j] = q[q0 + trow * 8 + i] . keys[key0 + tcol +
+// 32 j] (rows past bq or n are zero), summed in order over 32-deep
+// shared-memory chunks. ROUND_BF16 rounds each operand to bf16 as it is
+// staged (K6's "default" precision). Starts and ends with the block in step.
+template <bool ROUND_BF16>
+__device__ __forceinline__ void f32_tile(const float* __restrict__ q,
+                                         const float* __restrict__ keys,
+                                         int bq, int n, int d, int q0,
+                                         int key0, float* qs, float* kss,
+                                         float (&acc)[8][4]) {
+  const int tid = threadIdx.x;
+  const int trow = tid >> 5;     // queries trow*8 .. trow*8+7
+  const int tcol = tid & 31;     // keys tcol + 32*j
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  for (int d0 = 0; d0 < d; d0 += DK) {
+    __syncthreads();  // previous chunk (and previous tile's scan) done
+    for (int f = tid; f < QT * DK / 4; f += TPB) {
+      const int r = f >> 3, c4 = f & 7;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (q0 + r < bq)
+        x = round_f4<ROUND_BF16>(*reinterpret_cast<const float4*>(
+            q + (long long)(q0 + r) * d + d0 + c4 * 4));
+      qs[(c4 * 4 + 0) * QS + r] = x.x;
+      qs[(c4 * 4 + 1) * QS + r] = x.y;
+      qs[(c4 * 4 + 2) * QS + r] = x.z;
+      qs[(c4 * 4 + 3) * QS + r] = x.w;
+    }
+    for (int f = tid; f < KT * DK / 4; f += TPB) {
+      const int r = f >> 3, c4 = f & 7;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (key0 + r < n)
+        x = round_f4<ROUND_BF16>(*reinterpret_cast<const float4*>(
+            keys + (long long)(key0 + r) * d + d0 + c4 * 4));
+      kss[(c4 * 4 + 0) * KSS + r] = x.x;
+      kss[(c4 * 4 + 1) * KSS + r] = x.y;
+      kss[(c4 * 4 + 2) * KSS + r] = x.z;
+      kss[(c4 * 4 + 3) * KSS + r] = x.w;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int dd = 0; dd < DK; ++dd) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(qs + dd * QS + trow * 8);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(qs + dd * QS + trow * 8 + 4);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float bk[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = kss[dd * KSS + tcol + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
+    }
+  }
+}
+
+// K5's share of the int8 tile: acc[i][j] = the exact int32 dot of query
+// code row q0 + trow * 8 + i and key code row key0 + tcol + 32 j, by
+// `__dp4a` over 64-byte chunks held in shared memory as words of 4 codes.
+__device__ __forceinline__ void i8_tile(const signed char* __restrict__ q,
+                                        const signed char* __restrict__ keys,
+                                        int bq, int n, int d, int q0,
+                                        int key0, int* qs, int* kss,
+                                        int (&acc)[8][4]) {
+  const int tid = threadIdx.x;
+  const int trow = tid >> 5;
+  const int tcol = tid & 31;
+  constexpr int V = DKB / 16;    // 16-byte vectors per chunk row
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0;
+  for (int d0 = 0; d0 < d; d0 += DKB) {
+    __syncthreads();  // previous chunk (and previous tile's scan) done
+    for (int f = tid; f < QT * V; f += TPB) {
+      const int r = f / V, c4 = f % V;
+      int4 x = make_int4(0, 0, 0, 0);
+      if (q0 + r < bq)
+        x = *reinterpret_cast<const int4*>(q + (long long)(q0 + r) * d +
+                                           d0 + c4 * 16);
+      qs[(c4 * 4 + 0) * QSW + r] = x.x;
+      qs[(c4 * 4 + 1) * QSW + r] = x.y;
+      qs[(c4 * 4 + 2) * QSW + r] = x.z;
+      qs[(c4 * 4 + 3) * QSW + r] = x.w;
+    }
+    for (int f = tid; f < KT * V; f += TPB) {
+      const int r = f / V, c4 = f % V;
+      int4 x = make_int4(0, 0, 0, 0);
+      if (key0 + r < n)
+        x = *reinterpret_cast<const int4*>(
+            keys + (long long)(key0 + r) * d + d0 + c4 * 16);
+      kss[(c4 * 4 + 0) * KSS + r] = x.x;
+      kss[(c4 * 4 + 1) * KSS + r] = x.y;
+      kss[(c4 * 4 + 2) * KSS + r] = x.z;
+      kss[(c4 * 4 + 3) * KSS + r] = x.w;
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int dd = 0; dd < DKW; ++dd) {
+      const int4 a0 =
+          *reinterpret_cast<const int4*>(qs + dd * QSW + trow * 8);
+      const int4 a1 =
+          *reinterpret_cast<const int4*>(qs + dd * QSW + trow * 8 + 4);
+      const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      int bk[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bk[j] = kss[dd * KSS + tcol + 32 * j];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], bk[j], acc[i][j]);
+    }
+  }
+}
+
 template <int MAXK>
 __global__ void __launch_bounds__(TPB)
     topk_pass1(const float* __restrict__ q, const float* __restrict__ keys,
@@ -163,52 +313,7 @@ __global__ void __launch_bounds__(TPB)
   for (int t = tile0; t < tile1; ++t) {
     const int key0 = t * KT;
     float acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < d; d0 += DK) {
-      __syncthreads();  // previous chunk (and previous tile's scan) done
-      for (int f = tid; f < QT * DK / 4; f += TPB) {
-        const int r = f >> 3, c4 = f & 7;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (q0 + r < bq)
-          x = *reinterpret_cast<const float4*>(q + (long long)(q0 + r) * d +
-                                               d0 + c4 * 4);
-        qs[(c4 * 4 + 0) * QS + r] = x.x;
-        qs[(c4 * 4 + 1) * QS + r] = x.y;
-        qs[(c4 * 4 + 2) * QS + r] = x.z;
-        qs[(c4 * 4 + 3) * QS + r] = x.w;
-      }
-      for (int f = tid; f < KT * DK / 4; f += TPB) {
-        const int r = f >> 3, c4 = f & 7;
-        float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (key0 + r < n)
-          x = *reinterpret_cast<const float4*>(
-              keys + (long long)(key0 + r) * d + d0 + c4 * 4);
-        kss[(c4 * 4 + 0) * KSS + r] = x.x;
-        kss[(c4 * 4 + 1) * KSS + r] = x.y;
-        kss[(c4 * 4 + 2) * KSS + r] = x.z;
-        kss[(c4 * 4 + 3) * KSS + r] = x.w;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < DK; ++dd) {
-        const float4 a0 =
-            *reinterpret_cast<const float4*>(qs + dd * QS + trow * 8);
-        const float4 a1 =
-            *reinterpret_cast<const float4*>(qs + dd * QS + trow * 8 + 4);
-        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        float bk[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = kss[dd * KSS + tcol + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bk[j], acc[i][j]);
-      }
-    }
+    f32_tile<false>(q, keys, bq, n, d, q0, key0, qs, kss, acc);
 
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -249,7 +354,6 @@ __global__ void __launch_bounds__(TPB)
   const int tcol = tid & 31;     // product: keys tcol + 32*j
   const int sq = tid / SCAN;     // scan: query sq
   const int sl = tid % SCAN;     // scan: columns sl + SCAN*c
-  constexpr int V = DKB / 16;    // 16-byte vectors per chunk row
 
   float qsc[8];
 #pragma unroll
@@ -264,52 +368,7 @@ __global__ void __launch_bounds__(TPB)
   for (int t = tile0; t < tile1; ++t) {
     const int key0 = t * KT;
     int acc[8][4];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0;
-
-    for (int d0 = 0; d0 < d; d0 += DKB) {
-      __syncthreads();  // previous chunk (and previous tile's scan) done
-      for (int f = tid; f < QT * V; f += TPB) {
-        const int r = f / V, c4 = f % V;
-        int4 x = make_int4(0, 0, 0, 0);
-        if (q0 + r < bq)
-          x = *reinterpret_cast<const int4*>(q + (long long)(q0 + r) * d +
-                                             d0 + c4 * 16);
-        qs[(c4 * 4 + 0) * QSW + r] = x.x;
-        qs[(c4 * 4 + 1) * QSW + r] = x.y;
-        qs[(c4 * 4 + 2) * QSW + r] = x.z;
-        qs[(c4 * 4 + 3) * QSW + r] = x.w;
-      }
-      for (int f = tid; f < KT * V; f += TPB) {
-        const int r = f / V, c4 = f % V;
-        int4 x = make_int4(0, 0, 0, 0);
-        if (key0 + r < n)
-          x = *reinterpret_cast<const int4*>(
-              keys + (long long)(key0 + r) * d + d0 + c4 * 16);
-        kss[(c4 * 4 + 0) * KSS + r] = x.x;
-        kss[(c4 * 4 + 1) * KSS + r] = x.y;
-        kss[(c4 * 4 + 2) * KSS + r] = x.z;
-        kss[(c4 * 4 + 3) * KSS + r] = x.w;
-      }
-      __syncthreads();
-#pragma unroll 4
-      for (int dd = 0; dd < DKW; ++dd) {
-        const int4 a0 =
-            *reinterpret_cast<const int4*>(qs + dd * QSW + trow * 8);
-        const int4 a1 =
-            *reinterpret_cast<const int4*>(qs + dd * QSW + trow * 8 + 4);
-        const int a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-        int bk[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) bk[j] = kss[dd * KSS + tcol + 32 * j];
-#pragma unroll
-        for (int i = 0; i < 8; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = __dp4a(a[i], bk[j], acc[i][j]);
-      }
-    }
+    i8_tile(q, keys, bq, n, d, q0, key0, qs, kss, acc);
 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -426,6 +485,109 @@ cudaError_t launch_i8(const signed char* q, const float* q_scale,
                             stream);
 }
 
+// K6's pass 1, grid (query blocks of 64, key splits) as K4's: each thread
+// keeps the running max of its 8 query rows over its columns of every tile
+// (keys >= n_valid never enter), then the warp (one group of 8 rows, 32
+// column lanes) reduces it, and lane 0 writes part[row * splits + split].
+// MODE 0: fp32 FFMA; 1: fp32 operands rounded to bf16; 2: int8 codes.
+template <int MODE>
+__global__ void __launch_bounds__(TPB)
+    mm_only_pass1(const void* __restrict__ q, const void* __restrict__ keys,
+                  int bq, int n, int d, int n_valid, int tiles_per_split,
+                  float* __restrict__ part) {
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * QT;
+  const int split = blockIdx.y;
+  const int n_tiles = (n + KT - 1) / KT;
+  const int tile0 = split * tiles_per_split;
+  const int tile1 = min(n_tiles, tile0 + tiles_per_split);
+  const int trow = tid >> 5;
+  const int tcol = tid & 31;
+
+  float rm[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) rm[i] = -INFINITY;
+  for (int t = tile0; t < tile1; ++t) {
+    const int key0 = t * KT;
+    float sc[8][4];
+    if (MODE == 2) {
+      int* qs = reinterpret_cast<int*>(smem);
+      int acc[8][4];
+      i8_tile(static_cast<const signed char*>(q),
+              static_cast<const signed char*>(keys), bq, n, d, q0, key0, qs,
+              qs + DKW * QSW, acc);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) sc[i][j] = __int2float_rn(acc[i][j]);
+    } else {
+      f32_tile<MODE == 1>(static_cast<const float*>(q),
+                          static_cast<const float*>(keys), bq, n, d, q0, key0,
+                          smem, smem + DK * QS, sc);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (key0 + tcol + 32 * j < n_valid) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) rm[i] = fmaxf(rm[i], sc[i][j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float m = rm[i];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+    const int row = q0 + trow * 8 + i;
+    if (tcol == 0 && row < bq) part[(long long)row * gridDim.y + split] = m;
+  }
+}
+
+// K6's pass 2: one block of 128 threads per query row takes the max over
+// its `splits` partial maxima and writes it to all 128 output columns.
+__global__ void __launch_bounds__(128)
+    mm_only_pass2(const float* __restrict__ part, int splits,
+                  float* __restrict__ out) {
+  __shared__ float warp_m[4];
+  const int row = blockIdx.x;
+  float m = -INFINITY;
+  for (int s = threadIdx.x; s < splits; s += 128)
+    m = fmaxf(m, part[(long long)row * splits + s]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = fmaxf(fmaxf(warp_m[0], warp_m[1]), fmaxf(warp_m[2], warp_m[3]));
+  out[(long long)row * 128 + threadIdx.x] = m;
+}
+
+template <int MODE>
+cudaError_t launch_mm_only(const void* q, const void* keys, int bq, int n,
+                           int d, int n_valid, int splits,
+                           int tiles_per_split, float* part, float* out,
+                           cudaStream_t stream) {
+  // the staging buffers of K4's or K5's pass 1, without the score tile
+  const size_t smem = MODE == 2 ? sizeof(int) * (DKW * QSW + DKW * KSS)
+                                : sizeof(float) * (DK * QS + DK * KSS);
+  const dim3 grid1((bq + QT - 1) / QT, splits);
+  mm_only_pass1<MODE><<<grid1, TPB, smem, stream>>>(
+      q, keys, bq, n, d, n_valid, tiles_per_split, part);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  mm_only_pass2<<<bq, 128, 0, stream>>>(part, splits, out);
+  return cudaGetLastError();
+}
+
+// K7: o = x + 1 over n fp32 elements.
+__global__ void tiny_kernel(const float* __restrict__ x, float* __restrict__ o,
+                            int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) o[i] = x[i] + 1.f;
+}
+
 }  // namespace
 
 extern "C" {
@@ -492,6 +654,36 @@ void bscan_topk_plan(int bq, int n, int k, int sm_count, int* splits,
   *tiles_per_split = (n_tiles + want - 1) / want;
   *splits = (n_tiles + *tiles_per_split - 1) / *tiles_per_split;
   *n_cand = (long long)bq * *splits * SCAN * k;
+}
+
+// K6. mode 0: q (bq, d) and keys (n, d) fp32, products in fp32 FFMA; mode 1:
+// the same with each operand rounded to bf16; mode 2: int8 codes. d % 32 ==
+// 0 (fp32) or d % 64 == 0 (int8), 16-byte aligned rows, 0 <= n_valid <= n,
+// the plan of bscan_topk_plan; part holds bq * splits floats, out (bq, 128).
+// A row with no valid key comes out -inf. Returns cudaError_t.
+int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
+                  int n_valid, int mode, int splits, int tiles_per_split,
+                  float* part, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_valid < 0 || n_valid > n || bq < 1) return (int)cudaErrorInvalidValue;
+  if (mode == 0 && d % DK == 0)
+    return (int)launch_mm_only<0>(q, keys, bq, n, d, n_valid, splits,
+                                  tiles_per_split, part, out, s);
+  if (mode == 1 && d % DK == 0)
+    return (int)launch_mm_only<1>(q, keys, bq, n, d, n_valid, splits,
+                                  tiles_per_split, part, out, s);
+  if (mode == 2 && d % DKB == 0)
+    return (int)launch_mm_only<2>(q, keys, bq, n, d, n_valid, splits,
+                                  tiles_per_split, part, out, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7: o = x + 1 over n contiguous fp32 elements. Returns cudaError_t.
+int bscan_tiny(const float* x, float* o, int n, void* stream) {
+  if (n < 1) return (int)cudaErrorInvalidValue;
+  tiny_kernel<<<(n + 1023) / 1024, 1024, 0,
+                static_cast<cudaStream_t>(stream)>>>(x, o, n);
+  return (int)cudaGetLastError();
 }
 
 const char* bscan_error_string(int err) {

@@ -7,13 +7,21 @@
   state's optional `logit_scale` leaf (log of the learnable scale,
   JAX train/loop.py:31-43), which the port keeps as the `logit_scale`
   parameter of `train.loop.make_logit_scale_param`. Any tree with the
-  params' structure maps the same way, a gradient tree included.
+  params' structure maps the same way, a gradient tree included. An
+  OpenCLIP tree (`image_encoder` with `conv1`, `language_encoder/text`)
+  maps to open_clip's names: the JAX package has no torch export for it, so
+  this is the inverse of its converters (openclip.py:246-361).
 - `load_reference_pth(path)`: a released SimpleCLIP `.pth` (or one written
   by the JAX package's `save_pth`) -> state dict, with DDP `module.`
   prefixes stripped and a `state_dict` wrapper unwrapped (JAX
   torch_import.py:39-62).
 - `load_into(model, state_dict)`: `load_state_dict(strict=True)` after
-  dropping the entries the reference model carries and never reads.
+  dropping the entries the reference model carries and never reads. A
+  released `for_open_clip` checkpoint keeps both OpenCLIP towers under
+  `open_clip_model.*`, with loratorch `{q,k,v}_lora_{A,B}` adapters: they
+  map by prefix, and each B takes the loratorch scale alpha / r
+  (JAX `_convert_blocks` :275-328, `convert_simple_clip_checkpoint`,
+  interop/torch_import.py:311-336).
 - `resolve_reference_ckpt(folder)`: best.pth, else last.pth
   (JAX train/checkpoint.py:137-145).
 """
@@ -21,6 +29,7 @@
 from __future__ import annotations
 
 import os
+import re
 from typing import Optional
 
 import numpy as np
@@ -126,12 +135,65 @@ def _bert(params: dict, prefix: str) -> dict:
     return sd
 
 
+def _openclip_blocks(blocks: dict, prefix: str) -> dict:
+    """Stacked JAX `resblocks` -> open_clip's per-layer names under
+    `prefix` (JAX A (d, r) and B (r, d) -> loratorch A (r, d), B (d, r))."""
+    sd = {}
+    for i in range(blocks["ln_1"]["scale"].shape[0]):
+        P = prefix + f"transformer.resblocks.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[P + f"{ln}.weight"] = _np(blocks[ln]["scale"][i])
+            sd[P + f"{ln}.bias"] = _np(blocks[ln]["bias"][i])
+        sd[P + "attn.in_proj_weight"] = _t(blocks["in_proj"]["kernel"][i])
+        sd[P + "attn.in_proj_bias"] = _np(blocks["in_proj"]["bias"][i])
+        for name, mod in (("attn.out_proj", "out_proj"),
+                          ("mlp.c_fc", "c_fc"), ("mlp.c_proj", "c_proj")):
+            sd[P + f"{name}.weight"] = _t(blocks[mod]["kernel"][i])
+            sd[P + f"{name}.bias"] = _np(blocks[mod]["bias"][i])
+        if "lora_q_a" in blocks:
+            for s in "qkv":
+                sd[P + f"attn.{s}_lora_A"] = _t(blocks[f"lora_{s}_a"][i])
+                sd[P + f"attn.{s}_lora_B"] = _t(blocks[f"lora_{s}_b"][i])
+    return sd
+
+
+def _openclip_visual(params: dict, prefix: str = "image_encoder.") -> dict:
+    sd = {
+        prefix + "conv1.weight": np.ascontiguousarray(np.transpose(
+            _np(params["conv1"]["kernel"]), (3, 2, 0, 1))),
+        prefix + "class_embedding": _np(params["class_embedding"]),
+        prefix + "positional_embedding": _np(params["positional_embedding"]),
+        prefix + "proj": _np(params["proj"]),
+    }
+    for ln in ("ln_pre", "ln_post"):
+        sd[prefix + f"{ln}.weight"] = _np(params[ln]["scale"])
+        sd[prefix + f"{ln}.bias"] = _np(params[ln]["bias"])
+    sd.update(_openclip_blocks(params["resblocks"], prefix))
+    return sd
+
+
+def _openclip_text(params: dict,
+                   prefix: str = "language_encoder.text.") -> dict:
+    sd = {
+        prefix + "token_embedding.weight": _np(
+            params["token_embedding"]["embedding"]),
+        prefix + "positional_embedding": _np(params["positional_embedding"]),
+        prefix + "ln_final.weight": _np(params["ln_final"]["scale"]),
+        prefix + "ln_final.bias": _np(params["ln_final"]["bias"]),
+        prefix + "text_projection": _np(params["text_projection"]),
+    }
+    sd.update(_openclip_blocks(params["resblocks"], prefix))
+    return sd
+
+
 def state_dict_from_jax(params: dict) -> dict:
     """JAX MultiModalCLIP params (numpy leaves) -> the port's state dict."""
     sd = {}
     if "logit_scale" in params:
         sd["logit_scale"] = np.array(params["logit_scale"], dtype=np.float32)
-    if "image_encoder" in params:
+    if "image_encoder" in params and "conv1" in params["image_encoder"]:
+        sd.update(_openclip_visual(params["image_encoder"]))
+    elif "image_encoder" in params:
         sd.update(_vit(params["image_encoder"]))
     if "dna_encoder" in params:
         d = params["dna_encoder"]
@@ -144,7 +206,9 @@ def state_dict_from_jax(params: dict) -> dict:
         sd[tr + "LayerNorm.bias"] = _np(d["transform_ln"]["bias"])
         sd[pre + "cls.predictions.decoder.weight"] = _t(d["decoder"]["kernel"])
         sd[pre + "cls.predictions.decoder.bias"] = _np(d["decoder"]["bias"])
-    if "language_encoder" in params:
+    if "language_encoder" in params and "text" in params["language_encoder"]:
+        sd.update(_openclip_text(params["language_encoder"]["text"]))
+    elif "language_encoder" in params:
         t = params["language_encoder"]
         sd.update(_bert(t["bert"], "language_encoder.lora_bert."))
         sd["language_encoder.proj.weight"] = _t(t["proj"]["kernel"])
@@ -173,10 +237,50 @@ _UNUSED_SUFFIXES = (
 )
 
 
+_OPEN_CLIP_ROOT = "open_clip_model."
+# the loratorch adapter spellings the JAX converter accepts (`_lora_pair`,
+# openclip.py:252-272)
+_LORATORCH = re.compile(
+    r"^(?P<attn>.*\.attn\.)(?:(?P<s1>[qkv])(?:_proj)?_lora_(?P<ab1>[AB])"
+    r"|(?:in_proj_)?lora_(?P<ab2>[AB])_(?P<s2>[qkv]))$"
+)
+# loratorch's lora_alpha, as the JAX converter takes it (`_convert_blocks`)
+LORATORCH_ALPHA = 1.0
+
+
+def _from_open_clip(state_dict: dict) -> dict:
+    """`open_clip_model.visual.*` -> `image_encoder.*`, the rest of
+    `open_clip_model.*` -> `language_encoder.text.*` (its `logit_scale`,
+    which no tower reads, dropped), loratorch adapters under the port's
+    names with B times alpha / r; other keys as they are."""
+    out = {}
+    for key, val in state_dict.items():
+        if not key.startswith(_OPEN_CLIP_ROOT):
+            out[key] = val
+            continue
+        rest = key[len(_OPEN_CLIP_ROOT):]
+        if rest == "logit_scale":
+            continue
+        if rest.startswith("visual."):
+            key = "image_encoder." + rest[len("visual."):]
+        else:
+            key = "language_encoder.text." + rest
+        m = _LORATORCH.match(key)
+        if m:
+            slot = m.group("s1") or m.group("s2")
+            ab = m.group("ab1") or m.group("ab2")
+            key = f"{m.group('attn')}{slot}_lora_{ab}"
+            if ab == "B":  # (d, r)
+                val = val * (LORATORCH_ALPHA / val.shape[1])
+        out[key] = val
+    return out
+
+
 def load_into(model: torch.nn.Module, state_dict: dict) -> torch.nn.Module:
     """`model.load_state_dict(strict=True)` on a reference-layout state dict
-    (keys the model does not have and never reads are dropped first)."""
-    sd = {k: v for k, v in state_dict.items()
+    (keys the model does not have and never reads are dropped first; an
+    `open_clip_model.*` root is mapped to the OpenCLIP towers)."""
+    sd = {k: v for k, v in _from_open_clip(state_dict).items()
           if not k.endswith(_UNUSED_SUFFIXES)}
     model.load_state_dict(sd, strict=True)
     return model

@@ -4,7 +4,9 @@ Counterpart of bioscan_clip_tpu/models/clip.py:35-230. Up to three towers;
 each `encode_*` returns the L2-normalized fp32 embedding. Module names are
 the reference SimpleCLIP's (`image_encoder.lora_vit`,
 `dna_encoder.lora_barcode_bert`, `language_encoder.lora_bert` + `.proj`), so
-`state_dict()` loads a released checkpoint and the JAX export alike.
+`state_dict()` loads a released checkpoint and the JAX export alike. The
+OpenCLIP ablation's towers sit as the JAX package places them
+(`image_encoder.*`, `language_encoder.text.*`, open_clip's names below).
 """
 
 from __future__ import annotations
@@ -21,16 +23,23 @@ from bioscan_clip_tpu_torch.models.bert import (
     BarcodeBertDnaEncoder,
     BertTextEncoder,
 )
+from bioscan_clip_tpu_torch.models.common import l2_normalize
 from bioscan_clip_tpu_torch.models.lora import LORA_A_NAMES, LORA_B_NAMES
+from bioscan_clip_tpu_torch.models.mlp import IdentityEncoder, MLPEncoder
+from bioscan_clip_tpu_torch.models.openclip import (
+    OpenClipImageTower,
+    OpenClipTextAdapter,
+    OpenClipTextConfig,
+    OpenClipVisionConfig,
+)
 from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
 
-_LATER = "is not ported yet: ROADMAP.md queue 1"
-
-
-def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
-    """torch F.normalize(p=2) parity: x / max(||x||, eps)."""
-    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=dim,
-                                                        keepdim=True), eps)
+# the feature widths the JAX package initializes the MLP encoders from
+# (`init_clip_params`, clip.py:248, :253)
+MLP_IMAGE_INPUT_DIM = 512
+MLP_DNA_INPUT_DIM = 768
+# 1-D parameters drawn like matrices (the others are biases: zero)
+_TOKEN_PARAMS = ("cls_token", "pos_embed", "class_embedding")
 
 
 class MultiModalCLIP(nn.Module):
@@ -48,9 +57,11 @@ class MultiModalCLIP(nn.Module):
         return l2_normalize(self.image_encoder(images).float())
 
     def encode_dna(self, dna_tokens, row_seeds=None):
-        """`row_seeds`: (B,) uint32 dropout seeds, needed in train mode."""
-        return l2_normalize(self.dna_encoder(dna_tokens,
-                                             row_seeds=row_seeds).float())
+        """`row_seeds`: (B,) uint32 dropout seeds, needed in train mode by
+        the BERT tower; passed on only when given, as the JAX model does
+        (the MLP and identity encoders take none)."""
+        kw = {} if row_seeds is None else {"row_seeds": row_seeds}
+        return l2_normalize(self.dna_encoder(dna_tokens, **kw).float())
 
     def encode_language(self, language: dict, row_seeds=None):
         out = self.language_encoder(
@@ -76,8 +87,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded random weights: N(0, 0.02) for matrices, embeddings and the
     CLS/position tokens, ones and zeros for LayerNorms, zero biases. LoRA
     adapters start as the zero function, as in the JAX package
-    (`lora_a_init`/`lora_b_init`, models/lora.py:22-36): each A is
-    U(-1/sqrt(dim), 1/sqrt(dim)) and each B zero."""
+    (`lora_a_init`/`lora_b_init`, models/lora.py:22-36): each A (rank, dim)
+    is U(-1/sqrt(dim), 1/sqrt(dim)) and each B zero."""
     params = list(model.parameters())
     dev = params[0].device if params else torch.device("cpu")
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -91,13 +102,15 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         for name, p in model.named_parameters():
             if id(p) in ln_params:
                 continue
-            module = name.rsplit(".", 2)[-2] if "." in name else ""
-            if module in LORA_A_NAMES:
+            # an adapter is a module (`linear_a_q.weight`) or, in OpenCLIP,
+            # a parameter (`attn.q_lora_A`)
+            owners = name.split(".")[-2:]
+            if any(k in LORA_A_NAMES for k in owners):
                 bound = p.shape[1] ** -0.5  # (rank, dim): fan_in = dim
                 p.uniform_(-bound, bound, generator=gen)
-            elif module in LORA_B_NAMES:
+            elif any(k in LORA_B_NAMES for k in owners):
                 p.zero_()
-            elif p.dim() >= 2 or name.endswith(("cls_token", "pos_embed")):
+            elif p.dim() >= 2 or name.endswith(_TOKEN_PARAMS):
                 p.normal_(0.0, 0.02, generator=gen)
             else:
                 p.zero_()
@@ -117,46 +130,61 @@ def load_clip_model(args, device=None, dtype=None, lora_rank=None,
     rank = 0 if bool(getattr(mc, "disable_lora", False)) else 4
     if lora_rank is not None:
         rank = int(lora_rank)
-    out = mc.output_dim
-
-    if (hasattr(mc, "image") and hasattr(mc, "language")
-            and mc.image.model == "lora_clip_image"
-            and mc.language.model == "lora_clip_text"):
-        raise NotImplementedError(f"the OpenCLIP ViT-L/14 towers {_LATER}")
-
-    towers = {}
     # built on the meta device and materialized once on `dev`: init_weights
     # writes every parameter, so torch's default init would be wasted work
     with torch.device("meta"):
-        if hasattr(mc, "image"):
-            if mc.image.input_type != "image":
-                raise NotImplementedError(f"the MLP image encoder {_LATER}")
-            towers["image_encoder"] = ViTImageEncoder(
-                ViTConfig(num_classes=out, lora_rank=rank), dtype, ln_dtype
-            )
-        if hasattr(mc, "language"):
-            if mc.language.input_type != "sequence":
-                raise TypeError(
-                    f"Using {mc.language.input_type} as language input is "
-                    "not supported yet."
-                )
-            towers["language_encoder"] = BertTextEncoder(
-                _with_rank(BERT_SMALL_CONFIG, rank), out, dtype, ln_dtype
-            )
-        if hasattr(mc, "dna"):
-            if getattr(mc.dna, "freeze", False):
-                raise NotImplementedError(f"the Identity DNA encoder {_LATER}")
-            if mc.dna.input_type != "sequence":
-                raise NotImplementedError(f"the MLP DNA encoder {_LATER}")
-            towers["dna_encoder"] = BarcodeBertDnaEncoder(
-                _with_rank(BARCODE_BERT_CONFIG, rank), out, dtype, ln_dtype
-            )
-        model = MultiModalCLIP(**towers)
+        model = build_towers(mc, rank, dtype, ln_dtype)
     return init_weights(model.to_empty(device=dev), seed).eval()
 
 
-def _with_rank(cfg, rank):
-    return dataclasses.replace(cfg, lora_rank=rank)
+def build_towers(mc, rank: int, dtype: torch.dtype,
+                 ln_dtype: torch.dtype = torch.float32) -> MultiModalCLIP:
+    """The towers `model_config` declares (JAX clip.py:114-212), on the
+    current default device, parameters uninitialized."""
+    out = mc.output_dim
+
+    def bert(cfg):
+        return dataclasses.replace(cfg, lora_rank=rank)
+
+    towers = {}
+    if (hasattr(mc, "image") and hasattr(mc, "language")
+            and mc.image.model == "lora_clip_image"
+            and mc.language.model == "lora_clip_text"):
+        # the OpenCLIP ViT-L/14 ablation (simple_clip.py:141-145)
+        towers["image_encoder"] = OpenClipImageTower(dataclasses.replace(
+            OpenClipVisionConfig(), lora_rank=rank, output_dim=out), dtype)
+        towers["language_encoder"] = OpenClipTextAdapter(dataclasses.replace(
+            OpenClipTextConfig(), lora_rank=rank, output_dim=out), dtype)
+        if hasattr(mc, "dna"):
+            towers["dna_encoder"] = BarcodeBertDnaEncoder(
+                bert(BARCODE_BERT_CONFIG), out, dtype, ln_dtype)
+        return MultiModalCLIP(**towers)
+
+    if hasattr(mc, "image"):
+        if mc.image.input_type == "image":
+            towers["image_encoder"] = ViTImageEncoder(
+                ViTConfig(num_classes=out, lora_rank=rank), dtype, ln_dtype)
+        else:
+            towers["image_encoder"] = MLPEncoder(
+                MLP_IMAGE_INPUT_DIM, mc.image.hidden_dim, out, dtype)
+    if hasattr(mc, "language"):
+        if mc.language.input_type != "sequence":
+            raise TypeError(
+                f"Using {mc.language.input_type} as language input is not "
+                "supported yet."
+            )
+        towers["language_encoder"] = BertTextEncoder(
+            bert(BERT_SMALL_CONFIG), out, dtype, ln_dtype)
+    if hasattr(mc, "dna"):
+        if getattr(mc.dna, "freeze", False):
+            towers["dna_encoder"] = IdentityEncoder()
+        elif mc.dna.input_type == "sequence":
+            towers["dna_encoder"] = BarcodeBertDnaEncoder(
+                bert(BARCODE_BERT_CONFIG), out, dtype, ln_dtype)
+        else:
+            towers["dna_encoder"] = MLPEncoder(
+                MLP_DNA_INPUT_DIM, mc.dna.hidden_dim, out, dtype)
+    return MultiModalCLIP(**towers)
 
 
 def maybe_merge_lora(args, model, device=None, dtype=None):

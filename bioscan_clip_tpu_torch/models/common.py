@@ -29,6 +29,25 @@ def dense(mod: nn.Linear, x, dtype: torch.dtype):
     return F.linear(x.to(dtype), mod.weight.to(dtype), bias)
 
 
+def patch_embed(images, conv: nn.Conv2d, dtype: torch.dtype):
+    """A (p x p, stride p) convolution over (B, H, W, C) NHWC images, as a
+    patch reshape plus one matmul -> (B, (H/p) * (W/p), O) in `dtype`, so
+    fp32 never goes through cuDNN's TF32 convolutions."""
+    b, h, w, c = images.shape
+    p = conv.kernel_size[0]
+    x = images.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    x = x.reshape(b, (h // p) * (w // p), p * p * c)
+    weight = conv.weight.permute(0, 2, 3, 1).reshape(conv.out_channels, -1)
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.linear(x.to(dtype), weight.to(dtype), bias)
+
+
+def l2_normalize(x, dim: int = -1, eps: float = 1e-12):
+    """torch F.normalize(p=2) parity: x / max(||x||, eps)."""
+    return x / torch.clamp_min(torch.linalg.vector_norm(x, dim=dim,
+                                                        keepdim=True), eps)
+
+
 class LayerNorm(nn.LayerNorm):
     """LayerNorm that computes (and returns) in `dtype`, default fp32."""
 

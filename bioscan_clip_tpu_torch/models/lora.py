@@ -5,9 +5,15 @@ follow the reference checkpoints, so a released `.pth` and
 `interop.weights.state_dict_from_jax` load with `strict=True`:
 - ViT fused qkv: `attn.qkv.{qkv, linear_a_q, linear_b_q, linear_a_v,
   linear_b_v}` (reference `_LoRA_qkv_timm`), deltas on the q and v thirds;
-- BERT query/value: `attention.self.{query,value}.{w, w_a, w_b}`.
+- BERT query/value: `attention.self.{query,value}.{w, w_a, w_b}`;
+- OpenCLIP packed `attn.in_proj_{weight,bias}` (torch MultiheadAttention)
+  with loratorch's `attn.{q,k,v}_lora_{A,B}`, deltas on all three thirds
+  (JAX `OpenClipBlock`, openclip.py:86-95).
 A torch Linear stores (out, in), so the JAX adapter A (d, r) is
-`linear_a.weight.T` and B (r, d) is `linear_b.weight.T`.
+`linear_a.weight.T` and B (r, d) is `linear_b.weight.T`; loratorch's A is
+(r, d) and B (d, r) the same way. The port's B is unscaled: a released
+loratorch B is multiplied by alpha / r as it is loaded
+(`interop.weights.load_into`), as the JAX converter folds it.
 """
 
 from __future__ import annotations
@@ -15,14 +21,18 @@ from __future__ import annotations
 import re
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from bioscan_clip_tpu_torch.models.common import dense
 
 
-# the adapter modules: each A is drawn at init, each B starts at zero
-LORA_A_NAMES = ("linear_a_q", "linear_a_v", "w_a")
-LORA_B_NAMES = ("linear_b_q", "linear_b_v", "w_b")
+# the adapter modules (and OpenCLIP's adapter parameters): each A is drawn
+# at init, each B starts at zero
+LORA_A_NAMES = ("linear_a_q", "linear_a_v", "w_a", "q_lora_A", "k_lora_A",
+                "v_lora_A")
+LORA_B_NAMES = ("linear_b_q", "linear_b_v", "w_b", "q_lora_B", "k_lora_B",
+                "v_lora_B")
 
 
 def lora_delta(x, a: nn.Linear, b: nn.Linear, dtype: torch.dtype):
@@ -66,6 +76,41 @@ class LoRALinear(nn.Module):
                                                     dtype)
 
 
+class LoRAInProj(nn.Module):
+    """OpenCLIP's packed input projection (torch MultiheadAttention's
+    `in_proj_weight` (3d, d) and `in_proj_bias`) with rank-r adapters on its
+    q, k and v thirds (`{q,k,v}_lora_A` (r, d), `{q,k,v}_lora_B` (d, r));
+    no adapters at rank 0."""
+
+    def __init__(self, width: int, rank: int):
+        super().__init__()
+        self.rank = rank
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * width, width))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * width))
+        if rank > 0:
+            for slot in "qkv":
+                setattr(self, f"{slot}_lora_A",
+                        nn.Parameter(torch.empty(rank, width)))
+                setattr(self, f"{slot}_lora_B",
+                        nn.Parameter(torch.empty(width, rank)))
+
+    def in_proj(self, x, dtype: torch.dtype):
+        """(B, N, d) -> (B, N, 3d) packed qkv in `dtype`: the projection,
+        plus the concatenated (x @ A^T) @ B^T deltas (JAX adds
+        `concatenate(deltas)` to the Dense output)."""
+        x = x.to(dtype)
+        qkv = F.linear(x, self.in_proj_weight.to(dtype),
+                       self.in_proj_bias.to(dtype))
+        if self.rank == 0:
+            return qkv
+        deltas = [
+            F.linear(F.linear(x, getattr(self, f"{s}_lora_A").to(dtype)),
+                     getattr(self, f"{s}_lora_B").to(dtype))
+            for s in "qkv"
+        ]
+        return qkv + torch.cat(deltas, dim=-1)
+
+
 def project(mod: nn.Module, x, dtype: torch.dtype):
     """Apply a plain Linear or a LoRA-wrapped projection."""
     if isinstance(mod, nn.Linear):
@@ -74,6 +119,8 @@ def project(mod: nn.Module, x, dtype: torch.dtype):
 
 
 _VIT_QKV = re.compile(r"^(.*\.attn\.qkv)\.qkv\.(weight|bias)$")
+_IN_PROJ = re.compile(r"^(.*)\.in_proj_weight$")
+_IN_PROJ_LORA = re.compile(r"\.[qkv]_lora_[AB]$")
 _BERT_QV = re.compile(r"^(.*\.attention\.self\.(?:query|value))\.w\.(weight|bias)$")
 
 
@@ -81,9 +128,22 @@ def merge_lora(state_dict: dict) -> dict:
     """Fold every adapter into its host projection (W' = W + (A @ B)^T, in
     fp32) and drop the adapter entries: the result loads into the same
     architecture built with `lora_rank=0` (JAX lora.py:47-116, the `qkv`
-    and `query`/`value` branches)."""
+    and `query`/`value` branches, and the `in_proj` branch, :95-102)."""
     out = {}
     for key, val in state_dict.items():
+        m = _IN_PROJ.match(key)
+        if m and f"{m.group(1)}.q_lora_A" in state_dict:
+            val = val.clone()
+            d = val.shape[1]
+            for i, slot in enumerate("qkv"):
+                a = state_dict[f"{m.group(1)}.{slot}_lora_A"]
+                b = state_dict[f"{m.group(1)}.{slot}_lora_B"]
+                val[i * d : (i + 1) * d] += (b.float() @ a.float()).to(
+                    val.dtype)
+            out[key] = val
+            continue
+        if _IN_PROJ_LORA.search(key):
+            continue
         m = _VIT_QKV.match(key)
         if m:
             root, kind = m.groups()

@@ -19,7 +19,12 @@ import dataclasses
 import torch
 from torch import nn
 
-from bioscan_clip_tpu_torch.models.common import LayerNorm, dense, gelu_exact
+from bioscan_clip_tpu_torch.models.common import (
+    LayerNorm,
+    dense,
+    gelu_exact,
+    patch_embed,
+)
 from bioscan_clip_tpu_torch.models.lora import LoRAQKV, project
 from bioscan_clip_tpu_torch.ops.attention import mha_packed
 
@@ -44,24 +49,13 @@ class ViTConfig:
 class _PatchEmbed(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        self.patch = cfg.patch_size
-        # Conv2d only holds the (O, 3, p, p) weight; the forward is a patch
-        # reshape plus a matmul, so fp32 never goes through cuDNN's TF32
-        # convolutions.
+        # Conv2d only holds the (O, 3, p, p) weight and bias; the forward is
+        # `common.patch_embed`, a patch reshape plus a matmul
         self.proj = nn.Conv2d(3, cfg.hidden_size, cfg.patch_size,
                               stride=cfg.patch_size)
 
     def forward(self, images, dtype):
-        b, h, w, c = images.shape  # NHWC, as the JAX model takes it
-        p = self.patch
-        x = images.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
-        x = x.reshape(b, (h // p) * (w // p), p * p * c)
-        weight = self.proj.weight.permute(0, 2, 3, 1).reshape(
-            self.proj.out_channels, -1
-        )
-        return torch.nn.functional.linear(
-            x.to(dtype), weight.to(dtype), self.proj.bias.to(dtype)
-        )
+        return patch_embed(images, self.proj, dtype)  # NHWC, as JAX takes it
 
 
 class _Attention(nn.Module):

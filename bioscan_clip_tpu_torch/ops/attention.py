@@ -2,13 +2,18 @@
 with optional in-kernel probability dropout, and its backward.
 
 Counterpart of bioscan_clip_tpu/ops/attention.py:
-- `mha_packed` (:713, over `_pallas_mha_packed` :425): K1, ViT's packed qkv;
+- `mha_packed` (:713, over `_pallas_mha_packed` :425): K1, ViT's packed qkv,
+  and with an (N, N) additive score mask K1m (`_packed_mask_kernel` :162,
+  OpenCLIP's causal text mask), counted apart in `mha_packed.mask_launches`;
 - `mha` (:680, over `_pallas_mha_split` :449) without dropout: K2;
 - `mha_dropout`, which `mha(..., dropout_rate > 0)` calls: K2d, the split
   forward with counter-hash probability dropout (`_split_drop_kernel` :195,
   `_split_bias_drop_kernel` :203, `_row_drop` :184);
 - `mha_bwd` (`_pallas_mha_bwd` :321, body `_attend_bwd_one_row` :212): K3,
-  dq/dk/dv (+ dbias) with the probabilities and the mask recomputed.
+  dq/dk/dv (+ dbias) with the probabilities and the dropout mask recomputed.
+  Its variant with an (N, N) score mask (`has_mask`, :363-367), K3m, is not
+  ported yet (ROADMAP.md queue 2): on the card a masked backward raises, on
+  the CPU `mha_bwd_reference(mask=)` computes it.
 
 `mha_packed` and `mha` are `torch.autograd.Function`s, as the JAX ops are
 `jax.custom_vjp`s (:543-677): the forward is K1/K2/K2d, the backward K3. On
@@ -118,20 +123,30 @@ def _heads_view(t, heads):
     return t.reshape(b, n, heads, d // heads).float()
 
 
+def _scores(qh, kh, scale, bias, mask):
+    """fp32 scores (B, h, N, N): q . k * scale, then the (B, N) key bias,
+    then the (N, N) score mask (JAX `_attend_bwd_one_row` :231-238)."""
+    s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale
+    if bias is not None:
+        s = s + bias[:, None, None, :].float()
+    if mask is not None:
+        s = s + mask.float()
+    return s
+
+
 def mha_reference(q, k, v, heads: int, bias=None, scale=None,
-                  dropout_rate: float = 0.0, dropout_seed=None):
+                  dropout_rate: float = 0.0, dropout_seed=None, mask=None):
     """Plain attention over (B, N, D) q/k/v (heads-major in D), optional
-    (B, N) additive key bias and probability dropout: fp32 softmax, p times
-    the keep/scale mask, p rounded to v's dtype before P.V, output in q's
-    dtype (JAX `_attend_one_row` :116-150)."""
+    (B, N) additive key bias, (N, N) additive score mask and probability
+    dropout: fp32 softmax, p times the keep/scale mask, p rounded to v's
+    dtype before P.V, output in q's dtype (JAX `_attend_one_row`
+    :116-150)."""
     mha_reference.calls += 1
     b, n, d = q.shape
     if scale is None:
         scale = (d // heads) ** -0.5
-    s = torch.einsum("bnhd,bmhd->bhnm", _heads_view(q, heads),
-                     _heads_view(k, heads)) * scale
-    if bias is not None:
-        s = s + bias[:, None, None, :].float()
+    s = _scores(_heads_view(q, heads), _heads_view(k, heads), scale, bias,
+                mask)
     p = torch.softmax(s, dim=-1)
     if dropout_rate > 0:
         p = p * dropout_keep_4d(dropout_seed, b, heads, n, dropout_rate,
@@ -145,21 +160,20 @@ mha_reference.calls = 0
 
 
 def mha_bwd_reference(q, k, v, g, heads: int, bias=None, scale=None,
-                      dropout_rate: float = 0.0, dropout_seed=None):
+                      dropout_rate: float = 0.0, dropout_seed=None,
+                      mask=None):
     """Plain backward of `mha_reference`, the K3 contract
     (`_attend_bwd_one_row` :212-271): p and dp stay fp32, y = p * keep
     is cast to g's dtype for dv, ds * scale is cast to q's dtype for dq and
     dk. Returns (dq, dk, dv, dbias), dbias the fp32 sum of ds over heads
-    and query rows (None without a bias)."""
+    and query rows (None without a bias). With `mask` it is the K3m
+    contract, the function that kernel will be held against."""
     mha_bwd_reference.calls += 1
     b, n, d = q.shape
     if scale is None:
         scale = (d // heads) ** -0.5
     qh, kh, vh, gh = (_heads_view(t, heads) for t in (q, k, v, g))
-    s = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * scale
-    if bias is not None:
-        s = s + bias[:, None, None, :].float()
-    p = torch.softmax(s, dim=-1)
+    p = torch.softmax(_scores(qh, kh, scale, bias, mask), dim=-1)
     dp = torch.einsum("bnhd,bmhd->bhnm", gh, vh)
     y = p
     if dropout_rate > 0:
@@ -187,7 +201,7 @@ def _fwd_kernel():
     lib = _build.load("mha_fwd")
     fn = lib.bscan_mha_fwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 2
         + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
            ctypes.c_int, ctypes.c_void_p]
@@ -261,7 +275,7 @@ def _drop_args(rate: float, seed, b: int, dev):
 
 
 def _launch_fwd(ptrs, out, b, n, heads, hd, row_stride, scale, dtype, bias,
-                rate=0.0, seed=None):
+                rate=0.0, seed=None, mask=None):
     if b > 65535:  # the batch is the grid's z dimension
         raise ValueError(f"mha kernel: batch {b} > 65535; split the batch")
     lib, fn, smem = _fwd_kernel()
@@ -270,7 +284,8 @@ def _launch_fwd(ptrs, out, b, n, heads, hd, row_stride, scale, dtype, bias,
     rows, scalar, thr, kscale, drop = _drop_args(rate, seed, b, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
-        *ptrs, None if bias is None else bias.data_ptr(), out.data_ptr(),
+        *ptrs, None if bias is None else bias.data_ptr(),
+        None if mask is None else mask.data_ptr(), out.data_ptr(),
         b, n, heads, hd, row_stride, n * row_stride, float(scale),
         _DTYPE_CODE[dtype],
         None if rows is None else rows.data_ptr(), scalar, thr, kscale, drop,
@@ -313,20 +328,28 @@ def _check_split(name, q, k, v, bias):
             raise ValueError(f"{name}: bias must be ({b}, {n}) on {q.device}")
 
 
-def _packed_forward(qkv, heads, scale):
+def _packed_forward(qkv, mask, heads, scale):
     d = qkv.shape[-1] // 3
     if qkv.device.type == "cpu":
         return mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
-                             qkv[..., 2 * d :], heads, scale=scale)
+                             qkv[..., 2 * d :], heads, scale=scale, mask=mask)
     _check_heads("mha_packed", d, heads, qkv.dtype)
     _check_cuda("mha_packed", [qkv], qkv.dtype)
     b, n, d3 = qkv.shape
+    if mask is not None:
+        _check_cuda("mha_packed mask", [mask], torch.float32)
+        if mask.device != qkv.device or tuple(mask.shape) != (n, n):
+            raise ValueError(f"mha_packed: mask must be ({n}, {n}) on "
+                             f"{qkv.device}")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
     p = qkv.data_ptr()
     es = qkv.element_size()
     _launch_fwd((p, p + d * es, p + 2 * d * es), out, b, n, heads, d // heads,
-                d3, scale, qkv.dtype, None)
-    mha_packed.launches += 1
+                d3, scale, qkv.dtype, None, mask=mask)
+    if mask is None:
+        mha_packed.launches += 1
+    else:
+        mha_packed.mask_launches += 1
     return out
 
 
@@ -350,18 +373,18 @@ def _split_forward(q, k, v, bias, seed, heads, scale, rate):
 
 class _PackedAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, qkv, heads, scale):
-        ctx.save_for_backward(qkv)
+    def forward(ctx, qkv, mask, heads, scale):
+        ctx.save_for_backward(qkv, mask)
         ctx.cfg = (heads, scale)
-        return _packed_forward(qkv, heads, scale)
+        return _packed_forward(qkv, mask, heads, scale)
 
     @staticmethod
     def backward(ctx, g):
-        (qkv,) = ctx.saved_tensors
+        qkv, mask = ctx.saved_tensors
         heads, scale = ctx.cfg
         dqkv = mha_bwd(None, None, None, g.contiguous(), heads, scale=scale,
-                       packed_qkv=qkv)
-        return dqkv, None, None
+                       packed_qkv=qkv, mask=mask)
+        return dqkv, None, None, None
 
 
 class _SplitAttention(torch.autograd.Function):
@@ -383,19 +406,23 @@ class _SplitAttention(torch.autograd.Function):
         return dq, dk, dv, dbias, None, None, None, None
 
 
-def mha_packed(qkv, heads: int, scale=None):
+def mha_packed(qkv, heads: int, scale=None, mask=None):
     """Attention over a packed (B, N, 3D) qkv (q|k|v along the last axis,
     heads-major in each third: the timm fused-qkv layout) -> (B, N, D).
-    Differentiable: the backward is K3 on the card."""
+    `mask`: an optional (N, N) fp32 additive score mask shared across the
+    batch (OpenCLIP's causal text mask), added after the scale (K1m).
+    Differentiable in qkv: the backward is K3 on the card; with a mask it is
+    K3m, which is not ported yet, and raises there."""
     d3 = qkv.shape[-1]
     if d3 % 3:
         raise ValueError(f"mha_packed: last dim {d3} is not 3 * D")
     if scale is None:
         scale = (d3 // 3 // heads) ** -0.5
-    return _PackedAttention.apply(qkv, heads, float(scale))
+    return _PackedAttention.apply(qkv, mask, heads, float(scale))
 
 
 mha_packed.launches = 0
+mha_packed.mask_launches = 0
 
 
 def mha(q, k, v, heads: int, bias=None, scale=None,
@@ -437,12 +464,14 @@ mha_dropout.launches = 0
 
 def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
             dropout_rate: float = 0.0, dropout_seed=None, packed_qkv=None,
-            need_dbias: bool = False):
+            need_dbias: bool = False, mask=None):
     """The attention backward (K3). Either q/k/v (B, N, D) or `packed_qkv`
     (B, N, 3D) is given, and g is dL/d(output) (B, N, D). Returns
     (dq, dk, dv, dbias) in the input dtype (dbias fp32 (B, N) when
     `need_dbias` and a bias are given, else None), or the (B, N, 3D) dqkv
-    for a packed input."""
+    for a packed input. An (N, N) score `mask` is the K3m contract: the CPU
+    computes it; on the card it raises until K3m is ported, rather than
+    return gradients that ignore the mask."""
     packed = packed_qkv is not None
     if packed:
         d = packed_qkv.shape[-1] // 3
@@ -454,11 +483,16 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     if q.device.type == "cpu":
         dq, dk, dv, dbias = mha_bwd_reference(
             q, k, v, g, heads, bias=bias, scale=scale,
-            dropout_rate=dropout_rate, dropout_seed=dropout_seed)
+            dropout_rate=dropout_rate, dropout_seed=dropout_seed, mask=mask)
         if packed:
             return torch.cat([dq, dk, dv], dim=-1)
         return dq, dk, dv, (dbias if need_dbias else None)
 
+    if mask is not None:
+        raise NotImplementedError(
+            "mha_bwd: the attention backward with an (N, N) score mask is "
+            "kernel K3m, which is not ported yet (ROADMAP.md queue 2: K3m "
+            "and OpenCLIP training)")
     _check_heads("mha_bwd", d, heads, q.dtype)
     if g.shape != (b, n, d):
         raise ValueError(f"mha_bwd: g {tuple(g.shape)}, expected {(b, n, d)}")

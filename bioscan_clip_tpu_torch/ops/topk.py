@@ -1,27 +1,38 @@
-"""Exact inner-product top-k over a key matrix: fp32 (K4) and int8 (K5).
+"""Exact inner-product top-k over a key matrix: fp32 (K4) and int8 (K5);
+and the two kernels of the top-k decomposition probe: the matmul-only
+control (K6) and the dispatch floor (K7).
 
 Counterpart of bioscan_clip_tpu/ops/topk_pallas.py (`pallas_topk` :185, its
 numpy wrapper `topk_search_pallas` :320, `pallas_topk_i8` :253 and
-`quantize_rows_i8` :310). On CUDA tensors `topk` and `topk_i8` launch the
-hand-written two-pass kernels in `csrc/topk.cu` or raise; on CPU tensors
-they run `topk_reference` and `topk_i8_reference`, the plain versions.
+`quantize_rows_i8` :310) and of tools/bench_topk_variants.py (`mm_only` :78,
+`tiny` :118). On CUDA tensors `topk`, `topk_i8`, `mm_only` and `tiny` launch
+the hand-written kernels in `csrc/topk.cu` or raise; on CPU tensors they run
+`topk_reference`, `topk_i8_reference`, `mm_only_reference` and
+`tiny_reference`, the plain versions.
 
-Contract (all four): keys with index >= n_valid never enter, each row comes
-out sorted descending, and among equal values the smaller key index comes
-first. fp32 scores are full-fp32 Q . K^T (never TF32); int8 scores are the
-exact integer dot of the codes times the query scale, then times the key
-scale, each product rounded as fp32 (the order of `_topk_i8_kernel`), so
-K5 equals its plain version bit for bit.
+Top-k contract (K4, K5 and their plain versions): keys with index >=
+n_valid never enter, each row comes out sorted descending, and among equal
+values the smaller key index comes first. fp32 scores are full-fp32
+Q . K^T (never TF32); int8 scores are the exact integer dot of the codes
+times the query scale, then times the key scale, each product rounded as
+fp32 (the order of `_topk_i8_kernel`), so K5 equals its plain version bit
+for bit.
 
-`topk.launches` / `topk_i8.launches` count kernel launches;
-`topk_reference.calls` / `topk_i8_reference.calls` the plain versions'
-calls.
+`mm_only` returns each query's maximum over the valid keys of Q . K^T,
+broadcast over 128 columns: fp32 products in FFMA ("high"), or of operands
+rounded to bf16 and summed in fp32 ("default", the TPU's single bf16 pass),
+or the exact integer dots of int8 codes (equal bit for bit to the plain
+version and to the TPU's bf16 products of the codes).
+
+`<wrapper>.launches` count kernel launches, `<plain version>.calls` the
+plain versions' calls.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -36,15 +47,24 @@ REFERENCE_KEY_CHUNK = 65536
 QUERY_CHUNK = 1024
 
 
+def quantize_rows_i8_torch(x):
+    """Symmetric per-row int8 quantization of an fp32 (N, D) tensor on its
+    device: (N, D) int8 codes, (N,) fp32 scales. Zero rows get scale 1
+    (all-zero codes). The arithmetic of the JAX `quantize_rows_i8` (max |x|
+    / 127, round half to even), so the same codes and scales, bit for bit."""
+    scales = x.abs().amax(dim=1) / 127.0
+    scales = torch.where(scales > 0, scales, torch.ones_like(scales))
+    codes = torch.clamp(torch.round(x / scales[:, None]), -127, 127)
+    return codes.to(torch.int8), scales.contiguous()
+
+
 def quantize_rows_i8(x):
-    """Symmetric per-row int8 quantization: returns (int8 codes, (rows, 1)
-    fp32 scales). Zero rows get scale 1 (all-zero codes). A numpy copy of
-    the JAX `quantize_rows_i8`: the same codes and scales, bit for bit."""
-    x = np.asarray(x, dtype=np.float32)
-    scales = np.abs(x).max(axis=1, keepdims=True) / 127.0
-    scales = np.where(scales > 0, scales, 1.0).astype(np.float32)
-    q = np.clip(np.rint(x / scales), -127, 127).astype(np.int8)
-    return q, scales
+    """`quantize_rows_i8_torch` on the CPU for host arrays: numpy in,
+    (int8 codes, (rows, 1) fp32 scales) out, as the JAX function returns
+    them."""
+    codes, scales = quantize_rows_i8_torch(
+        torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)))
+    return codes.numpy(), scales.numpy()[:, None]
 
 
 def _chunked_topk(scores, n_valid: int, k: int):
@@ -100,6 +120,7 @@ topk_i8_reference.calls = 0
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
+    """The library's entry points, argument types set."""
     lib = _build.load("topk")
     fn = lib.bscan_topk_f32
     fn.argtypes = (
@@ -117,12 +138,21 @@ def _kernel():
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
     )
     fn_i8.restype = ctypes.c_int
-    return lib, fn, plan, fn_i8
+    fn_mm = lib.bscan_mm_only
+    fn_mm.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+    )
+    fn_mm.restype = ctypes.c_int
+    fn_tiny = lib.bscan_tiny
+    fn_tiny.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn_tiny.restype = ctypes.c_int
+    return SimpleNamespace(lib=lib, topk=fn, plan=plan, topk_i8=fn_i8,
+                           mm_only=fn_mm, tiny=fn_tiny)
 
 
 def _plan(bq: int, n: int, k: int, dev):
     """(splits, key tiles per split, candidate entries) for one launch."""
-    _, _, plan, _ = _kernel()
+    plan = _kernel().plan
     splits, per_split = ctypes.c_int(), ctypes.c_int()
     n_cand = ctypes.c_longlong()
     plan(bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
@@ -159,19 +189,19 @@ def topk(queries, keys, n_valid: int, k: int):
     if k > MAX_K:
         raise ValueError(f"topk: kernel takes k <= {MAX_K}, got {k}")
     dev = queries.device
-    lib, fn, _, _ = _kernel()
+    kern = _kernel()
     splits, per_split, n_cand = _plan(bq, n, k, dev)
     cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
     cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
-    err = fn(
+    err = kern.topk(
         queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k,
         splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "topk launch")
+    _build.check(kern.lib, err, "topk launch")
     topk.launches += 1
     return out_v, out_i
 
@@ -208,24 +238,124 @@ def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
                 or t.numel() != rows or not t.is_contiguous()):
             raise ValueError(f"topk_i8: {name} must be {rows} contiguous "
                              f"fp32 on {dev}")
-    lib, _, _, fn = _kernel()
+    kern = _kernel()
     splits, per_split, n_cand = _plan(bq, n, k, dev)
     cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
     cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
-    err = fn(
+    err = kern.topk_i8(
         q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
         k_scales.data_ptr(), bq, n, d, n_valid, k, splits, per_split,
         cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
-    _build.check(lib, err, "topk_i8 launch")
+    _build.check(kern.lib, err, "topk_i8 launch")
     topk_i8.launches += 1
     return out_v, out_i
 
 
 topk_i8.launches = 0
+
+
+_MM_MODES = {"high": 0, "default": 1}
+
+
+def mm_only_reference(queries, keys, n_valid: int, int8: bool = False,
+                      precision: str = "high"):
+    """Plain matmul-only control: (Bq, 128) fp32, each row the maximum of
+    queries[r] . keys[j] over j < n_valid (-inf when n_valid is 0),
+    broadcast over the columns. Chunked fp32 products: int8 codes exactly,
+    "default" precision on operands rounded to bf16."""
+    mm_only_reference.calls += 1
+
+    def operand(x):
+        if not int8 and precision == "default":
+            x = x.to(torch.bfloat16)
+        return x.to(torch.float32)
+
+    qf = operand(queries)
+    m = torch.full((queries.shape[0],), -float("inf"), dtype=torch.float32,
+                   device=queries.device)
+    for s in range(0, int(n_valid), REFERENCE_KEY_CHUNK):
+        kc = operand(keys[s : min(s + REFERENCE_KEY_CHUNK, int(n_valid))])
+        m = torch.maximum(m, (qf @ kc.T).amax(dim=1))
+    return m[:, None].expand(-1, 128).contiguous()
+
+
+mm_only_reference.calls = 0
+
+
+def mm_only(queries, keys, n_valid: int, int8: bool = False,
+            precision: str = "high"):
+    """K6, the top-k kernels' matmul-only control: K4's (fp32) or K5's
+    (int8) pass-1 tile product with a running row max in place of the
+    top-k lists. Returns (Bq, 128) fp32. `precision` ("high" or "default")
+    applies to fp32; int8 products are exact either way. The JAX version's
+    `tile` and `q_block` are Pallas grid parameters; this kernel's tiling is
+    K4's (64 queries x 128 keys, the key axis split across blocks)."""
+    n_valid = int(n_valid)
+    n = keys.shape[0]
+    if precision not in _MM_MODES:
+        raise ValueError(f"mm_only: precision {precision!r}, expected "
+                         f"{sorted(_MM_MODES)}")
+    if not 0 <= n_valid <= n:
+        raise ValueError(f"mm_only: need 0 <= n_valid ({n_valid}) <= N ({n})")
+    if queries.device.type == "cpu":
+        return mm_only_reference(queries, keys, n_valid, int8=int8,
+                                 precision=precision)
+    dev = queries.device
+    dtype, step = (torch.int8, 64) if int8 else (torch.float32, 32)
+    for name, t in (("queries", queries), ("keys", keys)):
+        _check_2d(f"mm_only: {name}", t, dtype, dev)
+    bq, d = queries.shape
+    if keys.shape[1] != d or d % step:
+        raise ValueError(f"mm_only: widths {d} / {keys.shape[1]} must match "
+                         f"and be a multiple of {step}")
+    kern = _kernel()
+    splits, per_split, _ = _plan(bq, n, 1, dev)
+    part = torch.empty(bq * splits, dtype=torch.float32, device=dev)
+    out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
+    err = kern.mm_only(
+        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
+        2 if int8 else _MM_MODES[precision], splits, per_split,
+        part.data_ptr(), out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _build.check(kern.lib, err, "mm_only launch")
+    mm_only.launches += 1
+    return out
+
+
+mm_only.launches = 0
+
+
+def tiny_reference(x):
+    """Plain x + 1."""
+    tiny_reference.calls += 1
+    return x + 1.0
+
+
+tiny_reference.calls = 0
+
+
+def tiny(x):
+    """K7: x + 1 on an fp32 array (the probe's (8, 128)): one launch, the
+    floor of a call through this library."""
+    if x.device.type == "cpu":
+        return tiny_reference(x)
+    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() < 1:
+        raise ValueError("tiny: needs a non-empty contiguous fp32 tensor")
+    kern = _kernel()
+    out = torch.empty_like(x)
+    err = kern.tiny(x.data_ptr(), out.data_ptr(), x.numel(),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(kern.lib, err, "tiny launch")
+    tiny.launches += 1
+    return out
+
+
+tiny.launches = 0
 
 
 def topk_search_kernel(query_feature, keys, k: int, device=None):

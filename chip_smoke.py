@@ -6,10 +6,11 @@
 Phases, in order; any failure exits non-zero:
   device    the card's name and power limit (nvidia-smi)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc
-  kernels   each kernel against its plain PyTorch version at the flagship
-            shapes (fp32 and bf16 for attention; int8 top-k bit for bit at
-            1,048,576 and 5,000,000 keys), with the kernel's, the plain
-            version's and one library call's time
+  kernels   each kernel against its plain PyTorch version at the shapes of
+            its path (fp32 and bf16 for attention, the masked K1m at N = 77
+            and 20, K1 at ViT-L/14; int8 top-k bit for bit at 1,048,576 and
+            5,000,000 keys; the matmul-only control K6 and K7), with the
+            kernel's, the plain version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
             handle_request for dna, text, embedding and embed_images, and
@@ -27,8 +28,15 @@ Phases, in order; any failure exits non-zero:
             weights in bf16, dropout 0.1: 6 steps over one synthetic batch;
             finite falling loss, frozen weights unchanged, adapters and
             heads moved, K1, K2d and K3 launched, K2 and no plain version
+  openclip  the OpenCLIP ablation (ViT-L/14 + OpenCLIP text + BarcodeBERT)
+            at full width, same service, keys and request kinds (text as
+            WordPiece ids at N = 20), plus encode_language at context 77;
+            K1m, K1, K2 and K4 must have launched, no plain version
+  probe     the port's top-k decomposition probe at Bq = 256 (K7, K6, K4,
+            K5 rows, bioscan_clip_tpu_torch/tools/bench_topk_variants.py)
   parity    the fp32 port on the card against the same model on the CPU:
-            embeddings, then one train step (loss, gradients, AdamW)
+            embeddings, then one train step (loss, gradients, AdamW); then
+            the OpenCLIP towers at full width and 2 layers each
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs CUDA: without it the script exits 1
@@ -48,8 +56,8 @@ import time
 # their type.
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
-ALL_PHASES = ("device", "build", "kernels", "serving", "eval", "training",
-              "parity")
+ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
+              "training", "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -98,26 +106,39 @@ def phase_build():
 
     secs = _build.build()
     for name, text in sorted(_build.build_logs.items()):
+        fn = spills = ""
         for ln in text.splitlines():
-            if "registers" in ln or "spill" in ln or "error" in ln:
-                log(f"  nvcc {name}: {ln.strip()}")
+            # ptxas -v: "Function properties for <mangled name>", then its
+            # stack/spill line, then its "Used N registers" line
+            if "Function properties for" in ln:
+                fn = ln.rsplit(" ", 1)[-1]
+            elif "spill" in ln:
+                spills = ln.strip()
+            elif "registers" in ln or "error" in ln:
+                log(f"  nvcc {name} {fn}: {ln.split(':', 1)[-1].strip()}; "
+                    f"{spills}")
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
-def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed):
+def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
+                    causal=False):
+    """K1/K2 (K1m with `causal`: OpenCLIP's (N, N) -1e9 mask) against the
+    plain version, timed beside SDPA with the same bias or float mask."""
     import torch
     import torch.nn.functional as F
 
+    from bioscan_clip_tpu_torch.models.openclip import causal_mask
     from bioscan_clip_tpu_torch.ops import attention
 
     dev = torch.device("cuda")
     hd = d // heads
+    score_mask = causal_mask(n, dev) if causal else None
     if packed:
         qkv = torch.randn(b, n, 3 * d, device=dev, generator=gen).to(dtype)
         q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
 
         def kernel():
-            return attention.mha_packed(qkv, heads)
+            return attention.mha_packed(qkv, heads, mask=score_mask)
     else:
         q, k, v = (torch.randn(b, n, d, device=dev, generator=gen).to(dtype)
                    for _ in range(3))
@@ -132,12 +153,15 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed):
             return attention.mha(q, k, v, heads, bias=bias)
 
     def plain():
-        return attention.mha_reference(q, k, v, heads, bias=bias)
+        return attention.mha_reference(q, k, v, heads, bias=bias,
+                                       mask=score_mask)
 
     def view(t):
         return t.view(b, n, heads, hd).transpose(1, 2)
 
     mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    if causal:
+        mask = score_mask.to(dtype)
 
     def library():
         return F.scaled_dot_product_attention(view(q), view(k), view(v),
@@ -151,7 +175,8 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed):
     if not err <= tol:
         raise AssertionError(f"{name}: max |kernel - plain| {err} > {tol}")
     es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = 4 * b * n * d * es + (0 if bias is None else b * n * 4)
+    n_bytes = (4 * b * n * d * es + (0 if bias is None else b * n * 4)
+               + (n * n * 4 if causal else 0))
     n_ops = 4 * b * heads * n * n * hd
     dname = str(dtype).split(".")[-1]
     bms, by = bound_ms(n_bytes, n_ops, dname)
@@ -161,9 +186,10 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed):
         "max_abs_err": err,
     }
     log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
-        f"{' bias' if with_bias else ''}: err {err:.3g} (tol {tol:g}), "
-        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"sdpa {row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{' bias' if with_bias else ''}{' causal mask' if causal else ''}: "
+        f"err {err:.3g} (tol {tol:g}), kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
+        f"{bms:.4f} ms ({by})")
     return row
 
 
@@ -225,17 +251,6 @@ def _topk_case(gen, bq=256, n=1 << 20, d=768, k=5):
     return keys, row
 
 
-def _quantize_on_card(x):
-    """ops.topk.quantize_rows_i8 in torch ops on the card (the same
-    arithmetic): (N, D) int8 codes and (N,) fp32 scales."""
-    import torch
-
-    scales = x.abs().amax(dim=1) / 127.0
-    scales = torch.where(scales > 0, scales, torch.ones_like(scales))
-    codes = torch.clamp(torch.round(x / scales[:, None]), -127, 127)
-    return codes.to(torch.int8), scales.contiguous()
-
-
 def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
     """K5 against its plain version, values and indices bit for bit, at
     each query count of `bqs`; timed beside torch._int_mm + the two scales
@@ -245,6 +260,7 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
 
+    quantize = topk_mod.quantize_rows_i8_torch
     dev = torch.device("cuda")
     if codes_on_card:  # the BIOSCAN-5M key set's size: 3.8 GB of codes
         kc = torch.randint(-127, 128, (n, d), device=dev, generator=gen,
@@ -252,10 +268,10 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
         ks = 1e-3 + 1e-3 * torch.rand(n, device=dev, generator=gen)
     else:
         x = torch.randn(n, d, device=dev, generator=gen)
-        kc, ks = _quantize_on_card(x / x.norm(dim=1, keepdim=True))
+        kc, ks = quantize(x / x.norm(dim=1, keepdim=True))
         del x
     q = torch.randn(max(bqs), d, device=dev, generator=gen)
-    qc_all, qs_all = _quantize_on_card(q / q.norm(dim=1, keepdim=True))
+    qc_all, qs_all = quantize(q / q.norm(dim=1, keepdim=True))
     first = None
     for bq in bqs:
         qc, qs = qc_all[:bq].contiguous(), qs_all[:bq].contiguous()
@@ -292,6 +308,104 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
     del kc, ks
     torch.cuda.empty_cache()
     return first
+
+
+def _mm_only_case(gen, keys, bqs=(1, 256)):
+    """K6 against its plain version at each query count over `keys`: fp32
+    "high" and "default" within 1e-5 (unit vectors, 768 products summed in
+    another order), int8 bit for bit; timed beside one library call: (q @
+    k.T).amax in fp32 ("high"), in bf16 ("default", operands cast before
+    the timing), torch._int_mm + amax (int8, Bq padded to 32 rows). Returns
+    the rows of fp32 "high" at the largest Bq."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import topk as topk_mod
+
+    n, d = keys.shape
+    dev = keys.device
+    kc, _ = topk_mod.quantize_rows_i8_torch(keys)
+    k16 = keys.to(torch.bfloat16)
+    q_all = torch.randn(max(bqs), d, device=dev, generator=gen)
+    q_all /= q_all.norm(dim=1, keepdim=True)
+    qc_all, _ = topk_mod.quantize_rows_i8_torch(q_all)
+    rows = {}
+    for bq in bqs:
+        q, qc = q_all[:bq].contiguous(), qc_all[:bq].contiguous()
+        qp = torch.zeros(max(32, -(-bq // 8) * 8), d, device=dev,
+                         dtype=torch.int8)
+        qp[:bq] = qc
+        q16 = q.to(torch.bfloat16)
+        cases = {
+            "high": (q, keys, dict(), "float32",
+                     lambda: (q @ keys.T).amax(dim=1)),
+            "default": (q, keys, dict(precision="default"), "bfloat16",
+                        lambda: (q16 @ k16.T).amax(dim=1)),
+            "int8": (qc, kc, dict(int8=True), "int8",
+                     lambda: torch._int_mm(qp, kc.T)[:bq].amax(dim=1)),
+        }
+        for mode, (qq, kk, kw, dname, library) in cases.items():
+            out = topk_mod.mm_only(qq, kk, n, **kw)
+            torch.cuda.synchronize()
+            ref = topk_mod.mm_only_reference(qq, kk, n, **kw)
+            err = (out - ref).abs().max().item()
+            tol = 0.0 if mode == "int8" else 1e-5
+            if not err <= tol:
+                raise AssertionError(f"mm_only {mode} Bq={bq}: max |kernel "
+                                     f"- plain| {err} > {tol}")
+            lib_err = (library().float() - ref[:, 0]).abs().max().item()
+            n_bytes = (n * d + bq * d) * qq.element_size() + bq * 128 * 4
+            bms, by = bound_ms(n_bytes, 2 * bq * n * d, dname)
+            row = {
+                "ms": time_ms(lambda: topk_mod.mm_only(qq, kk, n, **kw),
+                              reps=5, warmup=1),
+                "plain_ms": time_ms(lambda: topk_mod.mm_only_reference(
+                    qq, kk, n, **kw), reps=2, warmup=1),
+                "library_ms": time_ms(library, reps=5, warmup=1),
+                "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            }
+            rows[(mode, bq)] = row
+            log(f"  mm_only {mode} Bq={bq} N={n} D={d}: err {err:.3g} (tol "
+                f"{tol:g}), kernel {row['ms']:.4f} ms, plain "
+                f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
+                f"ms (|library - plain| {lib_err:.3g}), bound {bms:.4f} ms "
+                f"({by})")
+    del kc, k16
+    torch.cuda.empty_cache()
+    return rows[("high", max(bqs))]
+
+
+def _tiny_case(gen):
+    """K7 against x + 1, exact; its time per launch in a pipelined run
+    (CUDA events) beside the plain version's and one `torch.add`'s, and one
+    call plus a synchronize on the host clock."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import topk as topk_mod
+
+    x = torch.randn(8, 128, device="cuda", generator=gen)
+    out = topk_mod.tiny(x)
+    torch.cuda.synchronize()
+    err = (out - topk_mod.tiny_reference(x)).abs().max().item()
+    if not err == 0.0:
+        raise AssertionError(f"tiny: max |kernel - (x + 1)| {err} > 0")
+    host = []
+    for _ in range(50):
+        t = time.perf_counter()
+        topk_mod.tiny(x)
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t))
+    bms, by = bound_ms(2 * x.numel() * 4, x.numel(), "float32")
+    row = {"ms": time_ms(lambda: topk_mod.tiny(x), reps=100, warmup=10),
+           "plain_ms": time_ms(lambda: topk_mod.tiny_reference(x), reps=100,
+                               warmup=10),
+           "library_ms": time_ms(lambda: torch.add(x, 1.0), reps=100,
+                                 warmup=10),
+           "bound_ms": bms, "bound_by": by, "max_abs_err": err}
+    log(f"  tiny (8, 128): exact, kernel {row['ms']:.4f} ms per launch "
+        f"pipelined, {sorted(host)[len(host) // 2]:.4f} ms median per call "
+        f"+ synchronize (host clock), plain {row['plain_ms']:.4f} ms, "
+        f"torch.add {row['library_ms']:.4f} ms, bound {bms:.2e} ms ({by})")
+    return row
 
 
 def _rel_err(out, ref):
@@ -467,11 +581,25 @@ def phase_kernels(rows: dict):
         _bwd_case("mha_bwd", TRAIN_BATCH, 20, 512, 8, dtype, gen,
                   with_bias=True, rate=0.1)
         torch.cuda.empty_cache()
+    # the OpenCLIP ablation's shapes: K1m in the text tower at full context
+    # and at the service's 20 WordPiece tokens, K1 at ViT-L/14
+    for dtype in (torch.float32, torch.bfloat16):
+        r = _attention_case("mha_packed", OPENCLIP_BATCH, 77, 768, 12, dtype,
+                            False, gen, packed=True, causal=True)
+        if dtype == torch.bfloat16:
+            rows["mha_packed_mask"] = r
+        _attention_case("mha_packed", OPENCLIP_BATCH, 20, 768, 12, dtype,
+                        False, gen, packed=True, causal=True)
+        _attention_case("mha_packed", 256, 257, 1024, 16, dtype, False, gen,
+                        packed=True)
+        torch.cuda.empty_cache()
     keys, rows["topk"] = _topk_case(gen)
+    rows["mm_only"] = _mm_only_case(gen, keys)
     del keys
     torch.cuda.empty_cache()
     rows["topk_i8"] = _topk_i8_case(gen, N_KEYS, (256, 64, 1))
     _topk_i8_case(gen, 5_000_000, (256, 1), codes_on_card=True)
+    rows["tiny"] = _tiny_case(gen)
     log("phase kernels ok")
 
 
@@ -489,41 +617,55 @@ KERNELS = {
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
     "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
                 "bioscan_clip_tpu/ops/topk_pallas.py:253"),
+    "mha_packed_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
+                        "bioscan_clip_tpu/ops/attention.py:162"),
+    "mm_only": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+                "tools/bench_topk_variants.py:78"),
+    "tiny": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+             "tools/bench_topk_variants.py:118"),
 }
 # the main path whose run gives each kernel's launch count in that line
 KERNEL_PATH = {"mha_packed": "serving", "mha": "serving", "topk": "serving",
                "topk_i8": "eval", "mha_dropout": "training",
-               "mha_bwd": "training"}
+               "mha_bwd": "training", "mha_packed_mask": "openclip",
+               "mm_only": "probe", "tiny": "probe"}
 
 
 def launch_counts():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
     return {"mha_packed": attention.mha_packed.launches,
+            "mha_packed_mask": attention.mha_packed.mask_launches,
             "mha": attention.mha.launches,
             "mha_dropout": attention.mha_dropout.launches,
             "mha_bwd": attention.mha_bwd.launches,
             "topk": topk.topk.launches,
-            "topk_i8": topk.topk_i8.launches}
+            "topk_i8": topk.topk_i8.launches,
+            "mm_only": topk.mm_only.launches,
+            "tiny": topk.tiny.launches}
+
+
+def _plain_fns():
+    from bioscan_clip_tpu_torch.ops import attention, topk
+
+    return (attention.mha_reference, attention.mha_bwd_reference,
+            topk.topk_reference, topk.topk_i8_reference,
+            topk.mm_only_reference, topk.tiny_reference)
 
 
 def plain_calls():
-    from bioscan_clip_tpu_torch.ops import attention, topk
-
-    return {"mha_reference": attention.mha_reference.calls,
-            "mha_bwd_reference": attention.mha_bwd_reference.calls,
-            "topk_reference": topk.topk_reference.calls,
-            "topk_i8_reference": topk.topk_i8_reference.calls}
+    return {fn.__name__: fn.calls for fn in _plain_fns()}
 
 
 def reset_counts():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
     for fn in (attention.mha_packed, attention.mha, attention.mha_dropout,
-               attention.mha_bwd, topk.topk, topk.topk_i8):
+               attention.mha_bwd, topk.topk, topk.topk_i8, topk.mm_only,
+               topk.tiny):
         fn.launches = 0
-    for fn in (attention.mha_reference, attention.mha_bwd_reference,
-               topk.topk_reference, topk.topk_i8_reference):
+    attention.mha_packed.mask_launches = 0
+    for fn in _plain_fns():
         fn.calls = 0
 
 
@@ -537,6 +679,20 @@ FLAGSHIP = {
     "output_dim": 768,
     "load_ckpt": False,
 }
+# The OpenCLIP ablation (model_config/ablation_with_open_clip/
+# trained_with_bioscan_1m_image_dna_text_with_pretrained_clip.yaml): ViT-L/14
+# + OpenCLIP text + BarcodeBERT, LoRA rank 4 on q/k/v, 768-d, random seeded
+# weights (the pretrained open_clip weights do not ship here).
+OPENCLIP = {
+    "image": {"input_type": "image", "model": "lora_clip_image"},
+    "dna": {"input_type": "sequence", "model": "lora_barcode_bert"},
+    "language": {"input_type": "sequence", "model": "lora_clip_text"},
+    "output_dim": 768,
+    "for_open_clip": True,
+    "load_ckpt": False,
+}
+# the requests' text batch, and the OpenCLIP kernel cases' batch
+OPENCLIP_BATCH = 64
 N_KEYS = 1 << 20
 # model_config/lora_vit_lora_barcode_bert_lora_bert_5m.yaml:2
 TRAIN_BATCH = 400
@@ -756,6 +912,135 @@ def _serve_int8(service, keys, labels, rows, queries, rng):
             raise AssertionError(f"int8 {mode}: top-1 agrees with fp32 on "
                                  f"{agree:.3f} < 0.99")
     service.key_precision, service.key_rescore = "high", "bfloat16"
+
+
+def _clip_ids(rng, b, n=77, vocab=49408):
+    """(b, n) CLIP-BPE-shaped ids: <start_of_text> (vocab - 2), random
+    tokens, <end_of_text> (vocab - 1, the row's maximum), zero padding."""
+    import numpy as np
+
+    ids = np.zeros((b, n), np.int64)
+    for r, length in enumerate(rng.integers(3, n + 1, size=b)):
+        ids[r, 0] = vocab - 2
+        ids[r, 1 : length - 1] = rng.integers(1, vocab - 2, size=length - 2)
+        ids[r, length - 1] = vocab - 1
+    return ids
+
+
+def phase_openclip():
+    """The OpenCLIP ablation served at full width (ViT-L/14 24 x 1024 x 16
+    heads, N = 257; text 12 x 768, causal; BarcodeBERT; bf16, random seeded
+    weights) behind cli/serve.build_service over 1,048,576 resident fp32
+    keys: handle_request for text x64 (BERT-small WordPiece ids, N = 20, as
+    the JAX service feeds them), dna x64 and embedding x256, embed_images
+    x8, and encode_language on (64, 77) CLIP-BPE-shaped ids (K1m at full
+    context). Checks: unit-norm embeddings, each key's own embedding found
+    first, K1m, K1, K2 and K4 launched and no plain version. Returns the
+    launch counts of this run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.cli.serve import build_service
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.retrieval.engine import l2norm_np
+    from bioscan_clip_tpu_torch.retrieval.service import handle_request
+
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(5)
+    with tempfile.TemporaryDirectory() as tmp:
+        vocab = f"{tmp}/vocab.txt"
+        with open(vocab, "w") as f:
+            f.write("\n".join(VOCAB) + "\n")
+        args = ConfigNode({"model_config": dict(OPENCLIP), "serve": {
+            "device": "cuda", "max_k": 5, "max_batch": 256,
+            "vocab_path": vocab}})
+        service = _timed("build_service (OpenCLIP ViT-L/14, bf16, random "
+                         "weights)", lambda: build_service(args, out=log))
+        n_params = sum(p.numel() for p in service.model.parameters())
+        log(f"  {n_params} parameters; openclip_norm "
+            f"{service.openclip_norm}")
+        keys = rng.standard_normal((N_KEYS, 768), dtype=np.float32)
+        labels = _key_labels(N_KEYS)
+        _timed(f"set_keys ({N_KEYS} x 768 fp32)",
+               lambda: service.set_keys(keys, labels))
+        barcodes = _barcodes(rng, OPENCLIP_BATCH)
+        texts = [f"{ORDERS[i % 4]} {FAMILIES[i % 4]} sciara sp"
+                 for i in range(OPENCLIP_BATCH)]
+        rows = rng.choice(N_KEYS, size=256, replace=False)
+        queries = l2norm_np(keys[rows])
+        images = [rng.integers(0, 256, size=(int(h), int(w), 3),
+                               dtype=np.uint8)
+                  for h, w in rng.integers(240, 420, size=(8, 2))]
+        clip_ids = torch.from_numpy(_clip_ids(rng, OPENCLIP_BATCH)).cuda()
+
+        reset_counts()  # this path's launches are counted from here
+        for rep in ("cold", "warm"):
+            out = _timed(f"{rep} /search text x{OPENCLIP_BATCH}",
+                         lambda: handle_request(service, {"text": texts}))
+            _check_search("text", out, OPENCLIP_BATCH, 5)
+            out = _timed(f"{rep} /search dna x{OPENCLIP_BATCH}",
+                         lambda: handle_request(service, {"dna": barcodes}))
+            _check_search("dna", out, OPENCLIP_BATCH, 5)
+            out = _timed(f"{rep} /search embedding x256",
+                         lambda: handle_request(
+                             service, {"embedding": queries.tolist()}))
+            _check_search("embedding", out, 256, 5)
+            if [p["species"][0] for p in out["predictions"]] != [
+                    labels[r]["species"] for r in rows]:
+                raise AssertionError("openclip: a key's own embedding did "
+                                     "not find it first")
+            emb = _timed(f"{rep} embed_images x8 (ViT-L/14)",
+                         lambda: service.embed_images(images))
+            _check_unit("embed_images", emb, 8)
+            with torch.inference_mode():
+                emb = _timed(f"{rep} encode_language ({OPENCLIP_BATCH}, 77) "
+                             "CLIP-BPE ids", lambda: service.model.
+                             encode_language({"input_ids": clip_ids}))
+            _check_unit("encode_language (77)", emb.cpu().numpy(),
+                        OPENCLIP_BATCH)
+        _check_unit("embed_text", _timed(
+            f"embed_text x{OPENCLIP_BATCH}",
+            lambda: service.embed_text(texts)), OPENCLIP_BATCH)
+        _check_unit("embed_dna", _timed(
+            f"embed_dna x{OPENCLIP_BATCH}",
+            lambda: service.embed_dna(barcodes)), OPENCLIP_BATCH)
+        counts, plain = launch_counts(), plain_calls()
+    log(f"  launches on the OpenCLIP path: {counts}; plain calls {plain}")
+    want = ("mha_packed_mask", "mha_packed", "mha", "topk")
+    if any(counts[k] <= 0 for k in want) or any(plain.values()):
+        raise AssertionError(f"openclip: launches {counts}, plain {plain}")
+    del service
+    torch.cuda.empty_cache()
+    log("phase openclip ok")
+    return counts
+
+
+def phase_probe():
+    """The port's top-k decomposition probe
+    (bioscan_clip_tpu_torch/tools/bench_topk_variants.py) over 1,048,576
+    keys at Bq = 256: dispatch_floor (K7), mm_only (K6) fp32 default/high
+    and int8, topk_f32 (K4) and topk_i8 (K5), one distinct query set per
+    timed call. Returns the launch counts of this run."""
+    import torch
+
+    from bioscan_clip_tpu_torch.tools import bench_topk_variants
+
+    torch.cuda.empty_cache()
+    reset_counts()
+    rc = bench_topk_variants.main(
+        ["--keys", str(N_KEYS), "--queries", "256", "--bq", "256"],
+        emit=lambda line: log(f"  probe {line}"))
+    counts, plain = launch_counts(), plain_calls()
+    log(f"  launches in the probe: {counts}; plain calls {plain}")
+    want = ("tiny", "mm_only", "topk", "topk_i8")
+    if rc != 0 or any(counts[k] <= 0 for k in want) or any(plain.values()):
+        raise AssertionError(f"probe: rc {rc}, launches {counts}, plain "
+                             f"{plain}")
+    torch.cuda.empty_cache()
+    log("phase probe ok")
+    return counts
 
 
 # the evaluation job: inference_and_eval.py sets batch_size = 24 (:126)
@@ -1274,7 +1559,79 @@ def phase_parity():
         if not err <= 1e-3:
             raise AssertionError(f"parity {name}: {err} > 1e-3")
     _train_step_parity(cpu, gpu)
+    del cpu, gpu
+    _openclip_parity(x)
     log("phase parity ok")
+
+
+def _openclip_parity(x, layers=2):
+    """The OpenCLIP towers at full width and `layers` layers each (the full
+    ViT-L/14 is slow on the CPU), fp32, LoRA B drawn non-zero: the card
+    (K1, K1m, K2) against the CPU (the plain versions), tol 1e-3 on the
+    normalized embeddings as above, on 4 images, 4 barcodes, the 4
+    WordPiece rows and 4 CLIP-BPE-shaped rows at context 77."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BARCODE_BERT_CONFIG,
+        BarcodeBertDnaEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP, init_weights
+    from bioscan_clip_tpu_torch.models.lora import LORA_B_NAMES
+    from bioscan_clip_tpu_torch.models.openclip import (
+        OpenClipImageTower,
+        OpenClipTextAdapter,
+        OpenClipTextConfig,
+        OpenClipVisionConfig,
+    )
+
+    cut = {"layers": layers}
+    cpu = init_weights(MultiModalCLIP(
+        image_encoder=OpenClipImageTower(dataclasses.replace(
+            OpenClipVisionConfig(), **cut)),
+        dna_encoder=BarcodeBertDnaEncoder(dataclasses.replace(
+            BARCODE_BERT_CONFIG, num_layers=layers)),
+        language_encoder=OpenClipTextAdapter(dataclasses.replace(
+            OpenClipTextConfig(), **cut)),
+    ), seed=2).eval()
+    gen = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if any(b in name.split(".")[-2:] for b in LORA_B_NAMES):
+                p.normal_(0.0, 0.02, generator=gen)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    clip_ids = _clip_ids(np.random.default_rng(6), 4)
+
+    def embed(model, dev):
+        def t(a):
+            return torch.from_numpy(a).to(dev)
+
+        with torch.inference_mode():
+            return {
+                "image": model.encode_image(t(x["image"])),
+                "dna": model.encode_dna(t(x["dna"])),
+                "language (WordPiece, N=20)": model.encode_language(
+                    {k: t(v) for k, v in x["language"].items()}),
+                "language (CLIP-BPE, N=77)": model.encode_language(
+                    {"input_ids": t(clip_ids)}),
+            }
+
+    ref = embed(cpu, "cpu")
+    reset_counts()
+    out = embed(gpu, "cuda")
+    counts = launch_counts()
+    for name in ref:
+        err = (out[name].cpu() - ref[name]).abs().max().item()
+        log(f"  openclip {layers}-layer {name}: max |card - cpu| {err:.3g} "
+            "(tol 1e-3)")
+        if not err <= 1e-3:
+            raise AssertionError(f"parity openclip {name}: {err} > 1e-3")
+    if min(counts[k] for k in ("mha_packed", "mha_packed_mask", "mha")) <= 0:
+        raise AssertionError(f"parity openclip: launches {counts}")
 
 
 def _train_step_parity(cpu, gpu):
@@ -1355,10 +1712,14 @@ def main(argv=None) -> int:
         phase_kernels(rows)
     if "serving" in phases:
         path_counts["serving"] = phase_serving()
+    if "openclip" in phases:
+        path_counts["openclip"] = phase_openclip()
     if "eval" in phases:
         path_counts["eval"] = phase_eval()
     if "training" in phases:
         path_counts["training"] = phase_training()
+    if "probe" in phases:
+        path_counts["probe"] = phase_probe()
     if "parity" in phases:
         phase_parity()
     log(f"elapsed {time.perf_counter() - t0:.1f} s")

@@ -7,15 +7,19 @@ the JAX package, so it also runs on a machine without them:
 
 Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
-before P.V on both sides); the attention backward the same, scaled by
-max(1, max |plain|) per gradient; top-k values atol 1e-5 on unit vectors;
-int8 top-k (K5) bit-equal to its plain version, values and indices (exact
-integer dots times two scales in the same order, the same tie rule).
+before P.V on both sides), the masked forward (K1m) as K1; the attention
+backward the same, scaled by max(1, max |plain|) per gradient; top-k values
+atol 1e-5 on unit vectors; int8 top-k (K5) bit-equal to its plain version,
+values and indices (exact integer dots times two scales in the same order,
+the same tie rule); the matmul-only control (K6) int8 bit-equal, fp32 atol
+1e-5 on unit vectors in both precisions (fp32 sums of 768 products in
+another order); K7 exact.
 """
 
 import pytest
 import torch
 
+from bioscan_clip_tpu_torch.models.openclip import causal_mask
 from bioscan_clip_tpu_torch.ops import attention, topk
 
 pytestmark = pytest.mark.gpu
@@ -210,3 +214,90 @@ def test_int8_topk_kernel_duplicates_zero_rows_and_k_equal_n_valid(gen):
     with pytest.raises(ValueError, match="64"):
         qc, qs = _codes(q)
         topk.topk_i8(qc, qs, *_codes(keys), 3000, 65)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_masked_attention_kernel_matches_plain(gen, dtype, tol):
+    """K1m at the OpenCLIP text shapes (N = 77, and the service's 20) under
+    the causal mask, and under an arbitrary dense fp32 mask; counted in
+    `mask_launches`, apart from K1."""
+    d = 768
+    for n, mask in ((77, causal_mask(77, "cuda")), (20, causal_mask(20, "cuda")),
+                    (77, torch.randn(77, 77, device="cuda", generator=gen))):
+        qkv = torch.randn(4, n, 3 * d, device="cuda", generator=gen).to(dtype)
+        before = (attention.mha_packed.launches,
+                  attention.mha_packed.mask_launches)
+        out = attention.mha_packed(qkv, 12, mask=mask)
+        assert (attention.mha_packed.launches,
+                attention.mha_packed.mask_launches) == (before[0],
+                                                        before[1] + 1)
+        ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                      qkv[..., 2 * d :], 12, mask=mask)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+    with pytest.raises(ValueError, match="mask"):
+        attention.mha_packed(qkv, 12, mask=mask[:20, :20].contiguous())
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_attention_kernel_at_vit_l14(gen, dtype, tol):
+    """K1 at ViT-L/14's shape: N = 257, D = 1024, 16 heads (144,016 B of
+    shared memory per block)."""
+    d = 1024
+    qkv = torch.randn(3, 257, 3 * d, device="cuda", generator=gen).to(dtype)
+    out = attention.mha_packed(qkv, 16)
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], 16)
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_masked_backward_raises_on_the_card(gen):
+    """The backward of K1m is K3m, not ported: the card raises rather than
+    return a gradient that ignores the mask."""
+    qkv = torch.randn(2, 77, 3 * 768, device="cuda",
+                      generator=gen).requires_grad_()
+    out = attention.mha_packed(qkv, 12, mask=causal_mask(77, "cuda"))
+    with pytest.raises(NotImplementedError, match="K3m"):
+        out.sum().backward()
+    assert qkv.grad is None
+    with pytest.raises(NotImplementedError, match="K3m"):
+        attention.mha_bwd(None, None, None, out.detach(), 12,
+                          packed_qkv=qkv.detach(),
+                          mask=causal_mask(77, "cuda"))
+
+
+@pytest.mark.parametrize("bq", [1, 37, 130])
+def test_mm_only_kernel_matches_plain(gen, bq):
+    keys = torch.randn(50_000, 768, device="cuda", generator=gen)
+    keys /= keys.norm(dim=1, keepdim=True)
+    q = torch.randn(bq, 768, device="cuda", generator=gen)
+    q /= q.norm(dim=1, keepdim=True)
+    before = topk.mm_only.launches
+    for prec in ("high", "default"):
+        out = topk.mm_only(q, keys, 49_001, precision=prec)
+        ref = topk.mm_only_reference(q, keys, 49_001, precision=prec)
+        assert out.shape == (bq, 128)
+        assert (out - ref).abs().max().item() <= 1e-5
+    qc, _ = topk.quantize_rows_i8_torch(q)
+    kc, _ = topk.quantize_rows_i8_torch(keys)
+    out = topk.mm_only(qc, kc, 49_001, int8=True)
+    assert torch.equal(out, topk.mm_only_reference(qc, kc, 49_001, int8=True))
+    assert topk.mm_only.launches == before + 3
+    assert torch.isneginf(topk.mm_only(q, keys, 0)).all()
+
+
+def test_tiny_kernel_is_exact(gen):
+    x = torch.randn(8, 128, device="cuda", generator=gen)
+    before = topk.tiny.launches
+    assert torch.equal(topk.tiny(x), topk.tiny_reference(x))
+    assert topk.tiny.launches == before + 1
+
+
+def test_eot_pooling_takes_the_first_maximum_on_the_card(gen):
+    """The OpenCLIP text tower pools at `argmax(token_ids)`; on the card, as
+    on the CPU and in JAX, ties go to the first maximum."""
+    ids = torch.randint(0, 5, (64, 77), device="cuda", generator=gen)
+    ids[:, 40:] = 7
+    ids[3] = 2
+    assert ids.argmax(dim=-1).tolist() == [40] * 3 + [0] + [40] * 60

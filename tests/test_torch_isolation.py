@@ -30,6 +30,11 @@ def test_no_forbidden_imports():
     files = sorted((ROOT / "bioscan_clip_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    # the OpenCLIP slice's modules and the probe are among those checked
+    assert {f"bioscan_clip_tpu_torch/{m}.py" for m in (
+        "models/openclip", "models/mlp", "models/heads",
+        "data/clip_tokenizer", "tools/bench_topk_variants")} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
