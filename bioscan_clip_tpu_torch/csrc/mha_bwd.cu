@@ -5,8 +5,12 @@
 //      :212-271): dq/dk/dv (+ dbias) of the K1/K2/K2d forward, for ViT's
 //      packed (B, N, 3D) qkv and BERT's split q/k/v with an optional (B, N)
 //      fp32 key bias, with and without counter-hash probability dropout.
+//   K3m the same with an (N, N) fp32 additive score mask shared across the
+//      batch (`has_mask`, :363-367, `mask2d` :237, :295): the backward of
+//      K1m, OpenCLIP's causal text attention.
 //
-// Contract, per (batch row, head): recompute s and the fp32 softmax p;
+// Contract, per (batch row, head): recompute s = q.k * scale [+ bias[b, j]]
+// [+ mask[i, j]] and the fp32 softmax p;
 // y = p * keep; dv = y^T g with y rounded to the input dtype;
 // dp = (g v^T) * keep in fp32; ds = p * (dp - rowsum(dp * p));
 // dq = (ds * scale -> input dtype) k; dk = (ds * scale -> input dtype)^T q;
@@ -37,7 +41,14 @@
 //   pass C (only when dbias is asked for) sums the partials over heads in
 //     order.
 // Both passes compute s and dp with the same `dot` over the same operand
-// pairs in the same order, so p and ds are bit-identical between them.
+// pairs in the same order, and add the scale, bias and mask with the same
+// explicit roundings, so p and ds are bit-identical between them. A -1e9
+// mask entry gives p = exp(-1e9 - m) = 0 exactly, so ds = 0 there.
+// The mask is read from device memory where the score is formed: pass A's
+// lanes read row i on neighbouring addresses, pass B's lanes column j with a
+// stride of N floats (one 77 x 77 mask is 23.7 KB and stays in L1/L2).
+// Whether there is a mask is a template parameter, so K3 compiles without
+// the mask read.
 // The staged rows keep the input dtype (bf16 rows are exact in bf16): at
 // N=197, hd=64 a bf16 CTA needs ~72 KB of shared memory, so three share an
 // SM (fp32 rows: ~124 KB, one CTA). Rows are padded by 16 bytes: 16-byte
@@ -69,6 +80,7 @@ struct BwdArgs {
   const void* v;
   const void* g;        // (B, N, heads * HD) contiguous
   const float* bias;    // (B, N) or nullptr
+  const float* mask;    // (N, N) or nullptr: only read when HAS_MASK
   void* dq;             // dq, dk, dv: out_row / out_batch strides
   void* dk;
   void* dv;
@@ -140,6 +152,16 @@ __device__ __forceinline__ float score(float dot, float scale, float bias) {
   return __fadd_rn(__fmul_rn(dot, scale), bias);
 }
 
+// The score plus the (N, N) mask entry (i, j), rounded the same way in both
+// passes (JAX adds the mask after the bias, `_attend_bwd_one_row` :235-238).
+template <bool HAS_MASK>
+__device__ __forceinline__ float masked(float s, const float* mask, int i,
+                                        int j, int n) {
+  if constexpr (HAS_MASK)
+    return __fadd_rn(s, __ldg(mask + (long long)i * n + j));
+  return s;
+}
+
 // Stage rows [0, n) of one head of a strided (B, N, *) tensor into shared
 // memory in its own dtype, rows padded to row_pad<T, HD>() elements.
 template <typename T, int HD>
@@ -177,7 +199,7 @@ __host__ __device__ constexpr long long warp_bytes_key(int hd, int n4) {
   return 2LL * (hd + 4) * 4 + 2LL * n4 * (long long)sizeof(T);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads) bwd_query_rows(BwdArgs a) {
   constexpr int S = row_pad<T, HD>();
   constexpr int SF = HD + 4;  // fp32 row
@@ -214,8 +236,10 @@ __global__ void __launch_bounds__(kThreads) bwd_query_rows(BwdArgs a) {
 
     float mx = -INFINITY;
     for (int j = lane; j < n; j += 32) {
-      float s = score(dot<T, HD>(qrow, ks + j * S), a.scale,
-                      bias_row ? bias_row[j] : 0.f);
+      const float s = masked<HAS_MASK>(
+          score(dot<T, HD>(qrow, ks + j * S), a.scale,
+                bias_row ? bias_row[j] : 0.f),
+          a.mask, i, j, n);
       pw[j] = s;
       mx = fmaxf(mx, s);
     }
@@ -265,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) bwd_query_rows(BwdArgs a) {
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads) bwd_key_rows(BwdArgs a) {
   constexpr int S = row_pad<T, HD>();
   constexpr int SF = HD + 4;  // fp32 row
@@ -315,8 +339,9 @@ __global__ void __launch_bounds__(kThreads) bwd_key_rows(BwdArgs a) {
     for (int i = lane; i < n; i += 32) {
       // dot(k_j, q_i) and dot(v_j, g_i): fmaf is exact in the product, so
       // these equal pass A's dot(q_i, k_j) and dot(g_i, v_j) bit for bit
-      const float p = expf(score(dot<T, HD>(krow, qs + i * S), a.scale, bj) -
-                           ms[i]) / ls[i];
+      const float s = masked<HAS_MASK>(
+          score(dot<T, HD>(krow, qs + i * S), a.scale, bj), a.mask, i, j, n);
+      const float p = expf(s - ms[i]) / ls[i];
       float dp = dot<T, HD>(vrow, gs + i * S);
       float y = p;
       if (a.drop.on) {
@@ -384,32 +409,32 @@ long long smem_key_rows(int n, int hd) {
          kWarps * warp_bytes_key<T>(hd, n4);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool HAS_MASK>
 cudaError_t launch(const BwdArgs& a, int b, cudaStream_t stream) {
+  const auto pass_a = bwd_query_rows<T, HD, HAS_MASK>;
+  const auto pass_b = bwd_key_rows<T, HD, HAS_MASK>;
   const long long sa = smem_query_rows<T>(a.n, HD);
   const long long sb = smem_key_rows<T>(a.n, HD);
   cudaError_t err = cudaFuncSetAttribute(
-      bwd_query_rows<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)sa);
+      pass_a, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sa);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_key_rows<T, HD>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)sb);
+  err = cudaFuncSetAttribute(
+      pass_b, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sb);
   if (err != cudaSuccess) return err;
   // ask for the largest shared-memory carveout, so several CTAs fit an SM
-  err = cudaFuncSetAttribute(bwd_query_rows<T, HD>,
+  err = cudaFuncSetAttribute(pass_a,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(bwd_key_rows<T, HD>,
+  err = cudaFuncSetAttribute(pass_b,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.n + kRowsPerBlock - 1) / kRowsPerBlock, a.heads, b);
-  bwd_query_rows<T, HD><<<grid, kThreads, sa, stream>>>(a);
+  pass_a<<<grid, kThreads, sa, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_key_rows<T, HD><<<grid, kThreads, sb, stream>>>(a);
+  pass_b<<<grid, kThreads, sb, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (a.dbias_part) {
@@ -421,19 +446,27 @@ cudaError_t launch(const BwdArgs& a, int b, cudaStream_t stream) {
   return err;
 }
 
-template <typename T>
+// K3m is its own instantiation, so K3 carries no mask read
+template <typename T, bool HAS_MASK>
 cudaError_t dispatch_hd(int head_dim, const BwdArgs& a, int b,
                         cudaStream_t stream) {
   switch (head_dim) {
     case 32:
-      return launch<T, 32>(a, b, stream);
+      return launch<T, 32, HAS_MASK>(a, b, stream);
     case 64:
-      return launch<T, 64>(a, b, stream);
+      return launch<T, 64, HAS_MASK>(a, b, stream);
     case 128:
-      return launch<T, 128>(a, b, stream);
+      return launch<T, 128, HAS_MASK>(a, b, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t dispatch_mask(int head_dim, const BwdArgs& a, int b,
+                          cudaStream_t stream) {
+  return a.mask ? dispatch_hd<T, true>(head_dim, a, b, stream)
+                : dispatch_hd<T, false>(head_dim, a, b, stream);
 }
 
 }  // namespace
@@ -442,12 +475,14 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. q/k/v share (in_row, in_batch) element
 // strides, dq/dk/dv share (out_row, out_batch); g is contiguous (B, N, D).
-// bias: nullptr or (B, N) float32. dbias and dbias_part: both nullptr, or
+// bias: nullptr or (B, N) float32. mask: nullptr or (N, N) float32, shared
+// across the batch (K3m). dbias and dbias_part: both nullptr, or
 // (B, N) and (B, heads, N) float32. stats: (B, heads, N, 3) float32
 // scratch. drop/row_seeds/seed/threshold/keep_scale as bscan_mha_fwd.
 // Returns the cudaError_t of the launches (0 on success).
 int bscan_mha_bwd(const void* q, const void* k, const void* v, const void* g,
-                  const void* bias, void* dq, void* dk, void* dv, void* dbias,
+                  const void* bias, const void* mask, void* dq, void* dk,
+                  void* dv, void* dbias,
                   void* stats, void* dbias_part, int b, int n, int heads,
                   int head_dim, long long in_row, long long in_batch,
                   long long out_row, long long out_batch, float scale,
@@ -456,7 +491,8 @@ int bscan_mha_bwd(const void* q, const void* k, const void* v, const void* g,
                   void* stream) {
   if ((dbias == nullptr) != (dbias_part == nullptr))
     return (int)cudaErrorInvalidValue;
-  const BwdArgs a{q, k, v, g, static_cast<const float*>(bias), dq, dk, dv,
+  const BwdArgs a{q, k, v, g, static_cast<const float*>(bias),
+                  static_cast<const float*>(mask), dq, dk, dv,
                   static_cast<float*>(stats),
                   static_cast<float*>(dbias_part),
                   static_cast<float*>(dbias), n, heads, in_row, in_batch,
@@ -464,8 +500,8 @@ int bscan_mha_bwd(const void* q, const void* k, const void* v, const void* g,
                   Dropout{static_cast<const unsigned*>(row_seeds), seed,
                           threshold, keep_scale, drop}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_hd<float>(head_dim, a, b, s);
-  if (dtype == 1) return (int)dispatch_hd<__nv_bfloat16>(head_dim, a, b, s);
+  if (dtype == 0) return (int)dispatch_mask<float>(head_dim, a, b, s);
+  if (dtype == 1) return (int)dispatch_mask<__nv_bfloat16>(head_dim, a, b, s);
   return (int)cudaErrorInvalidValue;
 }
 

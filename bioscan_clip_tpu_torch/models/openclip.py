@@ -1,5 +1,5 @@
 """OpenCLIP-geometry towers: the ViT-L/14 image tower and the text tower of
-the ablation configs (`for_open_clip`), eval only.
+the ablation configs (`for_open_clip`).
 
 Counterpart of bioscan_clip_tpu/models/openclip.py:35-239:
 - image: conv1 (p x p, stride p, no bias) -> class token + positional
@@ -13,7 +13,9 @@ Every attention carries LoRA on its q, k and v thirds
 (`models.lora.LoRAInProj`, JAX :86-95). LayerNorms (eps 1e-5) compute in
 fp32 and cast to the compute dtype; the residual stream and the products run
 in the compute dtype; attention goes through `ops.attention.mha_packed` (K1,
-and K1m with the causal mask).
+and K1m with the causal mask; backward K3, and K3m with the mask). The
+blocks have no dropout (the JAX blocks accept `deterministic` and never read
+it), so train mode computes what eval mode computes.
 
 Parameter names are open_clip's (`conv1`, `class_embedding`,
 `transformer.resblocks.{i}.attn.in_proj_weight`, `mlp.c_fc`, `ln_final`,
@@ -195,8 +197,7 @@ class OpenClipTextAdapter(nn.Module):
     (JAX `OpenClipTextAdapter`, :226-239): `attention_mask` and
     `token_type_ids` are taken and ignored (CLIP text is causal with EOT
     pooling), and so is `row_seeds`, which `MultiModalCLIP.encode_language`
-    always passes. Eval only: training the OpenCLIP towers needs the masked
-    attention backward (K3m, ROADMAP.md queue 2)."""
+    always passes: the tower has no dropout."""
 
     def __init__(self, cfg: OpenClipTextConfig = OpenClipTextConfig(),
                  dtype: torch.dtype = torch.float32):
@@ -205,8 +206,4 @@ class OpenClipTextAdapter(nn.Module):
 
     def forward(self, input_ids, attention_mask=None, token_type_ids=None,
                 row_seeds=None):
-        if self.training:
-            raise NotImplementedError(
-                "the OpenCLIP text tower is eval only: its training needs "
-                "the masked attention backward K3m (ROADMAP.md queue 2)")
         return self.text(input_ids)

@@ -10,18 +10,18 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
   forward with counter-hash probability dropout (`_split_drop_kernel` :195,
   `_split_bias_drop_kernel` :203, `_row_drop` :184);
 - `mha_bwd` (`_pallas_mha_bwd` :321, body `_attend_bwd_one_row` :212): K3,
-  dq/dk/dv (+ dbias) with the probabilities and the dropout mask recomputed.
-  Its variant with an (N, N) score mask (`has_mask`, :363-367), K3m, is not
-  ported yet (ROADMAP.md queue 2): on the card a masked backward raises, on
-  the CPU `mha_bwd_reference(mask=)` computes it.
+  dq/dk/dv (+ dbias) with the probabilities and the dropout mask recomputed,
+  and with an (N, N) score mask (`has_mask`, :363-367) K3m, the backward of
+  K1m, counted apart in `mha_bwd.mask_launches`.
 
 `mha_packed` and `mha` are `torch.autograd.Function`s, as the JAX ops are
-`jax.custom_vjp`s (:543-677): the forward is K1/K2/K2d, the backward K3. On
-a CUDA tensor each wrapper launches its hand-written kernel (`csrc/mha_fwd.cu`,
-`csrc/mha_bwd.cu`) or raises; on a CPU tensor it runs its plain PyTorch
-version (`mha_reference`, `mha_bwd_reference`), which has the same contract.
-Autograd never differentiates the plain forward: the CPU backward is
-`mha_bwd_reference`, the function the card's K3 is held against.
+`jax.custom_vjp`s (:543-677): the forward is K1/K1m/K2/K2d, the backward K3
+or K3m. On a CUDA tensor each wrapper launches its hand-written kernel
+(`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`) or raises; on a CPU tensor it runs
+its plain PyTorch version (`mha_reference`, `mha_bwd_reference`), which has
+the same contract. Autograd never differentiates the plain forward: the CPU
+backward is `mha_bwd_reference`, the function the card's K3/K3m is held
+against.
 
 The dropout hash (`_mix32`, `dropout_keep_2d/4d`, :60-113) is uint32
 arithmetic done in int64 tensors and masked to 32 bits; seeds are Python
@@ -167,7 +167,7 @@ def mha_bwd_reference(q, k, v, g, heads: int, bias=None, scale=None,
     is cast to g's dtype for dv, ds * scale is cast to q's dtype for dq and
     dk. Returns (dq, dk, dv, dbias), dbias the fp32 sum of ds over heads
     and query rows (None without a bias). With `mask` it is the K3m
-    contract, the function that kernel will be held against."""
+    contract, the function that kernel is held against."""
     mha_bwd_reference.calls += 1
     b, n, d = q.shape
     if scale is None:
@@ -218,7 +218,7 @@ def _bwd_kernel():
     lib = _build.load("mha_bwd")
     fn = lib.bscan_mha_bwd
     fn.argtypes = (
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+        [ctypes.c_void_p] * 12 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
         + [ctypes.c_float, ctypes.c_int]
         + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
            ctypes.c_int, ctypes.c_void_p]
@@ -411,8 +411,8 @@ def mha_packed(qkv, heads: int, scale=None, mask=None):
     heads-major in each third: the timm fused-qkv layout) -> (B, N, D).
     `mask`: an optional (N, N) fp32 additive score mask shared across the
     batch (OpenCLIP's causal text mask), added after the scale (K1m).
-    Differentiable in qkv: the backward is K3 on the card; with a mask it is
-    K3m, which is not ported yet, and raises there."""
+    Differentiable in qkv: the backward is K3 on the card, K3m with a
+    mask."""
     d3 = qkv.shape[-1]
     if d3 % 3:
         raise ValueError(f"mha_packed: last dim {d3} is not 3 * D")
@@ -469,9 +469,8 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     (B, N, 3D) is given, and g is dL/d(output) (B, N, D). Returns
     (dq, dk, dv, dbias) in the input dtype (dbias fp32 (B, N) when
     `need_dbias` and a bias are given, else None), or the (B, N, 3D) dqkv
-    for a packed input. An (N, N) score `mask` is the K3m contract: the CPU
-    computes it; on the card it raises until K3m is ported, rather than
-    return gradients that ignore the mask."""
+    for a packed input. An (N, N) fp32 score `mask`, shared across the
+    batch, makes it K3m (counted in `mha_bwd.mask_launches`)."""
     packed = packed_qkv is not None
     if packed:
         d = packed_qkv.shape[-1] // 3
@@ -488,14 +487,14 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
             return torch.cat([dq, dk, dv], dim=-1)
         return dq, dk, dv, (dbias if need_dbias else None)
 
-    if mask is not None:
-        raise NotImplementedError(
-            "mha_bwd: the attention backward with an (N, N) score mask is "
-            "kernel K3m, which is not ported yet (ROADMAP.md queue 2: K3m "
-            "and OpenCLIP training)")
     _check_heads("mha_bwd", d, heads, q.dtype)
     if g.shape != (b, n, d):
         raise ValueError(f"mha_bwd: g {tuple(g.shape)}, expected {(b, n, d)}")
+    if mask is not None:
+        _check_cuda("mha_bwd mask", [mask], torch.float32)
+        if mask.device != q.device or tuple(mask.shape) != (n, n):
+            raise ValueError(f"mha_bwd: mask must be ({n}, {n}) on "
+                             f"{q.device}")
     if b > 65535:
         raise ValueError(f"mha_bwd: batch {b} > 65535; split the batch")
     lib, fn, smem = _bwd_kernel()
@@ -527,18 +526,23 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
                                                  b, dev)
     err = fn(
         *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
-        *outs, None if dbias is None else dbias.data_ptr(),
-        stats.data_ptr(), None if part is None else part.data_ptr(),
+        None if mask is None else mask.data_ptr(), *outs,
+        None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+        None if part is None else part.data_ptr(),
         b, n, heads, d // heads, row, n * row, row, n * row, float(scale),
         _DTYPE_CODE[q.dtype],
         None if rows is None else rows.data_ptr(), scalar, thr, kscale, drop,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(lib, err, "mha_bwd launch")
-    mha_bwd.launches += 1
+    if mask is None:
+        mha_bwd.launches += 1
+    else:
+        mha_bwd.mask_launches += 1
     if packed:
         return dqkv
     return dq, dk, dv, dbias
 
 
 mha_bwd.launches = 0
+mha_bwd.mask_launches = 0

@@ -12,7 +12,10 @@ Dropout is row-keyed: the step takes a uint32 step seed and derives each
 BERT tower's (B,) row seeds as the JAX package does (loop.py:565-576:
 `row_seeds_init(bits ^ 0x0D5A17, arange(B))` for dna, `bits ^ 0x7A9C33` for
 language), so both packages can be handed the same seed. `train_epoch`
-draws the step seeds from an explicit `torch.Generator`.
+draws the step seeds from an explicit `torch.Generator`: pass the state's
+own (`state.generator`), which `train.checkpoint` saves and restores, and a
+resumed run draws the seeds of an uninterrupted one (JAX derives each
+step's key from the step, loop.py:134).
 
 Extraction runs the towers in eval mode under `torch.inference_mode()`; a
 uint8 image batch goes through the device eval transform first
@@ -101,9 +104,10 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
     """train_step(state, batch, step_seed) -> (state, loss) for `model`
     (the model of `state`): forward in train mode, loss, backward over the
     trainable set, AdamW. `batch` is a device batch (`device_batch`); the
-    returned loss is a device scalar (no host sync). `train_step.loss_fn`
-    (batch, step_seed) is the loss alone, for a caller that differentiates
-    it itself."""
+    returned loss is a device scalar (no host sync). `openclip_norm`: the
+    train images take CLIP's mean and std, as the OpenCLIP ablation's do
+    (JAX loop.py:104-107). `train_step.loss_fn` (batch, step_seed) is the
+    loss alone, for a caller that differentiates it itself."""
     if remat:
         raise NotImplementedError(
             "remat (tpu.remat) is not ported yet: ROADMAP.md queue 1")
@@ -169,7 +173,8 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
                 logger=None, profile_dir=None, profile_steps: int = 5,
                 steps_per_call: int = 1):
     """One epoch over a host dataloader yielding batch dicts: a step per
-    batch, its uint32 step seed drawn from `generator`.
+    batch, its uint32 step seed drawn from `generator` (`state.generator`
+    for a run that checkpoints).
 
     Each step's loss is fetched one step late (after the next step is
     enqueued), so the host does not stall the card. `samples_per_s_steady`

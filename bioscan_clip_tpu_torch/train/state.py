@@ -16,7 +16,14 @@ step counted from 0 (optax's convention).
 The labels follow the JAX package's name rules on the port's names. Like the
 JAX rule (a tower's fresh head is any module named head/decoder/proj above
 the leaf), this also labels ViT's attention output projection
-(`blocks.{i}.attn.proj`) trainable.
+(`blocks.{i}.attn.proj`) trainable. OpenCLIP's `proj` and `text_projection`
+are parameters at the tower root, with no such module above them, and its
+`out_proj`/`c_proj` are no `proj`: all frozen, as in JAX.
+
+The state also owns the CPU `torch.Generator` that `train.loop.train_epoch`
+draws step seeds from (`state.generator`), so a checkpoint
+(`train.checkpoint`) carries it and a resumed run draws the seeds an
+uninterrupted one would.
 """
 
 from __future__ import annotations
@@ -80,15 +87,16 @@ def cast_frozen_params(model: nn.Module, dtype=torch.bfloat16,
 
 
 class TrainState:
-    """Model + optimizer + schedule + step count. `apply_gradients()` takes
-    the gradients autograd left in `.grad`."""
+    """Model + optimizer + schedule + step count + the step-seed generator.
+    `apply_gradients()` takes the gradients autograd left in `.grad`."""
 
-    def __init__(self, model, optimizer, schedule, labels):
+    def __init__(self, model, optimizer, schedule, labels, seed: int = 0):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.labels = labels
         self.step = 0
+        self.generator = torch.Generator().manual_seed(seed)
 
     @property
     def device(self) -> torch.device:
@@ -103,9 +111,10 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, schedule, disable_lora: bool = False,
-                       weight_decay: float = 0.01) -> TrainState:
+                       weight_decay: float = 0.01, seed: int = 0) -> TrainState:
     """Masked AdamW over `model`'s trainable parameters (see module doc).
-    Frozen parameters get `requires_grad_(False)`."""
+    Frozen parameters get `requires_grad_(False)`. `seed` seeds the
+    step-seed generator."""
     labels = param_labels(model, disable_lora)
     groups = {"trainable": [], "scale": []}
     for name, p in model.named_parameters():
@@ -119,4 +128,4 @@ def create_train_state(model: nn.Module, schedule, disable_lora: bool = False,
         param_groups.append({"params": groups["scale"], "weight_decay": 0.0})
     opt = torch.optim.AdamW(param_groups, lr=float(schedule(0)),
                             betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model, opt, schedule, labels)
+    return TrainState(model, opt, schedule, labels, seed)

@@ -7,10 +7,11 @@ Phases, in order; any failure exits non-zero:
   device    the card's name and power limit (nvidia-smi)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc
   kernels   each kernel against its plain PyTorch version at the shapes of
-            its path (fp32 and bf16 for attention, the masked K1m at N = 77
-            and 20, K1 at ViT-L/14; int8 top-k bit for bit at 1,048,576 and
-            5,000,000 keys; the matmul-only control K6 and K7), with the
-            kernel's, the plain version's and one library call's time
+            its path (fp32 and bf16 for attention, the masked K1m and its
+            backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14; int8 top-k
+            bit for bit at 1,048,576 and 5,000,000 keys; the matmul-only
+            control K6 and K7), with the kernel's, the plain version's and
+            one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
             handle_request for dna, text, embedding and embed_images, and
@@ -32,11 +33,19 @@ Phases, in order; any failure exits non-zero:
             at full width, same service, keys and request kinds (text as
             WordPiece ids at N = 20), plus encode_language at context 77;
             K1m, K1, K2 and K4 must have launched, no plain version
+  openclip_training
+            the OpenCLIP ablation's LoRA step (make_train_step with
+            openclip_norm, driven by train_epoch) at full width, B=10, bf16,
+            frozen weights in bf16: 6 steps, a checkpoint saved after step 3
+            (train.checkpoint) and restored into a fresh state that runs
+            steps 4-6 again, equal to the uninterrupted run; K1, K1m, K2d,
+            K3 and K3m launched, K2 and no plain version
   probe     the port's top-k decomposition probe at Bq = 256 (K7, K6, K4,
             K5 rows, bioscan_clip_tpu_torch/tools/bench_topk_variants.py)
   parity    the fp32 port on the card against the same model on the CPU:
             embeddings, then one train step (loss, gradients, AdamW); then
-            the OpenCLIP towers at full width and 2 layers each
+            the OpenCLIP towers at full width and 2 layers each, their
+            embeddings and one train step (K3m on the card)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs CUDA: without it the script exits 1
@@ -57,7 +66,7 @@ import time
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
-              "training", "probe", "parity")
+              "training", "openclip_training", "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -481,12 +490,14 @@ def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
 
 
 def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
-              with_bias=False, rate=0.0):
-    """K3 against its plain version: every gradient within
-    tol * max(1, max |plain|)."""
+              with_bias=False, rate=0.0, causal=False):
+    """K3 (K3m with `causal`: OpenCLIP's (N, N) -1e9 mask, packed) against
+    its plain version: every gradient within tol * max(1, max |plain|);
+    timed beside SDPA's backward with the same bias or float mask."""
     import torch
     import torch.nn.functional as F
 
+    from bioscan_clip_tpu_torch.models.openclip import causal_mask
     from bioscan_clip_tpu_torch.ops import attention
 
     hd = d // heads
@@ -499,12 +510,14 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
     g = torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
     bias = _padding_bias(b, n, gen) if with_bias else None
     seeds = _seeds(b, gen) if rate > 0 else None
-    kw = dict(bias=bias, dropout_rate=rate, dropout_seed=seeds)
+    score_mask = causal_mask(n, "cuda") if causal else None
+    kw = dict(bias=bias, dropout_rate=rate, dropout_seed=seeds,
+              mask=score_mask)
 
     def kernel():
         if packed:
             return attention.mha_bwd(None, None, None, g, heads,
-                                     packed_qkv=qkv)
+                                     packed_qkv=qkv, mask=score_mask)
         return attention.mha_bwd(q, k, v, g, heads, need_dbias=with_bias,
                                  **kw)
 
@@ -528,12 +541,15 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
 
     lq, lk, lv = (view(t).requires_grad_() for t in (q, k, v))
     mask = None if bias is None else bias[:, None, None, :].to(dtype)
+    if causal:
+        mask = score_mask.to(dtype)
     lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
                                         dropout_p=rate)
     lg = view(g)
 
     es = torch.tensor([], dtype=dtype).element_size()
-    n_bytes = 7 * b * n * d * es + (0 if bias is None else 2 * b * n * 4)
+    n_bytes = (7 * b * n * d * es + (0 if bias is None else 2 * b * n * 4)
+               + (n * n * 4 if causal else 0))
     dname = str(dtype).split(".")[-1]
     bms, by = bound_ms(n_bytes, 10 * b * heads * n * n * hd, dname)
     row = {
@@ -544,6 +560,7 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
     }
     log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
         f"{' bias+dbias' if with_bias else ''}"
+        f"{' causal mask' if causal else ''}"
         f"{f' rate={rate}' if rate else ''}: err/max(1,|plain|) {err:.3g} "
         f"(tol {tol:g}), kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} "
@@ -593,6 +610,19 @@ def phase_kernels(rows: dict):
         _attention_case("mha_packed", 256, 257, 1024, 16, dtype, False, gen,
                         packed=True)
         torch.cuda.empty_cache()
+    # OpenCLIP training's backward shapes: K3m beside K1m (N = 77) and at
+    # the train path's WordPiece N = 20, B = 10; K3 at ViT-L/14
+    for dtype in (torch.float32, torch.bfloat16):
+        r = _bwd_case("mha_bwd packed", OPENCLIP_BATCH, 77, 768, 12, dtype,
+                      gen, packed=True, causal=True)
+        if dtype == torch.bfloat16:
+            rows["mha_bwd_mask"] = r
+        _bwd_case("mha_bwd packed", OPENCLIP_TRAIN_BATCH, 20, 768, 12, dtype,
+                  gen, packed=True, causal=True)
+        for b in (OPENCLIP_TRAIN_BATCH, OPENCLIP_BATCH):
+            _bwd_case("mha_bwd packed", b, 257, 1024, 16, dtype, gen,
+                      packed=True)
+        torch.cuda.empty_cache()
     keys, rows["topk"] = _topk_case(gen)
     rows["mm_only"] = _mm_only_case(gen, keys)
     del keys
@@ -619,6 +649,8 @@ KERNELS = {
                 "bioscan_clip_tpu/ops/topk_pallas.py:253"),
     "mha_packed_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
                         "bioscan_clip_tpu/ops/attention.py:162"),
+    "mha_bwd_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd.cu",
+                     "bioscan_clip_tpu/ops/attention.py:363"),
     "mm_only": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
                 "tools/bench_topk_variants.py:78"),
     "tiny": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
@@ -628,7 +660,8 @@ KERNELS = {
 KERNEL_PATH = {"mha_packed": "serving", "mha": "serving", "topk": "serving",
                "topk_i8": "eval", "mha_dropout": "training",
                "mha_bwd": "training", "mha_packed_mask": "openclip",
-               "mm_only": "probe", "tiny": "probe"}
+               "mha_bwd_mask": "openclip_training", "mm_only": "probe",
+               "tiny": "probe"}
 
 
 def launch_counts():
@@ -639,6 +672,7 @@ def launch_counts():
             "mha": attention.mha.launches,
             "mha_dropout": attention.mha_dropout.launches,
             "mha_bwd": attention.mha_bwd.launches,
+            "mha_bwd_mask": attention.mha_bwd.mask_launches,
             "topk": topk.topk.launches,
             "topk_i8": topk.topk_i8.launches,
             "mm_only": topk.mm_only.launches,
@@ -665,6 +699,7 @@ def reset_counts():
                topk.tiny):
         fn.launches = 0
     attention.mha_packed.mask_launches = 0
+    attention.mha_bwd.mask_launches = 0
     for fn in _plain_fns():
         fn.calls = 0
 
@@ -693,6 +728,9 @@ OPENCLIP = {
 }
 # the requests' text batch, and the OpenCLIP kernel cases' batch
 OPENCLIP_BATCH = 64
+# the ablation config's batch_size (trained_with_bioscan_1m_image_dna_text_
+# with_pretrained_clip.yaml:2)
+OPENCLIP_TRAIN_BATCH = 10
 N_KEYS = 1 << 20
 # model_config/lora_vit_lora_barcode_bert_lora_bert_5m.yaml:2
 TRAIN_BATCH = 400
@@ -1382,9 +1420,9 @@ def _profile_step(state, step, batch):
 
     from bioscan_clip_tpu_torch.train.loop import device_batch
 
-    groups = (("K3 mha_bwd", ("bwd_query_rows", "bwd_key_rows",
-                              "dbias_sum_heads")),
-              ("K1/K2d mha_fwd", ("mha_fwd_kernel",)),
+    groups = (("K3/K3m mha_bwd", ("bwd_query_rows", "bwd_key_rows",
+                                  "dbias_sum_heads")),
+              ("K1/K1m/K2d mha_fwd", ("mha_fwd_kernel",)),
               ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
     b = device_batch(batch, "cuda")
     torch.cuda.synchronize()
@@ -1512,6 +1550,191 @@ def phase_training():
     return counts
 
 
+def phase_openclip_training():
+    """The OpenCLIP ablation trained on the card: ViT-L/14 + OpenCLIP text +
+    BarcodeBERT (dropout 0.1), LoRA rank 4 on q/k/v, at full width, bf16
+    compute, frozen weights stored in bf16, random seeded weights. The
+    train step with CLIP's image normalization (make_train_step(
+    openclip_norm=True)) driven by train_epoch for TRAIN_STEPS steps over
+    one fixed batch of OPENCLIP_TRAIN_BATCH (tiled uint8 frames, barcodes,
+    text as WordPiece ids at N = 20, as the loader feeds every model). After
+    step 3 the state is saved (train.checkpoint, in the background) under
+    the repo's git-ignored build/; a freshly built state of other weights
+    restores it and runs steps 4-6 again, and its losses and trainable
+    parameters must equal the uninterrupted run's. Returns the launch
+    counts of the uninterrupted run."""
+    import math
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.models.lora import LORA_A_NAMES
+    from bioscan_clip_tpu_torch.train import checkpoint
+    from bioscan_clip_tpu_torch.train.loop import make_train_step, train_epoch
+    from bioscan_clip_tpu_torch.train.schedules import build_schedule
+    from bioscan_clip_tpu_torch.train.state import (
+        cast_frozen_params,
+        create_train_state,
+    )
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    args = ConfigNode({"model_config": dict(OPENCLIP)})
+
+    def fresh_state(seed):
+        model = load_clip_model(args, device="cuda", dtype=torch.bfloat16,
+                                seed=seed)
+        cast_frozen_params(model)  # tpu.frozen_dtype: bfloat16
+        return create_train_state(
+            model, build_schedule(args.model_config, TRAIN_STEPS), seed=seed)
+
+    state = fresh_state(0)
+    params = dict(state.model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    frozen0 = {n: p.detach().clone() for n, p in params.items()
+               if state.labels[n] == "frozen"}
+    train0 = {n: p.detach().clone() for n, p in params.items()
+              if state.labels[n] != "frozen"}
+    log(f"  {n_params} parameters, {sum(p.numel() for p in train0.values())}"
+        f" trainable in {len(train0)} tensors")
+    batch = _train_batch(np.random.default_rng(7), OPENCLIP_TRAIN_BATCH)
+    step = make_train_step(state.model, openclip_norm=True)
+    build = Path(__file__).resolve().parent / "build"
+    build.mkdir(exist_ok=True)
+    ckpt_dir = tempfile.mkdtemp(prefix="openclip_ckpt_", dir=build)
+    resume_at = TRAIN_STEPS // 2
+    events, snaps = [], []
+
+    def timed_step(st, b, seed):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = step(st, b, seed)
+        ev[1].record()
+        events.append(ev)
+        if len(snaps) < 2:
+            snaps.append({n: params[n].detach().clone() for n in train0})
+        if st.step == resume_at:  # the generator has drawn this many seeds
+            t = time.perf_counter()
+            checkpoint.save_checkpoint(ckpt_dir, st, block=False)
+            log(f"  save_checkpoint after step {resume_at} returned in "
+                f"{1e3 * (time.perf_counter() - t):.1f} ms (writes in the "
+                "background)")
+        return out
+
+    try:
+        reset_counts()  # this path's launches are counted from here
+        state, stats = train_epoch(state, timed_step,
+                                   [batch] * TRAIN_STEPS, state.generator,
+                                   epoch=0, total_epochs=1)
+        torch.cuda.synchronize()
+        counts, plain = launch_counts(), plain_calls()
+        t = time.perf_counter()
+        checkpoint.wait_for_checkpoints()
+        wait_ms = 1e3 * (time.perf_counter() - t)
+        log(f"  checkpoint write finished {wait_ms:.1f} ms after the run; "
+            f"{Path(ckpt_dir, 'last').stat().st_size} bytes")
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        peak = torch.cuda.max_memory_allocated()
+        losses = stats["losses"]
+        log(f"  losses: {[round(x, 5) for x in losses]}")
+        log(f"  step ms (card, CUDA events): {[round(t, 1) for t in step_ms]}"
+            f"; steps 2-{TRAIN_STEPS} mean {np.mean(step_ms[1:]):.1f} ms")
+        log(f"  samples/s {stats['samples_per_s']:.1f}, steady "
+            f"{stats.get('samples_per_s_steady', float('nan')):.1f}, peak "
+            f"memory {peak / 2**30:.2f} GiB (max_memory_allocated), B="
+            f"{OPENCLIP_TRAIN_BATCH}")
+        log(f"  launches on the OpenCLIP training path: {counts}; plain calls "
+            f"{plain}")
+        if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+            raise AssertionError(f"openclip_training: losses {losses}")
+        if not np.mean(losses[3:]) < losses[0]:
+            raise AssertionError(f"openclip_training: loss did not fall: "
+                                 f"{losses}")
+        moved = [n for n, p in frozen0.items()
+                 if not torch.equal(p, params[n])]
+        if moved:
+            raise AssertionError(f"openclip_training: frozen parameters "
+                                 f"moved: {moved[:5]}")
+        # B and the decoder move at step 1; A's gradient is zero while B is
+        still = [n for n, p in train0.items()
+                 if torch.equal(p, snaps[1 if any(a in n for a in LORA_A_NAMES)
+                                         else 0][n])]
+        if still:
+            raise AssertionError(f"openclip_training: trainable parameters "
+                                 f"did not move: {still[:5]}")
+        want = ("mha_packed", "mha_packed_mask", "mha_dropout", "mha_bwd",
+                "mha_bwd_mask")
+        if (any(counts[k] <= 0 for k in want) or counts["mha"] != 0
+                or any(plain.values())):
+            raise AssertionError(f"openclip_training: launches {counts}, "
+                                 f"plain {plain}")
+        del frozen0, snaps
+        _check_resume(fresh_state, ckpt_dir, batch, state, losses, train0,
+                      resume_at)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _profile_step(state, step, batch)
+    log(f"phase openclip_training ok: {n_params} parameters, "
+        f"{len(train0)} trainable tensors moved")
+    del state, step, train0, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def _check_resume(fresh_state, ckpt_dir, batch, ref, ref_losses, train0,
+                  resume_at):
+    """Restore the checkpoint into a state built from other weights and
+    another generator seed, run the remaining steps, and hold the losses
+    and trainable parameters against the uninterrupted run `ref`: bit
+    equality expected (the same kernels on the same inputs in the same
+    order); a difference is printed with where it is, and must stay within
+    1e-6 relative."""
+    import torch
+
+    from bioscan_clip_tpu_torch.train import checkpoint
+    from bioscan_clip_tpu_torch.train.loop import make_train_step, train_epoch
+
+    st = fresh_state(1)
+    t = time.perf_counter()
+    checkpoint.restore_checkpoint(ckpt_dir, st)
+    torch.cuda.synchronize()
+    log(f"  restore_checkpoint: {1e3 * (time.perf_counter() - t):.1f} ms, "
+        f"step {st.step}")
+    if st.step != resume_at:
+        raise AssertionError(f"restore: step {st.step} != {resume_at}")
+    st, stats = train_epoch(st, make_train_step(st.model, openclip_norm=True),
+                            [batch] * (TRAIN_STEPS - resume_at), st.generator,
+                            epoch=0, total_epochs=1)
+    losses = stats["losses"]
+    want = ref_losses[resume_at:]
+    ours = dict(st.model.named_parameters())
+    refs = dict(ref.model.named_parameters())
+    diffs = {n: (ours[n].float() - refs[n].float()).abs().max().item()
+             / max(refs[n].float().abs().max().item(), 1e-30)
+             for n in train0}
+    worst = max(diffs.items(), key=lambda kv: kv[1])
+    same_loss = losses == want
+    same_params = worst[1] == 0.0 and all(
+        torch.equal(ours[n], refs[n]) for n in ours)
+    log(f"  resumed steps {resume_at + 1}-{TRAIN_STEPS}: losses {losses} vs "
+        f"uninterrupted {want}; bit-equal losses {same_loss}, parameters "
+        f"{same_params}")
+    if not (same_loss and same_params):
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+        log(f"  resume differs: losses by {rel:.3g} relative, worst "
+            f"trainable tensor {worst[0]} by {worst[1]:.3g} relative")
+        if not (rel <= 1e-6 and worst[1] <= 1e-6):
+            raise AssertionError(f"resume: losses {losses} vs {want}, "
+                                 f"{worst}")
+    del st
+
+
 def phase_parity():
     """The fp32 port on the card against the same model on the CPU (the
     kernels' plain versions), 4 rows per tower, at full width."""
@@ -1569,7 +1792,9 @@ def _openclip_parity(x, layers=2):
     ViT-L/14 is slow on the CPU), fp32, LoRA B drawn non-zero: the card
     (K1, K1m, K2) against the CPU (the plain versions), tol 1e-3 on the
     normalized embeddings as above, on 4 images, 4 barcodes, the 4
-    WordPiece rows and 4 CLIP-BPE-shaped rows at context 77."""
+    WordPiece rows and 4 CLIP-BPE-shaped rows at context 77; then one train
+    step with CLIP's image normalization and dropout 0.1 in BarcodeBERT
+    (K1, K1m, K2d forward; K3, K3m backward) as `_train_step_parity`."""
     import copy
     import dataclasses
 
@@ -1632,15 +1857,22 @@ def _openclip_parity(x, layers=2):
             raise AssertionError(f"parity openclip {name}: {err} > 1e-3")
     if min(counts[k] for k in ("mha_packed", "mha_packed_mask", "mha")) <= 0:
         raise AssertionError(f"parity openclip: launches {counts}")
+    reset_counts()
+    _train_step_parity(cpu, gpu, openclip_norm=True,
+                       what=f"openclip {layers}-layer ")
+    counts = launch_counts()
+    if min(counts[k] for k in ("mha_bwd", "mha_bwd_mask")) <= 0:
+        raise AssertionError(f"parity openclip train step: launches {counts}")
 
 
-def _train_step_parity(cpu, gpu):
+def _train_step_parity(cpu, gpu, openclip_norm=False, what=""):
     """One fp32 train step at full width, B=4, dropout 0.1 (row-keyed, the
     same step seed) on the card against the CPU: the loss within 1e-5
     relative, each trainable gradient within 1e-4 * max |g| (fp32 sums in
     another order through 28 layers), and AdamW on the card, given the
     card's gradients, equal to AdamW on the CPU given the same gradients
-    (atol 1e-6: one fp32 update of parameters of |p| < 1)."""
+    (atol 1e-6: one fp32 update of parameters of |p| < 1). `openclip_norm`:
+    the OpenCLIP ablation's image normalization."""
     import numpy as np
     import torch
 
@@ -1652,13 +1884,14 @@ def _train_step_parity(cpu, gpu):
     seed = 0x5EED1234
     st_c = create_train_state(cpu, constant(1e-3))
     st_g = create_train_state(gpu, constant(1e-3))
-    step_c, step_g = make_train_step(cpu), make_train_step(gpu)
+    step_c = make_train_step(cpu, openclip_norm=openclip_norm)
+    step_g = make_train_step(gpu, openclip_norm=openclip_norm)
     cpu.train()
     loss_c = step_c.loss_fn(device_batch(batch, "cpu"), seed)
     loss_c.backward()
     _, loss_g = step_g(st_g, device_batch(batch, "cuda"), seed)
     rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
-    log(f"  train step loss: card {loss_g.item():.7f}, cpu "
+    log(f"  {what}train step loss: card {loss_g.item():.7f}, cpu "
         f"{loss_c.item():.7f}, rel {rel:.3g} (tol 1e-5)")
     if not rel <= 1e-5:
         raise AssertionError(f"parity train loss: rel {rel} > 1e-5")
@@ -1672,14 +1905,14 @@ def _train_step_parity(cpu, gpu):
                                                  1e-30)
         worst = max(worst, (err, name))
         p.grad = gg  # the CPU AdamW below takes the card's gradients
-    log(f"  train step grads: max |card - cpu| / max |g| {worst[0]:.3g} "
+    log(f"  {what}train step grads: max |card - cpu| / max |g| {worst[0]:.3g} "
         f"({worst[1]}) (tol 1e-4)")
     if not worst[0] <= 1e-4:
         raise AssertionError(f"parity train grads: {worst}")
     st_c.apply_gradients()
     err = max((pg[n].detach().cpu() - p.detach()).abs().max().item()
               for n, p in pc.items())
-    log(f"  params after AdamW: max |card - cpu| {err:.3g} (tol 1e-6)")
+    log(f"  {what}params after AdamW: max |card - cpu| {err:.3g} (tol 1e-6)")
     if not err <= 1e-6:
         raise AssertionError(f"parity AdamW: {err} > 1e-6")
 
@@ -1718,6 +1951,8 @@ def main(argv=None) -> int:
         path_counts["eval"] = phase_eval()
     if "training" in phases:
         path_counts["training"] = phase_training()
+    if "openclip_training" in phases:
+        path_counts["openclip_training"] = phase_openclip_training()
     if "probe" in phases:
         path_counts["probe"] = phase_probe()
     if "parity" in phases:

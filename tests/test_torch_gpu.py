@@ -8,12 +8,12 @@ the JAX package, so it also runs on a machine without them:
 Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
 before P.V on both sides), the masked forward (K1m) as K1; the attention
-backward the same, scaled by max(1, max |plain|) per gradient; top-k values
-atol 1e-5 on unit vectors; int8 top-k (K5) bit-equal to its plain version,
-values and indices (exact integer dots times two scales in the same order,
-the same tie rule); the matmul-only control (K6) int8 bit-equal, fp32 atol
-1e-5 on unit vectors in both precisions (fp32 sums of 768 products in
-another order); K7 exact.
+backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
+per gradient; top-k values atol 1e-5 on unit vectors; int8 top-k (K5)
+bit-equal to its plain version, values and indices (exact integer dots times
+two scales in the same order, the same tie rule); the matmul-only control
+(K6) int8 bit-equal, fp32 atol 1e-5 on unit vectors in both precisions (fp32
+sums of 768 products in another order); K7 exact.
 """
 
 import pytest
@@ -252,19 +252,83 @@ def test_attention_kernel_at_vit_l14(gen, dtype, tol):
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
-def test_masked_backward_raises_on_the_card(gen):
-    """The backward of K1m is K3m, not ported: the card raises rather than
-    return a gradient that ignores the mask."""
-    qkv = torch.randn(2, 77, 3 * 768, device="cuda",
+def _close_grads(out, ref, tol):
+    for o, r in zip(out, ref):
+        scale = max(1.0, r.float().abs().max().item())
+        assert (o.float() - r.float()).abs().max().item() <= tol * scale
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_masked_backward_kernel_matches_plain(gen, dtype, tol):
+    """K3m at the OpenCLIP text shapes (the train path's N = 20, CLIP-BPE's
+    77) under the causal mask and a dense random fp32 mask, counted in
+    `mha_bwd.mask_launches` apart from K3; above the diagonal of the causal
+    mask the probabilities are exactly 0, so k and v of the last key get
+    gradient only from the last query row."""
+    d = 768
+    for n, mask in ((20, causal_mask(20, "cuda")),
+                    (77, causal_mask(77, "cuda")),
+                    (77, torch.randn(77, 77, device="cuda", generator=gen))):
+        qkv = torch.randn(4, n, 3 * d, device="cuda", generator=gen).to(dtype)
+        g = torch.randn(4, n, d, device="cuda", generator=gen).to(dtype)
+        before = (attention.mha_bwd.launches, attention.mha_bwd.mask_launches)
+        dqkv = attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv,
+                                 mask=mask)
+        assert (attention.mha_bwd.launches,
+                attention.mha_bwd.mask_launches) == (before[0], before[1] + 1)
+        ref = attention.mha_bwd_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                          qkv[..., 2 * d :], g, 12, mask=mask)
+        _close_grads(dqkv.split(d, dim=-1), ref[:3], tol)
+    causal = causal_mask(77, "cuda")
+    qkv = torch.randn(2, 77, 3 * d, device="cuda", generator=gen).to(dtype)
+    g = torch.zeros(2, 77, d, device="cuda", dtype=dtype)
+    g[:, :76] = torch.randn(2, 76, d, device="cuda", generator=gen).to(dtype)
+    dqkv = attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv,
+                             mask=causal)
+    assert not dqkv[:, 76, d:].any()
+
+
+def test_gradients_flow_through_the_masked_kernels(gen):
+    """autograd through `mha_packed(mask=)` on the card (K1m forward, K3m
+    backward) gives the plain backward's gradient."""
+    qkv = torch.randn(3, 20, 3 * 768, device="cuda",
                       generator=gen).requires_grad_()
-    out = attention.mha_packed(qkv, 12, mask=causal_mask(77, "cuda"))
-    with pytest.raises(NotImplementedError, match="K3m"):
-        out.sum().backward()
-    assert qkv.grad is None
-    with pytest.raises(NotImplementedError, match="K3m"):
-        attention.mha_bwd(None, None, None, out.detach(), 12,
-                          packed_qkv=qkv.detach(),
-                          mask=causal_mask(77, "cuda"))
+    g = torch.randn(3, 20, 768, device="cuda", generator=gen)
+    mask = causal_mask(20, "cuda")
+    before = attention.mha_bwd.mask_launches
+    attention.mha_packed(qkv, 12, mask=mask).backward(g)
+    assert attention.mha_bwd.mask_launches == before + 1
+    x = qkv.detach()
+    ref = attention.mha_bwd_reference(x[..., :768], x[..., 768:1536],
+                                      x[..., 1536:], g, 12, mask=mask)
+    assert qkv.grad[..., :768].abs().max().item() > 0
+    assert (qkv.grad - torch.cat(ref[:3], -1)).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_backward_kernel_at_vit_l14(gen, dtype, tol):
+    """K3 packed at ViT-L/14's shape: N = 257, D = 1024, 16 heads (the
+    image tower's backward in OpenCLIP training)."""
+    d = 1024
+    qkv = torch.randn(2, 257, 3 * d, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(2, 257, d, device="cuda", generator=gen).to(dtype)
+    dqkv = attention.mha_bwd(None, None, None, g, 16, packed_qkv=qkv)
+    ref = attention.mha_bwd_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                      qkv[..., 2 * d :], g, 16)
+    _close_grads(dqkv.split(d, dim=-1), ref[:3], tol)
+
+
+def test_masked_backward_rejects_a_malformed_mask(gen):
+    qkv = torch.randn(2, 20, 3 * 768, device="cuda", generator=gen)
+    g = torch.randn(2, 20, 768, device="cuda", generator=gen)
+    mask = causal_mask(20, "cuda")
+    for bad in (mask[:19, :19].contiguous(), mask.to(torch.bfloat16),
+                mask.cpu(), mask.t()):
+        with pytest.raises((TypeError, ValueError), match="mask"):
+            attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv,
+                              mask=bad)
 
 
 @pytest.mark.parametrize("bq", [1, 37, 130])

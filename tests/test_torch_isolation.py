@@ -31,10 +31,11 @@ def test_no_forbidden_imports():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
-    # the OpenCLIP slice's modules and the probe are among those checked
+    # the OpenCLIP slices' modules and the probe are among those checked
     assert {f"bioscan_clip_tpu_torch/{m}.py" for m in (
         "models/openclip", "models/mlp", "models/heads",
-        "data/clip_tokenizer", "tools/bench_topk_variants")} <= names
+        "data/clip_tokenizer", "tools/bench_topk_variants",
+        "train/checkpoint")} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]

@@ -155,10 +155,24 @@ def test_text_tower_matches_jax(clip_params, monkeypatch):
     assert torch.equal(out, same)
 
 
-def test_text_adapter_is_eval_only():
-    model = _port_clip().train()
-    with pytest.raises(NotImplementedError, match="K3m"):
-        model.encode_language({"input_ids": torch.ones(2, 16, dtype=torch.long)})
+def test_text_adapter_train_mode_equals_eval_and_jax(clip_params, monkeypatch):
+    """The OpenCLIP blocks have no dropout: the adapter in train mode (row
+    seeds given, as the train step passes them) computes what it computes
+    in eval mode, and what JAX's adapter computes with
+    `deterministic=False`."""
+    monkeypatch.setenv("BSCAN_FUSED_ATTENTION", "1")
+    ids = _ids(2)
+    ref = JaxTextAdapter(JaxTextConfig(**TEXT)).apply(
+        {"params": clip_params["language_encoder"]},
+        jnp.asarray(ids, jnp.int32), deterministic=False)
+    model = load_into(_port_clip(), state_dict_from_jax(clip_params))
+    x = torch.from_numpy(ids)
+    with torch.no_grad():
+        evaluated = model.language_encoder(x)
+        trained = model.train().language_encoder(
+            x, row_seeds=torch.arange(4, dtype=torch.int64))
+    assert torch.equal(trained, evaluated)
+    np.testing.assert_allclose(trained.numpy(), np.asarray(ref), **TOWER)
 
 
 def _mask_case(seed, n=16, d=32, b=2):
