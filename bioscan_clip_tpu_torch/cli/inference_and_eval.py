@@ -15,7 +15,8 @@ raw.csv and config.json.
 `device` (top-level key, default cuda; an error without CUDA) picks where
 the towers and the searches run; `device=cpu` runs the kernels' plain
 versions. `inference_and_eval_setting.retrieval_precision=int8` searches
-int8 resident keys (kernel K5) with an fp32 rescore.
+int8 resident keys (kernel K5) with an fp32 rescore; `default` searches the
+fp32 keys in K4's single bf16 pass.
 """
 
 from __future__ import annotations

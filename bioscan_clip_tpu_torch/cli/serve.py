@@ -16,7 +16,9 @@ a JSON file.
 
 `serve.device` picks the device (default `cuda`, an error without CUDA;
 `cpu` runs the kernels' plain versions). `serve.vocab_path` is the
-BERT-small vocab.txt for text queries. `serve.key_precision=int8` keeps the
+BERT-small vocab.txt for text queries. `serve.key_precision=default`
+searches the fp32 keys in one bf16 pass (kernel K4, operands rounded to
+bf16, fp32 sums), as the TPU's `Precision.DEFAULT`; `int8` keeps the
 key database as per-row int8 codes on the device (kernel K5, 4x the keys
 of fp32); `serve.key_rescore` picks the host rows its candidates are
 rescored against: `bfloat16` (default, half the host memory), `float32`

@@ -5,7 +5,12 @@
 // Q . K^T, keys with index >= n_valid never enter, output sorted descending,
 // and among equal values the smaller global key index comes first. Scores are
 // full fp32 (FFMA, never TF32): the FAISS IndexFlatIP contract the retrieval
-// engine keeps.
+// engine keeps. In "default" precision (`precision="default"` of
+// `pallas_topk`, `Precision.DEFAULT` on the TPU: one bf16 pass with fp32
+// sums) each operand is rounded to bf16 (round to nearest even) as it is
+// staged, the product of two bf16 values is exact in fp32, and the products
+// are summed in fp32: K6's mode 1 tile, with K4's lists, pass 2 and plan.
+// The keys stay resident in fp32 either way.
 //
 // What bounds it on an H100: one call reads the whole key matrix (1,048,576 x
 // 768 fp32 = 3.22 GB, ~0.96 ms at 3.35 TB/s) and does 2 * Bq * N * 768 fp32
@@ -285,7 +290,8 @@ __device__ __forceinline__ void i8_tile(const signed char* __restrict__ q,
   }
 }
 
-template <int MAXK>
+// ROUND_BF16: "default" precision, each operand rounded to bf16 as staged.
+template <int MAXK, bool ROUND_BF16>
 __global__ void __launch_bounds__(TPB)
     topk_pass1(const float* __restrict__ q, const float* __restrict__ keys,
                int bq, int n, int d, int n_valid, int k, int tiles_per_split,
@@ -313,7 +319,7 @@ __global__ void __launch_bounds__(TPB)
   for (int t = tile0; t < tile1; ++t) {
     const int key0 = t * KT;
     float acc[8][4];
-    f32_tile<false>(q, keys, bq, n, d, q0, key0, qs, kss, acc);
+    f32_tile<ROUND_BF16>(q, keys, bq, n, d, q0, key0, qs, kss, acc);
 
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -447,22 +453,40 @@ cudaError_t launch_pass2(int bq, int splits, int k, const float* cand_v,
   return cudaGetLastError();
 }
 
-template <int MAXK>
+template <int MAXK, bool ROUND_BF16>
 cudaError_t launch(const float* q, const float* keys, int bq, int n, int d,
                    int n_valid, int k, int splits, int tiles_per_split,
                    float* cand_v, int* cand_i, float* out_v, int* out_i,
                    cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      topk_pass1<MAXK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kPass1Smem);
+      topk_pass1<MAXK, ROUND_BF16>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kPass1Smem);
   if (err != cudaSuccess) return err;
   const dim3 grid1((bq + QT - 1) / QT, splits);
-  topk_pass1<MAXK><<<grid1, TPB, kPass1Smem, stream>>>(
+  topk_pass1<MAXK, ROUND_BF16><<<grid1, TPB, kPass1Smem, stream>>>(
       q, keys, bq, n, d, n_valid, k, tiles_per_split, cand_v, cand_i);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_pass2<MAXK>(bq, splits, k, cand_v, cand_i, out_v, out_i,
                             stream);
+}
+
+template <bool ROUND_BF16>
+cudaError_t launch_f32(const float* q, const float* keys, int bq, int n,
+                       int d, int n_valid, int k, int splits,
+                       int tiles_per_split, float* cand_v, int* cand_i,
+                       float* out_v, int* out_i, cudaStream_t stream) {
+  if (k <= 8)
+    return launch<8, ROUND_BF16>(q, keys, bq, n, d, n_valid, k, splits,
+                                 tiles_per_split, cand_v, cand_i, out_v,
+                                 out_i, stream);
+  if (k <= 16)
+    return launch<16, ROUND_BF16>(q, keys, bq, n, d, n_valid, k, splits,
+                                  tiles_per_split, cand_v, cand_i, out_v,
+                                  out_i, stream);
+  return launch<32, ROUND_BF16>(q, keys, bq, n, d, n_valid, k, splits,
+                                tiles_per_split, cand_v, cand_i, out_v, out_i,
+                                stream);
 }
 
 template <int MAXK>
@@ -594,22 +618,24 @@ extern "C" {
 
 // Shapes the wrapper must respect: q (bq, d) and keys (n, d) contiguous fp32,
 // 16-byte aligned, d % 32 == 0, 1 <= k <= 32, k <= n_valid <= n.
-// cand_v / cand_i hold bq * splits * 4 * k entries. Returns cudaError_t.
+// precision: 0 "high" (fp32 FFMA), 1 "default" (operands rounded to bf16,
+// fp32 sums). cand_v / cand_i hold bq * splits * 4 * k entries. Returns
+// cudaError_t.
 int bscan_topk_f32(const float* q, const float* keys, int bq, int n, int d,
-                   int n_valid, int k, int splits, int tiles_per_split,
-                   float* cand_v, int* cand_i, float* out_v, int* out_i,
-                   void* stream) {
+                   int n_valid, int k, int precision, int splits,
+                   int tiles_per_split, float* cand_v, int* cand_i,
+                   float* out_v, int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % DK != 0 || k < 1 || k > 32 || n_valid > n)
+  if (d % DK != 0 || k < 1 || k > 32 || n_valid > n || precision < 0 ||
+      precision > 1)
     return (int)cudaErrorInvalidValue;
-  if (k <= 8)
-    return (int)launch<8>(q, keys, bq, n, d, n_valid, k, splits,
-                          tiles_per_split, cand_v, cand_i, out_v, out_i, s);
-  if (k <= 16)
-    return (int)launch<16>(q, keys, bq, n, d, n_valid, k, splits,
-                           tiles_per_split, cand_v, cand_i, out_v, out_i, s);
-  return (int)launch<32>(q, keys, bq, n, d, n_valid, k, splits,
-                         tiles_per_split, cand_v, cand_i, out_v, out_i, s);
+  if (precision == 1)
+    return (int)launch_f32<true>(q, keys, bq, n, d, n_valid, k, splits,
+                                 tiles_per_split, cand_v, cand_i, out_v,
+                                 out_i, s);
+  return (int)launch_f32<false>(q, keys, bq, n, d, n_valid, k, splits,
+                                tiles_per_split, cand_v, cand_i, out_v, out_i,
+                                s);
 }
 
 // K5. Shapes the wrapper must respect: q (bq, d) and keys (n, d) contiguous

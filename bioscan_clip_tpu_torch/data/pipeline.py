@@ -99,7 +99,7 @@ class BioscanLoader:
             raise NotImplementedError(
                 "the train half of the loader (instance labels, drop_last, "
                 "host train augmentation) is not ported yet: ROADMAP.md "
-                "queue 1, item 1 (the rest of training)")
+                "queue 1, item 2 (the rest of training)")
         self.reader = SplitReader(hdf5_path, split)
         self.split = split
         self.batch_size = batch_size

@@ -17,11 +17,13 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
 `mha_packed` and `mha` are `torch.autograd.Function`s, as the JAX ops are
 `jax.custom_vjp`s (:543-677): the forward is K1/K1m/K2/K2d, the backward K3
 or K3m. On a CUDA tensor each wrapper launches its hand-written kernel
-(`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`) or raises; on a CPU tensor it runs
-its plain PyTorch version (`mha_reference`, `mha_bwd_reference`), which has
-the same contract. Autograd never differentiates the plain forward: the CPU
-backward is `mha_bwd_reference`, the function the card's K3/K3m is held
-against.
+(`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
+`mma.sync`, the forward above N = 32; fp32 in FFMA) or raises; on a CPU
+tensor it runs its plain PyTorch version (`mha_reference`,
+`mha_bwd_reference`), which has the same contract. The bf16 kernels read
+q/k/v (and g) in 16-byte pieces, so those tensors must start 16-byte
+aligned. Autograd never differentiates the plain forward: the CPU backward
+is `mha_bwd_reference`, the function the card's K3/K3m is held against.
 
 The dropout hash (`_mix32`, `dropout_keep_2d/4d`, :60-113) is uint32
 arithmetic done in int64 tensors and masked to 32 bits; seeds are Python
@@ -208,7 +210,7 @@ def _fwd_kernel():
     )
     fn.restype = ctypes.c_int
     smem = lib.bscan_mha_fwd_smem_bytes
-    smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    smem.argtypes = [ctypes.c_int] * 3
     smem.restype = ctypes.c_longlong
     return lib, fn, smem
 
@@ -252,6 +254,15 @@ def _check_smem(name, need, n, hd, dev):
         )
 
 
+def _check_aligned(name, tensors):
+    """The bf16 kernels stage rows in 16-byte pieces: raise unless every
+    tensor starts 16-byte aligned (rows of D >= 32 bf16 then are too)."""
+    for t in tensors:
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name}: bf16 inputs must start 16-byte "
+                             "aligned")
+
+
 def _drop_args(rate: float, seed, b: int, dev):
     """(row_seeds pointer holder, scalar seed, threshold, scale, drop flag)
     for a kernel launch: a (B,) seed tensor goes as int32 bits on the card;
@@ -280,7 +291,7 @@ def _launch_fwd(ptrs, out, b, n, heads, hd, row_stride, scale, dtype, bias,
         raise ValueError(f"mha kernel: batch {b} > 65535; split the batch")
     lib, fn, smem = _fwd_kernel()
     dev = out.device
-    _check_smem("mha kernel", smem(n, hd), n, hd, dev)
+    _check_smem("mha kernel", smem(n, hd, _DTYPE_CODE[dtype]), n, hd, dev)
     rows, scalar, thr, kscale, drop = _drop_args(rate, seed, b, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = fn(
@@ -335,6 +346,7 @@ def _packed_forward(qkv, mask, heads, scale):
                              qkv[..., 2 * d :], heads, scale=scale, mask=mask)
     _check_heads("mha_packed", d, heads, qkv.dtype)
     _check_cuda("mha_packed", [qkv], qkv.dtype)
+    _check_aligned("mha_packed", [qkv])
     b, n, d3 = qkv.shape
     if mask is not None:
         _check_cuda("mha_packed mask", [mask], torch.float32)
@@ -361,6 +373,7 @@ def _split_forward(q, k, v, bias, seed, heads, scale, rate):
     b, n, d = q.shape
     _check_heads(name, d, heads, q.dtype)
     _check_split(name, q, k, v, bias)
+    _check_aligned(name, [q, k, v])
     out = torch.empty_like(q)
     _launch_fwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), out, b, n, heads,
                 d // heads, d, scale, q.dtype, bias, rate, seed)
@@ -504,6 +517,7 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     es = q.element_size()
     if packed:
         _check_cuda("mha_bwd", [packed_qkv, g], packed_qkv.dtype)
+        _check_aligned("mha_bwd", [packed_qkv, g])
         p = packed_qkv.data_ptr()
         ins = (p, p + d * es, p + 2 * d * es)
         dqkv = torch.empty_like(packed_qkv)
@@ -513,6 +527,7 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     else:
         _check_split("mha_bwd", q, k, v, bias)
         _check_cuda("mha_bwd g", [g], q.dtype)
+        _check_aligned("mha_bwd", [q, k, v, g])
         ins = (q.data_ptr(), k.data_ptr(), v.data_ptr())
         dq, dk, dv = (torch.empty_like(q) for _ in range(3))
         outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())

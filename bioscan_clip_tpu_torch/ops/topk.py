@@ -13,7 +13,10 @@ the hand-written kernels in `csrc/topk.cu` or raise; on CPU tensors they run
 Top-k contract (K4, K5 and their plain versions): keys with index >=
 n_valid never enter, each row comes out sorted descending, and among equal
 values the smaller key index comes first. fp32 scores are full-fp32
-Q . K^T (never TF32); int8 scores are the exact integer dot of the codes
+Q . K^T (never TF32) in "high" precision, and in "default" precision (the
+TPU's single bf16 pass, `Precision.DEFAULT` in `pallas_topk`) the products of
+the operands rounded to bf16 (round to nearest even), summed in fp32, on
+either device; int8 scores are the exact integer dot of the codes
 times the query scale, then times the key scale, each product rounded as
 fp32 (the order of `_topk_i8_kernel`), so K5 equals its plain version bit
 for bit.
@@ -24,8 +27,9 @@ rounded to bf16 and summed in fp32 ("default", the TPU's single bf16 pass),
 or the exact integer dots of int8 codes (equal bit for bit to the plain
 version and to the TPU's bf16 products of the codes).
 
-`<wrapper>.launches` count kernel launches, `<plain version>.calls` the
-plain versions' calls.
+`<wrapper>.launches` count kernel launches (`topk.launches` the "high"
+ones, `topk.default_launches` the "default" ones), `<plain version>.calls`
+the plain versions' calls.
 """
 
 from __future__ import annotations
@@ -89,10 +93,24 @@ def _chunked_topk(scores, n_valid: int, k: int):
     return vals, idx.to(torch.int32)
 
 
-def topk_reference(queries, keys, n_valid: int, k: int):
-    """Plain PyTorch top-k: chunked fp32 products over keys[:n_valid]."""
+PRECISIONS = {"high": 0, "highest": 0, "default": 1}
+
+
+def _bf16_operand(x, precision: str):
+    """x as the product sees it: rounded to bf16 in "default" precision."""
+    if precision == "default":
+        return x.to(torch.bfloat16).to(torch.float32)
+    return x
+
+
+def topk_reference(queries, keys, n_valid: int, k: int,
+                   precision: str = "high"):
+    """Plain PyTorch top-k: chunked fp32 products over keys[:n_valid], of
+    the operands rounded to bf16 in "default" precision."""
     topk_reference.calls += 1
-    return _chunked_topk(lambda s, e: queries @ keys[s:e].T, n_valid, k)
+    q = _bf16_operand(queries, precision)
+    return _chunked_topk(
+        lambda s, e: q @ _bf16_operand(keys[s:e], precision).T, n_valid, k)
 
 
 topk_reference.calls = 0
@@ -124,7 +142,7 @@ def _kernel():
     lib = _build.load("topk")
     fn = lib.bscan_topk_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
     )
     fn.restype = ctypes.c_int
     plan = lib.bscan_topk_plan
@@ -170,16 +188,22 @@ def _check_2d(name, t, dtype, device):
                          "aligned")
 
 
-def topk(queries, keys, n_valid: int, k: int):
-    """Top-k of queries (Bq, D) . keys (N, D)^T over keys[:n_valid].
-    Returns (values (Bq, k) fp32, indices (Bq, k) int32)."""
+def topk(queries, keys, n_valid: int, k: int, precision: str = "high"):
+    """Top-k of queries (Bq, D) . keys (N, D)^T over keys[:n_valid], both
+    fp32. `precision`: "high" (or "highest"), full fp32 products; "default",
+    products of the operands rounded to bf16, summed in fp32 (the TPU's
+    single bf16 pass). Returns (values (Bq, k) fp32, indices (Bq, k)
+    int32)."""
     n_valid = int(n_valid)
     n = keys.shape[0]
+    if precision not in PRECISIONS:
+        raise ValueError(f"topk: precision {precision!r}, expected one of "
+                         f"{sorted(PRECISIONS)}")
     if not 1 <= k <= n_valid <= n:
         raise ValueError(f"topk: need 1 <= k ({k}) <= n_valid ({n_valid}) "
                          f"<= N ({n})")
     if queries.device.type == "cpu":
-        return topk_reference(queries, keys, n_valid, k)
+        return topk_reference(queries, keys, n_valid, k, precision)
     for name, t in (("queries", queries), ("keys", keys)):
         _check_2d(f"topk: {name}", t, torch.float32, queries.device)
     bq, d = queries.shape
@@ -195,18 +219,23 @@ def topk(queries, keys, n_valid: int, k: int):
     cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
+    mode = PRECISIONS[precision]
     err = kern.topk(
-        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k,
+        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
         splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     _build.check(kern.lib, err, "topk launch")
-    topk.launches += 1
+    if mode:
+        topk.default_launches += 1
+    else:
+        topk.launches += 1
     return out_v, out_i
 
 
 topk.launches = 0
+topk.default_launches = 0
 
 
 def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
@@ -270,9 +299,7 @@ def mm_only_reference(queries, keys, n_valid: int, int8: bool = False,
     mm_only_reference.calls += 1
 
     def operand(x):
-        if not int8 and precision == "default":
-            x = x.to(torch.bfloat16)
-        return x.to(torch.float32)
+        return x.to(torch.float32) if int8 else _bf16_operand(x, precision)
 
     qf = operand(queries)
     m = torch.full((queries.shape[0],), -float("inf"), dtype=torch.float32,
@@ -358,11 +385,13 @@ def tiny(x):
 tiny.launches = 0
 
 
-def topk_search_kernel(query_feature, keys, k: int, device=None):
+def topk_search_kernel(query_feature, keys, k: int, device=None,
+                       precision: str = "high"):
     """numpy queries in, numpy out, like `topk_search_pallas`: (sims (Bq, k)
-    fp32, indices (Bq, k) int64), k clamped to the key count. `keys` is a
-    numpy (N, D) array (uploaded to `device`) or a tensor already resident
-    on its device (then `device` is ignored)."""
+    fp32, indices (Bq, k) int64), k clamped to the key count, in `precision`
+    ("high" or "default", as `topk`). `keys` is a numpy (N, D) array
+    (uploaded to `device`) or a tensor already resident on its device (then
+    `device` is ignored)."""
     if isinstance(keys, torch.Tensor):
         keys_t = keys
     else:
@@ -378,7 +407,7 @@ def topk_search_kernel(query_feature, keys, k: int, device=None):
     idxs = np.empty((q.shape[0], k_eff), np.int64)
     for s in range(0, q.shape[0], QUERY_CHUNK):
         qc = torch.from_numpy(np.ascontiguousarray(q[s : s + QUERY_CHUNK]))
-        v, i = topk(qc.to(keys_t.device), keys_t, n_keys, k_eff)
+        v, i = topk(qc.to(keys_t.device), keys_t, n_keys, k_eff, precision)
         sims[s : s + qc.shape[0]] = v.cpu().numpy()
         idxs[s : s + qc.shape[0]] = i.cpu().numpy()
     return sims, idxs

@@ -5,7 +5,9 @@ Counterpart of bioscan_clip_tpu/retrieval/engine.py (`l2norm_np` :36-44,
 :491-601, `find_k_closest_records`, `make_prediction` :604-654): the FAISS
 IndexFlatIP replacement. Keys are normalized once and uploaded once, and
 every search on the card runs a top-k kernel (`ops/topk.py`), whatever the
-key count: K4 over fp32 keys (`precision="high"`), K5 over per-row int8
+key count: K4 over fp32 keys (`precision="high"`, or `"default"`: the
+TPU's single bf16 pass, operands rounded to bf16 and summed in fp32, on
+the card and on the CPU alike), K5 over per-row int8
 codes with fp32 scales (`precision="int8"`, 4x the resident capacity: the
 5M x 768 BIOSCAN-5M key set is 3.8 GB). An int8 search oversamples to
 max(4k, k + 16) candidates and rescores them on the host against the key
@@ -63,9 +65,10 @@ class PreparedKeys:
     def __init__(self, keys, device=None, precision: str = "high",
                  normalized: bool = False, mesh=None,
                  rescore: str = "float32"):
-        if precision not in ("high", "highest", "int8"):
+        if precision not in ("high", "highest", "default", "int8"):
             raise ValueError(f"unknown precision {precision!r}: the port "
-                             "searches in full fp32 ('high') or int8")
+                             "searches in full fp32 ('high'), one bf16 "
+                             "pass ('default') or int8")
         if rescore not in RESCORE_MODES:
             raise ValueError(f"unknown rescore mode {rescore!r}")
         if mesh is not None:
@@ -143,7 +146,8 @@ def topk_search(query_feature, keys_feature, k: int, mesh=None,
         pk = PreparedKeys(keys_feature, device=device, normalized=True,
                           mesh=mesh, precision=precision, rescore=rescore)
     if not pk.int8:
-        return topk_search_kernel(q, pk.keys_dev, k)
+        return topk_search_kernel(q, pk.keys_dev, k,
+                                  precision=pk.precision)
     k_eff = min(k, pk.n_keys)
     do_rescore = pk.rescore != "none"
     k_search = (min(pk.n_keys, max(4 * k_eff, k_eff + 16)) if do_rescore

@@ -3,7 +3,8 @@
 A copy of bioscan_clip_tpu/retrieval/report.py on the port's engine: each
 key type is prepared once (`PreparedKeys` on `device`, default cuda) in the
 precision of `inference_and_eval_setting.retrieval_precision` ("high": fp32
-keys through kernel K4; "int8": int8 codes through K5, rescored in fp32).
+keys through kernel K4; "default": the same keys through K4's single bf16
+pass; "int8": int8 codes through K5, rescored in fp32).
 
 Reference parity (scripts/inference_and_eval.py:29-44, 514-715):
 - feature types: query in {image, dna, language, averaged, concatenated},

@@ -150,7 +150,8 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
 
 def _not_ported(what: str):
     raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item 1")
+        f"{what} is not ported yet: ROADMAP.md queue 1, item 2 (the rest "
+        "of training)")
 
 
 def make_accum_train_step(*args, **kwargs):

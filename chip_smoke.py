@@ -7,11 +7,14 @@ Phases, in order; any failure exits non-zero:
   device    the card's name and power limit (nvidia-smi)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc
   kernels   each kernel against its plain PyTorch version at the shapes of
-            its path (fp32 and bf16 for attention, the masked K1m and its
-            backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14; int8 top-k
-            bit for bit at 1,048,576 and 5,000,000 keys; the matmul-only
-            control K6 and K7), with the kernel's, the plain version's and
-            one library call's time
+            its path (fp32 FFMA and bf16 tensor-core bodies for attention,
+            bf16 forwards at N <= 32 on the FFMA body, the masked K1m and
+            its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
+            keep mask read out bit for bit, two K3 launches bit-equal; top-k
+            in "high" and "default" precision;
+            int8 top-k bit for bit at 1,048,576 and 5,000,000 keys; the
+            matmul-only control K6 and K7), with the kernel's, the plain
+            version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
             handle_request for dna, text, embedding and embed_images, and
@@ -21,9 +24,10 @@ Phases, in order; any failure exits non-zero:
   eval      the evaluation job at full width: in-memory batches of 24 (all
             keys 1,920, seen 960, unseen 960 records) through
             train.loop.extract_features per batch and grouped, then the
-            5 x 6 retrieval sweep (retrieval.report) in high and int8
-            precision; the card's sweep equals the CPU's on the same
-            embeddings; K1, K2, K4 and K5 launched and no plain version
+            5 x 6 retrieval sweep (retrieval.report) in high, default
+            (K4's single bf16 pass) and int8 precision; the card's sweep
+            equals the CPU's on the same embeddings up to near-ties; K1, K2,
+            K4 (high and default) and K5 launched and no plain version
   training  the flagship LoRA contrastive step (train.loop.make_train_step
             driven by train_epoch) at full width, B=400, bf16, frozen
             weights in bf16, dropout 0.1: 6 steps over one synthetic batch;
@@ -257,7 +261,56 @@ def _topk_case(gen, bq=256, n=1 << 20, d=768, k=5):
                            2 * few * n * d, "float32")
         log(f"  topk fp32 Bq={few}: kernel {fms:.4f} ms, bound {fb:.4f} ms "
             f"({fby})")
-    return keys, row
+    return keys, row, _topk_default_case(q, keys, k)
+
+
+def _topk_default_case(q, keys, k):
+    """K4 in "default" precision (operands rounded to bf16 as staged, fp32
+    sums) against its plain version on the same fp32 keys: values within
+    1e-5 (bf16 products are exact in fp32; the sums run in another order),
+    index sets equal up to near-ties (keys whose float64 scores over the
+    bf16-rounded operands lie within 1e-5 of the k-th); timed beside
+    torch.topk over the bf16 product (operands cast before the timing)."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import topk as topk_mod
+
+    n, d = keys.shape
+    bq = q.shape[0]
+    vals, idx = topk_mod.topk(q, keys, n, k, precision="default")
+    torch.cuda.synchronize()
+    rv, ri = topk_mod.topk_reference(q, keys, n, k, precision="default")
+    err = (vals - rv).abs().max().item()
+    if not err <= 1e-5:
+        raise AssertionError(f"topk default: max |kernel - plain| {err} > "
+                             "1e-5")
+    q16, k16 = q.to(torch.bfloat16), keys.to(torch.bfloat16)
+    for r in range(bq):
+        a, bset = set(idx[r].tolist()), set(ri[r].tolist())
+        if a != bset:
+            diff = sorted(a ^ bset)
+            sc = q16[r].double() @ k16[diff].double().T
+            if (sc - rv[r, -1].double()).abs().max().item() > 1e-5:
+                raise AssertionError(f"topk default row {r}: {sorted(a)} vs "
+                                     f"{sorted(bset)}")
+    n_bytes = n * d * 4 + bq * d * 4 + bq * k * 8
+    bms, by = bound_ms(n_bytes, 2 * bq * n * d, "bfloat16")
+    row = {
+        "ms": time_ms(lambda: topk_mod.topk(q, keys, n, k,
+                                            precision="default"),
+                      reps=5, warmup=1),
+        "plain_ms": time_ms(lambda: topk_mod.topk_reference(
+            q, keys, n, k, precision="default"), reps=2, warmup=1),
+        "library_ms": time_ms(lambda: torch.topk(q16 @ k16.T, k, dim=1),
+                              reps=5, warmup=1),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+    }
+    log(f"  topk default (bf16 operands) Bq={bq} N={n} D={d} k={k}: err "
+        f"{err:.3g} (tol 1e-5), kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.topk(bf16 q@k.T) "
+        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
+    del q16, k16
+    return row
 
 
 def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
@@ -462,6 +515,7 @@ def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
     if not err <= tol:
         raise AssertionError(f"mha_dropout: max |kernel - plain| {err} > "
                              f"{tol}")
+    _dropout_readout(b, n, heads, hd, dtype, seeds, rate)
 
     def view(t):
         return t.view(b, n, heads, hd).transpose(1, 2)
@@ -487,6 +541,34 @@ def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
         f"sdpa(dropout_p) {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
         f"({by})")
     return row
+
+
+def _dropout_readout(b, n, heads, hd, dtype, seeds, rate):
+    """K2d's keep mask read out through the output: q = k = 0 makes p =
+    float32(1 / n) exactly, and v's row j in every head is the unit vector
+    e_j of that head's dims (n <= hd), so o[i, hd h + j] = dtype(float32(1
+    / n) * keep(i, j)), bit for bit, against `dropout_keep_4d`."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    if n > hd:
+        return
+    q = torch.zeros(b, n, heads * hd, device="cuda", dtype=dtype)
+    v = torch.zeros_like(q)
+    j = torch.arange(n, device="cuda")
+    for h in range(heads):
+        v[:, j, h * hd + j] = 1.0
+    out = attention.mha_dropout(q, q, v, heads, seeds, rate)
+    keep = attention.dropout_keep_4d(seeds, b, heads, n, rate, device="cuda")
+    want = (torch.tensor(1.0, device="cuda") / n * keep).to(dtype)
+    got = out.view(b, n, heads, hd).permute(0, 2, 1, 3)
+    if not (torch.equal(got[..., :n], want) and not got[..., n:].any()):
+        raise AssertionError(f"mha_dropout {dtype} B={b} N={n}: the keep "
+                             "mask does not read out bit for bit")
+    log(f"  mha_dropout {str(dtype).split('.')[-1]} B={b} N={n} h={heads}: "
+        f"keep mask read out bit for bit ({int((keep == 0).sum())} of "
+        f"{keep.numel()} dropped)")
 
 
 def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
@@ -525,7 +607,12 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
         return attention.mha_bwd_reference(q, k, v, g, heads, **kw)
 
     out = kernel()
+    again = kernel()
     torch.cuda.synchronize()
+    pairs = zip((out,), (again,)) if packed else zip(out, again)
+    if not all(a is None or torch.equal(a, a2) for a, a2 in pairs):
+        raise AssertionError(f"{name}: two launches are not bit-equal")
+    del again
     ref = plain()
     if packed:
         out = (out[..., :d], out[..., d : 2 * d], out[..., 2 * d :], None)
@@ -562,7 +649,8 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
         f"{' bias+dbias' if with_bias else ''}"
         f"{' causal mask' if causal else ''}"
         f"{f' rate={rate}' if rate else ''}: err/max(1,|plain|) {err:.3g} "
-        f"(tol {tol:g}), kernel {row['ms']:.4f} ms, plain "
+        f"(tol {tol:g}), two launches bit-equal, kernel {row['ms']:.4f} ms, "
+        f"plain "
         f"{row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} "
         f"ms, bound {bms:.4f} ms ({by})")
     return row
@@ -589,6 +677,9 @@ def phase_kernels(rows: dict):
         if dtype == torch.bfloat16:
             rows["mha_dropout"] = r
         _dropout_case(TRAIN_BATCH, 20, 512, 8, dtype, True, gen)
+        # the bf16 tensor-core body's keep mask (above N = 32)
+        _dropout_readout(TRAIN_BATCH, 64, 8, 64, dtype,
+                         _seeds(TRAIN_BATCH, gen), 0.1)
         r = _bwd_case("mha_bwd packed", TRAIN_BATCH, 197, 768, 12, dtype,
                       gen, packed=True)
         if dtype == torch.bfloat16:
@@ -623,7 +714,7 @@ def phase_kernels(rows: dict):
             _bwd_case("mha_bwd packed", b, 257, 1024, 16, dtype, gen,
                       packed=True)
         torch.cuda.empty_cache()
-    keys, rows["topk"] = _topk_case(gen)
+    keys, rows["topk"], rows["topk_default"] = _topk_case(gen)
     rows["mm_only"] = _mm_only_case(gen, keys)
     del keys
     torch.cuda.empty_cache()
@@ -645,6 +736,8 @@ KERNELS = {
                 "bioscan_clip_tpu/ops/attention.py:321"),
     "topk": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
+    "topk_default": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+                     "bioscan_clip_tpu/ops/topk_pallas.py:185"),
     "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
                 "bioscan_clip_tpu/ops/topk_pallas.py:253"),
     "mha_packed_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
@@ -658,7 +751,8 @@ KERNELS = {
 }
 # the main path whose run gives each kernel's launch count in that line
 KERNEL_PATH = {"mha_packed": "serving", "mha": "serving", "topk": "serving",
-               "topk_i8": "eval", "mha_dropout": "training",
+               "topk_i8": "eval", "topk_default": "eval",
+               "mha_dropout": "training",
                "mha_bwd": "training", "mha_packed_mask": "openclip",
                "mha_bwd_mask": "openclip_training", "mm_only": "probe",
                "tiny": "probe"}
@@ -674,6 +768,7 @@ def launch_counts():
             "mha_bwd": attention.mha_bwd.launches,
             "mha_bwd_mask": attention.mha_bwd.mask_launches,
             "topk": topk.topk.launches,
+            "topk_default": topk.topk.default_launches,
             "topk_i8": topk.topk_i8.launches,
             "mm_only": topk.mm_only.launches,
             "tiny": topk.tiny.launches}
@@ -700,6 +795,7 @@ def reset_counts():
         fn.launches = 0
     attention.mha_packed.mask_launches = 0
     attention.mha_bwd.mask_launches = 0
+    topk.topk.default_launches = 0
     for fn in _plain_fns():
         fn.calls = 0
 
@@ -1168,12 +1264,13 @@ def phase_eval():
     """The evaluation job (scripts/inference_and_eval.py) at full width:
     the flagship (bf16, random seeded weights) embeds all_keys, seen and
     unseen from in-memory uint8 batches through extract_features, per
-    batch and grouped, then the 5 x 6 sweep runs in high and int8 precision
-    on the card. Checks: grouped equals per-batch within bf16 tolerance;
-    the card's sweep equals the same sweep on the CPU over the same
-    embeddings; int8 top-1 agrees with high on >= 99% of the queries; K1,
-    K2, K4 and K5 launched and no plain version ran. Returns the launch
-    counts of the card's run."""
+    batch and grouped, then the 5 x 6 sweep runs in high, default and int8
+    precision on the card. Checks: grouped equals per-batch within bf16
+    tolerance; the card's sweep equals the same sweep on the CPU over the
+    same embeddings (high and default up to near-ties, int8 exactly); int8
+    top-1 agrees with high on >= 99% of the queries; K1, K2, K4 in high and
+    default precision and K5 launched and no plain version ran. Returns the
+    launch counts of the card's run."""
     import numpy as np
     import torch
 
@@ -1239,7 +1336,7 @@ def phase_eval():
     _time_modalities(model, loaders["keys"][0])
 
     results = {}
-    for precision in ("high", "int8"):
+    for precision in ("high", "default", "int8"):
         ies = {"retrieval_precision": precision}
         sweep_args = ConfigNode({"model_config": dict(FLAGSHIP),
                                  "inference_and_eval_setting": ies})
@@ -1251,11 +1348,11 @@ def phase_eval():
                 out=lambda *_: None))
     counts, plain = launch_counts(), plain_calls()
     log(f"  launches on the eval path: {counts}; plain calls {plain}")
-    want = ("mha_packed", "mha", "topk", "topk_i8")
+    want = ("mha_packed", "mha", "topk", "topk_default", "topk_i8")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"eval: launches {counts}, plain {plain}")
 
-    for precision in ("high", "int8"):
+    for precision in ("high", "default", "int8"):
         ies = {"retrieval_precision": precision}
         sweep_args = ConfigNode({"model_config": dict(FLAGSHIP),
                                  "inference_and_eval_setting": ies})
@@ -1275,12 +1372,12 @@ def phase_eval():
             # K5 equals its plain version bit for bit and the rescore is
             # the same numpy on both: no room for any difference
             raise AssertionError("sweep int8: the card differs from the CPU")
-        if precision == "high":
-            ties = _high_searches_agree(splits)
+        if precision in ("high", "default"):
+            ties = _searches_agree(splits, precision)
             if not same and not ties:
-                raise AssertionError("sweep high: the card's accuracy "
-                                     "differs from the CPU's with no "
-                                     "near-tie to explain it")
+                raise AssertionError(f"sweep {precision}: the card's "
+                                     "accuracy differs from the CPU's with "
+                                     "no near-tie to explain it")
     agree = total = 0
     misses = {}
     for qt, per_key in results["high"][2].items():
@@ -1305,14 +1402,18 @@ def phase_eval():
     return counts
 
 
-def _high_searches_agree(splits, k=5, tie=1e-5):
-    """Every fp32 search of the sweep, K4 on the card against its plain
-    version on the CPU: a position may hold another key only when the two
-    keys' float64 scores are within `tie`. K4 sums the 768 products in
-    order, the CPU's BLAS in blocks; for scores near 1 the two differ by up
-    to ~1e-6 (the fp32 error bound of such a dot is 768 * 2^-24 ~ 4.6e-5),
-    and the DNA tower's random-weight embeddings lie within cosine 0.998 of
-    each other, so near-ties abound. Returns the rows that differ."""
+def _searches_agree(splits, precision, k=5, tie=1e-5):
+    """Every fp32-key search of the sweep in `precision` ("high" or
+    "default"), K4 on the card against its plain version on the CPU: a
+    position may hold another key only when the two keys' float64 scores
+    are within `tie`. K4 sums the 768 products in order, the CPU's BLAS in
+    blocks; for scores near 1 the two differ by up to ~1e-6 (the fp32 error
+    bound of such a dot is 768 * 2^-24 ~ 4.6e-5), and the DNA tower's
+    random-weight embeddings lie within cosine 0.998 of each other, so
+    near-ties abound. In "default" both sides sum the same exact products
+    of bf16-rounded operands, so the float64 scores are those of the
+    rounded operands and the tie width is the same 1e-5 of fp32 summation.
+    Returns the rows that differ."""
     import numpy as np
 
     from bioscan_clip_tpu_torch.retrieval.engine import (
@@ -1330,9 +1431,9 @@ def _high_searches_agree(splits, k=5, tie=1e-5):
         kf = splits["keys"].get(kt)
         if kf is None:
             continue
-        on_card = PreparedKeys(kf, device="cuda")
-        on_cpu = PreparedKeys(kf, device="cpu")
-        kn = l2norm_np(kf).astype(np.float64)
+        on_card = PreparedKeys(kf, device="cuda", precision=precision)
+        on_cpu = PreparedKeys(kf, device="cpu", precision=precision)
+        kn = _as_scored(l2norm_np(kf), precision)
         for qt in ALL_TYPE_OF_FEATURES_OF_QUERY:
             for split in ("seen", "unseen"):
                 q = splits[split].get(qt)
@@ -1343,7 +1444,7 @@ def _high_searches_agree(splits, k=5, tie=1e-5):
                 _, ih = topk_search(qn, on_cpu, k)
                 rows += len(qn)
                 for r in np.nonzero((ic != ih).any(axis=1))[0]:
-                    sc = kn @ qn[r].astype(np.float64)
+                    sc = kn @ _as_scored(qn[r], precision)
                     pos = ic[r] != ih[r]
                     gap = np.abs(sc[ic[r][pos]] - sc[ih[r][pos]]).max()
                     if gap > tie:
@@ -1351,10 +1452,22 @@ def _high_searches_agree(splits, k=5, tie=1e-5):
                             f"sweep high {qt} x {kt} {split} row {r}: card "
                             f"{ic[r]} vs cpu {ih[r]}, score gap {gap}")
                     differ += 1
-    log(f"  sweep high: K4 on the card vs the CPU over {rows} searches: "
-        f"{differ} rows differ, each only by keys within {tie:g} of each "
-        "other (near-ties)")
+    log(f"  sweep {precision}: K4 on the card vs the CPU over {rows} "
+        f"searches: {differ} rows differ, each only by keys within {tie:g} "
+        "of each other (near-ties)")
     return differ
+
+
+def _as_scored(x, precision):
+    """float64 operands as the product sees them: rounded to bf16 first
+    in "default" precision."""
+    import numpy as np
+    import torch
+
+    if precision == "default":
+        x = torch.from_numpy(np.ascontiguousarray(x)).bfloat16().float()
+        x = x.numpy()
+    return np.asarray(x, dtype=np.float64)
 
 
 def _time_modalities(model, batch):
@@ -1420,9 +1533,10 @@ def _profile_step(state, step, batch):
 
     from bioscan_clip_tpu_torch.train.loop import device_batch
 
-    groups = (("K3/K3m mha_bwd", ("bwd_query_rows", "bwd_key_rows",
-                                  "dbias_sum_heads")),
-              ("K1/K1m/K2d mha_fwd", ("mha_fwd_kernel",)),
+    groups = (("K3/K3m mha_bwd pass A", ("bwd_query_rows",)),
+              ("K3/K3m mha_bwd pass B + C", ("bwd_key_rows",
+                                             "dbias_sum_heads")),
+              ("K1/K1m/K2d mha_fwd", ("mha_fwd_kernel", "mha_fwd_mma")),
               ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
     b = device_batch(batch, "cuda")
     torch.cuda.synchronize()

@@ -9,7 +9,11 @@ Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
 before P.V on both sides), the masked forward (K1m) as K1; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
-per gradient; top-k values atol 1e-5 on unit vectors; int8 top-k (K5)
+per gradient. bf16 runs the tensor-core (mma.sync) bodies (the forward
+above N = 32), fp32 the FFMA ones; K2d's keep mask reads out bit for bit
+and two K3 launches are bit-equal. Top-k values atol 1e-5 on unit
+vectors, in "high" and "default" precision (bf16 operands: exact
+products, fp32 sums); int8 top-k (K5)
 bit-equal to its plain version, values and indices (exact integer dots times
 two scales in the same order, the same tie rule); the matmul-only control
 (K6) int8 bit-equal, fp32 atol 1e-5 on unit vectors in both precisions (fp32
@@ -44,14 +48,16 @@ def test_attention_kernels_match_plain(gen, dtype, tol):
                                   qkv[..., 2 * d :], 12)
     assert (out.float() - ref.float()).abs().max().item() <= tol
 
-    q, k, v = (torch.randn(8, 20, 512, device="cuda", generator=gen).to(dtype)
-               for _ in range(3))
-    bias = torch.zeros(8, 20, device="cuda")
-    bias[:, 15:] = -1e9
-    for b in (None, bias):
-        out = attention.mha(q, k, v, 8, bias=b)
-        ref = attention.mha_reference(q, k, v, 8, bias=b)
-        assert (out.float() - ref.float()).abs().max().item() <= tol
+    # BERT-small (N = 20, with its padding bias) and BarcodeBERT (N = 133)
+    for n, d, heads in ((20, 512, 8), (133, 768, 12)):
+        q, k, v = (torch.randn(8, n, d, device="cuda",
+                               generator=gen).to(dtype) for _ in range(3))
+        bias = torch.zeros(8, n, device="cuda")
+        bias[:, 15:] = -1e9
+        for b in (None, bias):
+            out = attention.mha(q, k, v, heads, bias=b)
+            ref = attention.mha_reference(q, k, v, heads, bias=b)
+            assert (out.float() - ref.float()).abs().max().item() <= tol
 
 
 def _seeds(gen, b):
@@ -157,6 +163,11 @@ def test_attention_wrapper_rejects_what_the_kernel_cannot_take(gen):
     with pytest.raises(ValueError, match="contiguous"):
         attention.mha(q.transpose(0, 1), q.transpose(0, 1),
                       q.transpose(0, 1), 2)
+    # the bf16 bodies read rows in 16-byte pieces
+    x = torch.randn(2 * 10 * 64 + 1, device="cuda",
+                    generator=gen).to(torch.bfloat16)[1:].view(2, 10, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        attention.mha(x, x, x, 1)
 
 
 def test_topk_kernel_matches_plain(gen):
@@ -171,6 +182,28 @@ def test_topk_kernel_matches_plain(gen):
         assert (i < 99_001).all()
     with pytest.raises(ValueError):
         topk.topk(q, keys, 99_001, topk.MAX_K + 1)
+
+
+def test_topk_default_precision_matches_plain(gen):
+    """K4 in "default" precision (operands rounded to bf16, fp32 sums)
+    against its plain version, counted in `topk.default_launches`."""
+    keys = torch.randn(100_000, 768, device="cuda", generator=gen)
+    keys /= keys.norm(dim=1, keepdim=True)
+    q = keys[:37] + 0.01 * torch.randn(37, 768, device="cuda", generator=gen)
+    before = (topk.topk.launches, topk.topk.default_launches)
+    for k in (1, 5, 20):
+        v, i = topk.topk(q, keys, 99_001, k, precision="default")
+        rv, ri = topk.topk_reference(q, keys, 99_001, k, precision="default")
+        assert (v - rv).abs().max().item() <= 1e-5
+        assert (i[:, 0] == ri[:, 0]).all()
+        assert (i < 99_001).all()
+    assert (topk.topk.launches, topk.topk.default_launches) == (
+        before[0], before[1] + 3)
+    default, _ = topk.topk(q, keys, 99_001, 5, precision="default")
+    high, _ = topk.topk(q, keys, 99_001, 5)
+    assert not torch.equal(high, default)
+    with pytest.raises(ValueError, match="precision"):
+        topk.topk(q, keys, 99_001, 5, precision="fp16")
 
 
 def _codes(x):
@@ -365,3 +398,84 @@ def test_eot_pooling_takes_the_first_maximum_on_the_card(gen):
     ids[:, 40:] = 7
     ids[3] = 2
     assert ids.argmax(dim=-1).tolist() == [40] * 3 + [0] + [40] * 60
+
+
+@pytest.mark.parametrize("n", [20, 64])
+def test_dropout_mask_reads_out_bit_for_bit(gen, n):
+    """K2d's keep mask, read out through the output at BERT-small width (8
+    heads, hd 64), no bias, at N = 20 (the bf16 FFMA body, N <= 32) and 64
+    (the tensor-core body): q = k = 0 makes p = float32(1 / N) exactly, and
+    v's row j in every head is the unit vector e_j of that head's 64 dims,
+    so o[i, 64 h + j] = bf16(float32(1 / N) * keep(i, j)) exactly (0 or the
+    rounded kept value) for j < N and 0 beyond."""
+    b, heads, hd = 4, 8, 64
+    q = torch.zeros(b, n, heads * hd, device="cuda", dtype=torch.bfloat16)
+    v = torch.zeros_like(q)
+    j = torch.arange(n, device="cuda")
+    for h in range(heads):
+        v[:, j, h * hd + j] = 1.0
+    p = torch.tensor(1.0, device="cuda") / n
+    for seed in (_seeds(gen, b), 0x2545F491):
+        out = attention.mha(q, q, v, heads, dropout_rate=0.1,
+                            dropout_seed=seed)
+        keep = attention.dropout_keep_4d(seed, b, heads, n, 0.1,
+                                         device="cuda")
+        assert (keep == 0).any() and (keep != 0).any()
+        got = out.view(b, n, heads, hd).permute(0, 2, 1, 3)
+        assert torch.equal(got[..., :n], (p * keep).to(torch.bfloat16))
+        assert not got[..., n:].any()
+
+
+def test_backward_kernel_is_bit_deterministic(gen):
+    """Two launches of K3 on the same inputs give bit-equal dq/dk/dv (and
+    dbias): every output element has one writer and every sum a fixed
+    order, in the tensor-core (bf16) and the FFMA (fp32) passes."""
+    for dtype in (torch.bfloat16, torch.float32):
+        qkv = torch.randn(4, 197, 3 * 768, device="cuda",
+                          generator=gen).to(dtype)
+        g = torch.randn(4, 197, 768, device="cuda", generator=gen).to(dtype)
+        runs = [attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv)
+                for _ in range(2)]
+        assert torch.equal(runs[0], runs[1])
+        q, k, v, g = (torch.randn(4, 20, 512, device="cuda",
+                                  generator=gen).to(dtype) for _ in range(4))
+        bias = torch.zeros(4, 20, device="cuda")
+        bias[1, 9:] = -1e9
+        seeds = _seeds(gen, 4)
+        runs = [attention.mha_bwd(q, k, v, g, 8, bias=bias, dropout_rate=0.1,
+                                  dropout_seed=seeds, need_dbias=True)
+                for _ in range(2)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("hd", [32, 128])
+def test_bf16_bodies_at_the_other_head_dims(gen, hd):
+    """The tensor-core forward and backward at head dims 32 and 128 (every
+    main-path shape has 64), N = 70 (a ragged last 16-row tile), with a
+    key bias, dropout and the bias gradient; and K1m's mask at N = 70."""
+    heads, n = 4, 70
+    d = heads * hd
+    q, k, v, g = (torch.randn(3, n, d, device="cuda",
+                              generator=gen).to(torch.bfloat16)
+                  for _ in range(4))
+    bias = torch.zeros(3, n, device="cuda")
+    bias[0, 50:] = -1e9
+    seeds = _seeds(gen, 3)
+    kw = dict(bias=bias, dropout_rate=0.1, dropout_seed=seeds)
+    out = attention.mha(q, k, v, heads, **kw)
+    ref = attention.mha_reference(q, k, v, heads, **kw)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    out = attention.mha_bwd(q, k, v, g, heads, need_dbias=True, **kw)
+    _close_grads(out, attention.mha_bwd_reference(q, k, v, g, heads, **kw),
+                 2e-2)
+    qkv = torch.cat([q, k, v], dim=-1)
+    mask = causal_mask(n, "cuda")
+    out = attention.mha_packed(qkv, heads, mask=mask)
+    ref = attention.mha_reference(q, k, v, heads, mask=mask)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+    dqkv = attention.mha_bwd(None, None, None, g, heads, packed_qkv=qkv,
+                             mask=mask)
+    _close_grads(dqkv.split(d, dim=-1),
+                 attention.mha_bwd_reference(q, k, v, g, heads,
+                                             mask=mask)[:3], 2e-2)

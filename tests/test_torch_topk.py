@@ -31,9 +31,9 @@ def _assert_same(vals, idx, ref_vals, ref_idx):
                                   np.asarray(ref_idx)[clear])
 
 
-def _port(q, ks, n_valid, k):
+def _port(q, ks, n_valid, k, precision="high"):
     v, i = topk_mod.topk(torch.from_numpy(q), torch.from_numpy(ks),
-                         n_valid, k)
+                         n_valid, k, precision=precision)
     assert v.dtype == torch.float32 and i.dtype == torch.int32
     return v.numpy(), i.numpy()
 
@@ -160,20 +160,121 @@ def test_records_and_predictions_match_jax_engine():
 
 
 def test_int8_mesh_and_streaming_raise():
-    """int8 keys are ported (tests/test_torch_int8.py); a multi-GPU mesh
-    still raises, for fp32 and int8 keys alike, and so do an unknown
-    precision and rescore mode."""
+    """int8 keys and "default" precision are ported (tests/test_torch_int8.py
+    and above); a multi-GPU mesh still raises, for every precision, and so
+    do an unknown precision and rescore mode."""
     from bioscan_clip_tpu_torch.retrieval import engine
 
     ks = np.eye(4, 64, dtype=np.float32)
     assert engine.PreparedKeys(ks, device="cpu", precision="int8").int8
-    for precision in ("high", "int8"):
+    pk = engine.PreparedKeys(ks, device="cpu", precision="default")
+    assert not pk.int8 and pk.keys_dev.dtype == torch.float32
+    for precision in ("high", "default", "int8"):
         with pytest.raises(NotImplementedError):
             engine.PreparedKeys(ks, device="cpu", precision=precision,
                                 mesh=object())
-    with pytest.raises(ValueError):
-        engine.PreparedKeys(ks, device="cpu", precision="default")
+    for precision in ("fp16", "bf16"):
+        with pytest.raises(ValueError):
+            engine.PreparedKeys(ks, device="cpu", precision=precision)
+    with pytest.raises(ValueError, match="precision"):
+        topk_mod.topk(torch.ones(2, 32), torch.ones(8, 32), 8, 2,
+                      precision="fp16")
     with pytest.raises(ValueError):
         engine.PreparedKeys(ks, device="cpu", precision="int8",
                             rescore="fp16")
 
+
+
+def _bf16(x):
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def test_default_precision_matches_jax_on_bf16_operands():
+    """precision="default", the TPU's single bf16 pass (`Precision.DEFAULT`
+    in `pallas_topk`: operands rounded to bf16, products summed in fp32).
+    XLA:CPU does not emulate that pass, so the witness is JAX
+    `_topk_kernel` at HIGHEST on operands already rounded to bf16
+    (`pallas_topk(precision="high")` in interpret mode), with the
+    tolerance and near-tie rule of `_assert_same` (bf16 products are exact
+    in fp32, so the two sides differ only in summation order). The port's
+    "default" keeps the TPU's semantics on both devices: on the CPU it
+    therefore differs from JAX's own XLA:CPU scan, which computes "default"
+    in full fp32. Then `PreparedKeys(precision="default")` and
+    `topk_search` on the CPU against `topk_search_pallas` on the same
+    rounded operands."""
+    from bioscan_clip_tpu_torch.retrieval import engine
+
+    rng = np.random.default_rng(21)
+    q = l2norm_np(rng.standard_normal((16, 64)).astype(np.float32))
+    ks = l2norm_np(rng.standard_normal((384, 64)).astype(np.float32))
+    ks[280:] = q[0]  # rows past n_valid that would win for query 0
+    ref = pallas_topk(jnp.asarray(_bf16(q)), jnp.asarray(_bf16(ks)), 280,
+                      k=5, tile=128, q_block=8, interpret=True)
+    calls = topk_mod.topk_reference.calls
+    vals, idx = _port(q, ks, 280, 5, precision="default")
+    assert topk_mod.topk_reference.calls == calls + 1
+    _assert_same(vals, idx, *ref)
+    assert idx.max() < 280
+    assert not np.array_equal(vals, _port(q, ks, 280, 5)[0])
+
+    ref = topk_search_pallas(_bf16(q), _bf16(ks[:280]), 4, tile=128,
+                             interpret=True)
+    pk = engine.PreparedKeys(ks[:280], device="cpu", precision="default",
+                             normalized=True)
+    sims, idx = engine.topk_search(q, pk, 4)
+    assert idx.dtype == np.int64
+    _assert_same(sims, idx, *ref)
+    _assert_same(*engine.topk_search(q, ks[:280], 4, device="cpu",
+                                     precision="default"), *ref)
+
+
+def test_default_precision_reaches_the_service_and_the_sweep(monkeypatch):
+    """`serve.key_precision=default` (RetrievalService) and
+    `inference_and_eval_setting.retrieval_precision=default` (the 5x6
+    sweep) search in K4's single bf16 pass on the CPU: the service's
+    similarities against JAX `pallas_topk` at HIGHEST on the bf16-rounded
+    normalized operands (interpret mode), and every key set of the sweep
+    prepared in "default" precision."""
+    from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP
+    from bioscan_clip_tpu_torch.retrieval import report
+    from bioscan_clip_tpu_torch.retrieval.service import RetrievalService
+
+    rng = np.random.default_rng(22)
+    keys = 2.0 * rng.standard_normal((300, 32)).astype(np.float32)
+    labels = [{"order": f"o{i % 3}", "family": f"f{i % 7}",
+               "genus": f"g{i % 31}", "species": f"s{i}"} for i in range(300)]
+    queries = keys[[3, 99, 250]] + 0.3 * rng.standard_normal(
+        (3, 32)).astype(np.float32)
+    svc = RetrievalService(MultiModalCLIP(), keys=keys, key_labels=labels,
+                           device="cpu", max_k=4, key_precision="default")
+    assert svc.prepared.precision == "default"
+    out = svc.search(embeddings=queries, k=4)
+    ref_sims, ref_idx = topk_search_pallas(
+        _bf16(l2norm_np(queries)), _bf16(l2norm_np(keys)), 4, tile=128,
+        interpret=True)
+    np.testing.assert_allclose(out["similarities"], ref_sims, atol=VAL_ATOL)
+    assert [p["species"] for p in out["predictions"]] == [
+        [labels[j]["species"] for j in row] for row in ref_idx]
+    assert [p["species"][0] for p in out["predictions"]] == ["s3", "s99",
+                                                              "s250"]
+
+    seen = []
+    real = report.PreparedKeys
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("precision"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(report, "PreparedKeys", spy)
+    split = dict(image=keys[:60], dna=keys[60:120], language=keys[120:180],
+                 label_list=labels[:60],
+                 file_name_list=[f"r{i}" for i in range(60)])
+    args = type("Args", (), {"inference_and_eval_setting": type(
+        "IES", (), {"retrieval_precision": "default"})()})()
+    acc, _, _ = report.inference_and_print_result(
+        report.build_split_dict(**split, for_key_set=True),
+        report.build_split_dict(**split), report.build_split_dict(**split),
+        args=args, k_list=[1], device="cpu", out=lambda *_: None)
+    assert seen and set(seen) == {"default"}
+    assert acc["encoded_image_feature"]["encoded_image_feature"]["seen"][
+        "micro_acc"][1]["species"] == 1.0
