@@ -153,9 +153,15 @@ def _kernel():
     plan.restype = None
     fn_i8 = lib.bscan_topk_i8
     fn_i8.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
     )
     fn_i8.restype = ctypes.c_int
+    plan_i8 = lib.bscan_topk_i8_plan
+    plan_i8.argtypes = [ctypes.c_int] * 5 + [
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
+    ]
+    plan_i8.restype = None
     fn_mm = lib.bscan_mm_only
     fn_mm.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
@@ -165,7 +171,7 @@ def _kernel():
     fn_tiny.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn_tiny.restype = ctypes.c_int
     return SimpleNamespace(lib=lib, topk=fn, plan=plan, topk_i8=fn_i8,
-                           mm_only=fn_mm, tiny=fn_tiny)
+                           plan_i8=plan_i8, mm_only=fn_mm, tiny=fn_tiny)
 
 
 def _plan(bq: int, n: int, k: int, dev):
@@ -176,6 +182,19 @@ def _plan(bq: int, n: int, k: int, dev):
     plan(bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
          ctypes.byref(splits), ctypes.byref(per_split), ctypes.byref(n_cand))
     return splits.value, per_split.value, n_cand.value
+
+
+def plan_i8(bq: int, n: int, d: int, k: int, dev):
+    """K5's (query block rows: 16, 32 or 64 from Bq; key splits; key tiles
+    per split; candidate entries) for one launch."""
+    qb, splits, per_split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    n_cand = ctypes.c_longlong()
+    _kernel().plan_i8(
+        bq, n, d, k,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        ctypes.byref(qb), ctypes.byref(splits), ctypes.byref(per_split),
+        ctypes.byref(n_cand))
+    return qb.value, splits.value, per_split.value, n_cand.value
 
 
 def _check_2d(name, t, dtype, device):
@@ -268,14 +287,14 @@ def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
             raise ValueError(f"topk_i8: {name} must be {rows} contiguous "
                              f"fp32 on {dev}")
     kern = _kernel()
-    splits, per_split, n_cand = _plan(bq, n, k, dev)
+    qb, splits, per_split, n_cand = plan_i8(bq, n, d, k, dev)
     cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
     cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
     err = kern.topk_i8(
         q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
-        k_scales.data_ptr(), bq, n, d, n_valid, k, splits, per_split,
+        k_scales.data_ptr(), bq, n, d, n_valid, k, qb, splits, per_split,
         cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
         out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
     )
@@ -315,9 +334,10 @@ mm_only_reference.calls = 0
 
 def mm_only(queries, keys, n_valid: int, int8: bool = False,
             precision: str = "high"):
-    """K6, the top-k kernels' matmul-only control: K4's (fp32) or K5's
-    (int8) pass-1 tile product with a running row max in place of the
-    top-k lists. Returns (Bq, 128) fp32. `precision` ("high" or "default")
+    """K6, the top-k kernels' matmul-only control: K4's (fp32) pass-1 tile
+    product, or an int8 `__dp4a` tile (the product K5 ran before its
+    tensor-core rebuild), with a running row max in place of the top-k
+    lists. Returns (Bq, 128) fp32. `precision` ("high" or "default")
     applies to fp32; int8 products are exact either way. The JAX version's
     `tile` and `q_block` are Pallas grid parameters; this kernel's tiling is
     K4's (64 queries x 128 keys, the key axis split across blocks)."""

@@ -10,7 +10,8 @@ Counterpart of tools/bench_topk_variants.py. Rows, one JSON object each:
                   operands) and "high" (FFMA): K4's tile product and a row
                   max, no top-k lists
   topk_f32        K4 (`ops.topk.topk`) at k
-  mm_only_i8      K6 int8: K5's tile product and a row max
+  mm_only_i8      K6 int8: a `__dp4a` tile product (K5's before its
+                  tensor-core rebuild) and a row max
   topk_i8         K5 (`ops.topk.topk_i8`) at max(k, 21), the engine's
                   oversampled k for an int8 search
 for each query count Bq of --bq. The JAX script sweeps Pallas grid
@@ -40,8 +41,9 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
-TILING = ("pass 1: 64 queries x 128 keys per tile, key axis split over "
-          "~2 blocks per SM (bscan_topk_plan)")
+TILING = ("pass 1: 64 queries x 128 keys per tile (K5: 16, 32 or 64 "
+          "queries from Bq, bscan_topk_i8_plan), key axis split over ~2 "
+          "blocks per SM (bscan_topk_plan)")
 I8_MIN_K = 21  # max(4k, k + 16) at the engine's default k = 5
 
 

@@ -5,14 +5,18 @@
 
 Phases, in order; any failure exits non-zero:
   device    the card's name and power limit (nvidia-smi)
-  build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc
+  build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
+            prints ptxas' registers, shared memory and spills per kernel
+            (one "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation)
   kernels   each kernel against its plain PyTorch version at the shapes of
             its path (fp32 FFMA and bf16 tensor-core bodies for attention,
             bf16 forwards at N <= 32 on the FFMA body, the masked K1m and
             its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
             keep mask read out bit for bit, two K3 launches bit-equal; top-k
             in "high" and "default" precision;
-            int8 top-k bit for bit at 1,048,576 and 5,000,000 keys; the
+            int8 top-k bit for bit at 1,048,576 keys (Bq 256, 64, 16, 1,
+            and keys whose scores rise with the index at Bq 256) and at
+            5,000,000 keys (Bq 256, 1); the
             matmul-only control K6 and K7), with the kernel's, the plain
             version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
@@ -60,6 +64,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -130,6 +135,10 @@ def phase_build():
             elif "registers" in ln or "error" in ln:
                 log(f"  nvcc {name} {fn}: {ln.split(':', 1)[-1].strip()}; "
                     f"{spills}")
+                k5 = re.search(r"topk_i8_pass1ILi(\d+)ELi(\d+)E", fn)
+                if k5:  # K5's instantiations, by list size and query block
+                    log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}")
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
@@ -313,11 +322,15 @@ def _topk_default_case(q, keys, k):
     return row
 
 
-def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
+def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
+                  rising_bq=None):
     """K5 against its plain version, values and indices bit for bit, at
     each query count of `bqs`; timed beside torch._int_mm + the two scales
     + torch.topk (Bq padded to 32 rows, as _int_mm needs more than 16).
-    Returns the row of the first query count."""
+    With `rising_bq`, one more row: collinear keys whose scales rise with
+    the index, so every query's scores rise along the key axis (each tile
+    beats the last: the worst case of K5's running threshold). Returns the
+    row of the first query count."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
@@ -334,40 +347,52 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False):
         del x
     q = torch.randn(max(bqs), d, device=dev, generator=gen)
     qc_all, qs_all = quantize(q / q.norm(dim=1, keepdim=True))
+    cases = [(f"Bq={bq}", qc_all[:bq].contiguous(), qs_all[:bq].contiguous(),
+              kc, ks) for bq in bqs]
+    if rising_bq:
+        u = torch.randn(1, d, device=dev, generator=gen)
+        uc, us = quantize(u)
+        noise = 0.1 * torch.randn(rising_bq, d, device=dev, generator=gen)
+        qc_r, qs_r = quantize(u + noise)
+        ks_r = us * (1 + torch.arange(n, device=dev, dtype=torch.float32) / n)
+        cases.append((f"Bq={rising_bq} rising scores", qc_r, qs_r,
+                      uc.expand(n, d).contiguous(), ks_r))
     first = None
-    for bq in bqs:
-        qc, qs = qc_all[:bq].contiguous(), qs_all[:bq].contiguous()
-        v, i = topk_mod.topk_i8(qc, qs, kc, ks, n, k)
+    for what, qc, qs, kk, kks in cases:
+        bq = qc.shape[0]
+        v, i = topk_mod.topk_i8(qc, qs, kk, kks, n, k)
         torch.cuda.synchronize()
-        rv, ri = topk_mod.topk_i8_reference(qc, qs, kc, ks, n, k)
+        rv, ri = topk_mod.topk_i8_reference(qc, qs, kk, kks, n, k)
         if not (torch.equal(v, rv) and torch.equal(i, ri)):
-            raise AssertionError(f"topk_i8 N={n} Bq={bq}: kernel != plain "
+            raise AssertionError(f"topk_i8 N={n} {what}: kernel != plain "
                                  f"(max |dv| {(v - rv).abs().max().item()})")
         qp = torch.zeros(max(32, -(-bq // 8) * 8), d, device=dev,
                          dtype=torch.int8)
         qp[:bq] = qc
 
         def library():
-            s = torch._int_mm(qp, kc.T)[:bq].to(torch.float32)
-            return torch.topk((s * qs[:, None]) * ks[None, :], k, dim=1)
+            s = torch._int_mm(qp, kk.T)[:bq].to(torch.float32)
+            return torch.topk((s * qs[:, None]) * kks[None, :], k, dim=1)
 
         lib_same = torch.equal(library().values, v)
         n_bytes = n * d + 4 * n + bq * d + 4 * bq + bq * k * 8
         bms, by = bound_ms(n_bytes, 2 * bq * n * d, "int8")
         row = {
-            "ms": time_ms(lambda: topk_mod.topk_i8(qc, qs, kc, ks, n, k),
+            "ms": time_ms(lambda: topk_mod.topk_i8(qc, qs, kk, kks, n, k),
                           reps=5, warmup=1),
             "plain_ms": time_ms(lambda: topk_mod.topk_i8_reference(
-                qc, qs, kc, ks, n, k), reps=2, warmup=1),
+                qc, qs, kk, kks, n, k), reps=2, warmup=1),
             "library_ms": time_ms(library, reps=5, warmup=1),
             "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0,
         }
-        log(f"  topk_i8 Bq={bq} N={n} D={d} k={k}: bit-equal to plain, "
-            f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        qb, splits, _, _ = topk_mod.plan_i8(bq, n, d, k, dev)
+        log(f"  topk_i8 {what} N={n} D={d} k={k} (query block {qb}, "
+            f"{splits} key splits): bit-equal to plain, kernel "
+            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
             f"_int_mm+topk {row['library_ms']:.4f} ms (values equal: "
             f"{lib_same}), bound {bms:.4f} ms ({by})")
         first = first or row
-    del kc, ks
+    del kc, ks, cases
     torch.cuda.empty_cache()
     return first
 
@@ -718,7 +743,8 @@ def phase_kernels(rows: dict):
     rows["mm_only"] = _mm_only_case(gen, keys)
     del keys
     torch.cuda.empty_cache()
-    rows["topk_i8"] = _topk_i8_case(gen, N_KEYS, (256, 64, 1))
+    rows["topk_i8"] = _topk_i8_case(gen, N_KEYS, (256, 64, 16, 1),
+                                    rising_bq=256)
     _topk_i8_case(gen, 5_000_000, (256, 1), codes_on_card=True)
     rows["tiny"] = _tiny_case(gen)
     log("phase kernels ok")

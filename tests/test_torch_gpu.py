@@ -15,7 +15,10 @@ and two K3 launches are bit-equal. Top-k values atol 1e-5 on unit
 vectors, in "high" and "default" precision (bf16 operands: exact
 products, fp32 sums); int8 top-k (K5)
 bit-equal to its plain version, values and indices (exact integer dots times
-two scales in the same order, the same tie rule); the matmul-only control
+two scales in the same order, the same tie rule), at every query block of
+its plan and its ragged edge, k = 1, 21 and 64, widths 64 and 768, fewer
+keys than one tile, scores rising with the key index and duplicate blocks
+tied at the k-th place; the matmul-only control
 (K6) int8 bit-equal, fp32 atol 1e-5 on unit vectors in both precisions (fp32
 sums of 768 products in another order); K7 exact.
 """
@@ -247,6 +250,84 @@ def test_int8_topk_kernel_duplicates_zero_rows_and_k_equal_n_valid(gen):
     with pytest.raises(ValueError, match="64"):
         qc, qs = _codes(q)
         topk.topk_i8(qc, qs, *_codes(keys), 3000, 65)
+
+
+@pytest.fixture
+def keys_i8(gen):
+    """20,000 random int8 key rows of width 768 and their scales."""
+    return _codes(torch.randn(20_000, 768, device="cuda", generator=gen))
+
+
+# every query block of K5's plan (16, 32, 64 rows) and its ragged edge,
+# at k = 1, 21 and 64 (lists of 8, 32 and 64 entries)
+@pytest.mark.parametrize("k", [1, 21, 64])
+@pytest.mark.parametrize("bq", [1, 15, 16, 17, 33, 64, 65, 256])
+def test_int8_topk_every_query_block(gen, keys_i8, bq, k):
+    kc, ks = keys_i8
+    qc, qs = _codes(torch.randn(bq, 768, device="cuda", generator=gen))
+    before = topk.topk_i8.launches
+    v, i = topk.topk_i8(qc, qs, kc, ks, 19_937, k)  # 19,937 % 128 = 97
+    assert topk.topk_i8.launches == before + 1
+    rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, 19_937, k)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
+    qb = topk.plan_i8(bq, kc.shape[0], 768, k, kc.device)[0]
+    assert qb == (16 if bq <= 16 else 32 if bq <= 32 else 64)
+
+
+@pytest.mark.parametrize("d", [64, 768])
+def test_int8_topk_fewer_keys_than_one_tile(gen, d):
+    keys = torch.randn(100, d, device="cuda", generator=gen)
+    for bq in (1, 20, 70):
+        q = torch.randn(bq, d, device="cuda", generator=gen)
+        for k in (1, 21, 64):
+            _, i = _same_i8(q, keys, 77, k)
+            assert (i < 77).all()
+
+
+def test_int8_topk_width_64(gen):
+    keys = torch.randn(30_000, 64, device="cuda", generator=gen)
+    for bq in (1, 17, 100):
+        q = torch.randn(bq, 64, device="cuda", generator=gen)
+        _same_i8(q, keys, 29_999, 21)
+
+
+def test_int8_topk_scores_rising_with_the_key_index(gen):
+    """Collinear keys whose scales rise with the index: every query's
+    scores rise along the key axis (u-like queries) or fall (-u), so each
+    tile beats the last, the worst case of the running threshold."""
+    n = 40_000
+    u = torch.randn(1, 768, device="cuda", generator=gen)
+    uc, us = _codes(u)
+    kc = uc.expand(n, 768).contiguous()
+    ks = us * (1 + torch.arange(n, device="cuda", dtype=torch.float32) / n)
+    noise = 0.1 * torch.randn(40, 768, device="cuda", generator=gen)
+    qc, qs = _codes(torch.cat([u + noise[:20], -u + noise[20:]]))
+    for k in (1, 21, 64):
+        for bq in (1, 16, 40):
+            v, i = topk.topk_i8(qc[:bq], qs[:bq], kc, ks, n - 3, k)
+            rv, ri = topk.topk_i8_reference(qc[:bq], qs[:bq], kc, ks, n - 3,
+                                            k)
+            assert torch.equal(v, rv) and torch.equal(i, ri)
+            assert i[0].tolist() == list(range(n - 4, n - 4 - k, -1))
+            if bq == 40:
+                assert i[39].tolist() == list(range(k))
+
+
+def test_int8_topk_duplicate_blocks_tie_at_the_threshold(gen):
+    """Blocks of identical keys across tiles and key splits: their equal
+    scores straddle the k-th place, so the smaller indices must win."""
+    keys = torch.randn(60_000, 768, device="cuda", generator=gen)
+    keys[1000:1300] = keys[5]
+    keys[30_017:30_100] = keys[5]
+    keys[59_900:59_990] = keys[40_000]
+    q = torch.cat([keys[5:6], keys[40_000:40_001],
+                   torch.randn(30, 768, device="cuda", generator=gen)])
+    for k in (1, 21, 64):
+        for bq in (2, 32):
+            _, i = _same_i8(q[:bq], keys, 60_000, k)
+            assert i[0].tolist() == ([5] + list(range(1000, 1299)))[:k]
+            assert i[1].tolist() == ([40_000] + list(range(59_900,
+                                                           59_990)))[:k]
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

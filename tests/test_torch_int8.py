@@ -127,6 +127,59 @@ def test_ties_duplicates_and_zero_rows_take_the_smaller_index():
     assert set(ref_i[0]) <= set(range(8, 40))
 
 
+def _screen_case(case, rng):
+    """The card tests' inputs for K5's threshold screen, at N = 1000 and D =
+    64: (query codes, scales, key codes, scales, n_valid). "rising":
+    collinear keys whose scales rise with the index, so u-like queries score
+    higher on every later key and -u-like ones lower; "duplicates": blocks
+    of identical keys whose equal scores straddle the k-th place."""
+    n = 1000
+    if case == "rising":
+        u = _unit(rng, 1, 64)
+        u8, us = topk_mod.quantize_rows_i8(u)
+        k8 = np.repeat(u8, n, axis=0)
+        ks = (us[0, 0] * (np.float32(1) + np.arange(n, dtype=np.float32)
+                          / np.float32(n)))[:, None].astype(np.float32)
+        noise = 0.05 * rng.standard_normal((5, 64)).astype(np.float32)
+        q = np.concatenate([u + noise[:3], -u + noise[3:]])
+        q8, qs = topk_mod.quantize_rows_i8(q)
+        return q8, qs, k8, ks, n - 3
+    keys = _unit(rng, n, 64)
+    keys[100:140] = keys[5]
+    keys[600:640] = keys[5]
+    keys[700:730] = keys[300]
+    q = np.concatenate([keys[[5, 300]], _unit(rng, 3, 64)])
+    k8, ks = topk_mod.quantize_rows_i8(keys)
+    q8, qs = topk_mod.quantize_rows_i8(q)
+    return q8, qs, k8, ks, n
+
+
+@pytest.mark.parametrize("case,k", [("rising", 5), ("rising", 21),
+                                    ("duplicates", 5), ("duplicates", 21)])
+def test_plain_version_on_the_screens_worst_cases(case, k):
+    """The plain version against pallas_topk_i8 (interpret mode) on the
+    inputs the card tests give K5's threshold screen. Rising scores have no
+    ties: values bit for bit and indices equal. With duplicate blocks JAX
+    leaves the order among equal values unspecified, so only the values are
+    compared (bit for bit); the port's own order, the smaller index first,
+    is asserted on the tied rows."""
+    q8, qs, k8, ks, n_valid = _screen_case(case, np.random.default_rng(7))
+    v, i = topk_mod.topk_i8(torch.from_numpy(q8), torch.from_numpy(qs[:, 0]),
+                            torch.from_numpy(k8), torch.from_numpy(ks[:, 0]),
+                            n_valid, k)
+    v, i = v.numpy(), i.numpy()
+    ref_v, ref_i = _jax_topk_i8(q8, qs, k8, ks, n_valid, k)
+    np.testing.assert_array_equal(_bits(v), _bits(ref_v))
+    if case == "rising":
+        np.testing.assert_array_equal(i, ref_i)
+        assert i[0].tolist() == list(range(n_valid - 1, n_valid - 1 - k, -1))
+        assert i[4].tolist() == list(range(k))
+    else:
+        assert i[0].tolist() == ([5] + list(range(100, 140))
+                                 + list(range(600, 640)))[:k]
+        assert i[1].tolist() == ([300] + list(range(700, 730)))[:k]
+
+
 @pytest.mark.parametrize("rescore", ["float32", "bfloat16", "none"])
 def test_topk_search_int8_matches_jax(rescore):
     rng = np.random.default_rng(4)
