@@ -98,6 +98,32 @@ def build(names=None) -> float:
         return time.perf_counter() - t0
 
 
+def build_sources(sources: dict, out_dir) -> dict[str, ctypes.CDLL]:
+    """Compile {name: (the text of a .cu source, the directory of its .cuh
+    headers)} into out_dir/<name>/lib.so with NVCC_FLAGS, one nvcc each, in
+    parallel, and load each library. Raises with nvcc's output if a compile
+    fails. For the design sweeps: variants of one source built side by
+    side."""
+    procs = {}
+    for name, (text, header_dir) in sources.items():
+        d = Path(out_dir) / name
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "src.cu").write_text(text)
+        for hdr in Path(header_dir).glob("*.cuh"):
+            shutil.copy(hdr, d)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(d / "lib.so"),
+               str(d / "src.cu")]
+        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                       stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(Path(out_dir) / name / "lib.so"))
+    return libs
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for csrc/<name>.cu, built first if needed."""
     lib = _libs.get(name)

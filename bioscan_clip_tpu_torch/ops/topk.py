@@ -12,20 +12,24 @@ the hand-written kernels in `csrc/topk.cu` or raise; on CPU tensors they run
 
 Top-k contract (K4, K5 and their plain versions): keys with index >=
 n_valid never enter, each row comes out sorted descending, and among equal
-values the smaller key index comes first. fp32 scores are full-fp32
-Q . K^T (never TF32) in "high" precision, and in "default" precision (the
-TPU's single bf16 pass, `Precision.DEFAULT` in `pallas_topk`) the products of
-the operands rounded to bf16 (round to nearest even), summed in fp32, on
-either device; int8 scores are the exact integer dot of the codes
-times the query scale, then times the key scale, each product rounded as
-fp32 (the order of `_topk_i8_kernel`), so K5 equals its plain version bit
-for bit.
+values the smaller key index comes first. fp32 scores in "high" precision
+("highest" is the same; both are `Precision.HIGHEST` in `pallas_topk`) are
+the six-product bf16 split with fp32 sums on the card: each operand split
+into three bf16 pieces (`split_bf16_3`), the six products whose piece
+indices sum to 2 or less summed in fp32, within fp32 rounding of the full
+fp32 product that the plain version computes. It is never TF32. In
+"default" precision (the TPU's single bf16 pass, `Precision.DEFAULT`) they
+are the products of the operands rounded to bf16 (round to nearest even),
+summed in fp32, on either device. int8 scores are the exact integer dot of
+the codes times the query scale, then times the key scale, each product
+rounded as fp32 (the order of `_topk_i8_kernel`), so K5 equals its plain
+version bit for bit.
 
 `mm_only` returns each query's maximum over the valid keys of Q . K^T,
-broadcast over 128 columns: fp32 products in FFMA ("high"), or of operands
-rounded to bf16 and summed in fp32 ("default", the TPU's single bf16 pass),
-or the exact integer dots of int8 codes (equal bit for bit to the plain
-version and to the TPU's bf16 products of the codes).
+broadcast over 128 columns: K4's products ("high" or "default") or K5's
+(the exact integer dots of int8 codes, equal bit for bit to the plain
+version and to the TPU's bf16 products of the codes), with a row max in
+place of the screen and lists.
 
 `<wrapper>.launches` count kernel launches (`topk.launches` the "high"
 ones, `topk.default_launches` the "default" ones), `<plain version>.calls`
@@ -43,7 +47,7 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import _build
 
-MAX_K = 32  # the kernel keeps per-thread top-k lists of up to 32 entries
+MAX_K = 32  # K4 keeps lists of up to 32 entries
 # K5 keeps lists of up to 64: the engine oversamples int8 searches to
 # max(4k, k + 16), so every k <= 16 fits
 MAX_K_I8 = 64
@@ -103,6 +107,20 @@ def _bf16_operand(x, precision: str):
     return x
 
 
+def split_bf16_3(x):
+    """The three bf16 pieces of an fp32 tensor, as fp32 tensors: hi =
+    bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), each rounded to
+    nearest even (each difference is exact in fp32). hi + mid + lo is x to
+    within 2^-24 |x|; K4's "high" sums the six products of two operands'
+    pieces whose indices add up to 2 or less. For the tests; the main path
+    never calls it."""
+    x = x.to(torch.float32)
+    hi = x.to(torch.bfloat16).to(torch.float32)
+    mid = (x - hi).to(torch.bfloat16).to(torch.float32)
+    lo = (x - hi - mid).to(torch.bfloat16).to(torch.float32)
+    return hi, mid, lo
+
+
 def topk_reference(queries, keys, n_valid: int, k: int,
                    precision: str = "high"):
     """Plain PyTorch top-k: chunked fp32 products over keys[:n_valid], of
@@ -142,13 +160,13 @@ def _kernel():
     lib = _build.load("topk")
     fn = lib.bscan_topk_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5
     )
     fn.restype = ctypes.c_int
-    plan = lib.bscan_topk_plan
+    plan = lib.bscan_topk_f32_plan
     plan.argtypes = [ctypes.c_int] * 4 + [
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_longlong),
+        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
     ]
     plan.restype = None
     fn_i8 = lib.bscan_topk_i8
@@ -164,24 +182,30 @@ def _kernel():
     plan_i8.restype = None
     fn_mm = lib.bscan_mm_only
     fn_mm.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
     )
     fn_mm.restype = ctypes.c_int
+    smem_f32 = lib.bscan_topk_f32_smem
+    smem_f32.argtypes = [ctypes.c_int] * 3
+    smem_f32.restype = ctypes.c_int
     fn_tiny = lib.bscan_tiny
     fn_tiny.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn_tiny.restype = ctypes.c_int
     return SimpleNamespace(lib=lib, topk=fn, plan=plan, topk_i8=fn_i8,
-                           plan_i8=plan_i8, mm_only=fn_mm, tiny=fn_tiny)
+                           plan_i8=plan_i8, mm_only=fn_mm, tiny=fn_tiny,
+                           smem_f32=smem_f32)
 
 
-def _plan(bq: int, n: int, k: int, dev):
-    """(splits, key tiles per split, candidate entries) for one launch."""
-    plan = _kernel().plan
-    splits, per_split = ctypes.c_int(), ctypes.c_int()
+def plan_f32(bq: int, n: int, k: int, dev):
+    """K4's (query block rows: 16, 32 or 64 from Bq; key splits; key tiles
+    per split; candidate entries) for one launch."""
+    qb, splits, per_split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     n_cand = ctypes.c_longlong()
-    plan(bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-         ctypes.byref(splits), ctypes.byref(per_split), ctypes.byref(n_cand))
-    return splits.value, per_split.value, n_cand.value
+    _kernel().plan(
+        bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
+        ctypes.byref(qb), ctypes.byref(splits), ctypes.byref(per_split),
+        ctypes.byref(n_cand))
+    return qb.value, splits.value, per_split.value, n_cand.value
 
 
 def plan_i8(bq: int, n: int, d: int, k: int, dev):
@@ -209,7 +233,8 @@ def _check_2d(name, t, dtype, device):
 
 def topk(queries, keys, n_valid: int, k: int, precision: str = "high"):
     """Top-k of queries (Bq, D) . keys (N, D)^T over keys[:n_valid], both
-    fp32. `precision`: "high" (or "highest"), full fp32 products; "default",
+    fp32. `precision`: "high" (or "highest"), fp32 products (on the card the
+    six-product bf16 split, within fp32 rounding of them); "default",
     products of the operands rounded to bf16, summed in fp32 (the TPU's
     single bf16 pass). Returns (values (Bq, k) fp32, indices (Bq, k)
     int32)."""
@@ -233,14 +258,14 @@ def topk(queries, keys, n_valid: int, k: int, precision: str = "high"):
         raise ValueError(f"topk: kernel takes k <= {MAX_K}, got {k}")
     dev = queries.device
     kern = _kernel()
-    splits, per_split, n_cand = _plan(bq, n, k, dev)
+    qb, splits, per_split, n_cand = plan_f32(bq, n, k, dev)
     cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
     cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
     mode = PRECISIONS[precision]
     err = kern.topk(
-        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
+        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode, qb,
         splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
         out_v.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
@@ -334,13 +359,13 @@ mm_only_reference.calls = 0
 
 def mm_only(queries, keys, n_valid: int, int8: bool = False,
             precision: str = "high"):
-    """K6, the top-k kernels' matmul-only control: K4's (fp32) pass-1 tile
-    product, or an int8 `__dp4a` tile (the product K5 ran before its
-    tensor-core rebuild), with a running row max in place of the top-k
-    lists. Returns (Bq, 128) fp32. `precision` ("high" or "default")
-    applies to fp32; int8 products are exact either way. The JAX version's
-    `tile` and `q_block` are Pallas grid parameters; this kernel's tiling is
-    K4's (64 queries x 128 keys, the key axis split across blocks)."""
+    """K6, the top-k kernels' matmul-only control: K4's pass-1 walk and
+    products (fp32, in `precision`: "high" or "default") or K5's (int8
+    codes, exact either way), with a running row max in place of the screen
+    and lists. Returns (Bq, 128) fp32. The JAX version's `tile` and
+    `q_block` are Pallas grid parameters; this kernel's tiling is K4's or
+    K5's (their plans' query blocks x 128 keys, the key axis split across
+    blocks)."""
     n_valid = int(n_valid)
     n = keys.shape[0]
     if precision not in _MM_MODES:
@@ -360,12 +385,13 @@ def mm_only(queries, keys, n_valid: int, int8: bool = False,
         raise ValueError(f"mm_only: widths {d} / {keys.shape[1]} must match "
                          f"and be a multiple of {step}")
     kern = _kernel()
-    splits, per_split, _ = _plan(bq, n, 1, dev)
+    qb, splits, per_split, _ = (plan_i8(bq, n, d, 1, dev) if int8
+                                else plan_f32(bq, n, 1, dev))
     part = torch.empty(bq * splits, dtype=torch.float32, device=dev)
     out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
     err = kern.mm_only(
         queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
-        2 if int8 else _MM_MODES[precision], splits, per_split,
+        2 if int8 else _MM_MODES[precision], qb, splits, per_split,
         part.data_ptr(), out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )

@@ -5,7 +5,9 @@ Counterpart of bioscan_clip_tpu/retrieval/engine.py (`l2norm_np` :36-44,
 :491-601, `find_k_closest_records`, `make_prediction` :604-654): the FAISS
 IndexFlatIP replacement. Keys are normalized once and uploaded once, and
 every search on the card runs a top-k kernel (`ops/topk.py`), whatever the
-key count: K4 over fp32 keys (`precision="high"`, or `"default"`: the
+key count: K4 over fp32 keys (`precision="high"`, fp32 scores (on the
+card the six-product bf16 split, within fp32 rounding of them), or
+`"default"`: the
 TPU's single bf16 pass, operands rounded to bf16 and summed in fp32, on
 the card and on the CPU alike), K5 over per-row int8
 codes with fp32 scales (`precision="int8"`, 4x the resident capacity: the
@@ -67,8 +69,9 @@ class PreparedKeys:
                  rescore: str = "float32"):
         if precision not in ("high", "highest", "default", "int8"):
             raise ValueError(f"unknown precision {precision!r}: the port "
-                             "searches in full fp32 ('high'), one bf16 "
-                             "pass ('default') or int8")
+                             "searches in fp32 ('high'; on the card the "
+                             "six-product bf16 split), one bf16 pass "
+                             "('default') or int8")
         if rescore not in RESCORE_MODES:
             raise ValueError(f"unknown rescore mode {rescore!r}")
         if mesh is not None:

@@ -6,12 +6,11 @@ Counterpart of tools/bench_topk_variants.py. Rows, one JSON object each:
                   card's time per launch in a pipelined run, "host_ms" one
                   call plus a synchronize on the host clock (the floor of a
                   call through the port's ctypes route)
-  mm_only_f32     K6 fp32 (`ops.topk.mm_only`), precision "default" (bf16
-                  operands) and "high" (FFMA): K4's tile product and a row
-                  max, no top-k lists
+  mm_only_f32     K6 fp32 (`ops.topk.mm_only`), precision "default" (one
+                  bf16 product) and "high" (six): K4's pass-1 walk and
+                  products and a row max, no screen or lists
   topk_f32        K4 (`ops.topk.topk`) at k
-  mm_only_i8      K6 int8: a `__dp4a` tile product (K5's before its
-                  tensor-core rebuild) and a row max
+  mm_only_i8      K6 int8: K5's pass-1 walk and products and a row max
   topk_i8         K5 (`ops.topk.topk_i8`) at max(k, 21), the engine's
                   oversampled k for an int8 search
 for each query count Bq of --bq. The JAX script sweeps Pallas grid
@@ -41,10 +40,15 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
-TILING = ("pass 1: 64 queries x 128 keys per tile (K5: 16, 32 or 64 "
-          "queries from Bq, bscan_topk_i8_plan), key axis split over ~2 "
-          "blocks per SM (bscan_topk_plan)")
+TILING = ("pass 1: 16, 32 or 64 queries from Bq x 128 keys per tile "
+          "(bscan_topk_f32_plan, bscan_topk_i8_plan), key axis split over "
+          "~2 blocks per SM")
 I8_MIN_K = 21  # max(4k, k + 16) at the engine's default k = 5
+
+
+def query_block(bq: int) -> int:
+    """The query block of K4's and K5's plans at width 768."""
+    return 16 if bq <= 16 else (32 if bq <= 32 else 64)
 
 
 def _sync(device):
@@ -120,7 +124,7 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
             raise ValueError(f"--bq {bq} > --queries {queries}")
         qs = [tuple(t[:bq].contiguous() for t in s) for s in sets]
         row = dict(base, queries=bq, tiling=TILING,
-                   tiles=-(-bq // 64) * n_tiles)
+                   tiles=-(-bq // query_block(bq)) * n_tiles)
         calls = []
         for prec in ("default", "high"):
             calls.append((dict(variant="mm_only_f32", precision=prec),

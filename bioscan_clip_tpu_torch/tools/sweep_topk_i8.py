@@ -27,7 +27,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import shutil
 import subprocess
 import sys
 
@@ -36,15 +35,16 @@ import torch
 from bioscan_clip_tpu_torch.ops import _build
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
-CLUSTER = "constexpr int I8_CLUSTER = 2;"
+CLUSTER = "constexpr int CLUSTER = 2;"
 CHUNK = "constexpr int i8_dc(int qb) { return qb == 64 ? 64 : 128; }"
-PASS1 = "  topk_i8_pass1<MAXK, QB><<<grid1, I8_TPB, smem, stream>>>("
-PASS2 = ("  return launch_pass2<MAXK>(bq, splits / I8_CLUSTER * k, k, cand_v, "
+PASS1 = "  topk_i8_pass1<MAXK, QB><<<grid1, TPB, smem, stream>>>("
+# K4's launch ends the same way, so pass1_only drops its pass 2 too
+PASS2 = ("  return launch_pass2<MAXK>(bq, splits / CLUSTER * k, k, cand_v, "
          "cand_i,\n                            out_v, out_i, stream);")
 VARIANTS = {
     "as_built": [],
-    "cluster_1": [(CLUSTER, "constexpr int I8_CLUSTER = 1;")],
-    "cluster_4": [(CLUSTER, "constexpr int I8_CLUSTER = 4;")],
+    "cluster_1": [(CLUSTER, "constexpr int CLUSTER = 1;")],
+    "cluster_4": [(CLUSTER, "constexpr int CLUSTER = 4;")],
     "chunk_64": [(CHUNK, "constexpr int i8_dc(int qb) { return 64; }")],
     "pass1_only": [(PASS2, "  return cudaSuccess;")],
     "pass2_only": [(PASS1, "  if (false) " + PASS1.lstrip())],
@@ -70,29 +70,15 @@ def variant_sources(source: str) -> dict[str, str]:
 def build(out_dir) -> dict[str, ctypes.CDLL]:
     """Compile every variant with the port's nvcc flags, in parallel."""
     sources = variant_sources((_build.CSRC_DIR / "topk.cu").read_text())
-    procs = {}
-    for name, text in sources.items():
-        d = out_dir / name
-        d.mkdir(parents=True, exist_ok=True)
-        (d / "topk.cu").write_text(text)
-        for hdr in _build.CSRC_DIR.glob("*.cuh"):
-            shutil.copy(hdr, d)
-        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(d / "lib.so"),
-               str(d / "topk.cu")]
-        procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
-        lib = ctypes.CDLL(str(out_dir / name / "lib.so"))
+    libs = _build.build_sources(
+        {name: (text, _build.CSRC_DIR) for name, text in sources.items()},
+        out_dir)
+    for lib in libs.values():
         lib.bscan_topk_i8.argtypes = (
             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
         lib.bscan_topk_i8_plan.argtypes = (
             [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
         lib.bscan_topk_i8_plan.restype = None
-        libs[name] = lib
     return libs
 
 

@@ -7,13 +7,15 @@ Phases, in order; any failure exits non-zero:
   device    the card's name and power limit (nvidia-smi)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
             prints ptxas' registers, shared memory and spills per kernel
-            (one "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation)
+            (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k and one
+            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation)
   kernels   each kernel against its plain PyTorch version at the shapes of
             its path (fp32 FFMA and bf16 tensor-core bodies for attention,
             bf16 forwards at N <= 32 on the FFMA body, the masked K1m and
             its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
             keep mask read out bit for bit, two K3 launches bit-equal; top-k
-            in "high" and "default" precision;
+            in "high" and "default" precision at Bq 256, 64, 16, 1 and
+            keys whose scores rise with the index at Bq 256;
             int8 top-k bit for bit at 1,048,576 keys (Bq 256, 64, 16, 1,
             and keys whose scores rise with the index at Bq 256) and at
             5,000,000 keys (Bq 256, 1); the
@@ -121,6 +123,7 @@ def phase_device():
 
 def phase_build():
     from bioscan_clip_tpu_torch.ops import _build
+    from bioscan_clip_tpu_torch.ops import topk as topk_mod
 
     secs = _build.build()
     for name, text in sorted(_build.build_logs.items()):
@@ -135,6 +138,14 @@ def phase_build():
             elif "registers" in ln or "error" in ln:
                 log(f"  nvcc {name} {fn}: {ln.split(':', 1)[-1].strip()}; "
                     f"{spills}")
+                k4 = re.search(r"topk_f32_pass1ILi(\d+)ELi(\d+)ELi(\d+)E",
+                               fn)
+                if k4:  # K4's, by list size, query block and products
+                    smem = topk_mod._kernel().smem_f32(int(k4[2]),
+                                                       int(k4[1]), int(k4[3]))
+                    log(f"  K4 pass 1 MAXK={k4[1]} QB={k4[2]} "
+                        f"TERMS={k4[3]}: {ln.split(':', 1)[-1].strip()}; "
+                        f"{spills}; {smem} bytes of dynamic shared memory")
                 k5 = re.search(r"topk_i8_pass1ILi(\d+)ELi(\d+)E", fn)
                 if k5:  # K5's instantiations, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
@@ -215,111 +226,105 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
     return row
 
 
-def _topk_case(gen, bq=256, n=1 << 20, d=768, k=5):
+def _topk_case(gen, n=1 << 20, d=768, k=5, bqs=(256, 64, 16, 1),
+               rising_bq=256):
+    """K4 in "high" and "default" precision at each query count of `bqs`
+    over n unit keys, and at `rising_bq` over keys u * (1 + i / n) whose
+    scores rise with the index for queries near u (every score passes the
+    screen): each against its plain version (_topk_row). Returns the keys
+    and the rows of "high" and "default" at the first query count."""
     import torch
-
-    from bioscan_clip_tpu_torch.ops import topk as topk_mod
 
     dev = torch.device("cuda")
     keys = torch.randn(n, d, device=dev, generator=gen)
     keys /= keys.norm(dim=1, keepdim=True)
-    q = torch.randn(bq, d, device=dev, generator=gen)
+    q = torch.randn(max(bqs), d, device=dev, generator=gen)
     q /= q.norm(dim=1, keepdim=True)
-    vals, idx = topk_mod.topk(q, keys, n, k)
-    torch.cuda.synchronize()
-    rv, ri = topk_mod.topk_reference(q, keys, n, k)
-    err = (vals - rv).abs().max().item()
-    if not err <= 1e-5:
-        raise AssertionError(f"topk: max |kernel - plain| {err} > 1e-5")
-    # index sets equal except where the differing keys score within 1e-5 of
-    # the k-th value (a near-tie that summation order may break either way)
-    for r in range(bq):
-        a, bset = set(idx[r].tolist()), set(ri[r].tolist())
-        if a != bset:
-            diff = sorted(a ^ bset)
-            sc = q[r].double() @ keys[diff].double().T
-            if (sc - rv[r, -1].double()).abs().max().item() > 1e-5:
-                raise AssertionError(f"topk row {r}: {sorted(a)} vs "
-                                     f"{sorted(bset)}")
-
-    def kernel():
-        return topk_mod.topk(q, keys, n, k)
-
-    def plain():
-        return topk_mod.topk_reference(q, keys, n, k)
-
-    def library():
-        return torch.topk(q @ keys.T, k, dim=1)
-
-    n_bytes = n * d * 4 + bq * d * 4 + bq * k * 8
-    bms, by = bound_ms(n_bytes, 2 * bq * n * d, "float32")
-    row = {
-        "ms": time_ms(kernel, reps=5, warmup=1),
-        "plain_ms": time_ms(plain, reps=2, warmup=1),
-        "library_ms": time_ms(library, reps=5, warmup=1),
-        "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-    }
-    log(f"  topk fp32 Bq={bq} N={n} D={d} k={k}: err {err:.3g} (tol 1e-5), "
-        f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-        f"torch.topk(q@k.T) {row['library_ms']:.4f} ms, "
-        f"bound {bms:.4f} ms ({by})")
-    for few in (1, 64):  # the serving sizes below the FFMA-bound regime
-        qf = q[:few].contiguous()
-        fms = time_ms(lambda: topk_mod.topk(qf, keys, n, k), reps=5)
-        fb, fby = bound_ms(n * d * 4 + few * d * 4 + few * k * 8,
-                           2 * few * n * d, "float32")
-        log(f"  topk fp32 Bq={few}: kernel {fms:.4f} ms, bound {fb:.4f} ms "
-            f"({fby})")
-    return keys, row, _topk_default_case(q, keys, k)
+    u = torch.randn(1, d, device=dev, generator=gen)
+    u /= u.norm()
+    keys_r = u * (1 + torch.arange(n, device=dev,
+                                   dtype=torch.float32)[:, None] / n)
+    q_r = u + 0.1 * torch.randn(rising_bq, d, device=dev, generator=gen)
+    q_r /= q_r.norm(dim=1, keepdim=True)
+    cases = [(f"Bq={bq}", q[:bq].contiguous(), keys) for bq in bqs]
+    cases.append((f"Bq={rising_bq} rising scores", q_r, keys_r))
+    rows = {}
+    for precision in ("high", "default"):
+        for what, qq, kk in cases:
+            row, idx = _topk_row(qq, kk, k, precision, what)
+            rows.setdefault(precision, row)
+            if kk is keys_r and precision == "high" and not (
+                    idx[:, 0] == n - 1).all():
+                raise AssertionError("topk rising scores: top-1 is not the "
+                                     "last key")
+    del keys_r, q_r, cases
+    torch.cuda.empty_cache()
+    return keys, rows["high"], rows["default"]
 
 
-def _topk_default_case(q, keys, k):
-    """K4 in "default" precision (operands rounded to bf16 as staged, fp32
-    sums) against its plain version on the same fp32 keys: values within
-    1e-5 (bf16 products are exact in fp32; the sums run in another order),
-    index sets equal up to near-ties (keys whose float64 scores over the
-    bf16-rounded operands lie within 1e-5 of the k-th); timed beside
-    torch.topk over the bf16 product (operands cast before the timing)."""
+def _topk_row(q, keys, k, precision, what):
+    """K4 at one shape against its plain version: values within 1e-5 (unit
+    rows; "high" is the six-product bf16 split, "default" exact bf16
+    products, both summed in fp32 in another order than the plain
+    version's), index sets equal except for keys whose float64 scores over
+    the operands as the precision sees them lie within 1e-5 of the k-th
+    value (a near-tie that summation order may break either way), and a
+    second launch bit-equal to the first; timed beside the plain version,
+    torch.topk over the product of the operands as the precision sees them
+    (fp32, or bf16 cast before the timing) and the bound: the keys' bytes
+    against the products on the tensor cores (six for "high"), with FFMA's
+    time for "high" in the log line. Returns (row, kernel indices)."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
 
     n, d = keys.shape
     bq = q.shape[0]
-    vals, idx = topk_mod.topk(q, keys, n, k, precision="default")
+    vals, idx = topk_mod.topk(q, keys, n, k, precision=precision)
+    v2, i2 = topk_mod.topk(q, keys, n, k, precision=precision)
     torch.cuda.synchronize()
-    rv, ri = topk_mod.topk_reference(q, keys, n, k, precision="default")
+    if not (torch.equal(vals, v2) and torch.equal(idx, i2)):
+        raise AssertionError(f"topk {precision} {what}: two launches differ")
+    rv, ri = topk_mod.topk_reference(q, keys, n, k, precision=precision)
     err = (vals - rv).abs().max().item()
     if not err <= 1e-5:
-        raise AssertionError(f"topk default: max |kernel - plain| {err} > "
-                             "1e-5")
-    q16, k16 = q.to(torch.bfloat16), keys.to(torch.bfloat16)
+        raise AssertionError(f"topk {precision} {what}: max |kernel - plain| "
+                             f"{err} > 1e-5")
+    if precision == "default":
+        ql, kl = q.to(torch.bfloat16), keys.to(torch.bfloat16)
+    else:
+        ql, kl = q, keys
     for r in range(bq):
         a, bset = set(idx[r].tolist()), set(ri[r].tolist())
         if a != bset:
             diff = sorted(a ^ bset)
-            sc = q16[r].double() @ k16[diff].double().T
+            sc = ql[r].double() @ kl[diff].double().T
             if (sc - rv[r, -1].double()).abs().max().item() > 1e-5:
-                raise AssertionError(f"topk default row {r}: {sorted(a)} vs "
-                                     f"{sorted(bset)}")
+                raise AssertionError(f"topk {precision} {what} row {r}: "
+                                     f"{sorted(a)} vs {sorted(bset)}")
     n_bytes = n * d * 4 + bq * d * 4 + bq * k * 8
-    bms, by = bound_ms(n_bytes, 2 * bq * n * d, "bfloat16")
+    products = 6 if precision == "high" else 1
+    bms, by = bound_ms(n_bytes, 2 * products * bq * n * d, "bfloat16")
     row = {
         "ms": time_ms(lambda: topk_mod.topk(q, keys, n, k,
-                                            precision="default"),
+                                            precision=precision),
                       reps=5, warmup=1),
         "plain_ms": time_ms(lambda: topk_mod.topk_reference(
-            q, keys, n, k, precision="default"), reps=2, warmup=1),
-        "library_ms": time_ms(lambda: torch.topk(q16 @ k16.T, k, dim=1),
+            q, keys, n, k, precision=precision), reps=2, warmup=1),
+        "library_ms": time_ms(lambda: torch.topk(ql @ kl.T, k, dim=1),
                               reps=5, warmup=1),
         "bound_ms": bms, "bound_by": by, "max_abs_err": err,
     }
-    log(f"  topk default (bf16 operands) Bq={bq} N={n} D={d} k={k}: err "
-        f"{err:.3g} (tol 1e-5), kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, torch.topk(bf16 q@k.T) "
-        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by})")
-    del q16, k16
-    return row
+    del ql, kl
+    qb, splits, _, _ = topk_mod.plan_f32(bq, n, k, q.device)
+    ffma = (f", FFMA {1e3 * 2 * bq * n * d / PEAK['float32']:.4f} ms"
+            if precision == "high" else "")
+    log(f"  topk {precision} {what} N={n} D={d} k={k} (query block {qb}, "
+        f"{splits} key splits): err {err:.3g} (tol 1e-5), two launches "
+        f"bit-equal, kernel {row['ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, torch.topk "
+        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}{ffma})")
+    return row, idx
 
 
 def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
@@ -399,11 +404,13 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
 
 def _mm_only_case(gen, keys, bqs=(1, 256)):
     """K6 against its plain version at each query count over `keys`: fp32
-    "high" and "default" within 1e-5 (unit vectors, 768 products summed in
-    another order), int8 bit for bit; timed beside one library call: (q @
-    k.T).amax in fp32 ("high"), in bf16 ("default", operands cast before
-    the timing), torch._int_mm + amax (int8, Bq padded to 32 rows). Returns
-    the rows of fp32 "high" at the largest Bq."""
+    "high" (K4's six bf16 products) and "default" within 1e-5 (unit
+    vectors, 768 products summed in another order), int8 bit for bit; timed
+    beside one library call: (q @ k.T).amax in fp32 ("high"), in bf16
+    ("default", operands cast before the timing), torch._int_mm + amax
+    (int8, Bq padded to 32 rows). Bounds: the bytes against the products on
+    the tensor cores (six for "high"). Returns the rows of fp32 "high" at
+    the largest Bq."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
@@ -423,14 +430,14 @@ def _mm_only_case(gen, keys, bqs=(1, 256)):
         qp[:bq] = qc
         q16 = q.to(torch.bfloat16)
         cases = {
-            "high": (q, keys, dict(), "float32",
+            "high": (q, keys, dict(), "bfloat16", 6,
                      lambda: (q @ keys.T).amax(dim=1)),
-            "default": (q, keys, dict(precision="default"), "bfloat16",
+            "default": (q, keys, dict(precision="default"), "bfloat16", 1,
                         lambda: (q16 @ k16.T).amax(dim=1)),
-            "int8": (qc, kc, dict(int8=True), "int8",
+            "int8": (qc, kc, dict(int8=True), "int8", 1,
                      lambda: torch._int_mm(qp, kc.T)[:bq].amax(dim=1)),
         }
-        for mode, (qq, kk, kw, dname, library) in cases.items():
+        for mode, (qq, kk, kw, dname, products, library) in cases.items():
             out = topk_mod.mm_only(qq, kk, n, **kw)
             torch.cuda.synchronize()
             ref = topk_mod.mm_only_reference(qq, kk, n, **kw)
@@ -441,7 +448,7 @@ def _mm_only_case(gen, keys, bqs=(1, 256)):
                                      f"- plain| {err} > {tol}")
             lib_err = (library().float() - ref[:, 0]).abs().max().item()
             n_bytes = (n * d + bq * d) * qq.element_size() + bq * 128 * 4
-            bms, by = bound_ms(n_bytes, 2 * bq * n * d, dname)
+            bms, by = bound_ms(n_bytes, 2 * products * bq * n * d, dname)
             row = {
                 "ms": time_ms(lambda: topk_mod.mm_only(qq, kk, n, **kw),
                               reps=5, warmup=1),

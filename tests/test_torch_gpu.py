@@ -11,9 +11,14 @@ before P.V on both sides), the masked forward (K1m) as K1; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
 per gradient. bf16 runs the tensor-core (mma.sync) bodies (the forward
 above N = 32), fp32 the FFMA ones; K2d's keep mask reads out bit for bit
-and two K3 launches are bit-equal. Top-k values atol 1e-5 on unit
-vectors, in "high" and "default" precision (bf16 operands: exact
-products, fp32 sums); int8 top-k (K5)
+and two K3 launches are bit-equal. fp32 top-k (K4) values atol 1e-5 on
+unit vectors, in "high" (six bf16 products of the operands' three-way
+split, fp32 sums, within fp32 rounding of the plain version's fp32) and
+"default" precision (bf16 operands: exact products, fp32 sums), index sets
+equal up to near-ties within 1e-5, two launches bit-equal, at every query
+block of its plan and its ragged edge, k = 1, 5, 20 and 32, fewer keys
+than one tile, scores rising with the key index and duplicate keys tied at
+the k-th place; int8 top-k (K5)
 bit-equal to its plain version, values and indices (exact integer dots times
 two scales in the same order, the same tie rule), at every query block of
 its plan and its ragged edge, k = 1, 21 and 64, widths 64 and 768, fewer
@@ -207,6 +212,109 @@ def test_topk_default_precision_matches_plain(gen):
     assert not torch.equal(high, default)
     with pytest.raises(ValueError, match="precision"):
         topk.topk(q, keys, 99_001, 5, precision="fp16")
+
+
+def _unit(x):
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _same_f32(q, keys, n_valid, k, precision):
+    """K4 against its plain version: values within 1e-5, index sets equal
+    except for keys whose float64 score (over the operands as the precision
+    sees them) lies within 1e-5 of the k-th value, and a second launch bit-
+    equal to the first. Returns the kernel's (values, indices)."""
+    counter = "launches" if precision == "high" else "default_launches"
+    before = getattr(topk.topk, counter)
+    v, i = topk.topk(q, keys, n_valid, k, precision=precision)
+    v2, i2 = topk.topk(q, keys, n_valid, k, precision=precision)
+    assert getattr(topk.topk, counter) == before + 2
+    assert torch.equal(v, v2) and torch.equal(i, i2)
+    rv, ri = topk.topk_reference(q, keys, n_valid, k, precision=precision)
+    assert (v - rv).abs().max().item() <= 1e-5
+    assert (i < n_valid).all()
+    qd, kd = (x.to(torch.bfloat16) if precision == "default" else x
+              for x in (q, keys))
+    for r in range(q.shape[0]):
+        diff = sorted(set(i[r].tolist()) ^ set(ri[r].tolist()))
+        if diff:
+            sc = qd[r].double() @ kd[diff].double().T
+            assert (sc - rv[r, -1].double()).abs().max().item() <= 1e-5, r
+    return v, i
+
+
+@pytest.fixture
+def keys_f32(gen):
+    """20,000 random unit key rows of width 768."""
+    return _unit(torch.randn(20_000, 768, device="cuda", generator=gen))
+
+
+# every query block of K4's plan (16, 32, 64 rows) and its ragged edge, at
+# k = 1, 5, 20 and 32 (lists of 8, 16 and 32 entries), in both precisions
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("k", [1, 5, 20, 32])
+@pytest.mark.parametrize("bq", [1, 16, 17, 33, 64, 65, 256])
+def test_topk_every_query_block(gen, keys_f32, bq, k, precision):
+    q = _unit(torch.randn(bq, 768, device="cuda", generator=gen))
+    _same_f32(q, keys_f32, 19_937, k, precision)  # 19,937 % 128 = 97
+    qb = topk.plan_f32(bq, keys_f32.shape[0], k, keys_f32.device)[0]
+    assert qb == (16 if bq <= 16 else 32 if bq <= 32 else 64)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_topk_fewer_keys_than_one_tile(gen, precision):
+    keys = _unit(torch.randn(100, 768, device="cuda", generator=gen))
+    for bq in (1, 20, 70):
+        q = _unit(torch.randn(bq, 768, device="cuda", generator=gen))
+        for k in (1, 5, 20, 32):
+            _same_f32(q, keys, 77, k, precision)
+
+
+def test_topk_high_and_default_differ(gen, keys_f32):
+    q = _unit(torch.randn(33, 768, device="cuda", generator=gen))
+    high, _ = _same_f32(q, keys_f32, 20_000, 5, "high")
+    default, _ = _same_f32(q, keys_f32, 20_000, 5, "default")
+    assert not torch.equal(high, default)
+    # "high" is within fp32 rounding of float64 scores of the fp32 operands
+    best = (q.double() @ keys_f32.double().T).amax(dim=1)
+    assert (high[:, 0].double() - best).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_topk_scores_rising_with_the_key_index(gen, precision):
+    """Keys u * (1 + i / n): every query near u scores higher on each key
+    than on the one before (near -u, lower), so every score passes the
+    screen, the worst case of the running threshold."""
+    n = 40_000
+    u = _unit(torch.randn(1, 768, device="cuda", generator=gen))
+    keys = u * (1 + torch.arange(n, device="cuda",
+                                 dtype=torch.float32)[:, None] / n)
+    noise = 0.1 * torch.randn(40, 768, device="cuda", generator=gen)
+    q = _unit(torch.cat([u + noise[:20], -u + noise[20:]]))
+    for k in (1, 5, 20, 32):
+        for bq in (1, 16, 40):
+            _, i = _same_f32(q[:bq].contiguous(), keys, n - 3, k, precision)
+            if precision == "high":  # bf16 keys tie in runs of equal values
+                assert i[0].tolist() == list(range(n - 4, n - 4 - k, -1))
+                if bq == 40:
+                    assert i[39].tolist() == list(range(k))
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_topk_duplicate_keys_tie_at_the_threshold(gen, precision):
+    """Blocks of identical keys across tiles and key splits: their equal
+    scores straddle the k-th place, so the smaller indices must win."""
+    keys = _unit(torch.randn(60_000, 768, device="cuda", generator=gen))
+    keys[1000:1300] = keys[5]
+    keys[30_017:30_100] = keys[5]
+    keys[59_900:59_990] = keys[40_000]
+    q = torch.cat([keys[5:6], keys[40_000:40_001],
+                   _unit(torch.randn(30, 768, device="cuda", generator=gen))])
+    for k in (1, 5, 20, 32):
+        for bq in (2, 32):
+            _, i = _same_f32(q[:bq].contiguous(), keys, 60_000, k, precision)
+            assert i[0].tolist() == ([5] + list(range(1000, 1299)))[:k]
+            assert i[1].tolist() == ([40_000] + list(range(59_900,
+                                                           59_990)))[:k]
 
 
 def _codes(x):
