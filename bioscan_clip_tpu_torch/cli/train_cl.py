@@ -1,0 +1,257 @@
+"""Contrastive pretraining CLI on the card: the reference's
+scripts/train_cl.py.
+
+A port of bioscan_clip_tpu/cli/train_cl.py:
+
+    python -m bioscan_clip_tpu_torch.cli.train_cl 'model_config=NAME' \\
+        [key=value ...]
+
+`device` (top-level key, default cuda; an error without CUDA) picks where
+the model trains; `device=cpu` runs the kernels' plain versions. Flow
+(train_cl.py:22-394): the train and eval loaders (`data/dataset.py`), the
+model (`models/clip.load_clip_model`, `tpu.remat` / `tpu.remat_policy`),
+the checkpoint at `model_config.ckpt_path` or the pretrained towers, the
+optional learnable logit scale, frozen weights in bf16 under bf16 compute
+(`tpu.frozen_dtype`), the schedule over `epochs` x the epoch's steps
+(`tpu.max_steps_per_epoch` bounds them), then the train step:
+- `tpu.accum_steps` > 1: GradCache (`tpu.accum_mode: gradcache`, with
+  `tpu.gradcache_merged` (default on), `gc_s1_image_batch`, `gc_s1_chunk`
+  and `gc_cache_aug`) or per-microbatch accumulation (`micro`);
+- else the plain step.
+`resume=<run folder>` restores its `last` checkpoint and continues at the
+next epoch boundary. Every `evaluation_period` epochs, and always at the
+last, `last` is saved (in the background) and the eval phase runs:
+features of all_keys, seen and unseen, then the 5 x 6 sweep; the mean of
+the seen and unseen image->image top-1 species micro accuracy selects
+`best`. The run folder (<project_root_path>/<model_output_dir>/
+<model_output_name>/<stamp>) also holds `config.yaml`.
+
+One process; INSECT mode and `tpu.steps_per_call` > 1 raise, naming their
+ROADMAP.md entries.
+"""
+
+from __future__ import annotations
+
+import datetime
+import itertools
+import os
+import sys
+
+from bioscan_clip_tpu_torch.data.dataset import load_dataloader
+
+
+def _tpu(args, key, default):
+    tpu_cfg = getattr(args, "tpu", None)
+    return type(default)(tpu_cfg.get(key, default)) if tpu_cfg else default
+
+
+def make_step(args, model, dtype, out=print):
+    """The train step `args` asks for (JAX train_cl.py:147-205); `dtype`
+    is the model's compute dtype."""
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.train.loop import (
+        make_accum_train_step,
+        make_gradcache_train_step,
+        make_train_step,
+    )
+
+    mc = args.model_config
+    common = dict(openclip_norm=bool(getattr(mc, "for_open_clip", False)),
+                  disable_lora=bool(getattr(mc, "disable_lora", False)))
+    accum = _tpu(args, "accum_steps", 1)
+    if accum <= 1:
+        return make_train_step(model, **common)
+    if _tpu(args, "accum_mode", "gradcache") == "micro":
+        return make_accum_train_step(model, accum, **common)
+    merged = None
+    if _tpu(args, "gradcache_merged", True) and not common["disable_lora"]:
+        # the rank-0 towers; the step binds them to the model's tensors
+        # (models/lora.share_merged), so their own weights are dropped
+        merged = load_clip_model(args, device=next(model.parameters()).device,
+                                 dtype=dtype, lora_rank=0)
+        out("GradCache stage 1 on the merged (rank-0) towers")
+    return make_gradcache_train_step(
+        model, accum, **common, merged_model=merged,
+        s1_image_batch=_tpu(args, "gc_s1_image_batch", 0),
+        cache_aug=_tpu(args, "gc_cache_aug", False),
+        s1_chunk=_tpu(args, "gc_s1_chunk", 0))
+
+
+def selection_metric(acc_dict) -> float:
+    """The mean of the seen and unseen image->image top-1 species micro
+    accuracy (reference train_cl.py:231), 0 without image features."""
+    try:
+        e = acc_dict["encoded_image_feature"]["encoded_image_feature"]
+        return (e["seen"]["micro_acc"][1]["species"]
+                + e["unseen"]["micro_acc"][1]["species"]) / 2
+    except KeyError:
+        return 0.0
+
+
+def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
+        device=None):
+    """Train as `args` says; returns (state, best selection metric)."""
+    import torch
+
+    from bioscan_clip_tpu_torch.config.core import save_config
+    from bioscan_clip_tpu_torch.device import compute_dtype, resolve_device
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.retrieval.report import (
+        inference_and_print_result,
+    )
+    from bioscan_clip_tpu_torch.train.checkpoint import (
+        load_pretrained_towers,
+        load_pth_into_params,
+        restore_checkpoint,
+        save_checkpoint,
+        wait_for_checkpoints,
+    )
+    from bioscan_clip_tpu_torch.train.loop import (
+        extract_features,
+        make_logit_scale_param,
+        train_epoch,
+    )
+    from bioscan_clip_tpu_torch.train.schedules import build_schedule
+    from bioscan_clip_tpu_torch.train.state import (
+        cast_frozen_params,
+        create_train_state,
+    )
+    from bioscan_clip_tpu_torch.utils.logging import WandbRun
+
+    mc = args.model_config
+    if getattr(mc, "dataset", None) == "INSECT":
+        raise NotImplementedError(
+            "INSECT mode needs data/insect.py, which is not ported yet: "
+            "ROADMAP.md queue 1, item 6 (the off-path modules)")
+    if _tpu(args, "steps_per_call", 1) > 1:
+        raise NotImplementedError(
+            "tpu.steps_per_call > 1 is not ported yet: ROADMAP.md queue 1, "
+            "item 2 (make_scan_train_step and steps_per_call as CUDA "
+            "graphs)")
+    dev = resolve_device(device or getattr(args, "device", None) or "cuda")
+    dtype = compute_dtype(dev)
+    if args.debug_flag:
+        args.activate_wandb = False
+        args.save_inference = False
+        args.save_ckpt = False
+
+    out("Construct dataloader...")
+    train_loader, seen_val, unseen_val, all_keys = load_dataloader(args)
+
+    out("Initialize model...")
+    model = load_clip_model(args, device=dev, dtype=dtype)
+    if getattr(mc, "load_ckpt", True):
+        ckpt = getattr(mc, "ckpt_path", None)
+        if ckpt and os.path.isfile(ckpt):
+            load_pth_into_params(ckpt, model)
+            out(f"Loaded checkpoint {ckpt}")
+        else:
+            load_pretrained_towers(args, model, mc.output_dim, log=out)
+    if bool(getattr(mc, "learnable_logit_scale", False)):
+        make_logit_scale_param(model)
+        out("learnable logit scale enabled (init 1/0.07)")
+
+    if not max_steps_per_epoch:
+        max_steps_per_epoch = _tpu(args, "max_steps_per_epoch", 0) or None
+    steps_per_epoch = len(train_loader)
+    if max_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, max_steps_per_epoch)
+    schedule = build_schedule(mc, steps_per_epoch * mc.epochs)
+    disable_lora = bool(getattr(mc, "disable_lora", False))
+    if (_tpu(args, "frozen_dtype", "") in ("bfloat16", "bf16")
+            and dtype == torch.bfloat16):
+        # bit-identical under bf16 compute (the towers cast per use), half
+        # the resident frozen weights
+        cast_frozen_params(model, disable_lora=disable_lora)
+        out("frozen params stored in bfloat16")
+    state = create_train_state(model, schedule, disable_lora=disable_lora,
+                               seed=42)
+
+    resume_dir = getattr(args, "resume", None)
+    start_epoch = 0
+    if resume_dir:
+        restore_checkpoint(str(resume_dir), state, name="last")
+        start_epoch = state.step // max(steps_per_epoch, 1)
+        out(f"Resumed from {resume_dir}/last at step {state.step} "
+            f"(epoch {start_epoch})")
+    train_step = make_step(args, model, dtype, out=out)
+
+    wandb_run = WandbRun(
+        getattr(mc, "wandb_project_name", "BIOSCAN-CLIP-TPU"),
+        getattr(mc, "model_output_name", "run"),
+        activate=bool(getattr(args, "activate_wandb", False)))
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
+    folder = os.path.join(args.project_root_path, args.model_output_dir,
+                          mc.model_output_name, stamp)
+    if args.save_ckpt:
+        os.makedirs(folder, exist_ok=True)
+        save_config(args, os.path.join(folder, "config.yaml"))
+
+    eg = _tpu(args, "extract_group", -1)
+    best_acc = best_epoch = None
+    profile_dir = getattr(args, "profile_dir", None)
+    out("training...")
+    for epoch in range(start_epoch, mc.epochs):
+        if hasattr(train_loader, "set_epoch"):
+            # the epoch's shuffle follows the epoch, also after a resume or
+            # a bounded epoch
+            train_loader.set_epoch(epoch)
+        batches = iter(train_loader)
+        loader = (itertools.islice(batches, max_steps_per_epoch)
+                  if max_steps_per_epoch else batches)
+        try:
+            state, stats = train_epoch(
+                state, train_step, loader, state.generator, epoch,
+                mc.epochs, logger=out,
+                profile_dir=profile_dir if epoch == start_epoch else None,
+                profile_steps=int(getattr(args, "profile_steps", 5)))
+        finally:
+            if hasattr(batches, "close"):
+                batches.close()  # ends the loader's prefetch thread
+        out(f"epoch {epoch}: {stats['samples_per_s']:.1f} samples/s, "
+            f"{stats['epoch_time_s']:.1f}s"
+            + (f" (steady {stats['samples_per_s_steady']:.1f}/s)"
+               if "samples_per_s_steady" in stats else ""))
+        out(f"epoch {epoch} losses {stats['losses']}")
+        wandb_run.log({"epoch": epoch, "mean_loss": stats["mean_loss"],
+                       "samples_per_s": stats["samples_per_s"]})
+
+        eval_now = not skip_final_eval and (
+            epoch % mc.evaluation_period == 0 or epoch == mc.epochs - 1)
+        if not eval_now:
+            continue
+        if args.save_ckpt:
+            # in the background: the eval phase runs while `last` is written
+            save_checkpoint(folder, state, name="last", block=False)
+            out(f"Last ckpt: {folder}/last")
+        group = None if eg < 0 else eg
+        keys_dict = extract_features(model, all_keys, for_key_set=True,
+                                     group_samples=group)
+        seen_dict = extract_features(model, seen_val, group_samples=group)
+        unseen_dict = extract_features(model, unseen_val,
+                                       group_samples=group)
+        acc_dict, _, _ = inference_and_print_result(
+            keys_dict, seen_dict, unseen_dict, args=args, k_list=[1, 3, 5],
+            device=dev, out=out)
+        overall = selection_metric(acc_dict)
+        if best_acc is None or overall > best_acc:
+            best_acc, best_epoch = overall, epoch
+            if args.save_ckpt:
+                save_checkpoint(folder, state, name="best")
+                out(f"Best ckpt: {folder}/best")
+        wandb_run.log({"overall_acc": overall, "best_epoch": best_epoch,
+                       "epoch": epoch})
+    wandb_run.finish()
+    wait_for_checkpoints()
+    return state, best_acc
+
+
+def main(argv=None):
+    from bioscan_clip_tpu_torch.config.core import load_config
+
+    argv = argv if argv is not None else sys.argv[1:]
+    return run(load_config(overrides=list(argv)))
+
+
+if __name__ == "__main__":
+    main()

@@ -21,6 +21,7 @@ this module reimplements the subset actually used:
 
 from __future__ import annotations
 
+import json
 import os
 import re
 from pathlib import Path
@@ -198,9 +199,16 @@ def load_config(
 
 
 def save_config(cfg: ConfigNode, path: str, resolve: bool = False):
-    """Snapshot the config (cf. OmegaConf.save in train_cl.py:206)."""
-    import yaml
-
+    """Snapshot the config (cf. OmegaConf.save in train_cl.py:206). Where
+    PyYAML is not installed the file is JSON, which YAML reads too."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    data = cfg.to_dict(resolve=resolve)
+    try:
+        import yaml
+    except ImportError:
+        yaml = None
     with open(path, "w") as f:
-        yaml.safe_dump(cfg.to_dict(resolve=resolve), f, sort_keys=False)
+        if yaml is None:
+            json.dump(data, f, indent=2, default=str)
+        else:
+            yaml.safe_dump(data, f, sort_keys=False)

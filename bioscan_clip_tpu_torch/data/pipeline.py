@@ -1,14 +1,18 @@
-"""Host data pipeline for eval splits: HDF5 rows -> batch dicts.
+"""Host data pipeline: HDF5 rows -> batch dicts, for eval and training.
 
-The eval half of bioscan_clip_tpu/data/pipeline.py (`_fit_to_slot`,
+A copy of bioscan_clip_tpu/data/pipeline.py (`_fit_to_slot`,
 `BioscanLoader` :64-441): chunked sorted-index HDF5 reads, streamed DNA
 tokenization per batch, threaded JPEG decode on the host, and a background
 prefetch thread keeping `prefetch_depth` batches ready, cancelled when the
 consumer stops iterating early.
 
-Images come out in one of three forms, as in JAX:
-- `eval_parity=True` (default): the torchvision-exact host eval transform,
-  (B, 224, 224, 3) float32 under "image";
+Images come out in one of four forms, as in JAX:
+- `eval_parity=True` (default, eval splits only): the torchvision-exact
+  host eval transform, (B, 224, 224, 3) float32 under "image";
+- `train_crop=True` (train splits only): `host_train_augment`, the whole
+  geometric augmentation on the host, (B, 224, 224, 3) uint8 under
+  "image_u8", each image on its own numpy stream spawned from (seed,
+  epoch, first index of the batch);
 - otherwise (B, H, W, 3) uint8 under "image_u8", each frame resized on the
   host to shorter side 256 (cv2) and fitted to the first frame's slot, for
   the device eval transform;
@@ -17,9 +21,14 @@ Images come out in one of three forms, as in JAX:
 
 Decoding is Python (cv2, else PIL) in a thread pool. The JAX package's
 native libjpeg decode pool (`data/native_io.py`) is not ported
-(`ROADMAP.md` queue 1): this loader never looks for it. The train half
-(`for_training=True`: instance labels, drop_last, host train augmentation)
-raises until the loader's train half is ported with the rest of training.
+(`ROADMAP.md` queue 1, item 5): this loader never looks for it.
+
+`for_training=True` gives train batches: "labels" (instance ids, or the
+BIN labels passed in) instead of label dicts and ids, `drop_last` by
+default, a shuffle per epoch from `seed` + epoch (within windows of
+`shuffle_window` rows when it is set), and the `process_index`-strided
+shard of every epoch's order. The epoch advances after each complete pass;
+`set_epoch` sets it, as a run that stops epochs early or resumes must.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from bioscan_clip_tpu_torch.data.transforms import (
     decode_jpeg,
     host_eval_image,
     host_resize_shorter,
+    host_train_augment,
 )
 
 
@@ -60,15 +70,16 @@ def fit_to_slot(im: np.ndarray, h0: int, w0: int) -> np.ndarray:
 
 
 class BioscanLoader:
-    """Iterable over batch dicts of one eval split.
+    """Iterable over batch dicts of one split.
 
     Batch dict keys (modalities follow model_config):
       image:    (B, 224, 224, 3) float32, host eval transform (parity path)
       image_u8: (B, H, W, 3) uint8 (the device transform's input)
       dna:      (B, 133) int32 k-mer tokens
       language: {input_ids, token_type_ids, attention_mask} (B, 20) int32
-      label_dicts: host list of 4-level dicts
-      ids:      host list of processid/image_file strings
+      labels:   (B,) int64 instance or BIN ids (training)
+      label_dicts: host list of 4-level dicts (eval)
+      ids:      host list of processid/image_file strings (eval)
     """
 
     def __init__(
@@ -94,39 +105,47 @@ class BioscanLoader:
         process_count: int = 1,
         shuffle_window: int = 0,
         drop_last: Optional[bool] = None,
+        labels: Optional[np.ndarray] = None,
+        train_crop: bool = False,
+        train_crop_size: int = 224,
     ):
-        if for_training:
-            raise NotImplementedError(
-                "the train half of the loader (instance labels, drop_last, "
-                "host train augmentation) is not ported yet: ROADMAP.md "
-                "queue 1, item 2 (the rest of training)")
         self.reader = SplitReader(hdf5_path, split)
         self.split = split
         self.batch_size = batch_size
         self.with_image = with_image
         self.with_dna = with_dna
         self.with_language = with_language
-        self.for_training = False
+        self.for_training = for_training
         self.shuffle = shuffle
         self.shuffle_window = int(shuffle_window)
-        self.drop_last = bool(drop_last)
+        self.drop_last = for_training if drop_last is None else drop_last
         self.seed = seed
         self.epoch = 0
         self.decode_threads = decode_threads
         self.prefetch_depth = prefetch_depth
         self.host_resize_to = host_resize_to
-        self.eval_parity = eval_parity
+        self.eval_parity = eval_parity and not for_training
         # host CenterCrop(224) of the shorter-side-256 uint8 frame for the
         # non-parity path: an exact slice, so the device sees the pixels it
         # would crop itself while the feed carries ~2x fewer bytes
         self.eval_pre_cropped = (
-            eval_host_crop and with_image and not self.eval_parity
+            eval_host_crop and with_image and not for_training
+            and not self.eval_parity
         )
+        # the host Resize + RandomResizedCrop + flips + rotation of train
+        # frames: (224, 224, 3) uint8, half the bytes of the 256-side frame
+        self.train_crop = train_crop and for_training
+        self.train_crop_size = train_crop_size
         self.eval_crop_size = eval_crop_size
         self.openclip_norm = openclip_norm
         self.process_index = process_index
         self.process_count = process_count
         self.n = len(self.reader)
+        # instance labels for contrastive training (reference dataset.py:147)
+        # unless BIN labels were passed in
+        self.labels = labels
+        if for_training and labels is None:
+            self.labels = np.arange(self.n, dtype=np.int64)
 
     def __len__(self):
         if self.drop_last:
@@ -172,6 +191,16 @@ class BioscanLoader:
                     lambda im: host_eval_image(
                         im, normalize=self.openclip_norm),
                     imgs)))
+            elif self.train_crop:
+                # independent per-image streams, deterministic in
+                # (seed, epoch, first index of the batch)
+                rngs = np.random.default_rng(
+                    [self.seed, self.epoch, int(idx[0])]).spawn(len(imgs))
+                batch["image_u8"] = np.stack(list(pool.map(
+                    lambda t: host_train_augment(
+                        t[0], t[1], size=self.train_crop_size,
+                        resize_to=self.host_resize_to),
+                    zip(imgs, rngs))))
             else:
                 if self.host_resize_to:
                     imgs = list(pool.map(
@@ -192,8 +221,11 @@ class BioscanLoader:
             batch["dna"] = self.reader.read_dna_tokens(idx)
         if self.with_language:
             batch["language"] = self.reader.read_language_tokens(idx)
-        batch["label_dicts"] = self.reader.read_label_dicts(idx)
-        batch["ids"] = self.reader.read_ids(idx)
+        if self.for_training:
+            batch["labels"] = self.labels[idx]
+        else:
+            batch["label_dicts"] = self.reader.read_label_dicts(idx)
+            batch["ids"] = self.reader.read_ids(idx)
         return batch
 
     def __iter__(self):
@@ -251,3 +283,5 @@ class BioscanLoader:
                 except queue.Empty:
                     pass
             t.join(timeout=30.0)
+        if self.for_training:
+            self.epoch += 1

@@ -30,10 +30,13 @@ from torch import nn
 
 from bioscan_clip_tpu_torch.models.common import (
     LayerNorm,
+    check_remat_policy,
     dense,
     gelu_exact,
     ps_dropout,
+    remat_tag,
     row_salt_advance,
+    run_layer,
     site_seed,
 )
 from bioscan_clip_tpu_torch.models.lora import LoRALinear, project
@@ -55,6 +58,9 @@ class BertConfig:
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     ln_eps: float = 1e-12
+    # per-layer remat and what it saves (models/common.py)
+    remat: bool = False
+    remat_policy: str = "full"
 
 
 BARCODE_BERT_CONFIG = BertConfig(vocab_size=1027)
@@ -139,8 +145,10 @@ class BertLayer(nn.Module):
         y = ps_dropout(dense(out.dense, y, dt), self.hidden_dropout, row_salt,
                        2)
         x = out.LayerNorm(x + y).to(dt)
-        y = gelu_exact(dense(self.intermediate.dense, x, dt))
-        y = ps_dropout(dense(self.output.dense, y, dt), self.hidden_dropout,
+        with remat_tag("mlp_pre"):
+            y = dense(self.intermediate.dense, x, dt)
+        y = ps_dropout(dense(self.output.dense, gelu_exact(y), dt),
+                       self.hidden_dropout,
                        row_salt, 3)
         return self.output.LayerNorm(x + y).to(dt)
 
@@ -162,6 +170,7 @@ class BertEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.dtype = dtype
+        check_remat_policy(cfg.remat_policy)
         self.embeddings = _Embeddings(cfg, ln_dtype)
         self.encoder = _Layers(cfg, dtype, ln_dtype)
         self.train(False)
@@ -198,7 +207,8 @@ class BertEncoder(nn.Module):
             # the embeddings used the raw salt; every layer advances first
             if row_salt is not None:
                 row_salt = row_salt_advance(row_salt)
-            x = layer(x, bias, row_salt)
+            x = run_layer(layer, x, bias, row_salt, remat=self.cfg.remat,
+                          policy=self.cfg.remat_policy)
         return x
 
 

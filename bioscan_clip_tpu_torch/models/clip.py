@@ -123,7 +123,9 @@ def load_clip_model(args, device=None, dtype=None, lora_rank=None,
     cuda), with seeded random weights; load a checkpoint on top with
     `interop.weights`. `dtype` is the compute dtype (default: bf16 on the
     card, fp32 on the CPU); parameters are fp32. `lora_rank` overrides the
-    config's rank (0 after `merge_lora`)."""
+    config's rank (0 after `merge_lora`). `tpu.remat` / `tpu.remat_policy`
+    turn on per-layer remat in every transformer tower
+    (`models/common.py`)."""
     dev = resolve_device(device)
     dtype = compute_dtype(dev) if dtype is None else dtype
     mc = args.model_config
@@ -133,18 +135,30 @@ def load_clip_model(args, device=None, dtype=None, lora_rank=None,
     # built on the meta device and materialized once on `dev`: init_weights
     # writes every parameter, so torch's default init would be wasted work
     with torch.device("meta"):
-        model = build_towers(mc, rank, dtype, ln_dtype)
+        model = build_towers(mc, rank, dtype, ln_dtype, remat_of(args))
     return init_weights(model.to_empty(device=dev), seed).eval()
 
 
+def remat_of(args) -> dict:
+    """`tpu.remat` and `tpu.remat_policy` (JAX clip.py:121-122) as the
+    towers' config fields."""
+    tpu_cfg = getattr(args, "tpu", None)
+    return {"remat": bool(tpu_cfg.get("remat", False)) if tpu_cfg else False,
+            "remat_policy": str(tpu_cfg.get("remat_policy", "full"))
+            if tpu_cfg else "full"}
+
+
 def build_towers(mc, rank: int, dtype: torch.dtype,
-                 ln_dtype: torch.dtype = torch.float32) -> MultiModalCLIP:
+                 ln_dtype: torch.dtype = torch.float32,
+                 remat: dict | None = None) -> MultiModalCLIP:
     """The towers `model_config` declares (JAX clip.py:114-212), on the
-    current default device, parameters uninitialized."""
+    current default device, parameters uninitialized. `remat`: the towers'
+    per-layer remat fields (`remat_of`), off by default."""
     out = mc.output_dim
+    remat = remat or {}
 
     def bert(cfg):
-        return dataclasses.replace(cfg, lora_rank=rank)
+        return dataclasses.replace(cfg, lora_rank=rank, **remat)
 
     towers = {}
     if (hasattr(mc, "image") and hasattr(mc, "language")
@@ -152,9 +166,11 @@ def build_towers(mc, rank: int, dtype: torch.dtype,
             and mc.language.model == "lora_clip_text"):
         # the OpenCLIP ViT-L/14 ablation (simple_clip.py:141-145)
         towers["image_encoder"] = OpenClipImageTower(dataclasses.replace(
-            OpenClipVisionConfig(), lora_rank=rank, output_dim=out), dtype)
+            OpenClipVisionConfig(), lora_rank=rank, output_dim=out, **remat),
+            dtype)
         towers["language_encoder"] = OpenClipTextAdapter(dataclasses.replace(
-            OpenClipTextConfig(), lora_rank=rank, output_dim=out), dtype)
+            OpenClipTextConfig(), lora_rank=rank, output_dim=out, **remat),
+            dtype)
         if hasattr(mc, "dna"):
             towers["dna_encoder"] = BarcodeBertDnaEncoder(
                 bert(BARCODE_BERT_CONFIG), out, dtype, ln_dtype)
@@ -163,7 +179,8 @@ def build_towers(mc, rank: int, dtype: torch.dtype,
     if hasattr(mc, "image"):
         if mc.image.input_type == "image":
             towers["image_encoder"] = ViTImageEncoder(
-                ViTConfig(num_classes=out, lora_rank=rank), dtype, ln_dtype)
+                ViTConfig(num_classes=out, lora_rank=rank, **remat), dtype,
+                ln_dtype)
         else:
             towers["image_encoder"] = MLPEncoder(
                 MLP_IMAGE_INPUT_DIM, mc.image.hidden_dim, out, dtype)

@@ -5,13 +5,35 @@ tower computes its matmuls in a compute dtype given to its constructor (bf16
 on the card, fp32 on the CPU), as the Flax modules' `dtype` does.
 LayerNorms compute in their own dtype, an explicit constructor argument
 (default fp32), where the JAX package reads `BSCAN_FAST_LN` at trace time.
+
+Per-layer remat (JAX common.py:46-108, `tpu.remat` / `tpu.remat_policy`)
+runs each tower layer under `torch.utils.checkpoint` (non-reentrant) when
+gradients are on. "full" recomputes the whole layer in the backward; the
+other policies are selective checkpointing over the ops they save:
+- "dots": every matmul output (`aten.mm`, `aten.addmm`, `aten.bmm`);
+- "dots_act": "dots" plus the GELU (JAX saves its `gelu_erf`, the erfc
+  intermediate; the port's GELU is one `aten.gelu`, whose output is saved);
+- "narrow": the fc1 output (`mlp_pre`, the matmul under `remat_tag`);
+- "wide": "dots" plus the LayerNorm outputs (`aten.native_layer_norm`).
+JAX's policies also save the attention output (`attn_ctx`). The port's
+attention is a `torch.autograd.Function` over ctypes launches, which a
+selective policy does not see, so the recompute launches K1/K2d again.
+Row-keyed dropout draws no torch RNG: the recompute draws the same masks.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from bioscan_clip_tpu_torch.ops.attention import _keep_threshold, _mix32, u32
 
@@ -20,6 +42,81 @@ def gelu_exact(x):
     """Exact-erf GELU (JAX common.py:31-43). torch's `approximate="none"`
     is the same erf form."""
     return F.gelu(x, approximate="none")
+
+
+REMAT_POLICIES = ("full", "dots", "dots_act", "narrow", "wide")
+_aten = torch.ops.aten
+_MATMULS = frozenset({_aten.mm.default, _aten.addmm.default,
+                      _aten.bmm.default})
+_SAVED = {
+    "dots": _MATMULS,
+    "dots_act": _MATMULS | {_aten.erfc.default, _aten.gelu.default},
+    "narrow": frozenset(),
+    "wide": _MATMULS | {_aten.native_layer_norm.default},
+}
+_tag = threading.local()
+
+
+@contextlib.contextmanager
+def remat_tag(name: str):
+    """Names the ops run under it for a selective remat policy (JAX's
+    `checkpoint_name`); "narrow" saves the matmuls tagged "mlp_pre"."""
+    prev = getattr(_tag, "name", None)
+    _tag.name = name
+    try:
+        yield
+    finally:
+        _tag.name = prev
+
+
+def check_remat_policy(name: str) -> str:
+    if name not in REMAT_POLICIES:
+        raise ValueError(
+            f"unknown remat_policy {name!r}: expected full | dots | narrow "
+            "| wide | dots_act")
+    return name
+
+
+def _selective(name: str):
+    saved = _SAVED[name]
+
+    def policy(ctx, op, *args, **kwargs):
+        if op in saved or (op in _MATMULS and name == "narrow"
+                           and getattr(_tag, "name", None) == "mlp_pre"):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+
+    return lambda: create_selective_checkpoint_contexts(policy)
+
+
+def selective_remat_active() -> bool:
+    """True while a layer runs under a selective remat policy (forward and
+    recompute): the outputs the policy saves must not change in place."""
+    return getattr(_tag, "selective", False)
+
+
+def _flag_selective(layer):
+    def call(*args):
+        prev = selective_remat_active()
+        _tag.selective = True
+        try:
+            return layer(*args)
+        finally:
+            _tag.selective = prev
+
+    return call
+
+
+def run_layer(layer: nn.Module, *args, remat: bool = False,
+              policy: str = "full"):
+    """`layer(*args)`, under per-layer remat with `policy` when `remat` is
+    set and gradients are on."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer(*args)
+    if policy == "full":
+        return checkpoint(layer, *args, use_reentrant=False)
+    return checkpoint(_flag_selective(layer), *args, use_reentrant=False,
+                      context_fn=_selective(policy))
 
 
 def dense(mod: nn.Linear, x, dtype: torch.dtype):

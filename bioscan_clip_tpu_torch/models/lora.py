@@ -24,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from bioscan_clip_tpu_torch.models.common import dense
+from bioscan_clip_tpu_torch.models.common import dense, selective_remat_active
 
 
 # the adapter modules (and OpenCLIP's adapter parameters): each A is drawn
@@ -55,10 +55,15 @@ class LoRAQKV(nn.Module):
     def forward(self, x, dtype: torch.dtype):
         d = self.width
         qkv = dense(self.qkv, x, dtype)
+        dq = lora_delta(x, self.linear_a_q, self.linear_b_q, dtype)
+        dv = lora_delta(x, self.linear_a_v, self.linear_b_v, dtype)
+        if selective_remat_active():
+            # the remat policy saves the projection's output: a new tensor
+            return torch.cat([qkv[..., :d] + dq, qkv[..., d : 2 * d],
+                              qkv[..., 2 * d :] + dv], dim=-1)
         # in place on the fresh projection output (no other reference)
-        qkv[..., :d] += lora_delta(x, self.linear_a_q, self.linear_b_q, dtype)
-        qkv[..., 2 * d :] += lora_delta(x, self.linear_a_v, self.linear_b_v,
-                                        dtype)
+        qkv[..., :d] += dq
+        qkv[..., 2 * d :] += dv
         return qkv
 
 
@@ -172,3 +177,48 @@ def merge_lora(state_dict: dict) -> dict:
             continue
         out[key] = val
     return out
+
+
+def share_merged(merged: nn.Module, model: nn.Module):
+    """Bind `merged`, the same architecture at LoRA rank 0 (built on any
+    device, the meta device included), to `model`: every entry of
+    `merge_lora(model.state_dict())` that is one of `model`'s tensors
+    (the frozen towers, the heads) is shared by storage, so nothing of the
+    towers is copied; only the folded projections get tensors of their own.
+    Returns `refresh()`, which folds the current adapters into them again
+    (GradCache's stage 1 runs it once a step, JAX loop.py:524-527)."""
+    own = {k: v.detach() for k, v in model.state_dict().items()}
+    ptrs = {v.data_ptr() for v in own.values()}
+    want = set(merged.state_dict())
+    folded = []
+    with torch.no_grad():
+        for key, val in merge_lora(own).items():
+            if key not in want:  # the logit scale: not a tower's
+                continue
+            path, _, attr = key.rpartition(".")
+            mod = merged.get_submodule(path)
+            shared = val.data_ptr() in ptrs
+            if not shared:
+                val = val.clone()
+                folded.append((mod, attr))
+            if attr in mod._parameters:
+                mod._parameters[attr] = nn.Parameter(val,
+                                                     requires_grad=False)
+            else:
+                mod._buffers[attr] = val
+    left = [n for n, t in merged.state_dict().items() if t.is_meta]
+    if left or not want <= set(merge_lora(own)):
+        raise ValueError(f"share_merged: merged model is not model at rank "
+                         f"0 (unbound: {left[:5]})")
+    keys = [f"{p}.{a}" for p, a in (
+        (next(n for n, m in merged.named_modules() if m is mod), attr)
+        for mod, attr in folded)]
+
+    def refresh():
+        sd = merge_lora({k: v.detach() for k, v in model.state_dict().items()})
+        with torch.no_grad():
+            for (mod, attr), key in zip(folded, keys):
+                getattr(mod, attr).copy_(sd[key])
+
+    refresh.folded = keys
+    return refresh

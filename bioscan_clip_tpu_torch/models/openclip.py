@@ -32,9 +32,12 @@ from torch import nn
 
 from bioscan_clip_tpu_torch.models.common import (
     LayerNorm,
+    check_remat_policy,
     dense,
     gelu_exact,
     patch_embed,
+    remat_tag,
+    run_layer,
 )
 from bioscan_clip_tpu_torch.models.lora import LoRAInProj
 from bioscan_clip_tpu_torch.ops.attention import mha_packed
@@ -52,6 +55,9 @@ class OpenClipVisionConfig:
     output_dim: int = 768
     lora_rank: int = 4
     ln_eps: float = 1e-5
+    # per-layer remat and what it saves (models/common.py)
+    remat: bool = False
+    remat_policy: str = "full"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +70,9 @@ class OpenClipTextConfig:
     output_dim: int = 768
     lora_rank: int = 4
     ln_eps: float = 1e-5
+    # per-layer remat and what it saves (models/common.py)
+    remat: bool = False
+    remat_policy: str = "full"
 
 
 class _Attention(LoRAInProj):
@@ -101,21 +110,24 @@ class OpenClipBlock(nn.Module):
         qkv = self.attn.in_proj(self.ln_1(x).to(dt), dt)
         y = mha_packed(qkv, self.attn.heads, mask=mask)
         x = x + dense(self.attn.out_proj, y, dt)
-        y = gelu_exact(dense(self.mlp.c_fc, self.ln_2(x).to(dt), dt))
-        return x + dense(self.mlp.c_proj, y, dt)
+        with remat_tag("mlp_pre"):
+            y = dense(self.mlp.c_fc, self.ln_2(x).to(dt), dt)
+        return x + dense(self.mlp.c_proj, gelu_exact(y), dt)
 
 
 class _Transformer(nn.Module):
-    def __init__(self, width, heads, layers, lora_rank, ln_eps, dtype):
+    def __init__(self, c, dtype):
         super().__init__()
+        self.remat = (c.remat, check_remat_policy(c.remat_policy))
         self.resblocks = nn.ModuleList(
-            OpenClipBlock(width, heads, lora_rank, ln_eps, dtype)
-            for _ in range(layers)
+            OpenClipBlock(c.width, c.heads, c.lora_rank, c.ln_eps, dtype)
+            for _ in range(c.layers)
         )
 
     def forward(self, x, mask=None):
+        remat, policy = self.remat
         for blk in self.resblocks:
-            x = blk(x, mask)
+            x = run_layer(blk, x, mask, remat=remat, policy=policy)
         return x
 
 
@@ -134,8 +146,7 @@ class OpenClipImageTower(nn.Module):
         self.positional_embedding = nn.Parameter(
             torch.empty((c.image_size // c.patch_size) ** 2 + 1, c.width))
         self.ln_pre = LayerNorm(c.width, c.ln_eps)
-        self.transformer = _Transformer(c.width, c.heads, c.layers,
-                                        c.lora_rank, c.ln_eps, dtype)
+        self.transformer = _Transformer(c, dtype)
         self.ln_post = LayerNorm(c.width, c.ln_eps)
         self.proj = nn.Parameter(torch.empty(c.width, c.output_dim))
 
@@ -170,8 +181,7 @@ class OpenClipTextTower(nn.Module):
         self.token_embedding = nn.Embedding(c.vocab_size, c.width)
         self.positional_embedding = nn.Parameter(
             torch.empty(c.context_length, c.width))
-        self.transformer = _Transformer(c.width, c.heads, c.layers,
-                                        c.lora_rank, c.ln_eps, dtype)
+        self.transformer = _Transformer(c, dtype)
         self.ln_final = LayerNorm(c.width, c.ln_eps)
         self.text_projection = nn.Parameter(
             torch.empty(c.width, c.output_dim))

@@ -21,9 +21,12 @@ from torch import nn
 
 from bioscan_clip_tpu_torch.models.common import (
     LayerNorm,
+    check_remat_policy,
     dense,
     gelu_exact,
     patch_embed,
+    remat_tag,
+    run_layer,
 )
 from bioscan_clip_tpu_torch.models.lora import LoRAQKV, project
 from bioscan_clip_tpu_torch.ops.attention import mha_packed
@@ -40,6 +43,9 @@ class ViTConfig:
     num_classes: int = 768
     lora_rank: int = 4
     ln_eps: float = 1e-6
+    # per-layer remat and what it saves (models/common.py)
+    remat: bool = False
+    remat_policy: str = "full"
 
     @property
     def num_patches(self) -> int:
@@ -93,8 +99,9 @@ class ViTBlock(nn.Module):
         qkv = project(self.attn.qkv, self.norm1(x), dt)
         y = mha_packed(qkv, self.attn.heads)
         x = x + dense(self.attn.proj, y, dt)
-        y = gelu_exact(dense(self.mlp.fc1, self.norm2(x), dt))
-        return x + dense(self.mlp.fc2, y, dt)
+        with remat_tag("mlp_pre"):
+            y = dense(self.mlp.fc1, self.norm2(x), dt)
+        return x + dense(self.mlp.fc2, gelu_exact(y), dt)
 
 
 class ViT(nn.Module):
@@ -107,6 +114,7 @@ class ViT(nn.Module):
         d = cfg.hidden_size
         self.cfg = cfg
         self.dtype = dtype
+        check_remat_policy(cfg.remat_policy)
         self.patch_embed = _PatchEmbed(cfg)
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_patches + 1, d))
@@ -124,7 +132,8 @@ class ViT(nn.Module):
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(dt)
         for blk in self.blocks:
-            x = blk(x)
+            x = run_layer(blk, x, remat=self.cfg.remat,
+                          policy=self.cfg.remat_policy)
         # LN is per token: slicing CLS first equals LN-then-slice
         x = self.norm(x[:, 0])
         if self.head is not None:

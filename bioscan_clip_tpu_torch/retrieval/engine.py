@@ -34,7 +34,7 @@ from bioscan_clip_tpu_torch.ops.topk import (
 )
 
 LEVELS = ["order", "family", "genus", "species"]
-_LATER = "is not ported yet: ROADMAP.md queue 1"
+_LATER = "is not ported yet: ROADMAP.md queue 1, item"
 
 
 def l2norm_np(x, eps=1e-12):
@@ -75,7 +75,8 @@ class PreparedKeys:
         if rescore not in RESCORE_MODES:
             raise ValueError(f"unknown rescore mode {rescore!r}")
         if mesh is not None:
-            raise NotImplementedError(f"multi-GPU search {_LATER}")
+            raise NotImplementedError(
+                f"multi-GPU search {_LATER} 4 (multi-GPU search)")
         self.device = resolve_device(device)
         self.precision = precision
         self.int8 = precision == "int8"
@@ -90,7 +91,8 @@ class PreparedKeys:
             if self.n_keys > budget:
                 raise NotImplementedError(
                     f"{self.n_keys} keys exceed the card's budget of "
-                    f"{budget}: host-slab streaming {_LATER}"
+                    f"{budget}: host-slab streaming {_LATER} 3 "
+                    "(host-slab streaming)"
                 )
         self.host_keys = None
         self.key_scales_dev = None

@@ -25,6 +25,8 @@ Counterpart of bioscan_clip_tpu/train/checkpoint.py (orbax there,
   artifact leaves its tower at random init, and says so through `log`.
   LoRA adapters and fresh heads stay as they are; a tower takes the
   checkpoint's first layers up to its own depth.
+- `load_pth_into_params` (:148-159): a released SimpleCLIP `.pth` overlaid
+  onto the model.
 - `resolve_reference_ckpt`: re-exported from `interop.weights`.
 
 A checkpoint file holds tensors, numbers, strings and lists only, and is
@@ -331,6 +333,25 @@ def _hf_bert_state_dict(path_or_name: str):
             path_or_name, local_files_only=True).state_dict()
     except Exception:  # no transformers, or not in the local cache
         return None
+
+
+def load_pth_into_params(pth_path: str, model: nn.Module) -> nn.Module:
+    """A released SimpleCLIP `.pth` overlaid onto `model`, in place (JAX
+    checkpoint.py:148-159): every entry the checkpoint and the model share
+    is loaded (`interop.weights.load_reference_pth`, then the same name
+    mapping as `load_into`), shapes checked against the model's; the
+    model's other entries keep their values. Returns the model."""
+    sd = _from_open_clip(load_reference_pth(pth_path))
+    own = model.state_dict()
+    shared = {k: v for k, v in sd.items() if k in own}
+    if not shared:
+        raise KeyError(f"{pth_path}: no entry matches the model")
+    bad = [k for k, v in shared.items() if v.shape != own[k].shape]
+    if bad:
+        raise ValueError(f"{pth_path}: shapes differ from the model's: "
+                         f"{bad[:5]}")
+    model.load_state_dict(shared, strict=False)
+    return model
 
 
 def load_pretrained_towers(args, model: nn.Module, output_dim: int = 768,

@@ -1,21 +1,28 @@
-"""The contrastive train step, the epoch loop, and feature extraction.
+"""The contrastive train steps, the epoch loop, and feature extraction.
 
 Counterpart of bioscan_clip_tpu/train/loop.py:25-147 (`make_train_step`),
+:273-780 (`make_accum_train_step`, `make_gradcache_train_step`),
 :782-1069 (`make_embed_step`, `extract_features` and the grouped
 extraction) and :1072-1241 (`train_epoch`, the plain loop). One step: the
-three tower forwards in train mode, the 6-term soft-label InfoNCE, the
-backward over the trainable set only (frozen parameters have `requires_grad=False`, so no
+train augmentation of uint8 frames on the device, the three tower forwards
+in train mode, the 6-term soft-label InfoNCE, the backward over the
+trainable set only (frozen parameters have `requires_grad=False`, so no
 frozen-weight gradient is ever formed), then masked AdamW with the
-scheduled learning rate.
+scheduled learning rate. The accumulating steps cut the batch into
+microbatches: per-microbatch negatives (`make_accum_train_step`), or the
+full batch's through GradCache (`make_gradcache_train_step`).
 
-Dropout is row-keyed: the step takes a uint32 step seed and derives each
-BERT tower's (B,) row seeds as the JAX package does (loop.py:565-576:
-`row_seeds_init(bits ^ 0x0D5A17, arange(B))` for dna, `bits ^ 0x7A9C33` for
-language), so both packages can be handed the same seed. `train_epoch`
-draws the step seeds from an explicit `torch.Generator`: pass the state's
-own (`state.generator`), which `train.checkpoint` saves and restores, and a
-resumed run draws the seeds of an uninterrupted one (JAX derives each
-step's key from the step, loop.py:134).
+Every random draw is keyed by the step's uint32 seed and the global row.
+Each BERT tower's (B,) row seeds are derived as the JAX package does
+(loop.py:565-576: `row_seeds_init(bits ^ 0x0D5A17, arange(B))` for dna,
+`bits ^ 0x7A9C33` for language), so both packages can be handed the same
+seed; the augmentation parameters come from a generator seeded by the step
+seed (`data/transforms.draw_train_aug`). A microbatch or chunk takes its
+rows of both, so every grouping of the rows sees the same masks and pixels.
+`train_epoch` draws the step seeds from an explicit `torch.Generator`: pass
+the state's own (`state.generator`), which `train.checkpoint` saves and
+restores, and a resumed run draws the seeds of an uninterrupted one (JAX
+derives each step's key from the step, loop.py:134).
 
 Extraction runs the towers in eval mode under `torch.inference_mode()`; a
 uint8 image batch goes through the device eval transform first
@@ -24,9 +31,9 @@ batches into groups of about `group_samples` rows and runs every tower
 once per group: on the card that is 1600 rows by default (as JAX picks on
 the TPU), fewer and larger launches; on the CPU it is off.
 
-Not ported yet, each raising with its ROADMAP.md queue 1 entry: remat,
-`steps_per_call > 1` (a TPU dispatch saver; CUDA graphs are the card's
-counterpart), the accumulation / GradCache / scan steps.
+Not ported yet, each raising with its ROADMAP.md queue 1 entry:
+`steps_per_call > 1` and `make_scan_train_step` (a TPU dispatch saver; CUDA
+graphs are the card's counterpart).
 """
 
 from __future__ import annotations
@@ -40,7 +47,11 @@ import numpy as np
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from bioscan_clip_tpu_torch.data.transforms import (
+    aug_rows,
+    draw_train_aug,
     eval_transform,
     train_transform_auto,
 )
@@ -48,7 +59,9 @@ from bioscan_clip_tpu_torch.losses.contrastive import (
     multimodal_contrastive_loss,
 )
 from bioscan_clip_tpu_torch.models.common import row_seeds_init
+from bioscan_clip_tpu_torch.models.lora import share_merged
 from bioscan_clip_tpu_torch.ops.attention import u32
+from bioscan_clip_tpu_torch.train.state import param_labels
 
 LOGIT_SCALE = 1.0 / 0.07  # fixed temperature (train_cl.py:190)
 DEVICE_BATCH_KEYS = ("image", "image_u8", "dna", "language", "labels")
@@ -90,7 +103,9 @@ def device_batch(batch: dict, device) -> dict:
 
 
 def tower_row_seeds(step_seed, batch_size: int, device) -> dict:
-    """The (B,) row seeds of each BERT tower for one step."""
+    """The (B,) row seeds of each BERT tower for one step: row r's seed
+    depends on the step seed and r only, so a microbatch or chunk takes its
+    slice of the global batch's seeds (JAX loop.py:565-576)."""
     rows = torch.arange(batch_size, device=device)
     bits = u32(step_seed)
     return {
@@ -99,44 +114,106 @@ def tower_row_seeds(step_seed, batch_size: int, device) -> dict:
     }
 
 
+def batch_rows(batch: dict, rows: slice) -> dict:
+    """Rows `rows` of a device batch (or of a dict of per-row tensors)."""
+    return {k: batch_rows(v, rows) if isinstance(v, dict) else v[rows]
+            for k, v in batch.items()}
+
+
+def draw_batch_aug(batch: dict, step_seed, color_jitter: bool = False):
+    """The step's train augmentation parameters for every row of `batch`
+    (`data/transforms.draw_train_aug`), or None when it ships no uint8
+    frames."""
+    u8 = batch.get("image_u8")
+    if u8 is None or batch.get("image") is not None:
+        return None
+    return draw_train_aug(step_seed, u8.shape[0], tuple(u8.shape[1:3]),
+                          jitter=color_jitter)
+
+
+def embed_train(model, batch: dict, seeds: dict, aug, *,
+                openclip_norm: bool = False, color_jitter: bool = False,
+                remat: bool = False, image=None, skip=()):
+    """Train-mode embeddings of one (micro)batch -> ({modality: (b, D) or
+    None}, the augmented images). `seeds` and `aug` are the rows' own
+    (`tower_row_seeds`, `draw_batch_aug`); `image`: augmented images to use
+    as they are; `skip`: towers to leave out; `remat`: each tower under
+    `torch.utils.checkpoint` (JAX's `jax.checkpoint` per tower)."""
+    def call(fn, *a, **kw):
+        if remat and torch.is_grad_enabled():
+            return checkpoint(fn, *a, use_reentrant=False, **kw)
+        return fn(*a, **kw)
+
+    embs = {}
+    if model.image_encoder is not None and "image" not in skip:
+        if image is None:
+            image = batch.get("image")
+            if image is None and "image_u8" in batch:
+                image = train_transform_auto(
+                    batch["image_u8"], aug, normalize=openclip_norm,
+                    jitter=color_jitter)
+        embs["image"] = (None if image is None
+                         else call(model.encode_image, image))
+    if model.dna_encoder is not None and "dna" not in skip:
+        dna = batch.get("dna")
+        embs["dna"] = (None if dna is None else call(
+            model.encode_dna, dna, row_seeds=seeds["dna"]))
+    if model.language_encoder is not None and "language" not in skip:
+        lang = batch.get("language")
+        embs["language"] = (None if lang is None else call(
+            model.encode_language, lang, row_seeds=seeds["language"]))
+    return embs, image
+
+
+def _state_check(model, disable_lora: bool):
+    """check(state): the state must hold `model` with the trainable set of
+    `disable_lora` (its labels compared once per state)."""
+    checked = []  # the labels of the state last checked
+
+    def check(state):
+        if state.model is not model:
+            raise ValueError("train_step: the state holds another model")
+        if checked and state.labels is checked[0]:
+            return
+        if state.labels != param_labels(model, disable_lora):
+            raise ValueError(
+                f"train_step: built with disable_lora={disable_lora}, but "
+                "the state's trainable set is another (create_train_state)")
+        checked[:] = [state.labels]
+
+    return check
+
+
 def make_train_step(model, logit_scale: float = LOGIT_SCALE,
-                    openclip_norm: bool = False, remat: bool = False):
+                    openclip_norm: bool = False, remat: bool = False,
+                    disable_lora: bool = False, color_jitter: bool = False):
     """train_step(state, batch, step_seed) -> (state, loss) for `model`
     (the model of `state`): forward in train mode, loss, backward over the
     trainable set, AdamW. `batch` is a device batch (`device_batch`); the
-    returned loss is a device scalar (no host sync). `openclip_norm`: the
-    train images take CLIP's mean and std, as the OpenCLIP ablation's do
-    (JAX loop.py:104-107). `train_step.loss_fn` (batch, step_seed) is the
-    loss alone, for a caller that differentiates it itself."""
-    if remat:
-        raise NotImplementedError(
-            "remat (tpu.remat) is not ported yet: ROADMAP.md queue 1")
+    returned loss is a device scalar (no host sync). uint8 frames get the
+    train augmentation on the device, its parameters drawn from the step
+    seed (`color_jitter`: ColorJitter last, as INSECT training has it).
+    `openclip_norm`: the train images take CLIP's mean and std, as the
+    OpenCLIP ablation's do (JAX loop.py:104-107). `remat`: each tower
+    under `torch.utils.checkpoint` (JAX loop.py:73-78). `disable_lora`
+    must match the state's trainable set. `train_step.loss_fn` (batch,
+    step_seed) is the loss alone, for a caller that differentiates it
+    itself."""
+    check = _state_check(model, disable_lora)
 
     def loss_fn(batch, step_seed):
         labels = batch["labels"]
         seeds = tower_row_seeds(step_seed, labels.shape[0], labels.device)
-        image = batch.get("image")
-        if image is None and "image_u8" in batch:
-            image = batch["image_u8"]
-        embs = {}
-        if model.image_encoder is not None:
-            embs["image"] = (None if image is None else model.encode_image(
-                train_transform_auto(image, normalize=openclip_norm)))
-        if model.dna_encoder is not None:
-            dna = batch.get("dna")
-            embs["dna"] = (None if dna is None else model.encode_dna(
-                dna, row_seeds=seeds["dna"]))
-        if model.language_encoder is not None:
-            lang = batch.get("language")
-            embs["language"] = (None if lang is None else
-                                model.encode_language(
-                                    lang, row_seeds=seeds["language"]))
+        embs, _ = embed_train(
+            model, batch, seeds, draw_batch_aug(batch, step_seed,
+                                                color_jitter),
+            openclip_norm=openclip_norm, color_jitter=color_jitter,
+            remat=remat)
         return multimodal_contrastive_loss(
             embs, labels, logit_scale_value(model, logit_scale))
 
     def train_step(state, batch, step_seed):
-        if state.model is not model:
-            raise ValueError("train_step: the state holds another model")
+        check(state)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch, step_seed)
@@ -148,25 +225,176 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
     return train_step
 
 
-def _not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet: ROADMAP.md queue 1, item 2 (the rest "
-        "of training)")
+def _row_slices(total: int, size: int, what: str):
+    """The row slices of a batch of `total` cut into parts of `size`."""
+    if size < 1 or total % size:
+        raise ValueError(f"{what} must divide the global batch {total} "
+                         f"into equal parts (parts of {size} rows)")
+    return [slice(i, i + size) for i in range(0, total, size)]
 
 
-def make_accum_train_step(*args, **kwargs):
-    """Gradient accumulation over microbatches (JAX loop.py:273)."""
-    _not_ported("make_accum_train_step")
+def _micro_rows(total: int, accum_steps: int):
+    if accum_steps < 1 or total % accum_steps:
+        raise ValueError(f"accum_steps={accum_steps} must divide the "
+                         f"global batch {total}")
+    return _row_slices(total, total // accum_steps, "accum_steps")
 
 
-def make_gradcache_train_step(*args, **kwargs):
-    """The GradCache step (JAX loop.py:387)."""
-    _not_ported("make_gradcache_train_step")
+def make_accum_train_step(model, accum_steps: int,
+                          logit_scale: float = LOGIT_SCALE,
+                          openclip_norm: bool = False, remat: bool = False,
+                          disable_lora: bool = False,
+                          color_jitter: bool = False):
+    """Gradient accumulation (JAX loop.py:273-384, `tpu.accum_mode:
+    micro`): the batch is cut into `accum_steps` microbatches, each takes
+    its own loss (InfoNCE negatives from the microbatch only, the
+    reference's per-rank ContrastiveLoss) and backward, the gradients are
+    averaged, and one AdamW update follows. Each row keeps its global
+    row seeds and augmentation, so `accum_steps=1` is the plain step.
+    Returns the mean of the microbatch losses."""
+    check = _state_check(model, disable_lora)
+
+    def train_step(state, batch, step_seed):
+        check(state)
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        labels = batch["labels"]
+        b = labels.shape[0]
+        seeds = tower_row_seeds(step_seed, b, labels.device)
+        aug = draw_batch_aug(batch, step_seed, color_jitter)
+        total = torch.zeros((), device=labels.device)
+        for rows in _micro_rows(b, accum_steps):
+            embs, _ = embed_train(
+                model, batch_rows(batch, rows), batch_rows(seeds, rows),
+                aug_rows(aug, rows),
+                openclip_norm=openclip_norm, color_jitter=color_jitter,
+                remat=remat)
+            loss = multimodal_contrastive_loss(
+                embs, labels[rows],
+                logit_scale_value(model, logit_scale)) / accum_steps
+            loss.backward()
+            total = total + loss.detach()
+        state.apply_gradients()
+        return state, total
+
+    return train_step
+
+
+def make_gradcache_train_step(model, accum_steps: int,
+                              logit_scale: float = LOGIT_SCALE,
+                              openclip_norm: bool = False,
+                              disable_lora: bool = False,
+                              color_jitter: bool = False,
+                              steps_per_call: int = 1, merged_model=None,
+                              s1_image_batch: int = 0,
+                              cache_aug: bool = False, s1_chunk: int = 0):
+    """Accumulation with full-batch InfoNCE negatives (GradCache, Gao et
+    al. 2021; JAX loop.py:387-780), the reference's batch-400 ClipLoss
+    semantics at a microbatch's activation memory:
+      1. embed every row without gradients, caching the (B, D) embeddings;
+      2. one loss over the full batch, its gradient with respect to the
+         cached embeddings (and to a learnable logit scale, whose gradient
+         flows through this stage only);
+      3. each microbatch again with gradients, pulling its rows of the
+         stage-2 gradient back with `torch.autograd.backward`; the
+         gradients accumulate, then one AdamW update.
+    Every row's dropout masks and augmentation follow the step seed and its
+    global row (`tower_row_seeds`, `draw_batch_aug`), however rows are
+    grouped, so stage 3 recomputes stage 1's embeddings up to the rounding
+    of another grouping, and the gradient is the full-batch step's.
+
+    Stage 1 runs in chunks: `s1_chunk` rows for every tower, else
+    `s1_image_batch` rows for the image tower, else one microbatch. It runs
+    on `merged_model` when given: the same architecture at LoRA rank 0
+    (`load_clip_model(..., lora_rank=0)`, or built on the meta device),
+    which `models/lora.share_merged` binds to `model`'s tensors; only its
+    folded projections are recomputed, once a step. `cache_aug`: stage 3
+    takes stage 1's augmented images instead of transforming again (the
+    same pixels). `steps_per_call > 1` raises: ROADMAP.md queue 1, item 2
+    (CUDA graphs)."""
+    if steps_per_call > 1:
+        raise NotImplementedError(
+            "steps_per_call > 1 (several GradCache steps per call) is not "
+            "ported yet: ROADMAP.md queue 1, item 2 (make_scan_train_step "
+            "and steps_per_call as CUDA graphs)")
+    if disable_lora:
+        merged_model = None  # no adapters to fold
+    check = _state_check(model, disable_lora)
+    refresh = None
+    if merged_model is not None:
+        refresh = share_merged(merged_model, model)
+
+    towers = ("image", "dna", "language")
+
+    def stage1(s1_model, batch, seeds, aug, b, mb):
+        """Every tower's embeddings of every row, without gradients, in
+        chunks; and the augmented images when `cache_aug`."""
+        if s1_chunk:
+            sizes = dict.fromkeys(towers, (s1_chunk, "s1_chunk"))
+        else:
+            sizes = dict.fromkeys(towers, (mb, "accum_steps"))
+            if s1_image_batch:
+                sizes["image"] = (s1_image_batch, "s1_image_batch")
+        cached, images = {}, []
+        for name in towers:
+            size, what = sizes[name]
+            parts = []
+            for rows in _row_slices(b, size, f"{what}={size}"):
+                embs, image = embed_train(
+                    s1_model, batch_rows(batch, rows),
+                    batch_rows(seeds, rows),
+                    aug_rows(aug, rows),
+                    openclip_norm=openclip_norm, color_jitter=color_jitter,
+                    skip=tuple(t for t in towers if t != name))
+                parts.append(embs.get(name))
+                if name == "image" and cache_aug and image is not None:
+                    images.append(image)
+            if parts[0] is not None:
+                cached[name] = torch.cat(parts)
+        return cached, (torch.cat(images) if images else None)
+
+    def train_step(state, batch, step_seed):
+        check(state)
+        labels = batch["labels"]
+        b = labels.shape[0]
+        micro = _micro_rows(b, accum_steps)
+        seeds = tower_row_seeds(step_seed, b, labels.device)
+        aug = draw_batch_aug(batch, step_seed, color_jitter)
+        s1_model = model if merged_model is None else merged_model
+        s1_model.train()
+        with torch.no_grad():
+            if refresh is not None:
+                refresh()
+            cached, images = stage1(s1_model, batch, seeds, aug, b,
+                                    b // accum_steps)
+        model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        full = {k: v.detach().requires_grad_() for k, v in cached.items()}
+        loss = multimodal_contrastive_loss(
+            {**{k: None for k in towers
+                if getattr(model, f"{k}_encoder") is not None}, **full},
+            labels, logit_scale_value(model, logit_scale))
+        loss.backward()
+        for rows in micro:
+            embs, _ = embed_train(
+                model, batch_rows(batch, rows), batch_rows(seeds, rows),
+                aug_rows(aug, rows),
+                openclip_norm=openclip_norm, color_jitter=color_jitter,
+                image=None if images is None else images[rows])
+            names = [k for k in full if embs.get(k) is not None]
+            torch.autograd.backward([embs[k] for k in names],
+                                    [full[k].grad[rows] for k in names])
+        state.apply_gradients()
+        return state, loss.detach()
+
+    return train_step
 
 
 def make_scan_train_step(*args, **kwargs):
-    """K steps in one dispatch (JAX loop.py:150); CUDA graphs on the card."""
-    _not_ported("make_scan_train_step")
+    """K steps in one call (JAX loop.py:150); CUDA graphs on the card."""
+    raise NotImplementedError(
+        "make_scan_train_step is not ported yet: ROADMAP.md queue 1, item "
+        "2 (make_scan_train_step and steps_per_call as CUDA graphs)")
 
 
 def train_epoch(state, train_step, dataloader, generator: torch.Generator,
@@ -185,7 +413,8 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
     if steps_per_call > 1:
         raise NotImplementedError(
             "steps_per_call > 1 saves TPU dispatches; the card's counterpart "
-            "(CUDA graphs) is not ported yet: ROADMAP.md queue 1")
+            "is not ported yet: ROADMAP.md queue 1, item 2 "
+            "(make_scan_train_step and steps_per_call as CUDA graphs)")
     cuda = state.device.type == "cuda"
     losses = []
     t_start = time.perf_counter()

@@ -50,6 +50,17 @@ Phases, in order; any failure exits non-zero:
             (train.checkpoint) and restored into a fresh state that runs
             steps 4-6 again, equal to the uninterrupted run; K1, K1m, K2d,
             K3 and K3m launched, K2 and no plain version
+  train_cl  the training entry point, cli/train_cl.run, at full width: the
+            flagship at B=400, bf16, frozen weights in bf16, dropout 0.1,
+            GradCache 4 x 100 (merged stage 1, gc_s1_chunk 200), the device
+            train augmentation from (256, 341) uint8 frames, 2 epochs of 3
+            steps from in-memory loaders, the eval phase after each (480
+            keys, 240 seen, 240 unseen), last/best/config.yaml under the
+            git-ignored build/, a resume from `last` after epoch 0 with
+            epoch 1's losses bit-equal; K1, K2d, K3, K2 and K4 launched, no
+            plain version; then one step under remat "full" and "dots" and
+            the GradCache step against the plain step (gradients, ms, peak
+            memory), and the train augmentation card vs CPU
   probe     the port's top-k decomposition probe at Bq = 256 (K7, K6, K4,
             K5 rows, bioscan_clip_tpu_torch/tools/bench_topk_variants.py)
   parity    the fp32 port on the card against the same model on the CPU:
@@ -77,7 +88,7 @@ import time
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
-              "training", "openclip_training", "probe", "parity")
+              "training", "openclip_training", "train_cl", "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -1834,6 +1845,350 @@ def phase_openclip_training():
     return counts
 
 
+# train_cl phase: the flagship's training entry point at full width
+TRAIN_CL_STEPS = 3       # tpu.max_steps_per_epoch
+TRAIN_CL_EPOCHS = 2
+TRAIN_CL_ACCUM = 4       # GradCache 4 x 100
+TRAIN_CL_S1_CHUNK = 200  # tpu.gc_s1_chunk
+N_CL_KEYS, N_CL_SEEN, N_CL_UNSEEN = 480, 240, 240
+
+
+class _MemoryLoader:
+    """A train loader over batches held in memory: len, iteration and the
+    epoch setter the CLI calls."""
+
+    def __init__(self, batches):
+        self.batches, self.epoch = batches, 0
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def set_epoch(self, epoch):
+        self.epoch = epoch
+
+
+def _train_cl_batch(rng, b, frame_hw=EVAL_FRAME):
+    """A train batch as the loader ships it with `tpu.train_crop` off:
+    (b, 256, 341, 3) uint8 frames (tiled, as `_train_batch`), 658-bp
+    barcodes through the DNA tokenizer, 20-token text, instance labels."""
+    import numpy as np
+
+    rec = _eval_records(rng, b, frame_hw)
+    return {"image_u8": rec["image_u8"], "dna": rec["dna"].astype(np.int64),
+            "language": {k: v.astype(np.int64)
+                         for k, v in rec["language"].items()},
+            "labels": np.arange(b)}
+
+
+def _train_cl_args(root, **tpu):
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+
+    mc = dict(FLAGSHIP, batch_size=TRAIN_BATCH, epochs=TRAIN_CL_EPOCHS,
+              evaluation_period=1, model_output_name="train_cl")
+    return ConfigNode({
+        "model_config": mc, "project_root_path": str(root),
+        "model_output_dir": "ckpt", "save_ckpt": True, "debug_flag": False,
+        "activate_wandb": False, "save_inference": False, "device": "cuda",
+        "inference_and_eval_setting": {"k_list": [1, 3, 5],
+                                       "retrieval_precision": "high"},
+        "tpu": dict({"frozen_dtype": "bfloat16"}, **tpu)})
+
+
+def _step_grads(args, batch, factory, seed=0x7E57, reps=1, merged=False,
+                **kw):
+    """`reps` steps of a fresh flagship model (seeded weights, frozen
+    weights in bf16; `merged`: a rank-0 model for GradCache's stage 1) ->
+    (losses, trainable grads of the last step, card ms per step (CUDA
+    events, steps after the first), peak GiB, state, step, device batch)."""
+    import torch
+
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.train.loop import device_batch
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import (
+        cast_frozen_params,
+        create_train_state,
+    )
+
+    torch.cuda.empty_cache()
+    model = load_clip_model(args, device="cuda", dtype=torch.bfloat16)
+    cast_frozen_params(model)
+    state = create_train_state(model, constant(1e-4))
+    if merged:
+        kw["merged_model"] = load_clip_model(args, device="cuda",
+                                             dtype=torch.bfloat16,
+                                             lora_rank=0)
+    step = factory(model, **kw)
+    b = device_batch(batch, "cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(reps):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        state, loss = step(state, b, seed)
+        ev[1].record()
+        times.append(ev)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = [a.elapsed_time(z) for a, z in times]
+    grads = {n: p.grad.detach().float().clone()
+             for n, p in model.named_parameters() if p.requires_grad}
+    return ([x.item() for x in losses], grads,
+            sum(ms[1:]) / (len(ms) - 1) if len(ms) > 1 else ms[0], peak,
+            state, step, b)
+
+
+def _grad_rel_err(g, ref):
+    """(||g - ref|| / ||ref|| over the whole trainable set, the worst
+    tensor's max |g - ref| / max |ref|, that tensor's name)."""
+    num = sum(float((g[n] - r).square().sum()) for n, r in ref.items())
+    den = sum(float(r.square().sum()) for r in ref.values())
+    worst = max(((g[n] - r).abs().max().item()
+                 / max(r.abs().max().item(), 1e-30), n)
+                for n, r in ref.items())
+    return (num / max(den, 1e-60)) ** 0.5, *worst
+
+
+def phase_train_cl():
+    """The training entry point a user runs, cli/train_cl.run, at full
+    width on the card: the flagship (random seeded weights, bf16, frozen
+    weights in bf16, dropout 0.1) at its B = 400, GradCache 4 x 100 with
+    the merged stage 1 and `gc_s1_chunk` 200, the device augmentation from
+    (256, 341) uint8 frames, 2 epochs of 3 steps, the eval phase after each
+    (480 keys, 240 seen, 240 unseen records), `last`, `best` and
+    `config.yaml` under the repo's git-ignored build/. The loaders are in
+    memory (the card's machine has no h5py): `load_dataloader` in the CLI's
+    namespace gives them. Checks: finite losses; frozen weights unchanged,
+    adapters and heads moved; the files written; a second run resumed from
+    `last` as it stood after epoch 0 repeats epoch 1's losses bit for bit;
+    K1, K2d, K3, K2 and K4 launched and no plain version. Then, outside the
+    CLI: one step at B = 400 under per-layer remat ("full", "dots") against
+    the step without it; the GradCache step's gradients against the plain
+    step's; the device augmentation on the card against the CPU. Returns
+    the launch counts of the first CLI run."""
+    import math
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import bioscan_clip_tpu_torch.models.clip as clip_mod
+    import bioscan_clip_tpu_torch.retrieval.report as report_mod
+    import bioscan_clip_tpu_torch.train.loop as loop_mod
+    from bioscan_clip_tpu_torch.cli import train_cl
+    from bioscan_clip_tpu_torch.data import transforms
+    from bioscan_clip_tpu_torch.train.checkpoint import wait_for_checkpoints
+
+    torch.cuda.empty_cache()
+    log("  " + subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    rng = np.random.default_rng(10)
+    t0 = time.perf_counter()
+    train = _MemoryLoader([_train_cl_batch(rng, TRAIN_BATCH)
+                           for _ in range(TRAIN_CL_STEPS)])
+    keys_rec = _eval_records(rng, N_CL_KEYS, EVAL_FRAME)
+    seen = _batches(_eval_records(rng, N_CL_SEEN, EVAL_FRAME, like=_take(
+        keys_rec, np.arange(N_CL_SEEN))), N_CL_SEEN)
+    unseen = _batches(_eval_records(rng, N_CL_UNSEEN, EVAL_FRAME, snps=4,
+                                    like=_take(keys_rec, np.arange(
+                                        N_CL_KEYS - N_CL_UNSEEN,
+                                        N_CL_KEYS))), N_CL_UNSEEN)
+    keys = _batches(keys_rec, N_CL_KEYS)
+    log(f"  synthetic data: {1e3 * (time.perf_counter() - t0):.0f} ms")
+    root = Path("build") / "chip_smoke_train_cl"
+    shutil.rmtree(root, ignore_errors=True)
+    args = _train_cl_args(root, accum_steps=TRAIN_CL_ACCUM,
+                          gradcache_merged=True, gc_s1_chunk=TRAIN_CL_S1_CHUNK,
+                          max_steps_per_epoch=TRAIN_CL_STEPS)
+
+    built, eval_s = {}, {"s": 0.0}
+    real_load = clip_mod.load_clip_model
+    real_extract = loop_mod.extract_features
+    real_sweep = report_mod.inference_and_print_result
+
+    def load(*a, **kw):
+        model = real_load(*a, **kw)
+        if kw.get("lora_rank") is None:  # the trained model, not stage 1's
+            built["model"] = model
+            built["init"] = {n: p.detach().clone()
+                             for n, p in model.named_parameters()}
+        return model
+
+    def timed(fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            eval_s["s"] += time.perf_counter() - t
+            return out
+        return call
+
+    copy = root / "after_epoch_0"
+    lines = []
+
+    def out(line):
+        lines.append(line)
+        if not line.startswith(("Initialize", "Construct")) and (
+                "ckpt" in line or line.startswith("epoch")
+                or "Resumed" in line or "merged" in line):
+            log(f"    | {line}")
+        if line.startswith("Last ckpt: ") and not copy.exists():
+            wait_for_checkpoints()  # `last` as it stood after epoch 0
+            copy.mkdir(parents=True)
+            shutil.copy(line[len("Last ckpt: "):], copy / "last")
+
+    def losses_of(lns, epoch):
+        prefix = f"epoch {epoch} losses "
+        return [float(x) for x in next(
+            ln[len(prefix):] for ln in lns if ln.startswith(prefix)
+        ).strip("[]").split(",")]
+
+    real_loaders = train_cl.load_dataloader
+    train_cl.load_dataloader = lambda a, **kw: (train, seen, unseen, keys)
+    clip_mod.load_clip_model = load
+    loop_mod.extract_features = timed(real_extract)
+    report_mod.inference_and_print_result = timed(real_sweep)
+    try:
+        reset_counts()  # the train_cl path's launches are counted from here
+        t = time.perf_counter()
+        state, best = train_cl.run(args, out=out)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts, plain = launch_counts(), plain_calls()
+        eval_1 = eval_s["s"]
+        first = [losses_of(lines, e) for e in range(TRAIN_CL_EPOCHS)]
+        model, init = built["model"], built["init"]
+        labels = state.labels
+        frozen = [n for n, lab in labels.items() if lab == "frozen"]
+        params = dict(model.named_parameters())
+        moved = [n for n in frozen if not torch.equal(
+            params[n], init[n].to(params[n].dtype))]
+        still = [n for n, lab in labels.items()
+                 if lab != "frozen" and torch.equal(params[n], init[n])]
+        folder = Path(next(ln for ln in lines if ln.startswith(
+            "Last ckpt: "))[len("Last ckpt: "):]).parent
+        files = sorted(p.name for p in folder.iterdir())
+        rates = [ln for ln in lines if re.match(r"epoch \d+: ", ln)]
+        log(f"  train_cl run: {run_s:.1f} s for {TRAIN_CL_EPOCHS} epochs of "
+            f"{TRAIN_CL_STEPS} steps at B={TRAIN_BATCH} (GradCache "
+            f"{TRAIN_CL_ACCUM} x {TRAIN_BATCH // TRAIN_CL_ACCUM}); eval phase "
+            f"{eval_1:.1f} s in all ({eval_1 / TRAIN_CL_EPOCHS:.1f} s per "
+            f"eval); {rates}; best {best:.4f}; files {files}")
+        log(f"  losses by epoch: {first}")
+        log(f"  launches on the train_cl path: {counts}; plain calls {plain}")
+        del state, model, init, params, built["model"], built["init"]
+        torch.cuda.empty_cache()
+
+        resumed = []
+        args2 = _train_cl_args(root, accum_steps=TRAIN_CL_ACCUM,
+                               gradcache_merged=True,
+                               gc_s1_chunk=TRAIN_CL_S1_CHUNK,
+                               max_steps_per_epoch=TRAIN_CL_STEPS)
+        args2["resume"] = str(copy)
+        args2["save_ckpt"] = False
+        state2, _ = train_cl.run(args2, out=resumed.append)
+        again = losses_of(resumed, 1)
+        log(f"  resumed from `last` after epoch 0: epoch 1 losses {again} vs "
+            f"{first[1]}: bit-equal {again == first[1]}")
+        del state2
+        built.clear()
+    finally:
+        train_cl.load_dataloader = real_loaders
+        clip_mod.load_clip_model = real_load
+        loop_mod.extract_features = real_extract
+        report_mod.inference_and_print_result = real_sweep
+        wait_for_checkpoints()
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    if not all(math.isfinite(x) for ep in first for x in ep):
+        raise AssertionError(f"train_cl: losses {first}")
+    if moved or still:
+        raise AssertionError(f"train_cl: frozen moved {moved[:3]}, "
+                             f"trainable still {still[:3]}")
+    if not {"last", "best", "config.yaml"} <= set(files):
+        raise AssertionError(f"train_cl: run folder holds {files}")
+    if again != first[1]:
+        raise AssertionError(f"train_cl resume: {again} vs {first[1]}")
+    want = ("mha_packed", "mha_dropout", "mha_bwd", "mha", "topk")
+    if any(counts[k] <= 0 for k in want) or any(plain.values()):
+        raise AssertionError(f"train_cl: launches {counts}, plain {plain}")
+
+    # ---- outside the CLI: remat, GradCache against the plain step
+    from bioscan_clip_tpu_torch.train.loop import (
+        make_gradcache_train_step,
+        make_train_step,
+    )
+
+    batch = train.batches[0]
+    plain_args = _train_cl_args(root)
+    l0, g0, ms0, peak0, st, step, b = _step_grads(plain_args, batch,
+                                                  make_train_step, reps=3)
+    del st, step, b
+    log(f"  plain step: {ms0:.1f} ms (CUDA events, steps 2-3), peak "
+        f"{peak0:.2f} GiB, samples/s {1e3 * TRAIN_BATCH / ms0:.1f}")
+    for policy in ("full", "dots"):
+        r_args = _train_cl_args(root, remat=True, remat_policy=policy)
+        lr, gr, msr, peakr, st, step, b = _step_grads(
+            r_args, batch, make_train_step, reps=3)
+        del st, step, b
+        norm, rel, name = _grad_rel_err(gr, g0)
+        drel = abs(lr[0] - l0[0]) / abs(l0[0])
+        log(f"  remat {policy}: {msr:.1f} ms (CUDA events), peak "
+            f"{peakr:.2f} GiB, samples/s {1e3 * TRAIN_BATCH / msr:.1f}; loss "
+            f"{lr[0]:.7f} vs {l0[0]:.7f} (rel {drel:.3g}), grads rel "
+            f"{norm:.3g} (norm), worst tensor {rel:.3g} ({name}) (tol: loss "
+            "1e-3, grads 2e-2 max, bf16)")
+        if not (drel <= 1e-3 and rel <= 2e-2):
+            raise AssertionError(f"remat {policy}: loss {drel}, grads {rel}")
+    lg, gg, msg, peakg, st, step, b = _step_grads(
+        plain_args, batch, make_gradcache_train_step, reps=3,
+        merged=True, accum_steps=TRAIN_CL_ACCUM,
+        s1_chunk=TRAIN_CL_S1_CHUNK)
+    norm, rel, name = _grad_rel_err(gg, g0)
+    drel = abs(lg[0] - l0[0]) / abs(l0[0])
+    log(f"  GradCache {TRAIN_CL_ACCUM} x {TRAIN_BATCH // TRAIN_CL_ACCUM} "
+        f"(merged stage 1, s1_chunk {TRAIN_CL_S1_CHUNK}): {msg:.1f} ms (CUDA "
+        f"events), peak {peakg:.2f} GiB, samples/s "
+        f"{1e3 * TRAIN_BATCH / msg:.1f}; loss rel {drel:.3g}; grads against "
+        f"the plain step: rel {norm:.3g} (norm; tol 5e-2, bf16), worst "
+        f"tensor max rel {rel:.3g} ({name})")
+    # bf16: stage 1's embeddings (merged weights, chunks of 200) differ from
+    # the recompute's by ~2^-8, which the logit scale 1/0.07 turns into a
+    # few percent of the softmax; fp32 is exact to 1e-4 (tests/
+    # test_torch_gpu.py) and to 1e-5 on the CPU (tests/test_torch_gradcache.py)
+    if not (drel <= 1e-3 and norm <= 5e-2):
+        raise AssertionError(f"GradCache vs plain: loss {drel}, grads {rel}")
+    _profile_step(st, step, batch)
+    del st, step, b
+    torch.cuda.empty_cache()
+
+    # ---- the device augmentation on the card against the CPU
+    u8 = torch.from_numpy(batch["image_u8"][:32])
+    aug = transforms.draw_train_aug(0xA11CE, u8.shape[0], EVAL_FRAME,
+                                    jitter=True)
+    out_c = transforms.train_transform(u8.cuda(), aug, normalize=True,
+                                       jitter=True).cpu()
+    ref = transforms.train_transform(u8, aug, normalize=True, jitter=True)
+    err = (out_c - ref).abs().max().item()
+    log(f"  train_transform {EVAL_FRAME} -> 224, normalize + jitter: max "
+        f"|card - cpu| {err:.3g} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"train_transform card vs cpu: {err}")
+    log("phase train_cl ok")
+    return counts
+
+
 def _check_resume(fresh_state, ckpt_dir, batch, ref, ref_losses, train0,
                   resume_at):
     """Restore the checkpoint into a state built from other weights and
@@ -2100,6 +2455,8 @@ def main(argv=None) -> int:
         path_counts["training"] = phase_training()
     if "openclip_training" in phases:
         path_counts["openclip_training"] = phase_openclip_training()
+    if "train_cl" in phases:
+        path_counts["train_cl"] = phase_train_cl()
     if "probe" in phases:
         path_counts["probe"] = phase_probe()
     if "parity" in phases:

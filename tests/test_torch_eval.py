@@ -209,8 +209,10 @@ def test_factories_and_cancellation(dataset_path):
         args, for_pretrain=False)
     assert (train.split, train.shuffle, keys.split) == ("train_seen", True,
                                                         "all_keys")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        dataset.load_dataloader(args)  # the pre-training loader
+    pre = dataset.load_dataloader(args)[0]  # the pre-training loader
+    ref = jax_dataset.load_dataloader(args)[0]
+    assert (pre.split, pre.for_training, pre.drop_last, len(pre)) == (
+        ref.split, True, True, len(ref))
     from bioscan_clip_tpu_torch.data.hdf5 import get_len_dict
 
     assert get_len_dict(args)["val_seen"] == 12

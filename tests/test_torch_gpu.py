@@ -668,3 +668,91 @@ def test_bf16_bodies_at_the_other_head_dims(gen, hd):
     _close_grads(dqkv.split(d, dim=-1),
                  attention.mha_bwd_reference(q, k, v, g, heads,
                                              mask=mask)[:3], 2e-2)
+
+
+def test_train_transform_on_the_card_matches_the_cpu(gen):
+    """The device train augmentation (crop-resize products in fp32, never
+    TF32; flips; rotation; CLIP normalize; color jitter) on the card
+    against the same parameters on the CPU, atol 1e-5 (fp32 sums of the
+    crop-resize products in another order)."""
+    from bioscan_clip_tpu_torch.data import transforms
+
+    u8 = torch.randint(0, 256, (16, 256, 341, 3), dtype=torch.uint8,
+                       device="cuda", generator=gen)
+    aug = transforms.draw_train_aug(0x5EED, 16, (256, 341), jitter=True)
+    kw = dict(normalize=True, jitter=True)
+    out = transforms.train_transform(u8, aug, **kw)
+    ref = transforms.train_transform(u8.cpu(), aug, **kw)
+    assert out.shape == (16, 224, 224, 3)
+    assert (out.cpu() - ref).abs().max().item() <= 1e-5
+
+
+def test_gradcache_matches_the_plain_step_on_the_card(gen):
+    """GradCache (2 microbatches, merged stage 1) against the plain
+    full-batch step, fp32, the flagship's towers at full width and 2
+    layers, B = 8, dropout 0.1: loss 1e-5 relative, gradients 1e-4 of each
+    tensor's max |g| (cuBLAS may pick other products for other row
+    counts)."""
+    import dataclasses
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BARCODE_BERT_CONFIG,
+        BERT_SMALL_CONFIG,
+        BarcodeBertDnaEncoder,
+        BertTextEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP, init_weights
+    from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+    from bioscan_clip_tpu_torch.train.loop import (
+        make_gradcache_train_step,
+        make_train_step,
+    )
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    def model(rank=4):
+        two = dict(num_layers=2, lora_rank=rank)
+        m = MultiModalCLIP(
+            image_encoder=ViTImageEncoder(ViTConfig(**two)),
+            dna_encoder=BarcodeBertDnaEncoder(
+                dataclasses.replace(BARCODE_BERT_CONFIG, **two)),
+            language_encoder=BertTextEncoder(
+                dataclasses.replace(BERT_SMALL_CONFIG, **two)))
+        m = init_weights(m.cuda(), seed=1)
+        g = torch.Generator(device="cuda").manual_seed(2)
+        with torch.no_grad():  # adapters off zero, so both halves train
+            for n, p in m.named_parameters():
+                if "linear_b" in n or ".w_b." in n:
+                    p.normal_(0, 0.02, generator=g)
+        return m
+
+    b = 8
+    mask = (torch.arange(20, device="cuda")[None]
+            < torch.randint(6, 21, (b, 1), device="cuda", generator=gen))
+    batch = {
+        "image_u8": torch.randint(0, 256, (b, 256, 341, 3),
+                                  dtype=torch.uint8, device="cuda",
+                                  generator=gen),
+        "dna": torch.randint(0, 1027, (b, 133), device="cuda",
+                             generator=gen),
+        "language": {
+            "input_ids": torch.randint(0, 30522, (b, 20), device="cuda",
+                                       generator=gen) * mask,
+            "token_type_ids": torch.zeros(b, 20, dtype=torch.int64,
+                                          device="cuda"),
+            "attention_mask": mask.long()},
+        "labels": torch.arange(b, device="cuda"),
+    }
+    runs = []
+    for factory, kw in ((make_train_step, {}),
+                        (make_gradcache_train_step,
+                         {"accum_steps": 2, "merged_model": model(0)})):
+        m = model()
+        state = create_train_state(m, constant(1e-3))
+        _, loss = factory(m, **kw)(state, batch, 0x1234)
+        runs.append((loss.item(), {n: p.grad.clone() for n, p in
+                                   m.named_parameters() if p.requires_grad}))
+    (l0, g0), (l1, g1) = runs
+    assert abs(l1 - l0) <= 1e-5 * abs(l0)
+    for n, g in g0.items():
+        assert (g1[n] - g).abs().max().item() <= 1e-4 * g.abs().max().item(), n

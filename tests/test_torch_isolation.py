@@ -31,11 +31,13 @@ def test_no_forbidden_imports():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
-    # the OpenCLIP slices' modules and the probe are among those checked
+    # the OpenCLIP slices' modules, the probe and the training CLI with its
+    # loader and logger are among those checked
     assert {f"bioscan_clip_tpu_torch/{m}.py" for m in (
         "models/openclip", "models/mlp", "models/heads",
         "data/clip_tokenizer", "tools/bench_topk_variants",
-        "train/checkpoint")} <= names
+        "train/checkpoint", "cli/train_cl", "utils/logging",
+        "data/pipeline")} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -60,7 +62,7 @@ def test_import_leaves_jax_out():
     assert "bioscan_clip_tpu_torch" in roots
     # JAX, the JAX package, and the host libraries the card's machine lacks
     leaked = roots & (FORBIDDEN | {"yaml", "PIL", "cv2", "h5py",
-                                   "transformers"})
+                                   "transformers", "wandb", "pandas"})
     assert not leaked, sorted(leaked)
 
 

@@ -1,0 +1,140 @@
+"""The port's training CLI (bioscan_clip_tpu_torch/cli/train_cl.py) end to
+end on the CPU (`device=cpu`), on the synthetic HDF5 fixture, with a tiny
+model (1-layer towers, width 32, dropout 0.1) in place of
+`models.clip.load_clip_model` (the pattern of tests/test_cli.py:186):
+GradCache over 2 microbatches with the merged stage 1, 2 epochs of 2 steps,
+the eval phase after each, `last`, `best` and `config.yaml` written; a run
+resumed from `last` as it stood after epoch 0 repeats the uninterrupted
+run's epoch-1 losses bit for bit (same config, so the same schedule); INSECT
+mode and `tpu.steps_per_call=2` raise, naming their ROADMAP.md entries."""
+
+import ast
+import os
+import shutil
+
+import pytest
+
+from test_torch_train_loader import synthetic_dataset
+from tests.fixtures import SyntheticArgs
+
+
+@pytest.fixture(scope="module")
+def dataset_path():
+    return synthetic_dataset()
+
+
+def tiny_factory(args, device=None, dtype=None, lora_rank=None, **_):
+    """`load_clip_model` at tiny width, seeded like it."""
+    import torch
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BarcodeBertDnaEncoder,
+        BertConfig,
+        BertTextEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import (
+        MultiModalCLIP,
+        init_weights,
+    )
+    from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+
+    rank = 2 if lora_rank is None else lora_rank
+    dtype = dtype or torch.float32
+    kw = dict(hidden_size=32, num_layers=1, num_heads=2,
+              intermediate_size=64, lora_rank=rank)
+    model = MultiModalCLIP(
+        image_encoder=ViTImageEncoder(ViTConfig(
+            image_size=224, patch_size=32, hidden_size=32, num_layers=1,
+            num_heads=2, num_classes=32, lora_rank=rank), dtype),
+        dna_encoder=BarcodeBertDnaEncoder(BertConfig(vocab_size=1027, **kw),
+                                          32, dtype),
+        language_encoder=BertTextEncoder(BertConfig(vocab_size=30522, **kw),
+                                         32, dtype),
+    )
+    return init_weights(model.to(device), seed=0).eval()
+
+
+@pytest.fixture
+def args(dataset_path, tmp_path, monkeypatch):
+    import bioscan_clip_tpu_torch.models.clip as port_clip
+
+    monkeypatch.setattr(port_clip, "load_clip_model", tiny_factory)
+    monkeypatch.chdir(tmp_path)
+    a = SyntheticArgs(dataset_path, batch_size=8)
+    a.cfg.merge({
+        "project_root_path": str(tmp_path),
+        "model_output_dir": "ckpt",
+        "save_ckpt": True,
+        "debug_flag": False,
+        "activate_wandb": False,
+        "device": "cpu",
+        "inference_and_eval_setting": {"k_list": [1, 3, 5]},
+        "tpu": {"accum_steps": 2, "max_steps_per_epoch": 2},
+    })
+    a.cfg.model_config.merge({"epochs": 2, "evaluation_period": 1,
+                              "load_ckpt": False, "model_output_name": "tc"})
+    return a
+
+
+def _losses(lines, epoch):
+    prefix = f"epoch {epoch} losses "
+    return ast.literal_eval(next(ln[len(prefix):] for ln in lines
+                                 if ln.startswith(prefix)))
+
+
+def test_train_cl_gradcache_checkpoints_and_bit_equal_resume(args,
+                                                            tmp_path):
+    from bioscan_clip_tpu_torch.cli import train_cl
+    from bioscan_clip_tpu_torch.train.checkpoint import wait_for_checkpoints
+
+    copy = tmp_path / "after_epoch_0"
+    lines = []
+
+    def out(line):
+        lines.append(line)
+        if line.startswith("Last ckpt: ") and not copy.exists():
+            wait_for_checkpoints()  # `last` as it stood after epoch 0
+            copy.mkdir()
+            shutil.copy(line[len("Last ckpt: "):], copy / "last")
+
+    state, best = train_cl.run(args, out=out)
+    assert state.step == 4 and best is not None
+    assert any("merged (rank-0) towers" in ln for ln in lines)
+    runs = tmp_path / "ckpt" / "tc"
+    folder = runs / sorted(os.listdir(runs))[-1]
+    assert {"last", "best", "config.yaml"} <= set(os.listdir(folder))
+    first = _losses(lines, 1)
+    assert len(first) == 2 and len(_losses(lines, 0)) == 2
+
+    args.cfg.merge({"resume": str(copy)})
+    again = []
+    state2, _ = train_cl.run(args, out=again.append)
+    assert any("Resumed from" in ln and "(epoch 1)" in ln for ln in again)
+    assert not any(ln.startswith("epoch 0 losses") for ln in again)
+    assert _losses(again, 1) == first  # bit for bit
+    assert state2.step == 4
+
+
+def test_insect_mode_and_steps_per_call_raise(args):
+    from bioscan_clip_tpu_torch.cli import train_cl
+
+    args.cfg.tpu.merge({"steps_per_call": 2})
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 2"):
+        train_cl.run(args)
+    args.cfg.model_config.merge({"dataset": "INSECT"})
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1, item 6"):
+        train_cl.run(args)
+
+
+def test_the_cli_needs_cuda_unless_the_cpu_is_asked(args):
+    import torch
+
+    from bioscan_clip_tpu_torch.cli import train_cl
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    args.cfg.pop("device")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cl.run(args)
