@@ -12,6 +12,8 @@ raw.csv and config.json.
     python -m bioscan_clip_tpu_torch.cli.inference_and_eval \\
         'model_config=NAME' 'inference_and_eval_setting.eval_on=val'
 
+`tpu.mesh_shape` shards each key set of the sweep over this host's cards
+(`parallel/mesh.py`, JAX inference_and_eval.py:112).
 `device` (top-level key, default cuda; an error without CUDA) picks where
 the towers and the searches run; `device=cpu` runs the kernels' plain
 versions. `inference_and_eval_setting.retrieval_precision=int8` searches
@@ -110,6 +112,7 @@ def run(args, out=print):
         load_bioscan_dataloader_all_small_splits,
     )
     from bioscan_clip_tpu_torch.device import resolve_device
+    from bioscan_clip_tpu_torch.parallel.mesh import mesh_from_config
     from bioscan_clip_tpu_torch.retrieval.report import (
         inference_and_print_result,
     )
@@ -165,7 +168,7 @@ def run(args, out=print):
     return inference_and_print_result(
         keys_dict, seen_dict, unseen_dict, args=args,
         k_list=list(args.inference_and_eval_setting.k_list), device=device,
-        out=out,
+        mesh=mesh_from_config(args, device), out=out,
     )
 
 

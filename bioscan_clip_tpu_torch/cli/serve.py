@@ -14,6 +14,8 @@ a JSON file.
     python -m bioscan_clip_tpu_torch.cli.serve 'model_config=NAME' \\
         'serve.keys=...' 'serve.once=queries.json'
 
+`tpu.mesh_shape` ({data: N} or {data: -1}) shards the key database over
+this host's cards (`parallel/mesh.py`, JAX serve.py:77).
 `serve.device` picks the device (default `cuda`, an error without CUDA;
 `cpu` runs the kernels' plain versions). `serve.vocab_path` is the
 BERT-small vocab.txt for text queries. `serve.key_precision=default`
@@ -51,6 +53,7 @@ def build_service(args, out=print):
         load_clip_model,
         maybe_merge_lora,
     )
+    from bioscan_clip_tpu_torch.parallel.mesh import mesh_from_config
     from bioscan_clip_tpu_torch.retrieval.service import RetrievalService
 
     mc = args.model_config
@@ -79,6 +82,7 @@ def build_service(args, out=print):
     model = maybe_merge_lora(args, model, device=device, dtype=dtype)
     kw = dict(
         device=device,
+        mesh=mesh_from_config(args, device),
         max_k=int(sv.get("max_k", 5)),
         max_batch=int(sv.get("max_batch", 256)),
         openclip_norm=bool(getattr(mc, "for_open_clip", False)),

@@ -26,8 +26,24 @@ the seen and unseen image->image top-1 species micro accuracy selects
 `best`. The run folder (<project_root_path>/<model_output_dir>/
 <model_output_name>/<stamp>) also holds `config.yaml`.
 
-One process; INSECT mode and `tpu.steps_per_call` > 1 raise, naming their
-ROADMAP.md entries.
+`tpu.fast_ln`: the towers' LayerNorms compute in bf16
+(`load_clip_model(ln_dtype=torch.bfloat16)`, as JAX's `BSCAN_FAST_LN`).
+
+Several cards: one process per card, joined by `parallel/distributed.py`
+(`torchrun --nproc-per-node N -m bioscan_clip_tpu_torch.cli.train_cl ...`
+with `tpu.distributed=auto`, or the `BSCAN_COORDINATOR` /
+`BSCAN_NUM_PROCESSES` / `BSCAN_PROCESS_ID` variables); `tpu.mesh_shape`
+({data: N} or {data: -1}) must then name the process count. Each process
+loads its process-strided shard of every train batch
+(`data/dataset.load_dataloader`), the steps gather the embeddings and sum
+the adapters' gradients (`train/loop.py`), and the losses are the same on
+every process. Process 0 logs, writes wandb, `config.yaml` and the
+checkpoints; every process restores. The eval phase runs on every process
+over the full splits on its own card (JAX's process-local eval,
+train_cl.py:320-334). One process naming several cards raises.
+
+INSECT mode and `tpu.steps_per_call` > 1 raise, naming their ROADMAP.md
+entries.
 """
 
 from __future__ import annotations
@@ -45,9 +61,17 @@ def _tpu(args, key, default):
     return type(default)(tpu_cfg.get(key, default)) if tpu_cfg else default
 
 
-def make_step(args, model, dtype, out=print):
+def ln_dtype_of(args):
+    """The towers' LayerNorm dtype: bf16 under `tpu.fast_ln` (JAX
+    train_cl.py:61-69 sets `BSCAN_FAST_LN`), else fp32."""
+    import torch
+
+    return torch.bfloat16 if _tpu(args, "fast_ln", False) else torch.float32
+
+
+def make_step(args, model, dtype, out=print, mesh=None):
     """The train step `args` asks for (JAX train_cl.py:147-205); `dtype`
-    is the model's compute dtype."""
+    is the model's compute dtype; `mesh` the processes' data axis."""
     from bioscan_clip_tpu_torch.models.clip import load_clip_model
     from bioscan_clip_tpu_torch.train.loop import (
         make_accum_train_step,
@@ -57,7 +81,8 @@ def make_step(args, model, dtype, out=print):
 
     mc = args.model_config
     common = dict(openclip_norm=bool(getattr(mc, "for_open_clip", False)),
-                  disable_lora=bool(getattr(mc, "disable_lora", False)))
+                  disable_lora=bool(getattr(mc, "disable_lora", False)),
+                  mesh=mesh)
     accum = _tpu(args, "accum_steps", 1)
     if accum <= 1:
         return make_train_step(model, **common)
@@ -68,7 +93,8 @@ def make_step(args, model, dtype, out=print):
         # the rank-0 towers; the step binds them to the model's tensors
         # (models/lora.share_merged), so their own weights are dropped
         merged = load_clip_model(args, device=next(model.parameters()).device,
-                                 dtype=dtype, lora_rank=0)
+                                 dtype=dtype, lora_rank=0,
+                                 ln_dtype=ln_dtype_of(args))
         out("GradCache stage 1 on the merged (rank-0) towers")
     return make_gradcache_train_step(
         model, accum, **common, merged_model=merged,
@@ -88,6 +114,33 @@ def selection_metric(acc_dict) -> float:
         return 0.0
 
 
+def train_mesh(args, dev, out=print):
+    """(rank, world, mesh, device) of this process: the process group the
+    config or the environment asks for, and its data axis (None for one
+    process). One process naming several devices raises."""
+    import torch.distributed as dist
+
+    from bioscan_clip_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+        process_device,
+    )
+    from bioscan_clip_tpu_torch.parallel.mesh import (
+        create_mesh,
+        mesh_from_config,
+    )
+    from bioscan_clip_tpu_torch.train.loop import data_axis
+
+    rank, world = maybe_initialize_distributed(args, log=out, device=dev)
+    dev = process_device(dev)
+    if dist.is_initialized():
+        tpu_cfg = getattr(args, "tpu", None)
+        shape = tpu_cfg.get("mesh_shape", None) if tpu_cfg else None
+        return rank, world, create_mesh(shape, devices=[dev]), dev
+    # one process: a mesh of several devices raises (one process per card)
+    data_axis(mesh_from_config(args, dev))
+    return rank, world, None, dev
+
+
 def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
         device=None):
     """Train as `args` says; returns (state, best selection metric)."""
@@ -96,6 +149,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
     from bioscan_clip_tpu_torch.config.core import save_config
     from bioscan_clip_tpu_torch.device import compute_dtype, resolve_device
     from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.parallel.mesh import replicate_module
     from bioscan_clip_tpu_torch.retrieval.report import (
         inference_and_print_result,
     )
@@ -129,17 +183,23 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
             "item 2 (make_scan_train_step and steps_per_call as CUDA "
             "graphs)")
     dev = resolve_device(device or getattr(args, "device", None) or "cuda")
+    rank, world, mesh, dev = train_mesh(args, dev, out=out)
+    if rank:
+        out = _quiet  # process 0 speaks for the run
     dtype = compute_dtype(dev)
     if args.debug_flag:
         args.activate_wandb = False
         args.save_inference = False
         args.save_ckpt = False
+    writer = bool(args.save_ckpt) and rank == 0
 
     out("Construct dataloader...")
-    train_loader, seen_val, unseen_val, all_keys = load_dataloader(args)
+    train_loader, seen_val, unseen_val, all_keys = load_dataloader(
+        args, process_index=rank, process_count=world)
 
     out("Initialize model...")
-    model = load_clip_model(args, device=dev, dtype=dtype)
+    model = load_clip_model(args, device=dev, dtype=dtype,
+                            ln_dtype=ln_dtype_of(args))
     if getattr(mc, "load_ckpt", True):
         ckpt = getattr(mc, "ckpt_path", None)
         if ckpt and os.path.isfile(ckpt):
@@ -150,6 +210,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
     if bool(getattr(mc, "learnable_logit_scale", False)):
         make_logit_scale_param(model)
         out("learnable logit scale enabled (init 1/0.07)")
+    replicate_module(model, mesh)
 
     if not max_steps_per_epoch:
         max_steps_per_epoch = _tpu(args, "max_steps_per_epoch", 0) or None
@@ -174,16 +235,16 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
         start_epoch = state.step // max(steps_per_epoch, 1)
         out(f"Resumed from {resume_dir}/last at step {state.step} "
             f"(epoch {start_epoch})")
-    train_step = make_step(args, model, dtype, out=out)
+    train_step = make_step(args, model, dtype, out=out, mesh=mesh)
 
     wandb_run = WandbRun(
         getattr(mc, "wandb_project_name", "BIOSCAN-CLIP-TPU"),
         getattr(mc, "model_output_name", "run"),
-        activate=bool(getattr(args, "activate_wandb", False)))
+        activate=bool(getattr(args, "activate_wandb", False)) and rank == 0)
     stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H%M%S")
     folder = os.path.join(args.project_root_path, args.model_output_dir,
                           mc.model_output_name, stamp)
-    if args.save_ckpt:
+    if writer:
         os.makedirs(folder, exist_ok=True)
         save_config(args, os.path.join(folder, "config.yaml"))
 
@@ -202,7 +263,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
         try:
             state, stats = train_epoch(
                 state, train_step, loader, state.generator, epoch,
-                mc.epochs, logger=out,
+                mc.epochs, logger=out, wandb_run=wandb_run,
                 profile_dir=profile_dir if epoch == start_epoch else None,
                 profile_steps=int(getattr(args, "profile_steps", 5)))
         finally:
@@ -220,7 +281,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
             epoch % mc.evaluation_period == 0 or epoch == mc.epochs - 1)
         if not eval_now:
             continue
-        if args.save_ckpt:
+        if writer:
             # in the background: the eval phase runs while `last` is written
             save_checkpoint(folder, state, name="last", block=False)
             out(f"Last ckpt: {folder}/last")
@@ -236,7 +297,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
         overall = selection_metric(acc_dict)
         if best_acc is None or overall > best_acc:
             best_acc, best_epoch = overall, epoch
-            if args.save_ckpt:
+            if writer:
                 save_checkpoint(folder, state, name="best")
                 out(f"Best ckpt: {folder}/best")
         wandb_run.log({"overall_acc": overall, "best_epoch": best_epoch,
@@ -244,6 +305,10 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
     wandb_run.finish()
     wait_for_checkpoints()
     return state, best_acc
+
+
+def _quiet(*_):
+    pass
 
 
 def main(argv=None):

@@ -9,15 +9,16 @@ LayerNorms compute in their own dtype, an explicit constructor argument
 Per-layer remat (JAX common.py:46-108, `tpu.remat` / `tpu.remat_policy`)
 runs each tower layer under `torch.utils.checkpoint` (non-reentrant) when
 gradients are on. "full" recomputes the whole layer in the backward; the
-other policies are selective checkpointing over the ops they save:
-- "dots": every matmul output (`aten.mm`, `aten.addmm`, `aten.bmm`);
+other policies are selective checkpointing over the ops they save, and
+each saves the attention output (JAX's `attn_ctx`: the `bscan::mha*`
+custom ops of `ops/attention.py`, so the backward launches no attention
+forward again):
+- "dots": every unbatched matmul output (`aten.mm`, `aten.addmm`; JAX's
+  `dots_with_no_batch_dims_saveable` leaves batched products out);
 - "dots_act": "dots" plus the GELU (JAX saves its `gelu_erf`, the erfc
   intermediate; the port's GELU is one `aten.gelu`, whose output is saved);
 - "narrow": the fc1 output (`mlp_pre`, the matmul under `remat_tag`);
 - "wide": "dots" plus the LayerNorm outputs (`aten.native_layer_norm`).
-JAX's policies also save the attention output (`attn_ctx`). The port's
-attention is a `torch.autograd.Function` over ctypes launches, which a
-selective policy does not see, so the recompute launches K1/K2d again.
 Row-keyed dropout draws no torch RNG: the recompute draws the same masks.
 """
 
@@ -35,7 +36,12 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from bioscan_clip_tpu_torch.ops.attention import _keep_threshold, _mix32, u32
+from bioscan_clip_tpu_torch.ops.attention import (
+    ATTENTION_OPS,
+    _keep_threshold,
+    _mix32,
+    u32,
+)
 
 
 def gelu_exact(x):
@@ -46,13 +52,13 @@ def gelu_exact(x):
 
 REMAT_POLICIES = ("full", "dots", "dots_act", "narrow", "wide")
 _aten = torch.ops.aten
-_MATMULS = frozenset({_aten.mm.default, _aten.addmm.default,
-                      _aten.bmm.default})
+_MATMULS = frozenset({_aten.mm.default, _aten.addmm.default})
 _SAVED = {
-    "dots": _MATMULS,
-    "dots_act": _MATMULS | {_aten.erfc.default, _aten.gelu.default},
-    "narrow": frozenset(),
-    "wide": _MATMULS | {_aten.native_layer_norm.default},
+    "dots": _MATMULS | ATTENTION_OPS,
+    "dots_act": _MATMULS | ATTENTION_OPS | {_aten.erfc.default,
+                                            _aten.gelu.default},
+    "narrow": ATTENTION_OPS,
+    "wide": _MATMULS | ATTENTION_OPS | {_aten.native_layer_norm.default},
 }
 _tag = threading.local()
 

@@ -14,9 +14,12 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
   and with an (N, N) score mask (`has_mask`, :363-367) K3m, the backward of
   K1m, counted apart in `mha_bwd.mask_launches`.
 
-`mha_packed` and `mha` are `torch.autograd.Function`s, as the JAX ops are
-`jax.custom_vjp`s (:543-677): the forward is K1/K1m/K2/K2d, the backward K3
-or K3m. On a CUDA tensor each wrapper launches its hand-written kernel
+`mha_packed`, `mha` and `mha_dropout` call `torch.library` custom ops
+(`bscan::mha_packed`, `bscan::mha`, `bscan::mha_dropout`) with a registered
+backward, as the JAX ops are `jax.custom_vjp`s (:543-677): the forward is
+K1/K1m/K2/K2d, the backward K3 or K3m. As ops of the dispatcher their
+outputs are what a selective remat policy saves (`ATTENTION_OPS`, JAX's
+`attn_ctx`). On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
 `mma.sync`, the forward above N = 32; fp32 in FFMA) or raises; on a CPU
 tensor it runs its plain PyTorch version (`mha_reference`,
@@ -294,14 +297,15 @@ def _launch_fwd(ptrs, out, b, n, heads, hd, row_stride, scale, dtype, bias,
     _check_smem("mha kernel", smem(n, hd, _DTYPE_CODE[dtype]), n, hd, dev)
     rows, scalar, thr, kscale, drop = _drop_args(rate, seed, b, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(
-        *ptrs, None if bias is None else bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), out.data_ptr(),
-        b, n, heads, hd, row_stride, n * row_stride, float(scale),
-        _DTYPE_CODE[dtype],
-        None if rows is None else rows.data_ptr(), scalar, thr, kscale, drop,
-        stream,
-    )
+    with torch.cuda.device(dev):  # a launch goes to the current card
+        err = fn(
+            *ptrs, None if bias is None else bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), out.data_ptr(),
+            b, n, heads, hd, row_stride, n * row_stride, float(scale),
+            _DTYPE_CODE[dtype],
+            None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+            drop, stream,
+        )
     _build.check(lib, err, "mha_fwd launch")
 
 
@@ -384,39 +388,95 @@ def _split_forward(q, k, v, bias, seed, heads, scale, rate):
     return out
 
 
-class _PackedAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, qkv, mask, heads, scale):
-        ctx.save_for_backward(qkv, mask)
-        ctx.cfg = (heads, scale)
-        return _packed_forward(qkv, mask, heads, scale)
+# The forwards are `torch.library` custom ops, so autograd and a selective
+# checkpoint policy see each attention as one op whose output can be saved
+# (JAX's `checkpoint_name(..., "attn_ctx")`); the registered backward is K3 /
+# K3m. Where autograd records nothing (no_grad, inference_mode: serving,
+# extraction, GradCache stage 1) the forward is called directly, without the
+# op's dispatch. The schemas are spelled out: this module's annotations are
+# strings.
 
-    @staticmethod
-    def backward(ctx, g):
-        qkv, mask = ctx.saved_tensors
-        heads, scale = ctx.cfg
-        dqkv = mha_bwd(None, None, None, g.contiguous(), heads, scale=scale,
-                       packed_qkv=qkv, mask=mask)
-        return dqkv, None, None, None
+@torch.library.custom_op(
+    "bscan::mha_packed", mutates_args=(),
+    schema="(Tensor qkv, Tensor? mask, int heads, float scale) -> Tensor")
+def _mha_packed_op(qkv, mask, heads, scale):
+    return _packed_forward(qkv, mask, heads, scale)
 
 
-class _SplitAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias, seed, heads, scale, rate):
-        ctx.save_for_backward(q, k, v, bias, seed)
-        ctx.cfg = (heads, scale, rate)
-        return _split_forward(q, k, v, bias, seed, heads, scale, rate)
+@_mha_packed_op.register_fake
+def _(qkv, mask, heads, scale):
+    return qkv.new_empty((*qkv.shape[:-1], qkv.shape[-1] // 3))
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, bias, seed = ctx.saved_tensors
-        heads, scale, rate = ctx.cfg
-        dq, dk, dv, dbias = mha_bwd(
-            q, k, v, g.contiguous(), heads, bias=bias, scale=scale,
-            dropout_rate=rate, dropout_seed=seed,
-            need_dbias=ctx.needs_input_grad[3],
-        )
-        return dq, dk, dv, dbias, None, None, None, None
+
+def _packed_setup(ctx, inputs, output):
+    qkv, mask, heads, scale = inputs
+    ctx.save_for_backward(qkv, mask)
+    ctx.cfg = (heads, scale)
+
+
+def _packed_backward(ctx, g):
+    qkv, mask = ctx.saved_tensors
+    heads, scale = ctx.cfg
+    dqkv = mha_bwd(None, None, None, g.contiguous(), heads, scale=scale,
+                   packed_qkv=qkv, mask=mask)
+    return dqkv, None, None, None
+
+
+_mha_packed_op.register_autograd(_packed_backward, setup_context=_packed_setup)
+
+
+@torch.library.custom_op(
+    "bscan::mha", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, int heads, "
+           "float scale) -> Tensor")
+def _mha_op(q, k, v, bias, heads, scale):
+    return _split_forward(q, k, v, bias, None, heads, scale, 0.0)
+
+
+@torch.library.custom_op(
+    "bscan::mha_dropout", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? bias, Tensor seed, "
+           "int heads, float scale, float rate) -> Tensor")
+def _mha_dropout_op(q, k, v, bias, seed, heads, scale, rate):
+    return _split_forward(q, k, v, bias, seed, heads, scale, rate)
+
+
+@_mha_op.register_fake
+def _(q, k, v, bias, heads, scale):
+    return torch.empty_like(q)
+
+
+@_mha_dropout_op.register_fake
+def _(q, k, v, bias, seed, heads, scale, rate):
+    return torch.empty_like(q)
+
+
+def _split_setup(ctx, inputs, output):
+    q, k, v, bias = inputs[:4]
+    seed = inputs[4] if len(inputs) == 8 else None
+    ctx.save_for_backward(q, k, v, bias, seed)
+    ctx.cfg = inputs[-3:] if seed is not None else (*inputs[-2:], 0.0)
+
+
+def _split_backward(ctx, g):
+    q, k, v, bias, seed = ctx.saved_tensors
+    heads, scale, rate = ctx.cfg
+    dq, dk, dv, dbias = mha_bwd(
+        q, k, v, g.contiguous(), heads, bias=bias, scale=scale,
+        dropout_rate=rate, dropout_seed=seed,
+        need_dbias=ctx.needs_input_grad[3],
+    )
+    rest = (None,) * (len(ctx.needs_input_grad) - 4)
+    return (dq, dk, dv, dbias, *rest)
+
+
+_mha_op.register_autograd(_split_backward, setup_context=_split_setup)
+_mha_dropout_op.register_autograd(_split_backward,
+                                  setup_context=_split_setup)
+# the ops a selective remat policy saves (`models/common._selective`)
+ATTENTION_OPS = frozenset({torch.ops.bscan.mha_packed.default,
+                           torch.ops.bscan.mha.default,
+                           torch.ops.bscan.mha_dropout.default})
 
 
 def mha_packed(qkv, heads: int, scale=None, mask=None):
@@ -431,7 +491,9 @@ def mha_packed(qkv, heads: int, scale=None, mask=None):
         raise ValueError(f"mha_packed: last dim {d3} is not 3 * D")
     if scale is None:
         scale = (d3 // 3 // heads) ** -0.5
-    return _PackedAttention.apply(qkv, mask, heads, float(scale))
+    if not torch.is_grad_enabled():
+        return _packed_forward(qkv, mask, heads, float(scale))
+    return _mha_packed_op(qkv, mask, heads, float(scale))
 
 
 mha_packed.launches = 0
@@ -452,8 +514,9 @@ def mha(q, k, v, heads: int, bias=None, scale=None,
                            bias=bias, scale=scale)
     if scale is None:
         scale = (q.shape[-1] // heads) ** -0.5
-    return _SplitAttention.apply(q, k, v, bias, None, heads, float(scale),
-                                 0.0)
+    if not torch.is_grad_enabled():
+        return _split_forward(q, k, v, bias, None, heads, float(scale), 0.0)
+    return _mha_op(q, k, v, bias, heads, float(scale))
 
 
 mha.launches = 0
@@ -468,8 +531,11 @@ def mha_dropout(q, k, v, heads: int, seed, rate: float, bias=None,
     if scale is None:
         scale = (q.shape[-1] // heads) ** -0.5
     # a scalar seed stays on the host (it goes to the kernel by value)
-    return _SplitAttention.apply(q, k, v, bias, u32(seed), heads,
-                                 float(scale), float(rate))
+    if not torch.is_grad_enabled():
+        return _split_forward(q, k, v, bias, u32(seed), heads, float(scale),
+                              float(rate))
+    return _mha_dropout_op(q, k, v, bias, u32(seed), heads, float(scale),
+                           float(rate))
 
 
 mha_dropout.launches = 0
@@ -539,16 +605,17 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
         part = torch.empty((b, heads, n), dtype=torch.float32, device=dev)
     rows, scalar, thr, kscale, drop = _drop_args(dropout_rate, dropout_seed,
                                                  b, dev)
-    err = fn(
-        *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
-        None if mask is None else mask.data_ptr(), *outs,
-        None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
-        None if part is None else part.data_ptr(),
-        b, n, heads, d // heads, row, n * row, row, n * row, float(scale),
-        _DTYPE_CODE[q.dtype],
-        None if rows is None else rows.data_ptr(), scalar, thr, kscale, drop,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = fn(
+            *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), *outs,
+            None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, n, heads, d // heads, row, n * row, row, n * row,
+            float(scale), _DTYPE_CODE[q.dtype],
+            None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+            drop, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(lib, err, "mha_bwd launch")
     if mask is None:
         mha_bwd.launches += 1

@@ -2,9 +2,9 @@
 and the two kernels of the top-k decomposition probe: the matmul-only
 control (K6) and the dispatch floor (K7).
 
-Counterpart of bioscan_clip_tpu/ops/topk_pallas.py (`pallas_topk` :185, its
-numpy wrapper `topk_search_pallas` :320, `pallas_topk_i8` :253 and
-`quantize_rows_i8` :310) and of tools/bench_topk_variants.py (`mm_only` :78,
+Counterpart of bioscan_clip_tpu/ops/topk_pallas.py (`pallas_topk` :185,
+`pallas_topk_i8` :253 and `quantize_rows_i8` :310; the numpy wrapper
+`topk_search_pallas` :320 is `retrieval/engine.topk_search`'s job here) and of tools/bench_topk_variants.py (`mm_only` :78,
 `tiny` :118). On CUDA tensors `topk`, `topk_i8`, `mm_only` and `tiny` launch
 the hand-written kernels in `csrc/topk.cu` or raise; on CPU tensors they run
 `topk_reference`, `topk_i8_reference`, `mm_only_reference` and
@@ -264,12 +264,13 @@ def topk(queries, keys, n_valid: int, k: int, precision: str = "high"):
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
     mode = PRECISIONS[precision]
-    err = kern.topk(
-        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode, qb,
-        splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
-        out_v.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):  # a launch goes to the current card
+        err = kern.topk(
+            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
+            qb, splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(kern.lib, err, "topk launch")
     if mode:
         topk.default_launches += 1
@@ -317,12 +318,13 @@ def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
     cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
     out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
-    err = kern.topk_i8(
-        q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
-        k_scales.data_ptr(), bq, n, d, n_valid, k, qb, splits, per_split,
-        cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-        out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = kern.topk_i8(
+            q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
+            k_scales.data_ptr(), bq, n, d, n_valid, k, qb, splits, per_split,
+            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(kern.lib, err, "topk_i8 launch")
     topk_i8.launches += 1
     return out_v, out_i
@@ -389,12 +391,13 @@ def mm_only(queries, keys, n_valid: int, int8: bool = False,
                                 else plan_f32(bq, n, 1, dev))
     part = torch.empty(bq * splits, dtype=torch.float32, device=dev)
     out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
-    err = kern.mm_only(
-        queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
-        2 if int8 else _MM_MODES[precision], qb, splits, per_split,
-        part.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        err = kern.mm_only(
+            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
+            2 if int8 else _MM_MODES[precision], qb, splits, per_split,
+            part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _build.check(kern.lib, err, "mm_only launch")
     mm_only.launches += 1
     return out
@@ -421,58 +424,12 @@ def tiny(x):
         raise ValueError("tiny: needs a non-empty contiguous fp32 tensor")
     kern = _kernel()
     out = torch.empty_like(x)
-    err = kern.tiny(x.data_ptr(), out.data_ptr(), x.numel(),
-                    torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        err = kern.tiny(x.data_ptr(), out.data_ptr(), x.numel(),
+                        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(kern.lib, err, "tiny launch")
     tiny.launches += 1
     return out
 
 
 tiny.launches = 0
-
-
-def topk_search_kernel(query_feature, keys, k: int, device=None,
-                       precision: str = "high"):
-    """numpy queries in, numpy out, like `topk_search_pallas`: (sims (Bq, k)
-    fp32, indices (Bq, k) int64), k clamped to the key count, in `precision`
-    ("high" or "default", as `topk`). `keys` is a numpy (N, D) array
-    (uploaded to `device`) or a tensor already resident on its device (then
-    `device` is ignored)."""
-    if isinstance(keys, torch.Tensor):
-        keys_t = keys
-    else:
-        from bioscan_clip_tpu_torch.device import resolve_device
-
-        keys_t = torch.from_numpy(
-            np.ascontiguousarray(keys, dtype=np.float32)
-        ).to(resolve_device(device))
-    q = np.asarray(query_feature, dtype=np.float32)
-    n_keys = keys_t.shape[0]
-    k_eff = min(k, n_keys)
-    sims = np.empty((q.shape[0], k_eff), np.float32)
-    idxs = np.empty((q.shape[0], k_eff), np.int64)
-    for s in range(0, q.shape[0], QUERY_CHUNK):
-        qc = torch.from_numpy(np.ascontiguousarray(q[s : s + QUERY_CHUNK]))
-        v, i = topk(qc.to(keys_t.device), keys_t, n_keys, k_eff, precision)
-        sims[s : s + qc.shape[0]] = v.cpu().numpy()
-        idxs[s : s + qc.shape[0]] = i.cpu().numpy()
-    return sims, idxs
-
-
-def topk_search_i8_kernel(query_feature, keys_i8, k_scales, k: int):
-    """numpy fp32 queries in, quantized per row on the host as the JAX
-    engine does; resident int8 key codes (N, D) and fp32 scales (N,) on
-    their device. Returns (sims (Bq, k) fp32, indices (Bq, k) int64)."""
-    q_i8, q_sc = quantize_rows_i8(query_feature)
-    dev = keys_i8.device
-    sims = np.empty((q_i8.shape[0], k), np.float32)
-    idxs = np.empty((q_i8.shape[0], k), np.int64)
-    for s in range(0, q_i8.shape[0], QUERY_CHUNK):
-        qc = torch.from_numpy(np.ascontiguousarray(q_i8[s : s + QUERY_CHUNK]))
-        sc = torch.from_numpy(np.ascontiguousarray(
-            q_sc[s : s + QUERY_CHUNK, 0]))
-        v, i = topk_i8(qc.to(dev), sc.to(dev), keys_i8, k_scales,
-                       keys_i8.shape[0], k)
-        sims[s : s + qc.shape[0]] = v.cpu().numpy()
-        idxs[s : s + qc.shape[0]] = i.cpu().numpy()
-    return sims, idxs

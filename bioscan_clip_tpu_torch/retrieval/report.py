@@ -128,10 +128,11 @@ def construct_key_dict(list_of_dict):
 
 def inference_and_print_result(
     keys_dict, seen_dict, unseen_dict, args=None, small_species_list=None,
-    k_list=None, device=None, out=print,
+    k_list=None, device=None, out=print, mesh=None,
 ):
     """Reference-parity sweep (inference_and_eval.py:633-715) on `device`
-    (default cuda). Returns (acc_dict, per_class_acc, pred_dict)."""
+    (default cuda), or with the keys sharded over `mesh`
+    (`parallel/mesh.py`). Returns (acc_dict, per_class_acc, pred_dict)."""
     acc_dict, per_class_acc, pred_dict = {}, {}, {}
     prepared_keys = {}  # key type -> PreparedKeys (one upload per key set)
     k_list = k_list or [1, 3, 5]
@@ -179,7 +180,7 @@ def inference_and_print_result(
             # (up to 5 query types x {seen, unseen} reuse it)
             if kt not in prepared_keys:
                 prepared_keys[kt] = PreparedKeys(
-                    kf, device=device, precision=precision
+                    kf, device=device, precision=precision, mesh=mesh
                 )
             pk = prepared_keys[kt]
 

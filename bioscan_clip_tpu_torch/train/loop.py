@@ -31,6 +31,16 @@ batches into groups of about `group_samples` rows and runs every tower
 once per group: on the card that is 1600 rows by default (as JAX picks on
 the TPU), fewer and larger launches; on the CPU it is off.
 
+Over a mesh of several processes (`parallel/mesh.create_mesh` under a
+process group, one process per card) each step takes the process's own
+rows, global rows [r * B / W, (r + 1) * B / W) of the global batch of B,
+and equals the one-process step on the rank-ordered concatenation: every
+draw (row seeds, augmentation) is made for the global batch and sliced,
+the loss reads the embeddings gathered over the processes
+(`parallel/mesh.gather_rows_grad`), and the adapters' gradients are
+summed over the processes in one flat all_reduce per dtype. The loss is
+the same on every process.
+
 Not ported yet, each raising with its ROADMAP.md queue 1 entry:
 `steps_per_call > 1` and `make_scan_train_step` (a TPU dispatch saver; CUDA
 graphs are the card's counterpart).
@@ -61,6 +71,11 @@ from bioscan_clip_tpu_torch.losses.contrastive import (
 from bioscan_clip_tpu_torch.models.common import row_seeds_init
 from bioscan_clip_tpu_torch.models.lora import share_merged
 from bioscan_clip_tpu_torch.ops.attention import u32
+from bioscan_clip_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    gather_rows,
+    gather_rows_grad,
+)
 from bioscan_clip_tpu_torch.train.state import param_labels
 
 LOGIT_SCALE = 1.0 / 0.07  # fixed temperature (train_cl.py:190)
@@ -120,15 +135,65 @@ def batch_rows(batch: dict, rows: slice) -> dict:
             for k, v in batch.items()}
 
 
-def draw_batch_aug(batch: dict, step_seed, color_jitter: bool = False):
+def draw_batch_aug(batch: dict, step_seed, color_jitter: bool = False,
+                   rows=None):
     """The step's train augmentation parameters for every row of `batch`
     (`data/transforms.draw_train_aug`), or None when it ships no uint8
-    frames."""
+    frames. `rows`: the (global batch size, this process's slice of it)
+    of a step over several processes; the draw is made for the global
+    batch and sliced."""
     u8 = batch.get("image_u8")
     if u8 is None or batch.get("image") is not None:
         return None
-    return draw_train_aug(step_seed, u8.shape[0], tuple(u8.shape[1:3]),
-                          jitter=color_jitter)
+    total, mine = rows or (u8.shape[0], slice(None))
+    return aug_rows(draw_train_aug(step_seed, total, tuple(u8.shape[1:3]),
+                                   jitter=color_jitter), mine)
+
+
+def data_axis(mesh):
+    """The mesh a train step shards over, or None for one process. A
+    single process with several devices does not train: the card idiom is
+    one process per card."""
+    if mesh is None:
+        return None
+    if mesh.group is None:
+        if mesh.size > 1:
+            raise ValueError(
+                f"a train step over {mesh.size} devices of one process: "
+                "launch one process per card instead (torchrun "
+                f"--nproc-per-node {mesh.size}, or the BSCAN_* variables "
+                "of parallel/distributed.py)")
+        return None
+    return mesh
+
+
+def _global_rows(mesh, b: int):
+    """(global batch size, this process's rows of it) for a local batch
+    of b rows."""
+    if mesh is None:
+        return b, slice(0, b)
+    return mesh.size * b, slice(mesh.index * b, (mesh.index + 1) * b)
+
+
+def _step_draws(mesh, batch, step_seed, color_jitter):
+    """This process's row seeds and augmentation parameters, drawn for the
+    global batch and sliced to its rows."""
+    labels = batch["labels"]
+    total, mine = _global_rows(mesh, labels.shape[0])
+    seeds = batch_rows(tower_row_seeds(step_seed, total, labels.device),
+                       mine)
+    return seeds, draw_batch_aug(batch, step_seed, color_jitter,
+                                 rows=(total, mine))
+
+
+def _sum_gradients(model, mesh, skip=("logit_scale",)):
+    """Sum the trainable gradients over the processes; `skip`: parameters
+    whose gradient every process already holds whole (the learnable logit
+    scale sees the full loss on every process)."""
+    if mesh is None:
+        return
+    all_reduce_sum([p.grad for n, p in model.named_parameters()
+                    if p.grad is not None and n not in skip], mesh)
 
 
 def embed_train(model, batch: dict, seeds: dict, aug, *,
@@ -186,7 +251,8 @@ def _state_check(model, disable_lora: bool):
 
 def make_train_step(model, logit_scale: float = LOGIT_SCALE,
                     openclip_norm: bool = False, remat: bool = False,
-                    disable_lora: bool = False, color_jitter: bool = False):
+                    disable_lora: bool = False, color_jitter: bool = False,
+                    mesh=None):
     """train_step(state, batch, step_seed) -> (state, loss) for `model`
     (the model of `state`): forward in train mode, loss, backward over the
     trainable set, AdamW. `batch` is a device batch (`device_batch`); the
@@ -196,19 +262,25 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
     `openclip_norm`: the train images take CLIP's mean and std, as the
     OpenCLIP ablation's do (JAX loop.py:104-107). `remat`: each tower
     under `torch.utils.checkpoint` (JAX loop.py:73-78). `disable_lora`
-    must match the state's trainable set. `train_step.loss_fn` (batch,
+    must match the state's trainable set. `mesh`: the processes' data axis
+    (`batch` is then this process's rows; the embeddings are gathered, so
+    the loss is the global batch's). `train_step.loss_fn` (batch,
     step_seed) is the loss alone, for a caller that differentiates it
     itself."""
     check = _state_check(model, disable_lora)
+    mesh = data_axis(mesh)
 
     def loss_fn(batch, step_seed):
         labels = batch["labels"]
-        seeds = tower_row_seeds(step_seed, labels.shape[0], labels.device)
+        seeds, aug = _step_draws(mesh, batch, step_seed, color_jitter)
         embs, _ = embed_train(
-            model, batch, seeds, draw_batch_aug(batch, step_seed,
-                                                color_jitter),
+            model, batch, seeds, aug,
             openclip_norm=openclip_norm, color_jitter=color_jitter,
             remat=remat)
+        if mesh is not None:
+            embs = {k: None if v is None else gather_rows_grad(v, mesh)
+                    for k, v in embs.items()}
+            labels = gather_rows(labels, mesh)
         return multimodal_contrastive_loss(
             embs, labels, logit_scale_value(model, logit_scale))
 
@@ -218,10 +290,12 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
         state.optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch, step_seed)
         loss.backward()
+        _sum_gradients(model, mesh)
         state.apply_gradients()
         return state, loss.detach()
 
     train_step.loss_fn = loss_fn
+    train_step.world = 1 if mesh is None else mesh.size
     return train_step
 
 
@@ -244,15 +318,29 @@ def make_accum_train_step(model, accum_steps: int,
                           logit_scale: float = LOGIT_SCALE,
                           openclip_norm: bool = False, remat: bool = False,
                           disable_lora: bool = False,
-                          color_jitter: bool = False):
+                          color_jitter: bool = False, mesh=None):
     """Gradient accumulation (JAX loop.py:273-384, `tpu.accum_mode:
     micro`): the batch is cut into `accum_steps` microbatches, each takes
     its own loss (InfoNCE negatives from the microbatch only, the
     reference's per-rank ContrastiveLoss) and backward, the gradients are
     averaged, and one AdamW update follows. Each row keeps its global
     row seeds and augmentation, so `accum_steps=1` is the plain step.
-    Returns the mean of the microbatch losses."""
+    Returns the mean of the microbatch losses.
+
+    Over `mesh`, microbatch i is global rows [i * B / n, (i + 1) * B / n)
+    (JAX loop.py:292-296): with n a multiple of the processes W, each
+    microbatch lies on one process, which runs its n / W microbatches with
+    no exchange; the gradients and losses are then summed over the
+    processes. Any other ratio raises: a microbatch would straddle two
+    processes."""
     check = _state_check(model, disable_lora)
+    mesh = data_axis(mesh)
+    world = 1 if mesh is None else mesh.size
+    if accum_steps % world:
+        raise ValueError(
+            f"accum_mode=micro over {world} processes needs accum_steps a "
+            f"multiple of {world} (got {accum_steps}): each microbatch "
+            "must lie on one process")
 
     def train_step(state, batch, step_seed):
         check(state)
@@ -260,10 +348,10 @@ def make_accum_train_step(model, accum_steps: int,
         state.optimizer.zero_grad(set_to_none=True)
         labels = batch["labels"]
         b = labels.shape[0]
-        seeds = tower_row_seeds(step_seed, b, labels.device)
-        aug = draw_batch_aug(batch, step_seed, color_jitter)
+        seeds, aug = _step_draws(mesh, batch, step_seed, color_jitter)
         total = torch.zeros((), device=labels.device)
-        for rows in _micro_rows(b, accum_steps):
+        _micro_rows(b * world, accum_steps)  # checks the global batch
+        for rows in _micro_rows(b, accum_steps // world):
             embs, _ = embed_train(
                 model, batch_rows(batch, rows), batch_rows(seeds, rows),
                 aug_rows(aug, rows),
@@ -274,9 +362,13 @@ def make_accum_train_step(model, accum_steps: int,
                 logit_scale_value(model, logit_scale)) / accum_steps
             loss.backward()
             total = total + loss.detach()
+        if mesh is not None:
+            _sum_gradients(model, mesh, skip=())
+            all_reduce_sum([total], mesh)
         state.apply_gradients()
         return state, total
 
+    train_step.world = world
     return train_step
 
 
@@ -287,7 +379,8 @@ def make_gradcache_train_step(model, accum_steps: int,
                               color_jitter: bool = False,
                               steps_per_call: int = 1, merged_model=None,
                               s1_image_batch: int = 0,
-                              cache_aug: bool = False, s1_chunk: int = 0):
+                              cache_aug: bool = False, s1_chunk: int = 0,
+                              mesh=None):
     """Accumulation with full-batch InfoNCE negatives (GradCache, Gao et
     al. 2021; JAX loop.py:387-780), the reference's batch-400 ClipLoss
     semantics at a microbatch's activation memory:
@@ -311,7 +404,15 @@ def make_gradcache_train_step(model, accum_steps: int,
     folded projections are recomputed, once a step. `cache_aug`: stage 3
     takes stage 1's augmented images instead of transforming again (the
     same pixels). `steps_per_call > 1` raises: ROADMAP.md queue 1, item 2
-    (CUDA graphs)."""
+    (CUDA graphs).
+
+    Over `mesh`, stage 1 embeds this process's rows and the cached
+    embeddings are gathered without gradients; stage 2 takes the global
+    loss's gradient and each process keeps its rows of it; stage 3 runs
+    locally, in microbatches of B / `accum_steps` rows (at most the
+    process's); the adapters' gradients are then summed over the
+    processes. The logit scale's stage-2 gradient is whole on every
+    process. Chunk sizes count this process's rows."""
     if steps_per_call > 1:
         raise NotImplementedError(
             "steps_per_call > 1 (several GradCache steps per call) is not "
@@ -320,6 +421,7 @@ def make_gradcache_train_step(model, accum_steps: int,
     if disable_lora:
         merged_model = None  # no adapters to fold
     check = _state_check(model, disable_lora)
+    mesh = data_axis(mesh)
     refresh = None
     if merged_model is not None:
         refresh = share_merged(merged_model, model)
@@ -338,6 +440,7 @@ def make_gradcache_train_step(model, accum_steps: int,
         cached, images = {}, []
         for name in towers:
             size, what = sizes[name]
+            size = min(size, b)
             parts = []
             for rows in _row_slices(b, size, f"{what}={size}"):
                 embs, image = embed_train(
@@ -357,16 +460,19 @@ def make_gradcache_train_step(model, accum_steps: int,
         check(state)
         labels = batch["labels"]
         b = labels.shape[0]
-        micro = _micro_rows(b, accum_steps)
-        seeds = tower_row_seeds(step_seed, b, labels.device)
-        aug = draw_batch_aug(batch, step_seed, color_jitter)
+        total, mine = _global_rows(mesh, b)
+        mb = min(_micro_rows(total, accum_steps)[0].stop, b)
+        micro = _row_slices(b, mb, f"accum_steps={accum_steps}")
+        seeds, aug = _step_draws(mesh, batch, step_seed, color_jitter)
         s1_model = model if merged_model is None else merged_model
         s1_model.train()
         with torch.no_grad():
             if refresh is not None:
                 refresh()
-            cached, images = stage1(s1_model, batch, seeds, aug, b,
-                                    b // accum_steps)
+            cached, images = stage1(s1_model, batch, seeds, aug, b, mb)
+            if mesh is not None:
+                cached = {k: gather_rows(v, mesh) for k, v in cached.items()}
+                labels = gather_rows(labels, mesh)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         full = {k: v.detach().requires_grad_() for k, v in cached.items()}
@@ -375,6 +481,7 @@ def make_gradcache_train_step(model, accum_steps: int,
                 if getattr(model, f"{k}_encoder") is not None}, **full},
             labels, logit_scale_value(model, logit_scale))
         loss.backward()
+        grads = {k: v.grad[mine] for k, v in full.items()}
         for rows in micro:
             embs, _ = embed_train(
                 model, batch_rows(batch, rows), batch_rows(seeds, rows),
@@ -383,10 +490,12 @@ def make_gradcache_train_step(model, accum_steps: int,
                 image=None if images is None else images[rows])
             names = [k for k in full if embs.get(k) is not None]
             torch.autograd.backward([embs[k] for k in names],
-                                    [full[k].grad[rows] for k in names])
+                                    [grads[k][rows] for k in names])
+        _sum_gradients(model, mesh)
         state.apply_gradients()
         return state, loss.detach()
 
+    train_step.world = 1 if mesh is None else mesh.size
     return train_step
 
 
@@ -399,11 +508,14 @@ def make_scan_train_step(*args, **kwargs):
 
 def train_epoch(state, train_step, dataloader, generator: torch.Generator,
                 epoch: int, total_epochs: int, log_every: int = 20,
-                logger=None, profile_dir=None, profile_steps: int = 5,
-                steps_per_call: int = 1):
+                logger=None, wandb_run=None, profile_dir=None,
+                profile_steps: int = 5, steps_per_call: int = 1):
     """One epoch over a host dataloader yielding batch dicts: a step per
     batch, its uint32 step seed drawn from `generator` (`state.generator`
-    for a run that checkpoints).
+    for a run that checkpoints; every process of a mesh draws the same
+    seeds from its copy). `wandb_run` gets `loss`, `epoch` and `step` every
+    step (JAX loop.py:1135-1136). Samples count the global batch of a
+    step over several processes (`train_step.world`).
 
     Each step's loss is fetched one step late (after the next step is
     enqueued), so the host does not stall the card. `samples_per_s_steady`
@@ -416,6 +528,7 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
             "is not ported yet: ROADMAP.md queue 1, item 2 "
             "(make_scan_train_step and steps_per_call as CUDA graphs)")
     cuda = state.device.type == "cuda"
+    world = getattr(train_step, "world", 1)
     losses = []
     t_start = time.perf_counter()
     n_samples = 0
@@ -434,6 +547,8 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
                    f"loss {loss_v:.4f} "
                    f"({n_seen / (time.perf_counter() - t_start):.1f} "
                    "samples/s)")
+        if wandb_run is not None:
+            wandb_run.log({"loss": loss_v, "epoch": epoch, "step": idx})
 
     def stop_trace():
         prof.stop()  # synchronizes the card
@@ -450,7 +565,7 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
             prof = torch.profiler.profile(activities=activities)
             prof.start()
         batch = device_batch(batch, state.device)
-        n_samples += int(batch["labels"].shape[0])
+        n_samples += int(batch["labels"].shape[0]) * world
         seed = int(torch.randint(0, 2**32, (), generator=generator,
                                  dtype=torch.int64))
         state, loss = train_step(state, batch, seed)

@@ -61,6 +61,21 @@ Phases, in order; any failure exits non-zero:
             plain version; then one step under remat "full" and "dots" and
             the GradCache step against the plain step (gradients, ms, peak
             memory), and the train augmentation card vs CPU
+  distributed
+            the distributed train step over a 1-rank NCCL group on the
+            card (parallel/distributed.py, parallel/mesh.py): the flagship
+            at B=400, the plain step and GradCache 4 x 100 over the mesh
+            bit-equal to the steps without it (losses, gradients, the
+            parameters after 3 AdamW steps); ms per step and the NCCL
+            kernels' card time; remat "dots" launches no attention forward
+            in the backward
+  streaming host-slab streaming and the sharded search
+            (retrieval/engine.py): 4,194,304 fp32 keys in slabs of
+            1,048,576 ("high", "default") and 2,097,152 int8 keys in slabs
+            of 524,288 (each rescore mode), and the same keys sharded four
+            ways on the one card, against the resident search; ms per
+            search, the stream's copy rate and the copy hidden under the
+            search
   probe     the port's top-k decomposition probe at Bq = 256 (K7, K6, K4,
             K5 rows, bioscan_clip_tpu_torch/tools/bench_topk_variants.py)
   parity    the fp32 port on the card against the same model on the CPU:
@@ -88,7 +103,8 @@ import time
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
-              "training", "openclip_training", "train_cl", "probe", "parity")
+              "training", "openclip_training", "train_cl", "distributed",
+              "streaming", "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -2237,6 +2253,364 @@ def _check_resume(fresh_state, ckpt_dir, batch, ref, ref_losses, train0,
     del st
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_ms(step, state, batch, seed):
+    """One more step under torch.profiler -> (wall ms, card ms in NCCL
+    kernels, card busy ms), or Nones where the profiler shows no card
+    time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch, seed)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    nccl = busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += ev.device_time_total / 1e3
+        if "nccl" in ev.key.lower():
+            nccl += ev.device_time_total / 1e3
+    return wall, (nccl if busy else None), (busy or None)
+
+
+def phase_distributed():
+    """The distributed train step on the card: a 1-rank NCCL group
+    (parallel/distributed.py, tcp://localhost), its mesh
+    (parallel/mesh.create_mesh), the flagship at full width, B = 400,
+    frozen weights in bf16, dropout 0.1, (256, 341) frames through the
+    device augmentation. The plain step and GradCache 4 x 100 (merged stage
+    1, gc_s1_chunk 200) over the mesh, with the embeddings gathered and the
+    gradients all-reduced through NCCL, against the same steps without a
+    mesh: losses, the last step's gradients and the parameters after three
+    AdamW steps bit for bit. Then per-layer remat "dots" over the mesh: its
+    backward launches K3 and no attention forward (K1, K2d). The group is
+    torn down at the end. Returns the launch counts of the distributed
+    steps."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.ops import attention
+    from bioscan_clip_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
+    from bioscan_clip_tpu_torch.train.loop import (
+        make_gradcache_train_step,
+        make_train_step,
+    )
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import (
+        cast_frozen_params,
+        create_train_state,
+    )
+
+    torch.cuda.empty_cache()
+    cfg = ConfigNode({"tpu": {"distributed": {
+        "coordinator": f"localhost:{_free_port()}", "num_processes": 1,
+        "process_id": 0}}})
+    if maybe_initialize_distributed(cfg, log=log, device="cuda") != (0, 1):
+        raise AssertionError("distributed: not a 1-rank group")
+    counts = {}
+    try:
+        mesh = create_mesh({"data": 1})
+        if dist.get_backend() != "nccl" or mesh.group is None:
+            raise AssertionError(f"distributed: backend "
+                                 f"{dist.get_backend()}, mesh {mesh}")
+        args = ConfigNode({"model_config": dict(FLAGSHIP)})
+        batch = _train_cl_batch(np.random.default_rng(11), TRAIN_BATCH)
+        cases = (("plain", make_train_step, {}),
+                 (f"GradCache {TRAIN_CL_ACCUM} x "
+                  f"{TRAIN_BATCH // TRAIN_CL_ACCUM}",
+                  make_gradcache_train_step,
+                  dict(accum_steps=TRAIN_CL_ACCUM,
+                       s1_chunk=TRAIN_CL_S1_CHUNK, merged=True)))
+        for name, factory, kw in cases:
+            runs, kept = [], []
+            for axis in (None, mesh):
+                if axis is not None:
+                    reset_counts()  # the distributed steps' launches
+                losses, grads, ms, peak, state, step, b = _step_grads(
+                    args, batch, factory, reps=3, mesh=axis, **kw)
+                torch.cuda.synchronize()
+                if axis is not None:
+                    for key, n in launch_counts().items():
+                        counts[key] = counts.get(key, 0) + n
+                params = {n: p.detach().clone()
+                          for n, p in state.model.named_parameters()
+                          if p.requires_grad}
+                runs.append((losses, grads, params))
+                kept.append((state, step, b, peak))
+            (l0, g0, p0), (l1, g1, p1) = runs
+            bad = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+            bad += [n for n in p0 if not torch.equal(p0[n], p1[n])]
+            if l0 != l1 or bad:
+                raise AssertionError(f"distributed {name}: losses {l0} vs "
+                                     f"{l1}; differing tensors {bad[:5]}")
+            log(f"  {name}: losses {[round(x, 6) for x in l1]} equal, "
+                f"{len(g0)} gradients and {len(p0)} parameters after 3 "
+                "AdamW steps bit-equal to the step without a mesh")
+            # timing after the comparison: the two steps in turns (none,
+            # mesh, mesh, none, twice), then one profiled step each
+            ms = {0: [], 1: []}
+            for which in (0, 1, 1, 0) * 2:
+                state, step, b, _ = kept[which]
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
+                step(state, b, 0x7E57)
+                ev[1].record()
+                ev[1].synchronize()
+                ms[which].append(ev[0].elapsed_time(ev[1]))
+            for which, what in ((0, "without a mesh"),
+                                (1, "over the 1-rank NCCL mesh")):
+                state, step, b, peak = kept[which]
+                wall, nccl, busy = _nccl_ms(step, state, b, 0x7E57)
+                log(f"  {name} {what}: {np.median(ms[which]):.1f} ms per "
+                    f"step (CUDA events, median of 4 in turns: "
+                    f"{[round(t, 1) for t in ms[which]]}), peak "
+                    f"{peak:.2f} GiB; one profiled step: wall {wall:.1f} "
+                    "ms, card busy "
+                    + ("not measured" if busy is None else
+                       f"{busy:.1f} ms ({100 * busy / wall:.1f}%), NCCL "
+                       f"kernels {nccl:.3f} ms ({100 * nccl / busy:.3f}% "
+                       "of busy)"))
+            del kept, state, step, b
+            torch.cuda.empty_cache()
+        # the repaired fault: remat "dots" saves the attention outputs
+        rargs = ConfigNode({"model_config": dict(FLAGSHIP), "tpu": {
+            "remat": True, "remat_policy": "dots"}})
+        model = load_clip_model(rargs, device="cuda", dtype=torch.bfloat16)
+        cast_frozen_params(model)
+        create_train_state(model, constant(1e-4))
+        model.train()
+        from bioscan_clip_tpu_torch.train.loop import device_batch
+
+        b = device_batch(batch, "cuda")
+        loss = make_train_step(model, mesh=mesh).loss_fn(b, 0x7E57)
+        fwd = (attention.mha_packed, attention.mha, attention.mha_dropout)
+        before = [f.launches for f in fwd]
+        bwd = attention.mha_bwd.launches
+        loss.backward()
+        torch.cuda.synchronize()
+        again = [f.launches - n for f, n in zip(fwd, before)]
+        if any(again) or attention.mha_bwd.launches == bwd:
+            raise AssertionError(f"distributed: remat dots backward "
+                                 f"launched forwards {again}")
+        log(f"  remat dots over the mesh: the backward launched K3 "
+            f"{attention.mha_bwd.launches - bwd} times and no attention "
+            "forward (K1, K2, K2d: 0, 0, 0)")
+        del model, loss, b
+    finally:
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    want = ("mha_packed", "mha_dropout", "mha_bwd")
+    if any(counts.get(k, 0) <= 0 for k in want) or any(plain_calls().values()):
+        raise AssertionError(f"distributed: launches {counts}")
+    log(f"  launches on the distributed path: {counts}")
+    log("phase distributed ok")
+    return counts
+
+
+STREAM_F32 = (4_194_304, 1_048_576)  # keys, slab
+STREAM_I8 = (2_097_152, 524_288)
+STREAM_BQ, STREAM_K = 256, 5
+
+
+def _unit_keys(gen, n, d=768):
+    """n random unit rows made on the card, returned as a host array."""
+    import numpy as np
+    import torch
+
+    out = np.empty((n, d), np.float32)
+    for s in range(0, n, 1 << 20):
+        e = min(s + (1 << 20), n)
+        x = torch.randn(e - s, d, device="cuda", generator=gen)
+        out[s:e] = torch.nn.functional.normalize(x, dim=1).cpu().numpy()
+    return out
+
+
+def _agree_up_to_ties(what, q, keys, got, ref, precision, tie=1e-5):
+    """`got` against `ref` (values, indices): fp32 values within 1e-5,
+    and a position may hold another key only when the two keys' float64
+    scores (of the operands as the product sees them) are within `tie`,
+    as `_searches_agree` counts a near-tie; int8 bit for bit. Returns the
+    rows that differ."""
+    import numpy as np
+
+    (v, i), (rv, ri) = got, ref
+    if precision == "int8":
+        if not (np.array_equal(i, ri) and np.array_equal(v, rv)):
+            raise AssertionError(f"{what}: int8 search differs")
+        return 0
+    if np.abs(v - rv).max() > 1e-5:
+        raise AssertionError(f"{what}: values differ by "
+                             f"{np.abs(v - rv).max()}")
+    differ = 0
+    for r in np.nonzero((i != ri).any(axis=1))[0]:
+        pos = i[r] != ri[r]
+        qr = _as_scored(q[r], precision)
+        gap = np.abs(_as_scored(keys[i[r][pos]], precision) @ qr
+                     - _as_scored(keys[ri[r][pos]], precision) @ qr).max()
+        if gap > tie:
+            raise AssertionError(f"{what} row {r}: {i[r]} vs {ri[r]}, "
+                                 f"score gap {gap}")
+        differ += 1
+    return differ
+
+
+def phase_streaming():
+    """Host-slab streaming and the sharded search on the card
+    (retrieval/engine.py): 4,194,304 random unit fp32 keys (768-d) in slabs
+    of 1,048,576, searched by 256 queries (k = 5) in "high" and "default";
+    2,097,152 keys as int8 codes in slabs of 524,288 under each rescore
+    mode; each against the resident search of the same keys (fp32 up to
+    near-ties, int8 bit for bit), and the same keys sharded four ways on
+    the cards there are (parallel/mesh.create_mesh: four entries over
+    cuda:0.., all on the one card of a one-card host).
+    Prints ms per search streamed, sharded and resident, the copy rate of
+    the host-to-device stream alone (pinned staging, copy stream), the
+    slabs' search time alone, and the share of the copy hidden under the
+    search: (copy + search - streamed) / copy. Returns the launch counts of
+    the streamed and sharded searches."""
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.ops.topk import topk
+    from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
+    from bioscan_clip_tpu_torch.retrieval.engine import (
+        PreparedKeys,
+        topk_search,
+    )
+
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    n32, slab32 = STREAM_F32
+    keys = _unit_keys(gen, n32)
+    q = _unit_keys(gen, STREAM_BQ)
+    # planted matches in the first, a middle and the last slab
+    q[:3] = keys[[0, n32 // 2 + 7, n32 - 1]]
+    # four shards over the cards there are (all on cuda:0 with one card)
+    cards = torch.cuda.device_count()
+    four = create_mesh(devices=[torch.device("cuda", i % cards)
+                                for i in range(4)])
+    counts, differ = {}, 0
+
+    def timed(fn, reps=3):
+        fn()
+        out = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            out.append(1e3 * (time.perf_counter() - t0))
+        return res, float(np.median(out))
+
+    def count(fn):
+        reset_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        for key, n in launch_counts().items():
+            counts[key] = counts.get(key, 0) + n
+        return res
+
+    for precision in ("high", "default"):
+        res = PreparedKeys(keys, precision=precision, normalized=True)
+        streamed = PreparedKeys(keys, precision=precision, normalized=True,
+                                max_device_keys=slab32)
+        sharded = PreparedKeys(keys, precision=precision, normalized=True,
+                               mesh=four)
+        (sh,) = streamed.shards
+        if sh.slab != slab32 or [x.n for x in sharded.shards] != [
+                n32 // 4] * 4:
+            raise AssertionError("streaming: unexpected slabs or shards")
+        ref, res_ms = timed(lambda: topk_search(q, res, STREAM_K))
+        got = count(lambda: topk_search(q, streamed, STREAM_K))
+        _, st_ms = timed(lambda: topk_search(q, streamed, STREAM_K))
+        sgot = count(lambda: topk_search(q, sharded, STREAM_K))
+        _, sh_ms = timed(lambda: topk_search(q, sharded, STREAM_K))
+        differ += _agree_up_to_ties(f"streamed {precision}", q, keys, got,
+                                    ref, precision)
+        differ += _agree_up_to_ties(f"sharded {precision}", q, keys, sgot,
+                                    ref, precision)
+        if list(got[1][:3, 0]) != [0, n32 // 2 + 7, n32 - 1]:
+            raise AssertionError(f"streamed {precision}: planted keys "
+                                 f"{got[1][:3, 0]}")
+
+        def copy_only():
+            for _ in sh.slabs():
+                pass
+
+        _, copy_ms = timed(copy_only, reps=2)
+        qd = torch.from_numpy(q).cuda()
+        start, end = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+        start.record()
+        for s in range(0, n32, slab32):
+            topk(qd, res.shards[0].keys[s:s + slab32], slab32, STREAM_K,
+                 precision)
+        end.record()
+        end.synchronize()
+        search_ms = start.elapsed_time(end)
+        hidden = (copy_ms + search_ms - st_ms) / copy_ms
+        gbs = keys.nbytes / copy_ms / 1e6
+        log(f"  fp32 {precision}: {n32} keys, Bq={STREAM_BQ}, k={STREAM_K}:"
+            f" resident {res_ms:.2f} ms, streamed in slabs of {slab32} "
+            f"{st_ms:.1f} ms, sharded 4 ways on the card {sh_ms:.2f} ms "
+            f"(host clock, medians of 3); the stream alone {copy_ms:.1f} ms "
+            f"= {gbs:.2f} GB/s host-to-device; the slabs' searches alone "
+            f"{search_ms:.2f} ms (CUDA events); copy hidden under the "
+            f"search {100 * hidden:.1f}%")
+        del res, streamed, sharded, qd
+        torch.cuda.empty_cache()
+
+    n8, slab8 = STREAM_I8
+    keys8 = keys[:n8]
+    for rescore in ("float32", "bfloat16", "none"):
+        kw = dict(precision="int8", rescore=rescore, normalized=True)
+        res = PreparedKeys(keys8, **kw)
+        streamed = PreparedKeys(keys8, max_device_keys=slab8, **kw)
+        sharded = PreparedKeys(keys8, mesh=four, **kw)
+        if streamed.shards[0].slab != slab8:
+            raise AssertionError("streaming int8: unexpected slab")
+        ref, res_ms = timed(lambda: topk_search(q, res, STREAM_K))
+        got = count(lambda: topk_search(q, streamed, STREAM_K))
+        _, st_ms = timed(lambda: topk_search(q, streamed, STREAM_K))
+        sgot = count(lambda: topk_search(q, sharded, STREAM_K))
+        _agree_up_to_ties(f"streamed int8 {rescore}", q, keys8, got, ref,
+                          "int8")
+        _agree_up_to_ties(f"sharded int8 {rescore}", q, keys8, sgot, ref,
+                          "int8")
+        log(f"  int8 rescore {rescore}: {n8} keys: resident {res_ms:.2f} "
+            f"ms, streamed in slabs of {slab8} {st_ms:.1f} ms (host clock, "
+            "medians of 3, the host rescore included); streamed and "
+            "sharded bit-equal to resident")
+        del res, streamed, sharded
+        torch.cuda.empty_cache()
+    want = ("topk", "topk_default", "topk_i8")
+    if any(counts.get(k, 0) <= 0 for k in want) or any(plain_calls().values()):
+        raise AssertionError(f"streaming: launches {counts}")
+    log(f"  launches on the streamed and sharded searches: {counts}")
+    log(f"phase streaming ok: {differ} fp32 rows differ from the resident "
+        "search, each only by near-ties")
+    return counts
+
+
 def phase_parity():
     """The fp32 port on the card against the same model on the CPU (the
     kernels' plain versions), 4 rows per tower, at full width."""
@@ -2457,6 +2831,10 @@ def main(argv=None) -> int:
         path_counts["openclip_training"] = phase_openclip_training()
     if "train_cl" in phases:
         path_counts["train_cl"] = phase_train_cl()
+    if "distributed" in phases:
+        path_counts["distributed"] = phase_distributed()
+    if "streaming" in phases:
+        path_counts["streaming"] = phase_streaming()
     if "probe" in phases:
         path_counts["probe"] = phase_probe()
     if "parity" in phases:

@@ -756,3 +756,156 @@ def test_gradcache_matches_the_plain_step_on_the_card(gen):
     assert abs(l1 - l0) <= 1e-5 * abs(l0)
     for n, g in g0.items():
         assert (g1[n] - g).abs().max().item() <= 1e-4 * g.abs().max().item(), n
+
+
+def test_selective_remat_launches_no_attention_forward_in_backward(gen):
+    """Under every selective remat policy the backward launches K3 and no
+    attention forward (K1, K2, K2d): the policy saves the attention ops'
+    outputs (`bscan::mha*`); "full" launches them again."""
+    import dataclasses
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BARCODE_BERT_CONFIG,
+        BarcodeBertDnaEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP, init_weights
+    from bioscan_clip_tpu_torch.models.common import REMAT_POLICIES
+    from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+    from bioscan_clip_tpu_torch.train.loop import make_train_step
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    b = 8
+    batch = {
+        "image_u8": torch.randint(0, 256, (b, 224, 224, 3),
+                                  dtype=torch.uint8, device="cuda",
+                                  generator=gen),
+        "dna": torch.randint(0, 1027, (b, 133), device="cuda",
+                             generator=gen),
+        "labels": torch.arange(b, device="cuda"),
+    }
+    fwd = (attention.mha_packed, attention.mha, attention.mha_dropout)
+    for policy in REMAT_POLICIES:
+        r = dict(num_layers=2, remat=True, remat_policy=policy)
+        m = MultiModalCLIP(
+            image_encoder=ViTImageEncoder(ViTConfig(**r), torch.bfloat16),
+            dna_encoder=BarcodeBertDnaEncoder(
+                dataclasses.replace(BARCODE_BERT_CONFIG, **r),
+                dtype=torch.bfloat16))
+        m = init_weights(m.cuda(), seed=1)
+        create_train_state(m, constant(1e-3))
+        m.train()
+        loss = make_train_step(m).loss_fn(batch, 0x77)
+        before = [f.launches for f in fwd]
+        bwd = attention.mha_bwd.launches
+        loss.backward()
+        torch.cuda.synchronize()
+        again = sum(f.launches for f in fwd) - sum(before)
+        assert attention.mha_bwd.launches - bwd == 4, policy
+        assert again == (4 if policy == "full" else 0), policy
+
+
+def test_streamed_search_equals_resident_search(gen):
+    """Keys streamed from the host in slabs (pinned staging, a copy
+    stream) and keys sharded four ways on the one card give the resident
+    search: fp32 "high" and "default" values atol 1e-5 and indices equal
+    up to near-ties within 1e-5; int8 under "none" bit for bit."""
+    import numpy as np
+
+    from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
+    from bioscan_clip_tpu_torch.retrieval import engine
+
+    n, d, k = 300_000, 768, 10
+    keys = torch.randn(n, d, device="cuda", generator=gen)
+    keys = torch.nn.functional.normalize(keys, dim=1).cpu().numpy()
+    q = torch.nn.functional.normalize(
+        torch.randn(37, d, device="cuda", generator=gen), dim=1).cpu().numpy()
+    q[0] = keys[123]
+    four = create_mesh(devices=["cuda"] * 4)
+    for precision, rescore in (("high", "float32"), ("default", "float32"),
+                               ("int8", "none"), ("int8", "float32")):
+        ref = engine.topk_search(q, keys, k, precision=precision,
+                                 rescore=rescore)
+        streamed = engine.PreparedKeys(keys, precision=precision,
+                                       rescore=rescore, normalized=True,
+                                       max_device_keys=70_000)
+        assert streamed.streaming and streamed.shards[0].slab == 70_000
+        for pk in (streamed, engine.PreparedKeys(
+                keys, precision=precision, rescore=rescore, normalized=True,
+                mesh=four)):
+            v, i = engine.topk_search(q, pk, k)
+            if precision == "int8":
+                np.testing.assert_array_equal(i, ref[1])
+                np.testing.assert_array_equal(v, ref[0])
+                continue
+            np.testing.assert_allclose(v, ref[0], atol=1e-5)
+            gap = np.full(v.shape, np.inf, np.float32)
+            diff = np.abs(np.diff(ref[0], axis=1))
+            gap[:, 1:] = diff
+            gap[:, :-1] = np.minimum(gap[:, :-1], diff)
+            np.testing.assert_array_equal(i[gap > 1e-5], ref[1][gap > 1e-5])
+        assert i[0, 0] == 123
+
+
+def test_kernels_and_sharded_search_on_cards_not_current(gen):
+    """One process searching keys sharded over several cards: each launch
+    goes to its tensor's card, not the current one. K1 and K4 on tensors of
+    the last card, with cuda:0 current, match their plain versions; keys
+    sharded over the cards (the last card first) give the search on
+    cuda:0, resident and streamed, fp32 "high" and "default" values atol
+    1e-5 and indices up to near-ties within 1e-5, int8 under "none" bit
+    for bit."""
+    import numpy as np
+
+    from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
+    from bioscan_clip_tpu_torch.retrieval import engine
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.cuda.set_device(0)
+    last = torch.device("cuda", cards - 1)
+    x = torch.randn(8, 197, 3 * 768, device="cuda", generator=gen).to(last)
+    out = attention.mha_packed(x, 12)
+    ref = attention.mha_reference(x[..., :768], x[..., 768:1536],
+                                  x[..., 1536:], 12)
+    assert out.device == last
+    assert (out - ref).abs().max().item() <= 1e-5
+
+    n, d, k = 200_000, 768, 10
+    keys = torch.randn(n, d, device="cuda", generator=gen)
+    keys = torch.nn.functional.normalize(keys, dim=1).cpu().numpy()
+    q = torch.nn.functional.normalize(
+        torch.randn(37, d, device="cuda", generator=gen), dim=1).cpu().numpy()
+    q[0] = keys[123]
+    qd, kd = torch.from_numpy(q).to(last), torch.from_numpy(keys).to(last)
+    v, i = topk.topk(qd, kd, n, k)
+    rv, _ = topk.topk_reference(qd, kd, n, k)
+    torch.testing.assert_close(v, rv, atol=1e-5, rtol=0)
+    assert v.device == last and i[0, 0].item() == 123
+    del kd
+    mesh = create_mesh(devices=[torch.device("cuda", (cards - 1 - j) % cards)
+                                for j in range(4)])
+    for precision, rescore in (("high", "float32"), ("default", "float32"),
+                               ("int8", "none")):
+        ref = engine.topk_search(q, keys, k, precision=precision,
+                                 rescore=rescore, device="cuda:0")
+        for limit in (None, 20_000):
+            pk = engine.PreparedKeys(keys, mesh=mesh, precision=precision,
+                                     rescore=rescore, normalized=True,
+                                     max_device_keys=limit)
+            assert pk.streaming == (limit is not None)
+            assert {sh.device for sh in pk.shards} == set(mesh.devices)
+            v, i = engine.topk_search(q, pk, k)
+            assert torch.cuda.current_device() == 0
+            if precision == "int8":
+                np.testing.assert_array_equal(i, ref[1])
+                np.testing.assert_array_equal(v, ref[0])
+                continue
+            np.testing.assert_allclose(v, ref[0], atol=1e-5)
+            gap = np.full(v.shape, np.inf, np.float32)
+            diff = np.abs(np.diff(ref[0], axis=1))
+            gap[:, 1:] = diff
+            gap[:, :-1] = np.minimum(gap[:, :-1], diff)
+            np.testing.assert_array_equal(i[gap > 1e-5], ref[1][gap > 1e-5])
+            assert i[0, 0] == 123

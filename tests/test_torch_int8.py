@@ -189,8 +189,9 @@ def test_topk_search_int8_matches_jax(rescore):
                                    rescore=rescore), 5, _interpret=True)
     pk = engine.PreparedKeys(keys, device="cpu", precision="int8",
                              normalized=True, rescore=rescore)
-    assert pk.keys_dev.dtype == torch.int8 and pk.keys_dev.shape == (3000, 64)
-    assert pk.key_scales_dev.dtype == torch.float32
+    (sh,) = pk.shards
+    assert sh.keys.dtype == torch.int8 and sh.keys.shape == (3000, 64)
+    assert sh.scales.dtype == torch.float32
     if rescore == "bfloat16":
         assert pk.host_keys.dtype == torch.bfloat16
     assert (pk.host_keys is None) == (rescore == "none")

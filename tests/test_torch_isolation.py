@@ -31,13 +31,13 @@ def test_no_forbidden_imports():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
-    # the OpenCLIP slices' modules, the probe and the training CLI with its
-    # loader and logger are among those checked
+    # the OpenCLIP slices' modules, the probe, the training CLI with its
+    # loader and logger, and the parallel layer are among those checked
     assert {f"bioscan_clip_tpu_torch/{m}.py" for m in (
         "models/openclip", "models/mlp", "models/heads",
         "data/clip_tokenizer", "tools/bench_topk_variants",
         "train/checkpoint", "cli/train_cl", "utils/logging",
-        "data/pipeline")} <= names
+        "data/pipeline", "parallel/mesh", "parallel/distributed")} <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]

@@ -12,7 +12,11 @@ the same gradients, on the tiny tri-modal model of tests/test_torch_train.py
   tolerance of tests/test_torch_train.py's step);
 - `make_train_step(remat=True)` (each tower under one checkpoint) equals
   the step without it;
-- an unknown policy raises, and `load_clip_model` reads `tpu.remat`.
+- an unknown policy raises, and `load_clip_model` reads `tpu.remat`;
+- every selective policy saves the attention output, as JAX saves
+  `attn_ctx` under each of them: no attention forward runs again in the
+  backward (the plain version's calls on the CPU; the kernels' launches in
+  `tests/test_torch_gpu.py`), and "full" recomputes it.
 """
 
 import dataclasses
@@ -83,11 +87,16 @@ def params():
     return shared_params()
 
 
-def _grads(model, batch, remat_step=False):
+def _grads(model, batch, remat_step=False, calls=None):
+    """(loss, trainable gradients); `calls` gets the attention forwards
+    the backward ran (the plain version's calls)."""
     create_train_state(model, schedules.constant(1e-3))
     model.train()
     loss = make_train_step(model, remat=remat_step).loss_fn(batch, SEED)
+    before = attention.mha_reference.calls
     loss.backward()
+    if calls is not None:
+        calls.append(attention.mha_reference.calls - before)
     return loss.item(), {n: p.grad for n, p in model.named_parameters()
                          if p.requires_grad}
 
@@ -134,10 +143,19 @@ def test_step_under_every_policy_matches_jax_and_no_remat(
     batch = device_batch(host, "cpu")
     sd = state_dict_from_jax(params)
     loss0, g0 = _grads(load_into(port_model(), sd), batch)
-    calls = attention.mha_reference.calls
-    loss1, g1 = _grads(load_into(port_model(True, policy), sd), batch)
-    # the recompute ran the attention again (its output is not saved)
-    assert attention.mha_reference.calls - calls > 3 * 2
+    calls = []
+    launches = (attention.mha_packed.launches, attention.mha.launches,
+                attention.mha_dropout.launches)
+    loss1, g1 = _grads(load_into(port_model(True, policy), sd), batch,
+                       calls=calls)
+    # "full" recomputes the attention of every layer (2 in each of the 3
+    # towers); a selective policy saved its output (the fault repaired
+    # here: the attention was an autograd.Function no policy could save,
+    # so the backward ran every forward again); on the card the kernels'
+    # launch counters stay put too (tests/test_torch_gpu.py)
+    assert calls == [3 * 2 if policy == "full" else 0]
+    assert (attention.mha_packed.launches, attention.mha.launches,
+            attention.mha_dropout.launches) == launches
     assert loss1 == loss0 == pytest.approx(loss_ref, rel=1e-5)
     for name, g in g0.items():
         scale = g.abs().max().item()

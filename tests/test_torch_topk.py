@@ -123,7 +123,7 @@ def test_numpy_wrapper_and_engine_match_jax_engine():
     q = l2norm_np(rng.standard_normal((5, 32)).astype(np.float32))
     ks = l2norm_np(rng.standard_normal((200, 32)).astype(np.float32))
     ref = jax_engine.topk_search(q, ks, 4)
-    _assert_same(*topk_mod.topk_search_kernel(q, ks, 4, device="cpu"), *ref)
+    _assert_same(*engine.topk_search(q, ks, 4, device="cpu"), *ref)
     pk = engine.PreparedKeys(ks, device="cpu")
     sims, idx = engine.topk_search(q, pk, 4)
     assert idx.dtype == np.int64
@@ -161,16 +161,25 @@ def test_records_and_predictions_match_jax_engine():
 
 def test_int8_mesh_and_streaming_raise():
     """int8 keys and "default" precision are ported (tests/test_torch_int8.py
-    and above); a multi-GPU mesh still raises, for every precision, and so
-    do an unknown precision and rescore mode."""
+    and above), and so are sharded keys (tests/test_torch_parallel.py): a
+    mesh of two CPU entries gives the unsharded search, for every
+    precision; what is not a `parallel.mesh.Mesh` raises, and so do an
+    unknown precision and rescore mode."""
+    from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
     from bioscan_clip_tpu_torch.retrieval import engine
 
     ks = np.eye(4, 64, dtype=np.float32)
     assert engine.PreparedKeys(ks, device="cpu", precision="int8").int8
     pk = engine.PreparedKeys(ks, device="cpu", precision="default")
-    assert not pk.int8 and pk.keys_dev.dtype == torch.float32
+    assert not pk.int8 and pk.shards[0].keys.dtype == torch.float32
+    q = ks[:3] + 0.1 * ks[1:]
     for precision in ("high", "default", "int8"):
-        with pytest.raises(NotImplementedError):
+        ref = engine.topk_search(q, ks, 2, device="cpu", precision=precision)
+        got = engine.topk_search(q, ks, 2, precision=precision,
+                                 mesh=create_mesh(devices=["cpu"] * 2))
+        np.testing.assert_array_equal(got[1], ref[1])
+        np.testing.assert_array_equal(got[0], ref[0])
+        with pytest.raises(TypeError):
             engine.PreparedKeys(ks, device="cpu", precision=precision,
                                 mesh=object())
     for precision in ("fp16", "bf16"):

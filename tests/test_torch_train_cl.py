@@ -6,7 +6,10 @@ GradCache over 2 microbatches with the merged stage 1, 2 epochs of 2 steps,
 the eval phase after each, `last`, `best` and `config.yaml` written; a run
 resumed from `last` as it stood after epoch 0 repeats the uninterrupted
 run's epoch-1 losses bit for bit (same config, so the same schedule); INSECT
-mode and `tpu.steps_per_call=2` raise, naming their ROADMAP.md entries."""
+mode and `tpu.steps_per_call=2` raise, naming their ROADMAP.md entries;
+`tpu.fast_ln` builds bf16 LayerNorms; `train_epoch` hands wandb one `loss`
+record per step; one process asking for a mesh of several devices
+raises."""
 
 import ast
 import os
@@ -23,7 +26,8 @@ def dataset_path():
     return synthetic_dataset()
 
 
-def tiny_factory(args, device=None, dtype=None, lora_rank=None, **_):
+def tiny_factory(args, device=None, dtype=None, lora_rank=None,
+                 ln_dtype=None, **_):
     """`load_clip_model` at tiny width, seeded like it."""
     import torch
 
@@ -40,16 +44,17 @@ def tiny_factory(args, device=None, dtype=None, lora_rank=None, **_):
 
     rank = 2 if lora_rank is None else lora_rank
     dtype = dtype or torch.float32
+    ln_dtype = ln_dtype or torch.float32
     kw = dict(hidden_size=32, num_layers=1, num_heads=2,
               intermediate_size=64, lora_rank=rank)
     model = MultiModalCLIP(
         image_encoder=ViTImageEncoder(ViTConfig(
             image_size=224, patch_size=32, hidden_size=32, num_layers=1,
-            num_heads=2, num_classes=32, lora_rank=rank), dtype),
+            num_heads=2, num_classes=32, lora_rank=rank), dtype, ln_dtype),
         dna_encoder=BarcodeBertDnaEncoder(BertConfig(vocab_size=1027, **kw),
-                                          32, dtype),
+                                          32, dtype, ln_dtype),
         language_encoder=BertTextEncoder(BertConfig(vocab_size=30522, **kw),
-                                         32, dtype),
+                                         32, dtype, ln_dtype),
     )
     return init_weights(model.to(device), seed=0).eval()
 
@@ -138,3 +143,80 @@ def test_the_cli_needs_cuda_unless_the_cpu_is_asked(args):
     args.cfg.pop("device")
     with pytest.raises(RuntimeError, match="CUDA"):
         train_cl.run(args)
+
+
+def test_fast_ln_builds_bf16_layernorms(args):
+    """`tpu.fast_ln` was accepted and ignored; it now gives every tower
+    (and GradCache's merged stage-1 towers) bf16 LayerNorms, as JAX's
+    `BSCAN_FAST_LN` does, and the run trains with them."""
+    import torch
+
+    from bioscan_clip_tpu_torch.cli import train_cl
+    from bioscan_clip_tpu_torch.models.common import LayerNorm
+
+    def lns(model):
+        # the BarcodeBERT MLM transform's LayerNorm stays fp32, as in JAX
+        # (bert.py:318-320)
+        return [m.compute_dtype for n, m in model.named_modules()
+                if isinstance(m, LayerNorm) and ".transform." not in n]
+
+    assert train_cl.ln_dtype_of(args) == torch.float32
+    args.cfg.merge({"save_ckpt": False})
+    args.cfg.tpu.merge({"max_steps_per_epoch": 1, "fast_ln": True})
+    args.cfg.model_config.merge({"epochs": 1})
+    state, _ = train_cl.run(args, skip_final_eval=True)
+    dtypes = lns(state.model)
+    assert len(dtypes) > 6 and set(dtypes) == {torch.bfloat16}
+    assert train_cl.ln_dtype_of(args) == torch.bfloat16
+
+
+def test_train_epoch_logs_loss_every_step():
+    """JAX's `train_epoch` logs `loss`, `epoch` and `step` to wandb every
+    step (loop.py:1135-1136); the port's logged nothing per step."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from bioscan_clip_tpu_torch.train.loop import train_epoch
+
+    class FakeRun:
+        def __init__(self):
+            self.records = []
+
+        def log(self, metrics, commit=True):
+            self.records.append(dict(metrics))
+
+    state = SimpleNamespace(device=torch.device("cpu"))
+    losses = iter([3.0, 2.5, 2.0])
+
+    def step(state, batch, seed):
+        return state, torch.tensor(next(losses))
+
+    run = FakeRun()
+    batches = [{"labels": torch.zeros(4, dtype=torch.int64)}] * 3
+    _, stats = train_epoch(state, step, batches, torch.Generator(), 1, 2,
+                           wandb_run=run)
+    assert run.records == [{"loss": v, "epoch": 1, "step": i}
+                           for i, v in enumerate([3.0, 2.5, 2.0])]
+    assert stats["losses"] == [3.0, 2.5, 2.0]
+
+
+def test_one_process_asking_for_several_devices_raises(args):
+    """`tpu.mesh_shape` was accepted and ignored. One process naming a
+    mesh of several devices raises (the card idiom is one process per
+    card); {data: -1} over the one device of this process trains; an axis
+    other than `data` raises and names itself."""
+    from bioscan_clip_tpu_torch.cli import train_cl
+
+    args.cfg.merge({"save_ckpt": False})
+    args.cfg.tpu.merge({"mesh_shape": {"data": 2}})
+    with pytest.raises(ValueError, match="one process per card"):
+        train_cl.run(args, skip_final_eval=True)
+    args.cfg.tpu.merge({"mesh_shape": {"data": 1, "model": 2}})
+    with pytest.raises(ValueError, match="'model'"):
+        train_cl.run(args, skip_final_eval=True)
+    args.cfg.tpu.mesh_shape = {"data": -1}  # replaced, not merged
+    args.cfg.tpu.merge({"max_steps_per_epoch": 1})
+    args.cfg.model_config.merge({"epochs": 1})
+    state, _ = train_cl.run(args, skip_final_eval=True)
+    assert state.step == 1
