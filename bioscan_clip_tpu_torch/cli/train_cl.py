@@ -18,6 +18,12 @@ optional learnable logit scale, frozen weights in bf16 under bf16 compute
   `tpu.gradcache_merged` (default on), `gc_s1_image_batch`, `gc_s1_chunk`
   and `gc_cache_aug`) or per-microbatch accumulation (`micro`);
 - else the plain step.
+`tpu.steps_per_call` K > 1 runs K steps per call, the plain or GradCache
+step (`train.loop.make_scan_train_step`, `make_gradcache_train_step(
+steps_per_call=K)`): on the card the first step warms up, the second is
+captured as a CUDA graph and every later step replays it (`train.graphs`);
+the losses, checkpoints and resume are those of one step per call. With
+`accum_mode: micro` it runs one step per call, as in JAX.
 `resume=<run folder>` restores its `last` checkpoint and continues at the
 next epoch boundary. Every `evaluation_period` epochs, and always at the
 last, `last` is saved (in the background) and the eval phase runs:
@@ -42,8 +48,7 @@ checkpoints; every process restores. The eval phase runs on every process
 over the full splits on its own card (JAX's process-local eval,
 train_cl.py:320-334). One process naming several cards raises.
 
-INSECT mode and `tpu.steps_per_call` > 1 raise, naming their ROADMAP.md
-entries.
+INSECT mode raises, naming its ROADMAP.md entry.
 """
 
 from __future__ import annotations
@@ -69,13 +74,28 @@ def ln_dtype_of(args):
     return torch.bfloat16 if _tpu(args, "fast_ln", False) else torch.float32
 
 
+def steps_per_call_of(args) -> int:
+    """`tpu.steps_per_call`, the train steps per call (JAX
+    train_cl.py:215-244): with the plain step or GradCache; micro
+    accumulation has no scan path and runs one step per call."""
+    k = _tpu(args, "steps_per_call", 1)
+    if (_tpu(args, "accum_steps", 1) > 1
+            and _tpu(args, "accum_mode", "gradcache") == "micro"):
+        return 1
+    return max(k, 1)
+
+
 def make_step(args, model, dtype, out=print, mesh=None):
-    """The train step `args` asks for (JAX train_cl.py:147-205); `dtype`
-    is the model's compute dtype; `mesh` the processes' data axis."""
+    """The train step `args` asks for (JAX train_cl.py:147-244); `dtype`
+    is the model's compute dtype; `mesh` the processes' data axis. With
+    `steps_per_call_of(args)` K > 1 it is a scan step of K steps per call
+    (`train.loop.make_scan_train_step`, or GradCache's with
+    `steps_per_call=K`), CUDA graphs on the card."""
     from bioscan_clip_tpu_torch.models.clip import load_clip_model
     from bioscan_clip_tpu_torch.train.loop import (
         make_accum_train_step,
         make_gradcache_train_step,
+        make_scan_train_step,
         make_train_step,
     )
 
@@ -84,7 +104,10 @@ def make_step(args, model, dtype, out=print, mesh=None):
                   disable_lora=bool(getattr(mc, "disable_lora", False)),
                   mesh=mesh)
     accum = _tpu(args, "accum_steps", 1)
+    k = steps_per_call_of(args)
     if accum <= 1:
+        if k > 1:
+            return make_scan_train_step(model, k, **common)
         return make_train_step(model, **common)
     if _tpu(args, "accum_mode", "gradcache") == "micro":
         return make_accum_train_step(model, accum, **common)
@@ -97,7 +120,7 @@ def make_step(args, model, dtype, out=print, mesh=None):
                                  ln_dtype=ln_dtype_of(args))
         out("GradCache stage 1 on the merged (rank-0) towers")
     return make_gradcache_train_step(
-        model, accum, **common, merged_model=merged,
+        model, accum, **common, steps_per_call=k, merged_model=merged,
         s1_image_batch=_tpu(args, "gc_s1_image_batch", 0),
         cache_aug=_tpu(args, "gc_cache_aug", False),
         s1_chunk=_tpu(args, "gc_s1_chunk", 0))
@@ -177,11 +200,6 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
         raise NotImplementedError(
             "INSECT mode needs data/insect.py, which is not ported yet: "
             "ROADMAP.md queue 1, item 6 (the off-path modules)")
-    if _tpu(args, "steps_per_call", 1) > 1:
-        raise NotImplementedError(
-            "tpu.steps_per_call > 1 is not ported yet: ROADMAP.md queue 1, "
-            "item 2 (make_scan_train_step and steps_per_call as CUDA "
-            "graphs)")
     dev = resolve_device(device or getattr(args, "device", None) or "cuda")
     rank, world, mesh, dev = train_mesh(args, dev, out=out)
     if rank:
@@ -236,6 +254,10 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
         out(f"Resumed from {resume_dir}/last at step {state.step} "
             f"(epoch {start_epoch})")
     train_step = make_step(args, model, dtype, out=out, mesh=mesh)
+    steps_per_call = steps_per_call_of(args)
+    if steps_per_call > 1:
+        out(f"{steps_per_call} train steps per call (CUDA graphs on the "
+            "card)")
 
     wandb_run = WandbRun(
         getattr(mc, "wandb_project_name", "BIOSCAN-CLIP-TPU"),
@@ -265,7 +287,10 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
                 state, train_step, loader, state.generator, epoch,
                 mc.epochs, logger=out, wandb_run=wandb_run,
                 profile_dir=profile_dir if epoch == start_epoch else None,
-                profile_steps=int(getattr(args, "profile_steps", 5)))
+                profile_steps=int(getattr(args, "profile_steps", 5)),
+                steps_per_call=steps_per_call,
+                scan_step_factory=(lambda _: train_step)
+                if steps_per_call > 1 else None)
         finally:
             if hasattr(batches, "close"):
                 batches.close()  # ends the loader's prefetch thread

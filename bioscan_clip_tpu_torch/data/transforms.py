@@ -28,6 +28,7 @@ the device only casts, normalizes and jitters.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -35,6 +36,20 @@ import torch
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_constant(values, device: torch.device):
+    """A fixed fp32 tensor (nested tuples of floats) on `device`, copied
+    there once: a step that reuses it makes no host-to-device copy, so it
+    can be captured into a CUDA graph."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
+
+
+def _normalize_clip(x):
+    mean = _device_constant(CLIP_MEAN, x.device)
+    std = _device_constant(CLIP_STD, x.device)
+    return (x - mean) / std
 
 
 def tv_resize_size(h: int, w: int, size: int):
@@ -132,6 +147,12 @@ def resize_weights(in_size: int, out_size: int) -> np.ndarray:
     return np.where(inside[None, :], w, f32(0.0)).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
+def _resize_weights_on(in_size: int, out_size: int, device: torch.device):
+    """`resize_weights` on `device`, copied there once per shape."""
+    return torch.from_numpy(resize_weights(in_size, out_size)).to(device)
+
+
 def resize_shorter_side(images, size: int = 256):
     """torchvision Resize(size, antialias=True) on a (B, H, W, C) float
     batch: the shorter side becomes `size` (the longer one truncated), each
@@ -140,10 +161,10 @@ def resize_shorter_side(images, size: int = 256):
     nh, nw = tv_resize_size(h, w, size)
     x = images
     if nh != h:
-        wy = torch.from_numpy(resize_weights(h, nh)).to(x.device)
+        wy = _resize_weights_on(h, nh, x.device)
         x = torch.einsum("bhwc,ho->bowc", x, wy)
     if nw != w:
-        wx = torch.from_numpy(resize_weights(w, nw)).to(x.device)
+        wx = _resize_weights_on(w, nw, x.device)
         x = torch.einsum("bhwc,wp->bhpc", x, wx)
     return x
 
@@ -189,9 +210,7 @@ def eval_transform(images_u8, size: int = 224, resize_to: int = 256,
         x = images_u8.to(torch.float32) * _INV_255
         x = center_crop(resize_shorter_side(x, resize_to), size)
     if normalize:
-        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
-        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
-        x = (x - mean) / std
+        x = _normalize_clip(x)
     return x
 
 
@@ -326,17 +345,28 @@ def draw_angles(gen: torch.Generator, b: int, degrees: float = 45.0):
     return (-degrees + 2 * degrees * u) * (math.pi / 180.0)
 
 
+def host_cos_sin(angles):
+    """The rows' (b, 1, 1) fp32 cos and sin, taken on the host: the card's
+    differ from the CPU's in the last bit, which moves a sample that lands
+    near a half-pixel to a neighbour."""
+    a = angles.to(device="cpu", dtype=torch.float32)[:, None, None]
+    return torch.cos(a), torch.sin(a)
+
+
 def rotate_nearest(images, angles):
     """RandomRotation with the drawn angles (JAX `random_rotation`,
     :182-206): NEAREST interpolation (round half to even, as jnp.round),
     expand=False, zero fill, about the center; a per-row gather. The
     sample coordinates are separate fp32 multiplies and adds, so the card
     and the CPU pick the same pixels."""
+    return rotate_by(images, *(t.to(images.device)
+                               for t in host_cos_sin(angles)))
+
+
+def rotate_by(images, cos, sin):
+    """`rotate_nearest` given the rows' `host_cos_sin`, on the images'
+    device already."""
     b, h, w, c = images.shape
-    # cos and sin on the host: the card's differ from the CPU's in the last
-    # bit, which moves a sample that lands near a half-pixel to a neighbour
-    a = angles.to(device="cpu", dtype=torch.float32)[:, None, None]
-    cos, sin = (t.to(images.device) for t in (torch.cos(a), torch.sin(a)))
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
     yy = torch.arange(h, dtype=torch.float32, device=images.device)[:, None]
     xx = torch.arange(w, dtype=torch.float32, device=images.device)[None, :]
@@ -447,6 +477,28 @@ def draw_train_aug(step_seed: int, b: int, frame_hw, size: int = 224,
     return aug
 
 
+def draws_to_device(aug, device):
+    """A draw of `draw_train_aug` as the device applies take it: every
+    parameter on `device` (from pinned memory, without waiting for the
+    card), the angles as their `host_cos_sin` under "rot". A draw already
+    on `device` moves nothing, so the apply makes no host-to-device copy
+    and a CUDA graph can capture it."""
+    if aug is None:
+        return None
+    device = torch.device(device)
+    aug = dict(aug)
+    if "angles" in aug:
+        aug["rot"] = host_cos_sin(aug.pop("angles"))
+
+    def move(t):
+        if t.device.type == "cpu" and device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    return {k: tuple(map(move, v)) if isinstance(v, tuple) else move(v)
+            for k, v in aug.items()}
+
+
 def aug_rows(aug, rows: slice):
     """The parameters of rows `rows` of a batch's draw (None: none)."""
     if aug is None:
@@ -465,16 +517,15 @@ def train_transform(images_u8, aug: dict, size: int = 224,
     before the flips, as in the reference. `pre_cropped`: the host already
     did the geometric part (`host_train_augment`), so only the cast,
     normalize and jitter remain."""
+    aug = draws_to_device(aug, images_u8.device)
     x = images_u8.to(torch.float32) * _INV_255
     if not pre_cropped:
         x = batched_crop_resize(resize_shorter_side(x, resize_to),
                                 aug["boxes"], size)
     if normalize:
-        mean = torch.tensor(CLIP_MEAN, dtype=torch.float32, device=x.device)
-        std = torch.tensor(CLIP_STD, dtype=torch.float32, device=x.device)
-        x = (x - mean) / std
+        x = _normalize_clip(x)
     if not pre_cropped:
-        x = rotate_nearest(apply_flips(x, *aug["flips"]), aug["angles"])
+        x = rotate_by(apply_flips(x, *aug["flips"]), *aug["rot"])
     if jitter:
         x = color_jitter(x, *aug["jitter"])
     return x

@@ -119,10 +119,13 @@ def run_layer(layer: nn.Module, *args, remat: bool = False,
     set and gradients are on."""
     if not (remat and torch.is_grad_enabled()):
         return layer(*args)
+    # no RNG state to keep (dropout is a counter hash of the row seeds),
+    # and reading the card's generator would break a CUDA graph's capture
     if policy == "full":
-        return checkpoint(layer, *args, use_reentrant=False)
+        return checkpoint(layer, *args, use_reentrant=False,
+                          preserve_rng_state=False)
     return checkpoint(_flag_selective(layer), *args, use_reentrant=False,
-                      context_fn=_selective(policy))
+                      preserve_rng_state=False, context_fn=_selective(policy))
 
 
 def dense(mod: nn.Linear, x, dtype: torch.dtype):
@@ -206,6 +209,8 @@ def ps_dropout(x, rate: float, row_salt, site: int):
     pos = torch.arange(x[0].numel(), device=x.device)
     u = _mix32(site_seed(row_salt, site)[:, None] ^ _mix32(pos + 1)[None, :])
     keep = (u >= _keep_threshold(rate)).reshape(x.shape)
-    scale = torch.tensor(1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
+    # a fill, not a host-to-device copy (a CUDA graph captures it); the
+    # same rounding to x's dtype
+    scale = torch.full((), 1.0 / (1.0 - rate), dtype=x.dtype, device=x.device)
     return torch.where(keep, x * scale, torch.zeros((), dtype=x.dtype,
                                                      device=x.device))

@@ -273,6 +273,12 @@ def _drop_args(rate: float, seed, b: int, dev):
     if rate <= 0:
         return None, 0, 0, 1.0, 0
     seed = u32(seed)
+    if torch.cuda.is_current_stream_capturing() and (
+            seed.ndim == 0 or seed.device != dev):
+        raise RuntimeError(
+            "attention dropout inside a CUDA graph's capture takes (B,) row "
+            "seeds on the card: a host or scalar seed would be read once, "
+            "at capture, and replayed unchanged")
     rows = None
     scalar = 0
     if seed.ndim == 1:

@@ -172,7 +172,7 @@ def restore_checkpoint(directory: str, state, name: str = "last"):
             f"from the checkpoint's ({[len(g) for g in groups]} vs "
             f"{[len(g) for g in payload['param_groups']]} parameters)")
     _load_state_dict(state.model, payload["state_dict"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    state.load_optimizer_state(payload["optimizer"])
     state.step = int(payload["step"])
     state.generator.set_state(payload["generator"])
     return state

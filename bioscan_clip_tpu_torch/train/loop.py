@@ -41,9 +41,13 @@ the loss reads the embeddings gathered over the processes
 summed over the processes in one flat all_reduce per dtype. The loss is
 the same on every process.
 
-Not ported yet, each raising with its ROADMAP.md queue 1 entry:
-`steps_per_call > 1` and `make_scan_train_step` (a TPU dispatch saver; CUDA
-graphs are the card's counterpart).
+A step is a host prelude (`state.set_lr()`, `step_inputs`: the step seed
+and the augmentation draw as tensors on the device) and a device body (the
+forward to AdamW) that reads only those: `make_scan_train_step` and
+`make_gradcache_train_step(steps_per_call=K)` run K steps per call (JAX's
+`lax.scan`, loop.py:150-257, :755-778), on the card by replaying a CUDA
+graph of the body (`train.graphs`), and `train_epoch(steps_per_call=K)`
+feeds them K stacked loader batches (`stack_batches`).
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from bioscan_clip_tpu_torch.data.transforms import (
     aug_rows,
     draw_train_aug,
+    draws_to_device,
     eval_transform,
     train_transform_auto,
 )
@@ -117,12 +122,22 @@ def device_batch(batch: dict, device) -> dict:
     return out
 
 
+def step_seed_tensor(step_seed, device):
+    """A uint32 step seed (a Python int or a tensor) as a 0-d int64 tensor
+    on `device`: an int goes by a fill, not a host-to-device copy."""
+    if torch.is_tensor(step_seed):
+        return u32(step_seed, device)
+    return torch.full((), int(step_seed) & 0xFFFFFFFF, dtype=torch.int64,
+                      device=device)
+
+
 def tower_row_seeds(step_seed, batch_size: int, device) -> dict:
     """The (B,) row seeds of each BERT tower for one step: row r's seed
     depends on the step seed and r only, so a microbatch or chunk takes its
-    slice of the global batch's seeds (JAX loop.py:565-576)."""
+    slice of the global batch's seeds (JAX loop.py:565-576). `step_seed`:
+    an int, or a 0-d tensor on `device` (a CUDA graph's seed buffer)."""
     rows = torch.arange(batch_size, device=device)
-    bits = u32(step_seed)
+    bits = step_seed_tensor(step_seed, device)
     return {
         "dna": row_seeds_init(bits ^ DNA_SEED_SALT, rows),
         "language": row_seeds_init(bits ^ LANGUAGE_SEED_SALT, rows),
@@ -175,15 +190,47 @@ def _global_rows(mesh, b: int):
     return mesh.size * b, slice(mesh.index * b, (mesh.index + 1) * b)
 
 
-def _step_draws(mesh, batch, step_seed, color_jitter):
-    """This process's row seeds and augmentation parameters, drawn for the
-    global batch and sliced to its rows."""
+def step_inputs(mesh, batch, step_seed: int, color_jitter: bool) -> dict:
+    """What the host decides for one step, as tensors on the batch's
+    device: {"seed": the 0-d step seed, "aug": this process's rows of the
+    augmentation draw (`draws_to_device`), or None}. The draw is made for
+    the global batch and sliced. A step's device body reads only these,
+    so a CUDA graph of the body replays any step once they are copied into
+    its buffers."""
     labels = batch["labels"]
     total, mine = _global_rows(mesh, labels.shape[0])
-    seeds = batch_rows(tower_row_seeds(step_seed, total, labels.device),
-                       mine)
-    return seeds, draw_batch_aug(batch, step_seed, color_jitter,
-                                 rows=(total, mine))
+    aug = draw_batch_aug(batch, step_seed, color_jitter, rows=(total, mine))
+    return {"seed": step_seed_tensor(step_seed, labels.device),
+            "aug": draws_to_device(aug, labels.device)}
+
+
+def _row_seeds(mesh, batch, seed):
+    """This process's rows of the global batch's row seeds, from the 0-d
+    step seed tensor `seed`."""
+    labels = batch["labels"]
+    total, mine = _global_rows(mesh, labels.shape[0])
+    return batch_rows(tower_row_seeds(seed, total, labels.device), mine)
+
+
+def _eager_step(check, mesh, color_jitter, body):
+    """train_step(state, batch, step_seed) -> (state, loss): the prelude
+    (the learning rate into the optimizer, `step_inputs`), then `body`
+    (state, batch, inputs) -> loss, the device work from the forward to
+    AdamW, then the step count. `train.graphs` captures `body` alone."""
+    def prelude(state, batch, step_seed):
+        check(state)
+        state.set_lr()
+        return step_inputs(mesh, batch, step_seed, color_jitter)
+
+    def train_step(state, batch, step_seed):
+        loss = body(state, batch, prelude(state, batch, step_seed))
+        state.step += 1
+        return state, loss
+
+    train_step.prelude = prelude
+    train_step.body = body
+    train_step.world = 1 if mesh is None else mesh.size
+    return train_step
 
 
 def _sum_gradients(model, mesh, skip=("logit_scale",)):
@@ -206,7 +253,8 @@ def embed_train(model, batch: dict, seeds: dict, aug, *,
     `torch.utils.checkpoint` (JAX's `jax.checkpoint` per tower)."""
     def call(fn, *a, **kw):
         if remat and torch.is_grad_enabled():
-            return checkpoint(fn, *a, use_reentrant=False, **kw)
+            return checkpoint(fn, *a, use_reentrant=False,
+                              preserve_rng_state=False, **kw)
         return fn(*a, **kw)
 
     embs = {}
@@ -270,13 +318,12 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
     check = _state_check(model, disable_lora)
     mesh = data_axis(mesh)
 
-    def loss_fn(batch, step_seed):
+    def loss_of(batch, inputs):
         labels = batch["labels"]
-        seeds, aug = _step_draws(mesh, batch, step_seed, color_jitter)
         embs, _ = embed_train(
-            model, batch, seeds, aug,
-            openclip_norm=openclip_norm, color_jitter=color_jitter,
-            remat=remat)
+            model, batch, _row_seeds(mesh, batch, inputs["seed"]),
+            inputs["aug"], openclip_norm=openclip_norm,
+            color_jitter=color_jitter, remat=remat)
         if mesh is not None:
             embs = {k: None if v is None else gather_rows_grad(v, mesh)
                     for k, v in embs.items()}
@@ -284,18 +331,21 @@ def make_train_step(model, logit_scale: float = LOGIT_SCALE,
         return multimodal_contrastive_loss(
             embs, labels, logit_scale_value(model, logit_scale))
 
-    def train_step(state, batch, step_seed):
-        check(state)
+    def loss_fn(batch, step_seed):
+        return loss_of(batch, step_inputs(mesh, batch, step_seed,
+                                          color_jitter))
+
+    def body(state, batch, inputs):
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(batch, step_seed)
+        loss = loss_of(batch, inputs)
         loss.backward()
         _sum_gradients(model, mesh)
-        state.apply_gradients()
-        return state, loss.detach()
+        state.optimizer.step()
+        return loss.detach()
 
+    train_step = _eager_step(check, mesh, color_jitter, body)
     train_step.loss_fn = loss_fn
-    train_step.world = 1 if mesh is None else mesh.size
     return train_step
 
 
@@ -348,7 +398,8 @@ def make_accum_train_step(model, accum_steps: int,
         state.optimizer.zero_grad(set_to_none=True)
         labels = batch["labels"]
         b = labels.shape[0]
-        seeds, aug = _step_draws(mesh, batch, step_seed, color_jitter)
+        inputs = step_inputs(mesh, batch, step_seed, color_jitter)
+        seeds, aug = _row_seeds(mesh, batch, inputs["seed"]), inputs["aug"]
         total = torch.zeros((), device=labels.device)
         _micro_rows(b * world, accum_steps)  # checks the global batch
         for rows in _micro_rows(b, accum_steps // world):
@@ -377,7 +428,8 @@ def make_gradcache_train_step(model, accum_steps: int,
                               openclip_norm: bool = False,
                               disable_lora: bool = False,
                               color_jitter: bool = False,
-                              steps_per_call: int = 1, merged_model=None,
+                              steps_per_call: int = 1,
+                              same_batch: bool = False, merged_model=None,
                               s1_image_batch: int = 0,
                               cache_aug: bool = False, s1_chunk: int = 0,
                               mesh=None):
@@ -403,8 +455,9 @@ def make_gradcache_train_step(model, accum_steps: int,
     which `models/lora.share_merged` binds to `model`'s tensors; only its
     folded projections are recomputed, once a step. `cache_aug`: stage 3
     takes stage 1's augmented images instead of transforming again (the
-    same pixels). `steps_per_call > 1` raises: ROADMAP.md queue 1, item 2
-    (CUDA graphs).
+    same pixels). `steps_per_call` K > 1: K GradCache steps per call
+    (JAX loop.py:755-778), `scan_train_steps` over this step; `same_batch`
+    as in `make_scan_train_step`.
 
     Over `mesh`, stage 1 embeds this process's rows and the cached
     embeddings are gathered without gradients; stage 2 takes the global
@@ -413,11 +466,6 @@ def make_gradcache_train_step(model, accum_steps: int,
     process's); the adapters' gradients are then summed over the
     processes. The logit scale's stage-2 gradient is whole on every
     process. Chunk sizes count this process's rows."""
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 (several GradCache steps per call) is not "
-            "ported yet: ROADMAP.md queue 1, item 2 (make_scan_train_step "
-            "and steps_per_call as CUDA graphs)")
     if disable_lora:
         merged_model = None  # no adapters to fold
     check = _state_check(model, disable_lora)
@@ -456,14 +504,13 @@ def make_gradcache_train_step(model, accum_steps: int,
                 cached[name] = torch.cat(parts)
         return cached, (torch.cat(images) if images else None)
 
-    def train_step(state, batch, step_seed):
-        check(state)
+    def body(state, batch, inputs):
         labels = batch["labels"]
         b = labels.shape[0]
         total, mine = _global_rows(mesh, b)
         mb = min(_micro_rows(total, accum_steps)[0].stop, b)
         micro = _row_slices(b, mb, f"accum_steps={accum_steps}")
-        seeds, aug = _step_draws(mesh, batch, step_seed, color_jitter)
+        seeds, aug = _row_seeds(mesh, batch, inputs["seed"]), inputs["aug"]
         s1_model = model if merged_model is None else merged_model
         s1_model.train()
         with torch.no_grad():
@@ -492,24 +539,95 @@ def make_gradcache_train_step(model, accum_steps: int,
             torch.autograd.backward([embs[k] for k in names],
                                     [grads[k][rows] for k in names])
         _sum_gradients(model, mesh)
-        state.apply_gradients()
-        return state, loss.detach()
+        state.optimizer.step()
+        return loss.detach()
 
-    train_step.world = 1 if mesh is None else mesh.size
+    train_step = _eager_step(check, mesh, color_jitter, body)
+    if steps_per_call > 1:
+        return scan_train_steps(train_step, steps_per_call,
+                                same_batch=same_batch,
+                                modules=(model, merged_model))
     return train_step
 
 
-def make_scan_train_step(*args, **kwargs):
-    """K steps in one call (JAX loop.py:150); CUDA graphs on the card."""
-    raise NotImplementedError(
-        "make_scan_train_step is not ported yet: ROADMAP.md queue 1, item "
-        "2 (make_scan_train_step and steps_per_call as CUDA graphs)")
+def make_scan_train_step(model, steps_per_call: int,
+                         logit_scale: float = LOGIT_SCALE,
+                         openclip_norm: bool = False, remat: bool = False,
+                         disable_lora: bool = False,
+                         color_jitter: bool = False, same_batch: bool = False,
+                         mesh=None):
+    """K = `steps_per_call` full train steps per call (JAX loop.py:150-257,
+    where `lax.scan` runs them in one dispatch): scan_step(state, batches,
+    step_seeds) -> (state, (K,) device losses). Each step is one
+    `make_train_step` step (forward, backward, AdamW) on its own batch with
+    its own step seed, so the call equals K calls of that step; `batches`
+    has a leading (K, ...) axis (`stack_batches` of K loader batches, on
+    the device). `same_batch`: `batches` is ONE batch that every step takes
+    (synthetic runs; the seeds still differ). On a card every step after
+    the first is the replay of a CUDA graph of the step (`train.graphs`);
+    on the CPU the steps run eagerly, which is the plain version."""
+    step = make_train_step(model, logit_scale=logit_scale,
+                           openclip_norm=openclip_norm, remat=remat,
+                           disable_lora=disable_lora,
+                           color_jitter=color_jitter, mesh=mesh)
+    return scan_train_steps(step, steps_per_call, same_batch=same_batch,
+                            modules=(model,))
+
+
+def scan_train_steps(train_step, steps_per_call: int,
+                     same_batch: bool = False, modules=()):
+    """scan_step(state, batches, step_seeds) -> (state, losses): K steps of
+    `train_step` (a `make_train_step` or `make_gradcache_train_step` step)
+    per call; see `make_scan_train_step`. A call may run fewer than
+    `steps_per_call` steps (the epoch's shorter last chunk): the graph is
+    one step's, so no other capture is needed. `modules`: the modules whose
+    tensors the step reads (the model, GradCache's merged stage-1 model),
+    watched for replacement by `train.graphs`."""
+    from bioscan_clip_tpu_torch.train.graphs import StepGraphs
+
+    if steps_per_call < 1:
+        raise ValueError(f"steps_per_call={steps_per_call} must be >= 1")
+    graphs = StepGraphs(train_step,
+                        [m for m in modules if m is not None])
+
+    def scan_step(state, batches, step_seeds):
+        seeds = [int(s) for s in step_seeds]
+        if not 1 <= len(seeds) <= steps_per_call:
+            raise ValueError(f"{len(seeds)} step seeds for a call of at "
+                             f"most {steps_per_call} steps")
+        stacked = batches["labels"].shape[0]
+        if not same_batch and stacked != len(seeds):
+            raise ValueError(f"{stacked} stacked batches for {len(seeds)} "
+                             "steps")
+        return graphs.run(state, [
+            batches if same_batch else batch_rows(batches, k)
+            for k in range(len(seeds))], seeds)
+
+    scan_step.graphs = graphs
+    scan_step.steps_per_call = steps_per_call
+    scan_step.world = train_step.world
+    return scan_step
+
+
+def stack_batches(batches):
+    """Stack K loader batch dicts into one with a leading (K, ...) axis
+    (the input of a scan step), on the host: the result crosses to the
+    device as one copy per leaf (JAX loop.py:260-270). Host-only keys
+    (label dicts, ids) are left out."""
+    def stack(parts):
+        if isinstance(parts[0], dict):
+            return {k: stack([p[k] for p in parts]) for k in parts[0]}
+        return np.stack([np.asarray(p) for p in parts])
+
+    return {k: stack([b[k] for b in batches]) for k in DEVICE_BATCH_KEYS
+            if k in batches[0]}
 
 
 def train_epoch(state, train_step, dataloader, generator: torch.Generator,
                 epoch: int, total_epochs: int, log_every: int = 20,
                 logger=None, wandb_run=None, profile_dir=None,
-                profile_steps: int = 5, steps_per_call: int = 1):
+                profile_steps: int = 5, steps_per_call: int = 1,
+                scan_step_factory=None):
     """One epoch over a host dataloader yielding batch dicts: a step per
     batch, its uint32 step seed drawn from `generator` (`state.generator`
     for a run that checkpoints; every process of a mesh draws the same
@@ -519,28 +637,29 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
 
     Each step's loss is fetched one step late (after the next step is
     enqueued), so the host does not stall the card. `samples_per_s_steady`
-    starts at the first fetch, leaving out the first step's warm-up.
+    starts at the first fetch, once the card has done what was enqueued
+    by then, leaving out the first step's (or call's) warm-up.
     `profile_dir`: a `torch.profiler` Chrome trace of the first
-    `profile_steps` steps, written to `profile_dir/trace.json`."""
-    if steps_per_call > 1:
-        raise NotImplementedError(
-            "steps_per_call > 1 saves TPU dispatches; the card's counterpart "
-            "is not ported yet: ROADMAP.md queue 1, item 2 "
-            "(make_scan_train_step and steps_per_call as CUDA graphs)")
+    `profile_steps` steps, written to `profile_dir/trace.json`.
+
+    `steps_per_call` K > 1 with `scan_step_factory` (k -> a scan step,
+    `make_scan_train_step` or `make_gradcache_train_step(steps_per_call=
+    k)`): K loader batches are stacked and run by one call (JAX loop.py:
+    1138-1184), the seeds drawn in the same order as one step at a time,
+    so the epoch equals the one-step epoch. The losses of a call are
+    fetched after the next call is enqueued; the epoch's shorter last
+    chunk runs on the same scan step; the profiler traces the first
+    call."""
     cuda = state.device.type == "cuda"
     world = getattr(train_step, "world", 1)
     losses = []
     t_start = time.perf_counter()
     n_samples = 0
     steady = None  # (time, samples seen) at the first loss fetch
-    pending = None  # (step index, device loss, samples seen up to it)
+    pending = None  # (first step index, (k,) device losses, samples seen)
     prof = None
 
-    def record(idx, loss_dev, n_seen):
-        nonlocal steady
-        loss_v = float(loss_dev)
-        if steady is None:
-            steady = (time.perf_counter(), n_seen)
+    def record(idx, loss_v, n_seen):
         losses.append(loss_v)
         if logger is not None and (idx % log_every == 0 or idx < 3):
             logger(f"epoch {epoch}/{total_epochs} step {idx} "
@@ -550,35 +669,79 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
         if wandb_run is not None:
             wandb_run.log({"loss": loss_v, "epoch": epoch, "step": idx})
 
-    def stop_trace():
+    def flush():
+        nonlocal pending, steady
+        if pending is not None:
+            base, dev_losses, n_seen = pending
+            pending = None
+            if steady is None:  # after the first step or call, warm-up
+                if cuda:  # included: what was enqueued is done
+                    torch.cuda.synchronize(state.device)
+                steady = (time.perf_counter(), n_samples)
+            for j, v in enumerate(dev_losses.reshape(-1).tolist()):
+                record(base + j, v, n_seen)
+
+    def start_trace():
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if cuda:
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+        trace = torch.profiler.profile(activities=activities)
+        trace.start()
+        return trace
+
+    def stop_trace(what):
         prof.stop()  # synchronizes the card
         os.makedirs(profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
         if logger is not None:
-            logger(f"profiler trace -> {profile_dir}")
+            logger(f"profiler trace ({what}) -> {profile_dir}")
 
-    for i, batch in enumerate(dataloader):
-        if profile_dir and i == 0:
-            activities = [torch.profiler.ProfilerActivity.CPU]
-            if cuda:
-                activities.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=activities)
-            prof.start()
-        batch = device_batch(batch, state.device)
-        n_samples += int(batch["labels"].shape[0]) * world
-        seed = int(torch.randint(0, 2**32, (), generator=generator,
+    def draw_seed():
+        return int(torch.randint(0, 2**32, (), generator=generator,
                                  dtype=torch.int64))
-        state, loss = train_step(state, batch, seed)
-        if pending is not None:
-            record(*pending)
-        pending = (i, loss, n_samples)
-        if prof is not None and i + 1 >= profile_steps:
-            stop_trace()
-            prof = None
-    if pending is not None:
-        record(*pending)
-    if prof is not None:  # fewer batches than profile_steps
-        stop_trace()
+
+    if steps_per_call > 1 and scan_step_factory is not None:
+        scan_step = scan_step_factory(steps_per_call)
+        chunk, base = [], 0
+
+        def run_chunk(chunk, base):
+            nonlocal state, n_samples, pending
+            stacked = device_batch(stack_batches(chunk), state.device)
+            n_samples += int(stacked["labels"].shape[1]) * world * len(chunk)
+            seeds = [draw_seed() for _ in chunk]
+            state, dev_losses = scan_step(state, stacked, seeds)
+            flush()
+            pending = (base, dev_losses, n_samples)
+
+        for batch in dataloader:
+            chunk.append(batch)
+            if len(chunk) == steps_per_call:
+                if profile_dir and base == 0:
+                    prof = start_trace()
+                run_chunk(chunk, base)
+                if prof is not None:
+                    stop_trace(f"first {steps_per_call}-step call")
+                    prof = None
+                base += len(chunk)
+                chunk = []
+        if chunk:
+            run_chunk(chunk, base)
+        flush()
+    else:
+        for i, batch in enumerate(dataloader):
+            if profile_dir and i == 0:
+                prof = start_trace()
+            batch = device_batch(batch, state.device)
+            n_samples += int(batch["labels"].shape[0]) * world
+            state, loss = train_step(state, batch, draw_seed())
+            flush()
+            pending = (i, loss, n_samples)
+            if prof is not None and i + 1 >= profile_steps:
+                stop_trace(f"{profile_steps} steps")
+                prof = None
+        flush()
+        if prof is not None:  # fewer batches than profile_steps
+            stop_trace(f"{profile_steps} steps")
     if cuda:
         torch.cuda.synchronize(state.device)
     dur = time.perf_counter() - t_start

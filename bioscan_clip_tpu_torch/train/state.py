@@ -24,6 +24,13 @@ The state also owns the CPU `torch.Generator` that `train.loop.train_epoch`
 draws step seeds from (`state.generator`), so a checkpoint
 (`train.checkpoint`) carries it and a resumed run draws the seeds an
 uninterrupted one would.
+
+On a card AdamW is `capturable`: its step counts live on the card and the
+learning rate is a card tensor (`state.lr`) that `set_lr()` fills before
+each step, so a step can be captured into a CUDA graph and replayed
+(`train.graphs`). The eager step on the card uses the same optimizer, so
+graphed and eager steps give the same bits. The CPU keeps the plain
+AdamW with a float learning rate.
 """
 
 from __future__ import annotations
@@ -88,33 +95,63 @@ def cast_frozen_params(model: nn.Module, dtype=torch.bfloat16,
 
 class TrainState:
     """Model + optimizer + schedule + step count + the step-seed generator.
-    `apply_gradients()` takes the gradients autograd left in `.grad`."""
+    `apply_gradients()` takes the gradients autograd left in `.grad`.
+    `lr`: the learning rate's card tensor of a capturable optimizer, else
+    None."""
 
-    def __init__(self, model, optimizer, schedule, labels, seed: int = 0):
+    def __init__(self, model, optimizer, schedule, labels, seed: int = 0,
+                 lr=None):
         self.model = model
         self.optimizer = optimizer
         self.schedule = schedule
         self.labels = labels
         self.step = 0
         self.generator = torch.Generator().manual_seed(seed)
+        self.lr = lr
 
     @property
     def device(self) -> torch.device:
         return next(self.model.parameters()).device
 
-    def apply_gradients(self):
+    def set_lr(self):
+        """This step's learning rate, `schedule(step)`, into the optimizer:
+        a fill of `lr` on the card (no copy, no wait), else a float."""
         lr = float(self.schedule(self.step))
+        if self.lr is not None:
+            self.lr.fill_(lr)
+            lr = self.lr
         for group in self.optimizer.param_groups:
             group["lr"] = lr
+
+    def apply_gradients(self):
+        self.set_lr()
         self.optimizer.step()
         self.step += 1
+
+    def load_optimizer_state(self, saved: dict):
+        """`optimizer.load_state_dict(saved)` that keeps this state's own
+        kind of AdamW (capturable on the card, its `lr` tensor), so a
+        checkpoint written on one device restores on the other."""
+        own = [g["capturable"] for g in self.optimizer.param_groups]
+        self.optimizer.load_state_dict(saved)
+        for group, capturable in zip(self.optimizer.param_groups, own):
+            group["capturable"] = capturable
+            group["lr"] = (self.lr if self.lr is not None
+                           else float(group["lr"]))
+            for p in group["params"]:
+                st = self.optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(
+                        device=p.device if capturable else "cpu",
+                        dtype=torch.float32)
 
 
 def create_train_state(model: nn.Module, schedule, disable_lora: bool = False,
                        weight_decay: float = 0.01, seed: int = 0) -> TrainState:
-    """Masked AdamW over `model`'s trainable parameters (see module doc).
-    Frozen parameters get `requires_grad_(False)`. `seed` seeds the
-    step-seed generator."""
+    """Masked AdamW over `model`'s trainable parameters (see module doc),
+    capturable with a card `lr` tensor when the model is on a card. Frozen
+    parameters get `requires_grad_(False)`. `seed` seeds the step-seed
+    generator."""
     labels = param_labels(model, disable_lora)
     groups = {"trainable": [], "scale": []}
     for name, p in model.named_parameters():
@@ -126,6 +163,13 @@ def create_train_state(model: nn.Module, schedule, disable_lora: bool = False,
                      "weight_decay": weight_decay}]
     if groups["scale"]:
         param_groups.append({"params": groups["scale"], "weight_decay": 0.0})
-    opt = torch.optim.AdamW(param_groups, lr=float(schedule(0)),
-                            betas=(0.9, 0.999), eps=1e-8)
-    return TrainState(model, opt, schedule, labels, seed)
+    device = next(model.parameters()).device
+    lr = float(schedule(0))
+    card_lr = None
+    if device.type == "cuda":
+        card_lr = torch.full((), lr, dtype=torch.float32, device=device)
+    opt = torch.optim.AdamW(param_groups,
+                            lr=lr if card_lr is None else card_lr,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            capturable=card_lr is not None)
+    return TrainState(model, opt, schedule, labels, seed, lr=card_lr)

@@ -69,6 +69,17 @@ Phases, in order; any failure exits non-zero:
             parameters after 3 AdamW steps); ms per step and the NCCL
             kernels' card time; remat "dots" launches no attention forward
             in the backward
+  graphs    K train steps per call as CUDA graphs (train/graphs.py):
+            the flagship at B=400 (plain K=4 in two calls, GradCache
+            4 x 100 K=4, remat "full" K=2, the plain step over a 1-rank
+            NCCL mesh K=2) and the OpenCLIP ablation at B=10 K=8, each
+            bit-equal to as many eager steps from the same state (losses,
+            trainable parameters, AdamW moments), with eager and graphed
+            ms per step, the card's busy share of a graphed call, peak
+            memory, and K1, K2d, K3 (and K1m, K3m) in the replays'
+            counters and profiler trace, no plain version; then
+            cli/train_cl.run with tpu.steps_per_call=4 under GradCache,
+            2 epochs of 6 steps and a bit-equal resume
   streaming host-slab streaming and the sharded search
             (retrieval/engine.py): 4,194,304 fp32 keys in slabs of
             1,048,576 ("high", "default") and 2,097,152 int8 keys in slabs
@@ -104,7 +115,7 @@ PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
               "training", "openclip_training", "train_cl", "distributed",
-              "streaming", "probe", "parity")
+              "graphs", "streaming", "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -809,13 +820,16 @@ KERNELS = {
     "tiny": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
              "tools/bench_topk_variants.py:118"),
 }
-# the main path whose run gives each kernel's launch count in that line
-KERNEL_PATH = {"mha_packed": "serving", "mha": "serving", "topk": "serving",
-               "topk_i8": "eval", "topk_default": "eval",
-               "mha_dropout": "training",
-               "mha_bwd": "training", "mha_packed_mask": "openclip",
-               "mha_bwd_mask": "openclip_training", "mm_only": "probe",
-               "tiny": "probe"}
+# the main paths that launch each kernel: the first gives its `launches`
+# in that line, every one its count in `launches_by_path`
+KERNEL_PATH = {"mha_packed": ("serving", "graphs"), "mha": ("serving",),
+               "topk": ("serving",), "topk_i8": ("eval",),
+               "topk_default": ("eval",),
+               "mha_dropout": ("training", "graphs"),
+               "mha_bwd": ("training", "graphs"),
+               "mha_packed_mask": ("openclip", "graphs"),
+               "mha_bwd_mask": ("openclip_training", "graphs"),
+               "mm_only": ("probe",), "tiny": ("probe",)}
 
 
 def launch_counts():
@@ -2426,6 +2440,401 @@ def phase_distributed():
     return counts
 
 
+# graphs phase: K train steps per call as CUDA graphs (train/graphs.py)
+GRAPH_K = 4
+# kernel names in a profiler trace: the attention forwards (K1, K1m, K2d
+# share the bodies) and the backward's passes (K3, K3m)
+FWD_KERNELS = ("mha_fwd_mma", "mha_fwd_kernel")
+BWD_KERNELS = ("bwd_query_rows", "bwd_key_rows")
+
+
+def _graph_schedule(step):
+    """A learning rate that changes every step, so each replay must read
+    the one its prelude wrote."""
+    return 1e-4 * (1.0 + 0.05 * step)
+
+
+def _stacked(batches):
+    from bioscan_clip_tpu_torch.train.loop import device_batch, stack_batches
+
+    return device_batch(stack_batches(batches), "cuda")
+
+
+def _trainable_state(state):
+    """Clones of every trainable parameter and both AdamW moments."""
+    out = {}
+    for n, p in state.model.named_parameters():
+        if p.requires_grad:
+            out[n] = p.detach().clone()
+            for key, t in state.optimizer.state.get(p, {}).items():
+                out[f"{n}/{key}"] = t.detach().clone()
+    return out
+
+
+def _profile_call(scan, state, stacked, seeds):
+    """One more graphed call under torch.profiler -> (state, wall ms by CUDA
+    events, card busy ms or None, the kernel names seen)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    ev = (torch.cuda.Event(enable_timing=True),
+          torch.cuda.Event(enable_timing=True))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ev[0].record()
+        state, _ = scan(state, stacked, seeds)
+        ev[1].record()
+        torch.cuda.synchronize()
+    busy, names, api = 0.0, set(), []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.device_time_total / 1e3
+            names.add(e.key)
+        elif e.key.startswith("cuda"):  # the runtime calls the host made
+            api.append((e.cpu_time_total / 1e3, e.count, e.key))
+    top = ", ".join(f"{key} {ms:.1f} ms in {n}"
+                    for ms, n, key in sorted(api, reverse=True)[:4])
+    log(f"    host time in CUDA runtime calls during the call: {top}")
+    return state, ev[0].elapsed_time(ev[1]), (busy or None), names
+
+
+def _graph_case(what, model, eager_step, scan_step, calls, seeds, counts,
+                profile_steps=None):
+    """Eager steps, then the same steps as graphed calls from the same
+    state (the trainable parameters put back, a new optimizer); losses,
+    trainable parameters and both AdamW moments must be bit-equal. Then
+    one more graphed call, timed and profiled: its busy share, the
+    attention kernels' names in its trace and their replay-adjusted
+    counters. `calls`: stacked (K, B, ...) batches per call; `seeds`: K
+    step seeds per call; `profile_steps`: the profiled call's steps (K by
+    default; fewer keeps a long step's trace short). Adds the graphed
+    calls' launches to `counts`; returns (eager ms, graphed ms, busy %,
+    eager peak, graphed peak, the profiled call's launches)."""
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.train.loop import batch_rows
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    t_case = time.perf_counter()
+    init = {n: p.detach().clone() for n, p in model.named_parameters()
+            if p.requires_grad}
+    k = len(seeds[0])
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = create_train_state(model, _graph_schedule)
+    step = eager_step()
+    ref_losses, ms = [], []
+    for stacked, ss in zip(calls, seeds):
+        for j, seed in enumerate(ss):
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            state, loss = step(state, batch_rows(stacked, j), seed)
+            ev[1].record()
+            ms.append(ev)
+            ref_losses.append(loss)
+    torch.cuda.synchronize()
+    eager_ms = float(np.median([a.elapsed_time(b) for a, b in ms[1:]]))
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    ref = _trainable_state(state)
+    ref_losses = torch.stack(ref_losses)
+    del state, step
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n in init:
+                p.copy_(init[n])
+                p.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    state = create_train_state(model, _graph_schedule)
+    scan = scan_step()
+    reset_counts()
+    losses = []
+    for stacked, ss in zip(calls, seeds):
+        t = time.perf_counter()
+        state, out = scan(state, stacked, ss)
+        losses.append(out)
+        torch.cuda.synchronize()
+        log(f"  {what}: a call of {k} graphed steps took "
+            f"{1e3 * (time.perf_counter() - t):.1f} ms (host clock"
+            + (", the first warms up and captures)" if len(losses) == 1
+               else ")"))
+    got = _trainable_state(state)
+    graph_peak = torch.cuda.max_memory_allocated() / 2**30
+    grown = launch_counts()
+    for key, n in grown.items():
+        counts[key] = counts.get(key, 0) + n
+    same_losses = torch.equal(torch.cat(losses), ref_losses)
+    bad = [n for n in ref if not torch.equal(ref[n], got[n])]
+    log(f"  {what}: losses {[round(x, 6) for x in ref_losses.tolist()]}; "
+        f"graphed vs eager bit-equal: losses {same_losses}, "
+        f"{len(ref) - len(bad)} of {len(ref)} trainable tensors and AdamW "
+        "moments")
+    if not same_losses or bad:
+        raise AssertionError(f"graphs {what}: losses {torch.cat(losses)} vs "
+                             f"{ref_losses}; differing {bad[:5]}")
+
+    n = profile_steps or k
+    before = launch_counts()
+    state, wall, busy, names = _profile_call(
+        scan, state, batch_rows(calls[-1], slice(0, n)), seeds[-1][:n])
+    replayed = {key: n - before[key] for key, n in launch_counts().items()}
+    plain = plain_calls()
+    graphs = scan.graphs.graphs
+    captured = next(iter(graphs.values())).launches if graphs else {}
+    log(f"  {what}: one graphed call of {n} steps {wall:.1f} ms (CUDA "
+        f"events) = {wall / n:.1f} ms per step, eager {eager_ms:.1f} ms "
+        "(median); card busy "
+        + ("not measured" if busy is None
+           else f"{busy:.1f} ms ({100 * busy / wall:.1f}%)")
+        + f"; peak {eager_peak:.2f} GiB eager, {graph_peak:.2f} GiB graphed "
+        f"(max_memory_allocated); launches in that call {replayed}; one "
+        f"replay captures {captured}")
+    fwd = sorted(n for n in names if any(k_ in n for k_ in FWD_KERNELS))
+    bwd = sorted(n for n in names if any(k_ in n for k_ in BWD_KERNELS))
+    log(f"    kernels in the replayed call's trace: forward {fwd[:4]}, "
+        f"backward {bwd[:4]}; plain calls {plain}")
+    if not fwd or not bwd or any(plain.values()):
+        raise AssertionError(f"graphs {what}: trace forward {fwd}, backward "
+                             f"{bwd}, plain {plain}")
+    del state, scan, got, ref
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  {what}: case done in {time.perf_counter() - t_case:.1f} s")
+    return (eager_ms, wall / n, None if busy is None else 100 * busy / wall,
+            eager_peak, graph_peak, replayed)
+
+
+def _want_launched(what, replayed, names):
+    if any(replayed.get(n, 0) <= 0 for n in names):
+        raise AssertionError(f"graphs {what}: replayed launches {replayed}, "
+                             f"want {names}")
+
+
+def phase_graphs():
+    """K train steps per call as CUDA graphs (train/graphs.py,
+    train.loop.make_scan_train_step, make_gradcache_train_step(
+    steps_per_call=K)) at full width, random seeded weights, bf16, frozen
+    weights in bf16, dropout 0.1, the device augmentation of (256, 341)
+    frames, a learning rate that changes every step. Each case runs eager
+    steps, then the same steps as graphed calls from the same state, and
+    must match them bit for bit (losses, trainable parameters, both AdamW
+    moments); then one more call is timed and profiled (card busy share,
+    the kernels' names in the trace, no plain version):
+    - the flagship at B=400, the plain step, K=4, two calls;
+    - GradCache 4 x 100 (merged stage 1, gc_s1_chunk 200), K=4;
+    - per-layer remat "full", K=2;
+    - the plain step over a 1-rank NCCL mesh, K=2;
+    - the OpenCLIP ablation at B=10, K=8 (K1m and K3m);
+    - cli/train_cl.run with tpu.steps_per_call=4 and GradCache, 2 epochs
+      of 6 steps (calls of 4 and 2), then a run resumed from `last` after
+      epoch 0 repeating epoch 1's losses bit for bit.
+    Returns the launch counts of the graphed calls."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed,
+    )
+    from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
+    from bioscan_clip_tpu_torch.train.loop import (
+        make_gradcache_train_step,
+        make_scan_train_step,
+        make_train_step,
+    )
+    from bioscan_clip_tpu_torch.train.state import cast_frozen_params
+
+    torch.cuda.empty_cache()
+    log("  " + subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    counts, table = {}, {}
+    rng = np.random.default_rng(12)
+    t0 = time.perf_counter()
+    frames = [_train_cl_batch(rng, TRAIN_BATCH) for _ in range(GRAPH_K)]
+    calls = [_stacked(frames), _stacked(frames[::-1])]
+    seeds = [[int(s) for s in rng.integers(0, 2**32, GRAPH_K)]
+             for _ in calls]
+    log(f"  synthetic data: {1e3 * (time.perf_counter() - t0):.0f} ms")
+
+    def flagship(**tpu):
+        args = ConfigNode({"model_config": dict(FLAGSHIP), "tpu": tpu})
+        model = load_clip_model(args, device="cuda", dtype=torch.bfloat16,
+                                seed=0)
+        return cast_frozen_params(model)
+
+    model = flagship()
+    table["plain"] = _graph_case(
+        f"plain B={TRAIN_BATCH} K={GRAPH_K}", model,
+        lambda: make_train_step(model),
+        lambda: make_scan_train_step(model, GRAPH_K), calls, seeds, counts,
+        profile_steps=2)
+    merged = load_clip_model(ConfigNode({"model_config": dict(FLAGSHIP)}),
+                             device="cuda", dtype=torch.bfloat16,
+                             lora_rank=0)
+    gc = dict(accum_steps=TRAIN_CL_ACCUM, s1_chunk=TRAIN_CL_S1_CHUNK,
+              merged_model=merged)
+    table["gradcache"] = _graph_case(
+        f"GradCache {TRAIN_CL_ACCUM} x {TRAIN_BATCH // TRAIN_CL_ACCUM} "
+        f"K={GRAPH_K}", model,
+        lambda: make_gradcache_train_step(model, **gc),
+        lambda: make_gradcache_train_step(model, steps_per_call=GRAPH_K,
+                                          **gc),
+        calls[:1], seeds[:1], counts, profile_steps=2)
+    del merged, gc
+    two = [{k: v[:2] if not isinstance(v, dict)
+            else {kk: vv[:2] for kk, vv in v.items()}
+            for k, v in calls[0].items()}]
+    cfg = ConfigNode({"tpu": {"distributed": {
+        "coordinator": f"localhost:{_free_port()}", "num_processes": 1,
+        "process_id": 0}}})
+    if maybe_initialize_distributed(cfg, log=log, device="cuda") != (0, 1):
+        raise AssertionError("graphs: not a 1-rank group")
+    try:
+        mesh = create_mesh({"data": 1})
+        if dist.get_backend() != "nccl" or mesh.group is None:
+            raise AssertionError(f"graphs: backend {dist.get_backend()}")
+        table["mesh"] = _graph_case(
+            "plain over the 1-rank NCCL mesh K=2", model,
+            lambda: make_train_step(model, mesh=mesh),
+            lambda: make_scan_train_step(model, 2, mesh=mesh), two,
+            [seeds[0][:2]], counts)
+    finally:
+        dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    model = flagship(remat=True, remat_policy="full")
+    table["remat"] = _graph_case(
+        'remat "full" K=2', model, lambda: make_train_step(model),
+        lambda: make_scan_train_step(model, 2), two, [seeds[1][:2]],
+        counts)
+    del model, calls, two, frames
+    torch.cuda.empty_cache()
+
+    oc_args = ConfigNode({"model_config": dict(OPENCLIP)})
+    model = cast_frozen_params(load_clip_model(
+        oc_args, device="cuda", dtype=torch.bfloat16, seed=0))
+    oc = [_stacked([_train_batch(rng, OPENCLIP_TRAIN_BATCH)
+                    for _ in range(8)])]
+    table["openclip"] = _graph_case(
+        f"OpenCLIP B={OPENCLIP_TRAIN_BATCH} K=8", model,
+        lambda: make_train_step(model, openclip_norm=True),
+        lambda: make_scan_train_step(model, 8, openclip_norm=True), oc,
+        [[int(s) for s in rng.integers(0, 2**32, 8)]], counts)
+    del model, oc
+    torch.cuda.empty_cache()
+    for name, row in table.items():
+        want = ("mha_packed", "mha_dropout", "mha_bwd")
+        if name == "openclip":
+            want += ("mha_packed_mask", "mha_bwd_mask")
+        _want_launched(name, row[5], want)
+    _graph_train_cl(counts)
+    log("  graphed against eager, ms per step (CUDA events), card busy % "
+        "of a graphed call, peak GiB eager / graphed: " + "; ".join(
+            f"{name} {r[0]:.1f} -> {r[1]:.1f} ms, "
+            + ("busy not measured" if r[2] is None else f"busy {r[2]:.1f}%")
+            + f", {r[3]:.2f} / {r[4]:.2f} GiB" for name, r in table.items()))
+    log("phase graphs ok")
+    return counts
+
+
+GRAPH_CL_STEPS = 6  # tpu.max_steps_per_epoch of the graphed train_cl run
+
+
+def _graph_train_cl(counts):
+    """cli/train_cl.run with tpu.steps_per_call=GRAPH_K under GradCache 4 x
+    100 (merged stage 1, gc_s1_chunk 200): 2 epochs of GRAPH_CL_STEPS steps
+    (calls of 4 and 2), the eval phase after each (96 keys, 48 seen, 48
+    unseen records), then a run resumed from `last` as it stood after
+    epoch 0 repeats epoch 1's losses bit for bit."""
+    import math
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.cli import train_cl
+    from bioscan_clip_tpu_torch.train.checkpoint import wait_for_checkpoints
+
+    rng = np.random.default_rng(13)
+    batches = [_train_cl_batch(rng, TRAIN_BATCH) for _ in range(3)]
+    train = _MemoryLoader(batches * 2)
+    keys_rec = _eval_records(rng, 96, EVAL_FRAME)
+    seen = _batches(_eval_records(rng, 48, EVAL_FRAME, like=_take(
+        keys_rec, np.arange(48))), 48)
+    unseen = _batches(_eval_records(rng, 48, EVAL_FRAME, snps=4, like=_take(
+        keys_rec, np.arange(48, 96))), 48)
+    keys = _batches(keys_rec, 96)
+    root = Path("build") / "chip_smoke_graphs"
+    shutil.rmtree(root, ignore_errors=True)
+    copy = root / "after_epoch_0"
+    tpu = dict(accum_steps=TRAIN_CL_ACCUM, gradcache_merged=True,
+               gc_s1_chunk=TRAIN_CL_S1_CHUNK, steps_per_call=GRAPH_K,
+               max_steps_per_epoch=GRAPH_CL_STEPS)
+    lines = []
+
+    def out(line):
+        lines.append(line)
+        if line.startswith(("epoch", "Resumed")) or "per call" in line:
+            log(f"    | {line}")
+        if line.startswith("Last ckpt: ") and not copy.exists():
+            wait_for_checkpoints()  # `last` as it stood after epoch 0
+            copy.mkdir(parents=True)
+            shutil.copy(line[len("Last ckpt: "):], copy / "last")
+
+    def losses_of(lns, epoch):
+        prefix = f"epoch {epoch} losses "
+        return [float(x) for x in next(
+            ln[len(prefix):] for ln in lns if ln.startswith(prefix)
+        ).strip("[]").split(",")]
+
+    real_loaders = train_cl.load_dataloader
+    train_cl.load_dataloader = lambda a, **kw: (train, seen, unseen, keys)
+    try:
+        before = launch_counts()
+        t = time.perf_counter()
+        state, _ = train_cl.run(_train_cl_args(root, **tpu), out=out)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        for key, n in launch_counts().items():
+            counts[key] = counts.get(key, 0) + n - before[key]
+        first = [losses_of(lines, e) for e in range(TRAIN_CL_EPOCHS)]
+        del state
+        torch.cuda.empty_cache()
+        resumed = []
+        args2 = _train_cl_args(root, **tpu)
+        args2["resume"] = str(copy)
+        args2["save_ckpt"] = False
+        state2, _ = train_cl.run(args2, out=resumed.append)
+        again = losses_of(resumed, 1)
+        del state2
+    finally:
+        train_cl.load_dataloader = real_loaders
+        wait_for_checkpoints()
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    log(f"  train_cl, steps_per_call={GRAPH_K}, GradCache: {run_s:.1f} s for "
+        f"{TRAIN_CL_EPOCHS} epochs of {GRAPH_CL_STEPS} steps; losses "
+        f"{first}; resumed from `last` after epoch 0: epoch 1 {again}, "
+        f"bit-equal {again == first[1]}")
+    if not all(math.isfinite(x) for ep in first for x in ep):
+        raise AssertionError(f"graphs train_cl: losses {first}")
+    if [len(ep) for ep in first] != [GRAPH_CL_STEPS] * TRAIN_CL_EPOCHS:
+        raise AssertionError(f"graphs train_cl: losses {first}")
+    if again != first[1]:
+        raise AssertionError(f"graphs train_cl resume: {again} vs {first[1]}")
+
+
 STREAM_F32 = (4_194_304, 1_048_576)  # keys, slab
 STREAM_I8 = (2_097_152, 524_288)
 STREAM_BQ, STREAM_K = 256, 5
@@ -2765,6 +3174,8 @@ def _train_step_parity(cpu, gpu, openclip_norm=False, what=""):
     cpu.train()
     loss_c = step_c.loss_fn(device_batch(batch, "cpu"), seed)
     loss_c.backward()
+    before = {n: p.detach().clone() for n, p in gpu.named_parameters()
+              if p.requires_grad}
     _, loss_g = step_g(st_g, device_batch(batch, "cuda"), seed)
     rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
     log(f"  {what}train step loss: card {loss_g.item():.7f}, cpu "
@@ -2786,6 +3197,17 @@ def _train_step_parity(cpu, gpu, openclip_norm=False, what=""):
     if not worst[0] <= 1e-4:
         raise AssertionError(f"parity train grads: {worst}")
     st_c.apply_gradients()
+    # the card's AdamW is capturable (its lr a card tensor, for CUDA
+    # graphs): the same update by the plain AdamW on the card, for scale
+    plain = {n: t.requires_grad_() for n, t in before.items()}
+    for n, t in plain.items():
+        t.grad = pg[n].grad
+    torch.optim.AdamW(list(plain.values()), lr=1e-3, betas=(0.9, 0.999),
+                      eps=1e-8, weight_decay=0.01).step()
+    moved = max((pg[n].detach() - t.detach()).abs().max().item()
+                for n, t in plain.items())
+    log(f"  {what}AdamW on the card, capturable against plain: max "
+        f"|difference| {moved:.3g} after one step")
     err = max((pg[n].detach().cpu() - p.detach()).abs().max().item()
               for n, p in pc.items())
     log(f"  {what}params after AdamW: max |card - cpu| {err:.3g} (tol 1e-6)")
@@ -2833,6 +3255,8 @@ def main(argv=None) -> int:
         path_counts["train_cl"] = phase_train_cl()
     if "distributed" in phases:
         path_counts["distributed"] = phase_distributed()
+    if "graphs" in phases:
+        path_counts["graphs"] = phase_graphs()
     if "streaming" in phases:
         path_counts["streaming"] = phase_streaming()
     if "probe" in phases:
@@ -2840,8 +3264,11 @@ def main(argv=None) -> int:
     if "parity" in phases:
         phase_parity()
     log(f"elapsed {time.perf_counter() - t0:.1f} s")
-    launches = {name: path_counts.get(path, {}).get(name)
-                for name, path in KERNEL_PATH.items()}
+    by_path = {name: {path: path_counts[path].get(name) for path in paths
+                      if path in path_counts}
+               for name, paths in KERNEL_PATH.items()}
+    launches = {name: path_counts.get(paths[0], {}).get(name)
+                for name, paths in KERNEL_PATH.items()}
 
     kernels = []
     for name, (route, source, replaces) in KERNELS.items():
@@ -2849,6 +3276,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces, "launches": launches[name],
+            "launches_by_path": by_path[name],
             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),

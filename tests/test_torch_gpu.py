@@ -909,3 +909,191 @@ def test_kernels_and_sharded_search_on_cards_not_current(gen):
             gap[:, :-1] = np.minimum(gap[:, :-1], diff)
             np.testing.assert_array_equal(i[gap > 1e-5], ref[1][gap > 1e-5])
             assert i[0, 0] == 123
+
+
+def _graph_model(remat=False, rank=4, seed=1):
+    """The flagship's towers at full width and 2 layers, bf16 compute,
+    adapters off zero; `remat`: per-layer remat "full"."""
+    import dataclasses
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BARCODE_BERT_CONFIG,
+        BERT_SMALL_CONFIG,
+        BarcodeBertDnaEncoder,
+        BertTextEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP, init_weights
+    from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+
+    two = dict(num_layers=2, lora_rank=rank, remat=remat)
+    bf16 = torch.bfloat16
+    m = MultiModalCLIP(
+        image_encoder=ViTImageEncoder(ViTConfig(**two), bf16),
+        dna_encoder=BarcodeBertDnaEncoder(
+            dataclasses.replace(BARCODE_BERT_CONFIG, **two), dtype=bf16),
+        language_encoder=BertTextEncoder(
+            dataclasses.replace(BERT_SMALL_CONFIG, **two), dtype=bf16))
+    m = init_weights(m.cuda(), seed=seed)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        for n, p in m.named_parameters():
+            if "linear_b" in n or ".w_b." in n:
+                p.normal_(0, 0.02, generator=g)
+    return m
+
+
+def _graph_batches(gen, k, b=8):
+    """k stacked batches of b rows: (64, 80) uint8 frames for the device
+    augmentation, barcodes, padded text, labels."""
+    mask = (torch.arange(20, device="cuda")[None]
+            < torch.randint(6, 21, (k, b, 1), device="cuda", generator=gen))
+    return {
+        "image_u8": torch.randint(0, 256, (k, b, 64, 80, 3),
+                                  dtype=torch.uint8, device="cuda",
+                                  generator=gen),
+        "dna": torch.randint(0, 1027, (k, b, 133), device="cuda",
+                             generator=gen),
+        "language": {
+            "input_ids": torch.randint(0, 30522, (k, b, 20), device="cuda",
+                                       generator=gen) * mask,
+            "token_type_ids": torch.zeros(k, b, 20, dtype=torch.int64,
+                                          device="cuda"),
+            "attention_mask": mask.long()},
+        "labels": torch.arange(b, device="cuda").repeat(k, 1),
+    }
+
+
+def _same_train_state(a, b):
+    assert a.step == b.step
+    for (name, p), q in zip(a.model.named_parameters(),
+                            b.model.parameters()):
+        assert torch.equal(p, q), name
+        sa, sb = a.optimizer.state.get(p, {}), b.optimizer.state.get(q, {})
+        assert sa.keys() == sb.keys(), name
+        for key in sa:
+            assert torch.equal(sa[key], sb[key]), (name, key)
+
+
+def _graph_step(kind, model):
+    from bioscan_clip_tpu_torch.train.loop import (
+        make_gradcache_train_step,
+        make_train_step,
+    )
+
+    if kind == "plain":
+        return make_train_step(model, color_jitter=True)
+    return make_gradcache_train_step(model, 2, color_jitter=True,
+                                     merged_model=_graph_model(rank=0),
+                                     s1_chunk=4)
+
+
+@pytest.mark.parametrize("kind", ["plain", "gradcache"])
+@pytest.mark.parametrize("remat", [False, True])
+def test_graphed_steps_equal_the_eager_steps(gen, kind, remat):
+    """Two calls of K = 3 steps per call (the first step warms up, the
+    second is captured, the rest replay) against six eager steps of the
+    same step: losses, parameters and both AdamW moments bit for bit; the
+    kernels' launch counters grow by K times the captured step's launches
+    in each call."""
+    from bioscan_clip_tpu_torch.train.graphs import read_counters
+    from bioscan_clip_tpu_torch.train.loop import (
+        batch_rows,
+        scan_train_steps,
+    )
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    def lr(step):
+        return 1e-3 * (1 + step)
+
+    k = 3
+    calls = [_graph_batches(gen, k) for _ in range(2)]
+    seeds = [[11, 12, 13], [0xFFFFFFFF, 0, 7]]
+    ref = create_train_state(_graph_model(remat), lr)
+    step = _graph_step(kind, ref.model)
+    ref_losses = []
+    for batches, ss in zip(calls, seeds):
+        for j, s in enumerate(ss):
+            ref, loss = step(ref, batch_rows(batches, j), s)
+            ref_losses.append(loss)
+    torch.cuda.synchronize()
+
+    state = create_train_state(_graph_model(remat), lr)
+    scan = scan_train_steps(_graph_step(kind, state.model), k,
+                            modules=(state.model,))
+    losses = []
+    for batches, ss in zip(calls, seeds):
+        before = read_counters()
+        state, out = scan(state, batches, ss)
+        torch.cuda.synchronize()
+        (graph,) = scan.graphs.graphs.values()
+        assert {n: c - before[n] for n, c in read_counters().items()} == {
+            n: k * c for n, c in graph.launches.items()}
+        for name in ("mha_packed", "mha_dropout", "mha_bwd"):
+            assert graph.launches[f"{name}.launches"] > 0, name
+        losses.append(out)
+    assert torch.equal(torch.cat(losses), torch.stack(ref_losses))
+    _same_train_state(state, ref)
+
+
+def test_a_restored_state_replays_no_stale_graph(gen, tmp_path):
+    """After `restore_checkpoint` the optimizer's moments are new tensors:
+    a call re-captures instead of replaying the graph that holds the old
+    ones, and repeats the call that followed the checkpoint bit for bit,
+    as a fresh state restored from it does."""
+    from bioscan_clip_tpu_torch.train import checkpoint
+    from bioscan_clip_tpu_torch.train.loop import make_scan_train_step
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    first, second = _graph_batches(gen, 3), _graph_batches(gen, 3)
+    state = create_train_state(_graph_model(), constant(1e-3))
+    scan = make_scan_train_step(state.model, 3)
+    state, _ = scan(state, first, [1, 2, 3])
+    checkpoint.save_checkpoint(str(tmp_path), state)
+    state, want = scan(state, second, [4, 5, 6])
+    params = [p.detach().clone() for p in state.model.parameters()]
+    checkpoint.restore_checkpoint(str(tmp_path), state)
+    state, again = scan(state, second, [4, 5, 6])
+    assert torch.equal(again, want)
+    assert all(torch.equal(p, q)
+               for p, q in zip(state.model.parameters(), params))
+    fresh = create_train_state(_graph_model(seed=9), constant(1e-3))
+    checkpoint.restore_checkpoint(str(tmp_path), fresh)
+    fresh, other = make_scan_train_step(fresh.model, 3)(fresh, second,
+                                                        [4, 5, 6])
+    assert torch.equal(other, want)
+    _same_train_state(fresh, state)
+
+
+def test_a_failed_capture_raises_naming_its_line(gen):
+    """A step whose body copies from the host cannot be captured: the call
+    raises, naming the line of the port that broke the capture, and runs
+    no eager step in its place."""
+    from bioscan_clip_tpu_torch.data import transforms
+    from bioscan_clip_tpu_torch.train.graphs import StepGraphs
+    from bioscan_clip_tpu_torch.train.schedules import constant
+    from bioscan_clip_tpu_torch.train.state import create_train_state
+
+    lin = torch.nn.Linear(4, 4).cuda()
+    state = create_train_state(lin, constant(1e-3), disable_lora=True)
+    angles = torch.rand(2)  # on the host: rotate_nearest copies cos, sin
+
+    def body(st, batch, inputs):
+        st.optimizer.zero_grad(set_to_none=True)
+        x = transforms.rotate_nearest(batch["x"], angles)
+        loss = lin(x.reshape(2, -1)[:, :4]).square().mean()
+        loss.backward()
+        st.optimizer.step()
+        return loss.detach()
+
+    def step(st, batch, seed):
+        raise AssertionError("no eager step on the card")
+
+    step.prelude = lambda st, batch, seed: {}
+    step.body = body
+    graphs = StepGraphs(step, [lin])
+    x = torch.rand(2, 8, 8, 1, device="cuda", generator=gen)
+    with pytest.raises(RuntimeError, match=r"capture of the train step "
+                       r"failed at bioscan_clip_tpu_torch/data/transforms"):
+        graphs.run(state, [{"x": x}] * 2, [0, 1])
+    assert state.step == 1  # the warm-up ran; the captured step did not

@@ -12,15 +12,20 @@ BERT towers, a learnable logit scale), fp32 on the CPU:
   one port step equals JAX `make_gradcache_train_step(s1_chunk=...)`: loss
   1e-5 relative, parameters after AdamW atol 2e-6 (JAX's Pallas attention
   in interpret mode, its XLA backward, another summation order through two
-  layers; a first Adam step moves each parameter by about lr);
+  layers; a first Adam step moves each parameter by about lr). That JAX
+  step is jitted once per process (`jax_gradcache_reference`), and
+  tests/test_torch_remat.py holds its steps against the same step's
+  gradients;
 - `accum_mode=micro` with one microbatch is the plain step bit for bit.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
 import pytest
 import torch
 
@@ -132,36 +137,79 @@ def test_parts_that_do_not_divide_the_batch_raise(params):
                {"accum_steps": 2, "s1_image_batch": 3}):
         with pytest.raises(ValueError, match="divide the global batch"):
             _run(_model(params), make_gradcache_train_step, batch, **kw)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 2"):
-        make_gradcache_train_step(_model(params), 2, steps_per_call=2)
 
 
-def test_gradcache_matches_jax_s1_chunk_mode(params, monkeypatch):
-    """JAX's GradCache in its row-keyed mode (s1_chunk, loop.py:557-580,
-    :696-712) and the port's step, handed the same uint32 step bits, on
-    pre-augmented float images (JAX's augmentation draws are its PRNG's)."""
-    monkeypatch.setenv("BSCAN_FUSED_ATTENTION", "1")
-    monkeypatch.setenv("BSCAN_PALLAS_MHA_BWD", "0")
+def _first_moment_grads(opt_state, params):
+    """The gradients of a first AdamW step, from its first moment:
+    mu = (1 - b1) * g, b1 = 0.9 (one fp32 rounding each way)."""
+    def masked(x):
+        return isinstance(x, optax.MaskedNode)
+
+    mus = [opt_state.inner_states[k].inner_state[0].mu
+           for k in ("trainable", "scale")]
+
+    def pick(p, *ms):
+        m = next((m for m in ms if not masked(m)), None)
+        return (np.zeros(np.shape(p), np.float32) if m is None
+                else np.asarray(m) / np.float32(0.1))
+
+    return jax.tree.map(pick, params, *mus, is_leaf=masked)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_gradcache_reference():
+    """One JAX GradCache step in its row-keyed mode (s1_chunk, loop.py:
+    557-580, :696-712; accum 2, chunks of 4) on `shared_params` with a
+    learnable logit scale, lr 1e-3, on pre-augmented float images (JAX's
+    augmentation draws are its PRNG's), JAX's attention in its Pallas
+    kernel in interpret mode with the XLA backward -> {"batch": host
+    batch, "bits": the uint32 step bits it derived, "loss", "init" (the
+    starting parameters), "params" after AdamW and "grads" (the full-batch
+    gradient), all three as port state dicts}. Jitted once per process; tests/test_torch_remat.py reads it
+    too."""
     host = train_batch(7, B)
     host["image"] = np.random.default_rng(8).random(
         (B, 224, 224, 3), dtype=np.float32)
     del host["image_u8"]
-    p_jax = jax_make_logit_scale_param(dict(params))
+    p_jax = jax.tree.map(np.asarray, jax_make_logit_scale_param(
+        dict(shared_params())))
+    init = state_dict_from_jax(p_jax)
     mesh = create_mesh(devices=jax.devices()[:1])
     st = jax_state(jax_model(), jax.tree.map(jnp.asarray, p_jax),
                    lambda step: 1e-3)
     rng = jax.random.PRNGKey(3)
     bits = int(jax.random.bits(jax.random.fold_in(rng, 0), dtype=jnp.uint32))
-    step = jax_gradcache_step(jax_model(), mesh, accum_steps=2, s1_chunk=4)
-    st, loss_ref = step(st, shard_batch(host, mesh), rng)
-    ref = state_dict_from_jax(jax.tree.map(np.array, st.params))
+    env = {"BSCAN_FUSED_ATTENTION": "1", "BSCAN_PALLAS_MHA_BWD": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        step = jax_gradcache_step(jax_model(), mesh, accum_steps=2,
+                                  s1_chunk=4)
+        st, loss = step(st, shard_batch(host, mesh), rng)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return {"batch": host, "bits": bits, "loss": float(loss),
+            "init": init,
+            "params": state_dict_from_jax(jax.tree.map(np.array, st.params)),
+            "grads": state_dict_from_jax(
+                _first_moment_grads(st.opt_state, p_jax))}
 
+
+def test_gradcache_matches_jax_s1_chunk_mode(params):
+    """JAX's GradCache in its row-keyed mode and the port's step, handed
+    the same uint32 step bits (`jax_gradcache_reference`)."""
+    jax_ref = jax_gradcache_reference()
+    ref = jax_ref["params"]
     model = _model(params)
     state = create_train_state(model, schedules.constant(1e-3))
     port = make_gradcache_train_step(model, 2, s1_chunk=4)
-    state, loss = port(state, device_batch(host, "cpu"), bits)
-    assert loss.item() == pytest.approx(float(loss_ref), rel=1e-5)
+    state, loss = port(state, device_batch(jax_ref["batch"], "cpu"),
+                       jax_ref["bits"])
+    assert loss.item() == pytest.approx(jax_ref["loss"], rel=1e-5)
     moved = 0
     for name, p in model.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), ref[name].numpy(),

@@ -7,9 +7,12 @@ the same gradients, on the tiny tri-modal model of tests/test_torch_train.py
   max |g| (a recompute of the same ops; saved or recomputed, the values
   are the same);
 - a train step's loss and trainable gradients under each policy against
-  JAX's step with remat (`remat_policy="dots"`, `jax.value_and_grad`):
-  loss 1e-5 relative, gradients 1e-4 of each tensor's max |g| (the
-  tolerance of tests/test_torch_train.py's step);
+  JAX's full-batch gradient on the same step bits, from the one JAX step
+  tests/test_torch_gradcache.py jits (`jax_gradcache_reference`: its
+  GradCache step, the gradient read off AdamW's first moment; remat moves
+  no value in JAX, tests/test_remat.py): loss 1e-5 relative, gradients
+  1e-4 of each tensor's max |g| (the tolerance of
+  tests/test_torch_train.py's step);
 - `make_train_step(remat=True)` (each tower under one checkpoint) equals
   the step without it;
 - an unknown policy raises, and `load_clip_model` reads `tpu.remat`;
@@ -21,29 +24,10 @@ the same gradients, on the tiny tri-modal model of tests/test_torch_train.py
 
 import dataclasses
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from bioscan_clip_tpu.losses.contrastive import (
-    multimodal_contrastive_loss as jax_contrastive_loss,
-)
-from bioscan_clip_tpu.models.bert import (
-    BarcodeBertDnaEncoder as JaxDna,
-    BertConfig as JaxBertConfig,
-    BertTextEncoder as JaxText,
-)
-from bioscan_clip_tpu.models.clip import MultiModalCLIP as JaxCLIP
-from bioscan_clip_tpu.models.vit import ViT as JaxViT, ViTConfig as JaxViTConfig
-from bioscan_clip_tpu.train.loop import LOGIT_SCALE
-from bioscan_clip_tpu.train.state import (
-    grads_to_full_tree,
-    merge_partitions,
-    param_labels as jax_param_labels,
-    partition_params,
-)
 from bioscan_clip_tpu_torch.config.core import ConfigNode
 from bioscan_clip_tpu_torch.interop.weights import load_into, \
     state_dict_from_jax
@@ -61,11 +45,15 @@ from bioscan_clip_tpu_torch.models.common import REMAT_POLICIES
 from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
 from bioscan_clip_tpu_torch.ops import attention
 from bioscan_clip_tpu_torch.train import schedules
-from bioscan_clip_tpu_torch.train.loop import device_batch, make_train_step
+from bioscan_clip_tpu_torch.train.loop import (
+    device_batch,
+    make_logit_scale_param,
+    make_train_step,
+)
 from bioscan_clip_tpu_torch.train.state import create_train_state
-from test_torch_gradcache import shared_params
+from test_torch_gradcache import jax_gradcache_reference, shared_params
 from test_torch_towers import BERT, D_OUT, VIT
-from test_torch_train import jax_embed_train, jax_tower_seeds, train_batch
+from test_torch_train import train_batch
 
 B = 4
 SEED = 0x13572468
@@ -87,12 +75,12 @@ def params():
     return shared_params()
 
 
-def _grads(model, batch, remat_step=False, calls=None):
+def _grads(model, batch, remat_step=False, calls=None, seed=SEED):
     """(loss, trainable gradients); `calls` gets the attention forwards
     the backward ran (the plain version's calls)."""
     create_train_state(model, schedules.constant(1e-3))
     model.train()
-    loss = make_train_step(model, remat=remat_step).loss_fn(batch, SEED)
+    loss = make_train_step(model, remat=remat_step).loss_fn(batch, seed)
     before = attention.mha_reference.calls
     loss.backward()
     if calls is not None:
@@ -101,53 +89,21 @@ def _grads(model, batch, remat_step=False, calls=None):
                          if p.requires_grad}
 
 
-@pytest.fixture(scope="module")
-def jax_reference(params):
-    """JAX's loss and gradients with per-layer remat ("dots") in every
-    tower, one jit."""
-    import os
-
-    os.environ["BSCAN_FUSED_ATTENTION"] = "1"
-    os.environ["BSCAN_PALLAS_MHA_BWD"] = "0"
-    try:
-        r = dict(lora_rank=2, remat=True, remat_policy="dots")
-        m = JaxCLIP(
-            image_encoder=JaxViT(JaxViTConfig(**VIT, **r)),
-            dna_encoder=JaxDna(JaxBertConfig(vocab_size=1027, **BERT, **r),
-                               output_dim=D_OUT),
-            language_encoder=JaxText(JaxBertConfig(vocab_size=30522, **BERT,
-                                                   **r), output_dim=D_OUT),
-        )
-        batch = train_batch(4, B)
-        seeds = jax_tower_seeds(SEED, B)
-        trainable, frozen = partition_params(params, jax_param_labels(params))
-
-        def loss_t(tr):
-            return jax_contrastive_loss(
-                jax_embed_train(m, merge_partitions(tr, frozen), batch,
-                                seeds),
-                jnp.asarray(batch["labels"]), LOGIT_SCALE)
-
-        loss, g = jax.jit(jax.value_and_grad(loss_t))(trainable)
-    finally:
-        del os.environ["BSCAN_FUSED_ATTENTION"]
-        del os.environ["BSCAN_PALLAS_MHA_BWD"]
-    return batch, float(loss), state_dict_from_jax(
-        jax.tree.map(np.array, grads_to_full_tree(g, params)))
-
-
 @pytest.mark.parametrize("policy", REMAT_POLICIES)
-def test_step_under_every_policy_matches_jax_and_no_remat(
-        params, jax_reference, policy):
-    host, loss_ref, g_ref = jax_reference
-    batch = device_batch(host, "cpu")
-    sd = state_dict_from_jax(params)
-    loss0, g0 = _grads(load_into(port_model(), sd), batch)
+def test_step_under_every_policy_matches_jax_and_no_remat(params, policy):
+    ref = jax_gradcache_reference()
+    batch = device_batch(ref["batch"], "cpu")
+
+    def model(*a):
+        return load_into(make_logit_scale_param(port_model(*a)),
+                         ref["init"])
+
+    loss0, g0 = _grads(model(), batch, seed=ref["bits"])
     calls = []
     launches = (attention.mha_packed.launches, attention.mha.launches,
                 attention.mha_dropout.launches)
-    loss1, g1 = _grads(load_into(port_model(True, policy), sd), batch,
-                       calls=calls)
+    loss1, g1 = _grads(model(True, policy), batch, calls=calls,
+                       seed=ref["bits"])
     # "full" recomputes the attention of every layer (2 in each of the 3
     # towers); a selective policy saved its output (the fault repaired
     # here: the attention was an autograd.Function no policy could save,
@@ -156,12 +112,14 @@ def test_step_under_every_policy_matches_jax_and_no_remat(
     assert calls == [3 * 2 if policy == "full" else 0]
     assert (attention.mha_packed.launches, attention.mha.launches,
             attention.mha_dropout.launches) == launches
-    assert loss1 == loss0 == pytest.approx(loss_ref, rel=1e-5)
+    assert loss1 == loss0 == pytest.approx(ref["loss"], rel=1e-5)
+    assert "logit_scale" in g0
     for name, g in g0.items():
         scale = g.abs().max().item()
         assert (g1[name] - g).abs().max().item() <= 1e-6 * scale, name
-        err = np.abs(g1[name].numpy() - g_ref[name].numpy()).max()
-        assert err <= 1e-4 * np.abs(g_ref[name].numpy()).max(), (name, err)
+        want = ref["grads"][name].numpy()
+        err = np.abs(g1[name].numpy() - want).max()
+        assert err <= 1e-4 * np.abs(want).max(), (name, err)
 
 
 def test_tower_under_every_policy_equals_no_remat(params):

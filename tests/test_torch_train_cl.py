@@ -5,8 +5,10 @@ model (1-layer towers, width 32, dropout 0.1) in place of
 GradCache over 2 microbatches with the merged stage 1, 2 epochs of 2 steps,
 the eval phase after each, `last`, `best` and `config.yaml` written; a run
 resumed from `last` as it stood after epoch 0 repeats the uninterrupted
-run's epoch-1 losses bit for bit (same config, so the same schedule); INSECT
-mode and `tpu.steps_per_call=2` raise, naming their ROADMAP.md entries;
+run's epoch-1 losses bit for bit (same config, so the same schedule);
+`tpu.steps_per_call=2` gives the epochs' losses and the `last` checkpoint of
+one step per call, and runs one step per call under `accum_mode: micro`, as
+in JAX; INSECT mode raises, naming its ROADMAP.md entry;
 `tpu.fast_ln` builds bf16 LayerNorms; `train_epoch` hands wandb one `loss`
 record per step; one process asking for a mesh of several devices
 raises."""
@@ -121,16 +123,59 @@ def test_train_cl_gradcache_checkpoints_and_bit_equal_resume(args,
 
 
 def test_insect_mode_and_steps_per_call_raise(args):
+    """INSECT mode raises; `tpu.steps_per_call` no longer does (its runs:
+    `test_steps_per_call_equals_one_step_per_call`)."""
     from bioscan_clip_tpu_torch.cli import train_cl
 
     args.cfg.tpu.merge({"steps_per_call": 2})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 2"):
-        train_cl.run(args)
     args.cfg.model_config.merge({"dataset": "INSECT"})
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1, item 6"):
         train_cl.run(args)
+
+
+def test_steps_per_call_equals_one_step_per_call(args, tmp_path):
+    """`tpu.steps_per_call=2` (GradCache, 2 steps per call) gives the
+    epochs' losses and the `last` checkpoint (model, AdamW state, step,
+    generator) of one step per call; under `accum_mode: micro` it runs one
+    step per call, as JAX's CLI does."""
+    import torch
+
+    from bioscan_clip_tpu_torch.cli import train_cl
+
+    runs = {}
+    for k in (1, 2):
+        args.cfg.tpu.merge({"steps_per_call": k})
+        args.cfg.model_config.merge({"model_output_name": f"k{k}"})
+        lines = []
+        train_cl.run(args, out=lines.append)
+        runs[k] = ([_losses(lines, e) for e in (0, 1)], lines)
+    assert runs[2][0] == runs[1][0] and len(runs[1][0][1]) == 2
+    assert any("2 train steps per call" in ln for ln in runs[2][1])
+
+    def last(name):
+        folder = tmp_path / "ckpt" / name
+        return torch.load(folder / sorted(os.listdir(folder))[-1] / "last",
+                          weights_only=True)
+
+    a, b = last("k1"), last("k2")
+    assert a["step"] == b["step"] == 4
+    assert torch.equal(a["generator"], b["generator"])
+    for key, t in a["state_dict"].items():
+        assert torch.equal(t, b["state_dict"][key]), key
+    for i, st in a["optimizer"]["state"].items():
+        for key, t in st.items():
+            assert torch.equal(t, b["optimizer"]["state"][i][key]), (i, key)
+
+    args.cfg.tpu.merge({"accum_mode": "micro", "steps_per_call": 2,
+                        "max_steps_per_epoch": 1})
+    args.cfg.model_config.merge({"epochs": 1})
+    args.cfg.merge({"save_ckpt": False})
+    assert train_cl.steps_per_call_of(args) == 1
+    lines = []
+    state, _ = train_cl.run(args, out=lines.append, skip_final_eval=True)
+    assert state.step == 1
+    assert not any("per call" in ln for ln in lines)
 
 
 def test_the_cli_needs_cuda_unless_the_cpu_is_asked(args):
