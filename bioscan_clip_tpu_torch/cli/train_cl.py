@@ -48,7 +48,12 @@ checkpoints; every process restores. The eval phase runs on every process
 over the full splits on its own card (JAX's process-local eval,
 train_cl.py:320-334). One process naming several cards raises.
 
-INSECT mode raises, naming its ROADMAP.md entry.
+INSECT mode (`model_config.dataset: INSECT`, JAX train_cl.py:76-89,
+:193-238, :336-349): the loaders of `data/insect.py` (the train loader
+process-sharded), ColorJitter last in the device train augmentation of
+every step kind, and an eval phase whose keys are the train, val,
+test-seen and test-unseen splits merged (`retrieval/report.
+construct_key_dict`) and whose queries are test seen and unseen.
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ import os
 import sys
 
 from bioscan_clip_tpu_torch.data.dataset import load_dataloader
+from bioscan_clip_tpu_torch.data.insect import load_insect_dataloader
 
 
 def _tpu(args, key, default):
@@ -87,7 +93,8 @@ def steps_per_call_of(args) -> int:
 
 def make_step(args, model, dtype, out=print, mesh=None):
     """The train step `args` asks for (JAX train_cl.py:147-244); `dtype`
-    is the model's compute dtype; `mesh` the processes' data axis. With
+    is the model's compute dtype; `mesh` the processes' data axis; INSECT
+    mode adds ColorJitter to the train augmentation. With
     `steps_per_call_of(args)` K > 1 it is a scan step of K steps per call
     (`train.loop.make_scan_train_step`, or GradCache's with
     `steps_per_call=K`), CUDA graphs on the card."""
@@ -102,6 +109,7 @@ def make_step(args, model, dtype, out=print, mesh=None):
     mc = args.model_config
     common = dict(openclip_norm=bool(getattr(mc, "for_open_clip", False)),
                   disable_lora=bool(getattr(mc, "disable_lora", False)),
+                  color_jitter=getattr(mc, "dataset", None) == "INSECT",
                   mesh=mesh)
     accum = _tpu(args, "accum_steps", 1)
     k = steps_per_call_of(args)
@@ -174,6 +182,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
     from bioscan_clip_tpu_torch.models.clip import load_clip_model
     from bioscan_clip_tpu_torch.parallel.mesh import replicate_module
     from bioscan_clip_tpu_torch.retrieval.report import (
+        construct_key_dict,
         inference_and_print_result,
     )
     from bioscan_clip_tpu_torch.train.checkpoint import (
@@ -196,10 +205,7 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
     from bioscan_clip_tpu_torch.utils.logging import WandbRun
 
     mc = args.model_config
-    if getattr(mc, "dataset", None) == "INSECT":
-        raise NotImplementedError(
-            "INSECT mode needs data/insect.py, which is not ported yet: "
-            "ROADMAP.md queue 1, item 6 (the off-path modules)")
+    insect_mode = getattr(mc, "dataset", None) == "INSECT"
     dev = resolve_device(device or getattr(args, "device", None) or "cuda")
     rank, world, mesh, dev = train_mesh(args, dev, out=out)
     if rank:
@@ -212,8 +218,12 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
     writer = bool(args.save_ckpt) and rank == 0
 
     out("Construct dataloader...")
-    train_loader, seen_val, unseen_val, all_keys = load_dataloader(
-        args, process_index=rank, process_count=world)
+    if insect_mode:
+        train_loader, *eval_loaders = load_insect_dataloader(
+            args, process_index=rank, process_count=world)
+    else:
+        train_loader, *eval_loaders = load_dataloader(
+            args, process_index=rank, process_count=world)
 
     out("Initialize model...")
     model = load_clip_model(args, device=dev, dtype=dtype,
@@ -311,11 +321,21 @@ def run(args, max_steps_per_epoch=None, out=print, skip_final_eval=False,
             save_checkpoint(folder, state, name="last", block=False)
             out(f"Last ckpt: {folder}/last")
         group = None if eg < 0 else eg
-        keys_dict = extract_features(model, all_keys, for_key_set=True,
-                                     group_samples=group)
-        seen_dict = extract_features(model, seen_val, group_samples=group)
-        unseen_dict = extract_features(model, unseen_val,
-                                       group_samples=group)
+        if insect_mode:
+            # eval_phase_for_insect (JAX train_cl.py:336-349): the keys are
+            # the four splits merged, the queries test seen and unseen
+            dicts = [extract_features(model, loader, group_samples=group)
+                     for loader in eval_loaders]
+            keys_dict = construct_key_dict(dicts)
+            seen_dict, unseen_dict = dicts[2], dicts[3]
+        else:
+            seen_val, unseen_val, all_keys = eval_loaders
+            keys_dict = extract_features(model, all_keys, for_key_set=True,
+                                         group_samples=group)
+            seen_dict = extract_features(model, seen_val,
+                                         group_samples=group)
+            unseen_dict = extract_features(model, unseen_val,
+                                           group_samples=group)
         acc_dict, _, _ = inference_and_print_result(
             keys_dict, seen_dict, unseen_dict, args=args, k_list=[1, 3, 5],
             device=dev, out=out)

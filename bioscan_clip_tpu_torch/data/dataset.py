@@ -2,10 +2,11 @@
 
 A copy of bioscan_clip_tpu/data/dataset.py (`get_bin_labels` :17-37,
 `construct_dataloader` :48-102, `load_dataloader` :105-131,
-`load_bioscan_dataloader_all_small_splits` :134-164) on the port's
-`BioscanLoader`: the pre-training and train-seen loaders are train loaders
-(shuffled, process-sharded, instance or BIN labels, `tpu.train_crop`), the
-others eval loaders.
+`load_bioscan_dataloader_all_small_splits` :134-164,
+`load_bioscan_dataloader_with_train_seen_and_separate_keys` :167-180) on
+the port's `BioscanLoader`: the pre-training and train-seen loaders are
+train loaders (shuffled, process-sharded, instance or BIN labels,
+`tpu.train_crop`), the others eval loaders.
 """
 
 from __future__ import annotations
@@ -133,3 +134,17 @@ def load_bioscan_dataloader_all_small_splits(args, world_size=None,
         mk("unseen_keys" if is_5m else "test_unseen_keys"),
         mk("all_keys"),
     )
+
+
+def load_bioscan_dataloader_with_train_seen_and_separate_keys(
+        args, world_size=None, rank=None, for_pretrain=True):
+    """(train_seen, val_seen, val_unseen, seen_keys, val_unseen_keys,
+    test_unseen_keys), train_seen shuffled: the six loaders of methods 1
+    and 2 (dataset.py:371-457). Every one is an eval loader (label dicts
+    and ids)."""
+    def mk(split, **kw):
+        return construct_dataloader(args, split, **kw)
+
+    return (mk("train_seen", shuffle=True), mk("val_seen"),
+            mk("val_unseen"), mk("seen_keys"), mk("val_unseen_keys"),
+            mk("test_unseen_keys"))

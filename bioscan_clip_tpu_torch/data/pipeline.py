@@ -69,7 +69,77 @@ def fit_to_slot(im: np.ndarray, h0: int, w0: int) -> np.ndarray:
     return im
 
 
-class BioscanLoader:
+class PrefetchLoader:
+    """The iteration of a host loader: `_index_batches()` yields each
+    batch's row indices, `_make_batch(idx, pool)` builds its dict on a
+    background thread with a decode pool of `decode_threads`, keeping
+    `prefetch_depth` batches ready. A train loader's epoch advances after
+    each complete pass. Subclasses set `decode_threads`,
+    `prefetch_depth`, `for_training` and `epoch`."""
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __iter__(self):
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
+        stop = object()
+        # a consumer that abandons iteration mid-epoch closes this
+        # generator; `cancel` then unblocks and ends the producer
+        cancel = threading.Event()
+
+        def _put(item) -> bool:
+            while not cancel.is_set():
+                try:
+                    q.put(item, timeout=0.2)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                with ThreadPoolExecutor(
+                        max_workers=self.decode_threads) as pool:
+                    for idx in self._index_batches():
+                        if cancel.is_set() or not _put(
+                                self._make_batch(idx, pool)):
+                            return
+            except BaseException as e:  # surface errors to the consumer
+                _put(e)
+            finally:
+                # a full queue does not mean the consumer is gone: retry
+                # until it takes `stop` or cancels
+                _put(stop)
+
+        t = threading.Thread(
+            target=producer, daemon=True, name="bscan-prefetch"
+        )
+        t.start()
+        completed = False
+        try:
+            while True:
+                item = q.get()
+                if item is stop:
+                    completed = True
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            cancel.set()
+            if not completed:
+                # unblock a producer stuck on a full queue, then let it
+                # observe `cancel` and exit
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    pass
+            t.join(timeout=30.0)
+        if self.for_training:
+            self.epoch += 1
+
+
+class BioscanLoader(PrefetchLoader):
     """Iterable over batch dicts of one split.
 
     Batch dict keys (modalities follow model_config):
@@ -152,9 +222,6 @@ class BioscanLoader:
             return (self.n // self.process_count) // self.batch_size
         return -(-self.n // self.batch_size)
 
-    def set_epoch(self, epoch: int):
-        self.epoch = epoch
-
     def _index_batches(self):
         idx = np.arange(self.n)
         if self.shuffle:
@@ -227,61 +294,3 @@ class BioscanLoader:
             batch["label_dicts"] = self.reader.read_label_dicts(idx)
             batch["ids"] = self.reader.read_ids(idx)
         return batch
-
-    def __iter__(self):
-        q: queue.Queue = queue.Queue(maxsize=self.prefetch_depth)
-        stop = object()
-        # a consumer that abandons iteration mid-epoch closes this
-        # generator; `cancel` then unblocks and ends the producer
-        cancel = threading.Event()
-
-        def _put(item) -> bool:
-            while not cancel.is_set():
-                try:
-                    q.put(item, timeout=0.2)
-                    return True
-                except queue.Full:
-                    continue
-            return False
-
-        def producer():
-            try:
-                with ThreadPoolExecutor(
-                        max_workers=self.decode_threads) as pool:
-                    for idx in self._index_batches():
-                        if cancel.is_set() or not _put(
-                                self._make_batch(idx, pool)):
-                            return
-            except BaseException as e:  # surface errors to the consumer
-                _put(e)
-            finally:
-                # a full queue does not mean the consumer is gone: retry
-                # until it takes `stop` or cancels
-                _put(stop)
-
-        t = threading.Thread(
-            target=producer, daemon=True, name="bscan-prefetch"
-        )
-        t.start()
-        completed = False
-        try:
-            while True:
-                item = q.get()
-                if item is stop:
-                    completed = True
-                    break
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            cancel.set()
-            if not completed:
-                # unblock a producer stuck on a full queue, then let it
-                # observe `cancel` and exit
-                try:
-                    q.get_nowait()
-                except queue.Empty:
-                    pass
-            t.join(timeout=30.0)
-        if self.for_training:
-            self.epoch += 1

@@ -159,3 +159,46 @@ def tokenize_labels_bert_small(strings, max_length: int = 20,
         "token_type_ids": enc["token_type_ids"].astype(np.int32),
         "attention_mask": enc["attention_mask"].astype(np.int32),
     }
+
+
+def tokenize_labels_longest(strings, vocab_path: str = None):
+    """Tokenize label strings with the BERT-small tokenizer, padded to the
+    longest string and never truncated (the INSECT loader's
+    `tokenizer(..., padding=True)`, dataset_for_insect_dataset.py:90).
+
+    Source order as `tokenize_labels_bert_small`: an explicit `vocab_path`
+    (or $BSCAN_BERT_VOCAB) runs the native WordPiece; otherwise the cached
+    HF tokenizer. Raises when neither is there. Returns dict of (N, L)
+    int32 arrays, L the longest encoding."""
+    import os
+
+    vocab_path = vocab_path or os.environ.get("BSCAN_BERT_VOCAB")
+    if vocab_path:
+        from bioscan_clip_tpu_torch.data.wordpiece import WordPieceTokenizer
+
+        tok = WordPieceTokenizer(vocab_path)
+        # 512: BERT's position table, above any taxonomy string
+        ids = [tok.encode(s, max_length=512) for s in strings]
+        width = max((len(r) for r in ids), default=0)
+        input_ids = np.full((len(ids), width), tok.pad_id, np.int32)
+        mask = np.zeros((len(ids), width), np.int32)
+        for i, r in enumerate(ids):
+            input_ids[i, :len(r)] = r
+            mask[i, :len(r)] = 1
+        return {"input_ids": input_ids,
+                "token_type_ids": np.zeros_like(input_ids),
+                "attention_mask": mask}
+    try:
+        from transformers import AutoTokenizer
+
+        allow_dl = os.environ.get("BIOSCAN_CLIP_TPU_ALLOW_DOWNLOAD") == "1"
+        tok = AutoTokenizer.from_pretrained(
+            "prajjwal1/bert-small", local_files_only=not allow_dl)
+    except (ImportError, OSError) as e:
+        raise RuntimeError(
+            "no BERT-small tokenizer for the label strings: pass vocab_path "
+            "or set BSCAN_BERT_VOCAB to a vocab.txt, or cache "
+            "prajjwal1/bert-small for transformers") from e
+    enc = tok(list(strings), padding=True, return_tensors="np")
+    return {k: enc[k].astype(np.int32)
+            for k in ("input_ids", "token_type_ids", "attention_mask")}

@@ -31,8 +31,10 @@ class EncoderWithHead(nn.Module):
     def get_feature(self, x):
         return self.encoder(x)
 
-    def forward(self, x):
-        return dense(self.new_linear_layer, self.encoder(x), self.dtype)
+    def forward(self, x, **kw):
+        """`kw` goes to the encoder (a BERT tower's `row_seeds`)."""
+        return dense(self.new_linear_layer, self.encoder(x, **kw),
+                     self.dtype)
 
 
 class ClassificationHeadMLP(nn.Module):

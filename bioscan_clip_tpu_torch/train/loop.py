@@ -131,6 +131,12 @@ def step_seed_tensor(step_seed, device):
                       device=device)
 
 
+def draw_step_seed(generator: torch.Generator) -> int:
+    """The next uint32 step seed from `generator` (`state.generator`)."""
+    return int(torch.randint(0, 2**32, (), generator=generator,
+                             dtype=torch.int64))
+
+
 def tower_row_seeds(step_seed, batch_size: int, device) -> dict:
     """The (B,) row seeds of each BERT tower for one step: row r's seed
     depends on the step seed and r only, so a microbatch or chunk takes its
@@ -696,10 +702,6 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
         if logger is not None:
             logger(f"profiler trace ({what}) -> {profile_dir}")
 
-    def draw_seed():
-        return int(torch.randint(0, 2**32, (), generator=generator,
-                                 dtype=torch.int64))
-
     if steps_per_call > 1 and scan_step_factory is not None:
         scan_step = scan_step_factory(steps_per_call)
         chunk, base = [], 0
@@ -708,7 +710,7 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
             nonlocal state, n_samples, pending
             stacked = device_batch(stack_batches(chunk), state.device)
             n_samples += int(stacked["labels"].shape[1]) * world * len(chunk)
-            seeds = [draw_seed() for _ in chunk]
+            seeds = [draw_step_seed(generator) for _ in chunk]
             state, dev_losses = scan_step(state, stacked, seeds)
             flush()
             pending = (base, dev_losses, n_samples)
@@ -733,7 +735,7 @@ def train_epoch(state, train_step, dataloader, generator: torch.Generator,
                 prof = start_trace()
             batch = device_batch(batch, state.device)
             n_samples += int(batch["labels"].shape[0]) * world
-            state, loss = train_step(state, batch, draw_seed())
+            state, loss = train_step(state, batch, draw_step_seed(generator))
             flush()
             pending = (i, loss, n_samples)
             if prof is not None and i + 1 >= profile_steps:

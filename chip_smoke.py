@@ -4,7 +4,8 @@
     python3 chip_smoke.py --phases kernels   # device, build and kernel phases
 
 Phases, in order; any failure exits non-zero:
-  device    the card's name and power limit (nvidia-smi)
+  device    the card's name and power limit (nvidia-smi), and whether
+            libjpeg is on the machine (jpeglib.h, libjpeg.so)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
             prints ptxas' registers, shared memory and spills per kernel
             (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k and one
@@ -61,6 +62,23 @@ Phases, in order; any failure exits non-zero:
             plain version; then one step under remat "full" and "dots" and
             the GradCache step against the plain step (gradients, ms, peak
             memory), and the train augmentation card vs CPU
+  insect    the INSECT path and the supervised fine-tunes at full width
+            (random seeded weights, bf16), from in-memory loaders in
+            InsectLoader's contract ((256, 341) uint8 frames; the .mat
+            splits written with scipy.io.savemat and read back with
+            load_insect_mat): cli/fine_tune_vitb_on_insect (ViT-B/16, every
+            weight trained, 797-way head, B=200, 4 steps, eval on 400
+            test-seen records, the feature CSV of 1,000), cli/
+            supervised_fine_tune_bioscan_clip_model_on_insect (the image
+            and DNA towers with two 797-way heads, B=200, 3 steps, eval,
+            the BZSL CSVs), cli/extract_feature_for_insect_dataset then
+            cli/bzsl_eval, cli/train_cl in INSECT mode (B=400 with
+            ColorJitter, 2 steps, the eval phase over 4 splits of 240
+            merged as keys), cli/method_one_eval and cli/method_two_
+            fine_tuning_and_eval (480 seen keys, 240 records per other
+            split, method 2's fine-tune 2 steps); ms per step and peak
+            memory of the full-ViT and the joint step; K1, K2, K2d, K3 and
+            K4 launched, no plain version
   distributed
             the distributed train step over a 1-rank NCCL group on the
             card (parallel/distributed.py, parallel/mesh.py): the flagship
@@ -92,7 +110,9 @@ Phases, in order; any failure exits non-zero:
   parity    the fp32 port on the card against the same model on the CPU:
             embeddings, then one train step (loss, gradients, AdamW); then
             the OpenCLIP towers at full width and 2 layers each, their
-            embeddings and one train step (K3m on the card)
+            embeddings and one train step (K3m on the card); then the
+            fine-tunes' classifier and joint steps (ViT-B/16 and
+            BarcodeBERT at 2 layers, every weight trainable, B=8)
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs CUDA: without it the script exits 1
@@ -114,8 +134,8 @@ import time
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
-              "training", "openclip_training", "train_cl", "distributed",
-              "graphs", "streaming", "probe", "parity")
+              "training", "openclip_training", "train_cl", "insect",
+              "distributed", "graphs", "streaming", "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -154,9 +174,27 @@ def phase_device():
         capture_output=True, text=True, check=True,
     ).stdout.strip()
     log(line)
+    log(f"  libjpeg: {_libjpeg()}")
     log(f"phase device ok: {torch.cuda.get_device_name(0)}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     return line
+
+
+def _libjpeg() -> str:
+    """Whether libjpeg is on the machine that runs this script, for the
+    native JPEG decode pool (native/bscan_io.cc): jpeglib.h under the CUDA
+    toolkit's or the system's include paths, and the shared library by
+    ctypes.util.find_library. A report, never a failure."""
+    import ctypes.util
+    import glob
+    import os
+
+    dirs = ["/usr/local/cuda/include", "/usr/local/cuda/targets/*/include",
+            "/usr/include", "/usr/include/*-linux-gnu", "/usr/local/include"]
+    headers = sorted({h for d in dirs
+                      for h in glob.glob(os.path.join(d, "jpeglib.h"))})
+    return (f"jpeglib.h {headers or 'not found'}; libjpeg.so "
+            f"{ctypes.util.find_library('jpeg') or 'not found'}")
 
 
 def phase_build():
@@ -822,11 +860,12 @@ KERNELS = {
 }
 # the main paths that launch each kernel: the first gives its `launches`
 # in that line, every one its count in `launches_by_path`
-KERNEL_PATH = {"mha_packed": ("serving", "graphs"), "mha": ("serving",),
-               "topk": ("serving",), "topk_i8": ("eval",),
+KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect"),
+               "mha": ("serving", "insect"),
+               "topk": ("serving", "insect"), "topk_i8": ("eval",),
                "topk_default": ("eval",),
-               "mha_dropout": ("training", "graphs"),
-               "mha_bwd": ("training", "graphs"),
+               "mha_dropout": ("training", "graphs", "insect"),
+               "mha_bwd": ("training", "graphs", "insect"),
                "mha_packed_mask": ("openclip", "graphs"),
                "mha_bwd_mask": ("openclip_training", "graphs"),
                "mm_only": ("probe",), "tiny": ("probe",)}
@@ -2219,6 +2258,533 @@ def phase_train_cl():
     return counts
 
 
+# ---------------------------------------------------------------- insect
+
+# INSECT (Badirli et al., NeurIPS 2021): 1,213 species, 797 seen and 416
+# unseen; the fine-tunes' batch (config/global_config.yaml:78)
+INSECT_SEEN, INSECT_UNSEEN = 797, 416
+FT_BATCH = 200
+FT_VIT_STEPS, FT_JOINT_STEPS = 4, 3
+# the records of res101.mat: 40 seen species x 20 and 25 unseen x 8 (the
+# BZSL fit's classes, each a 768-d Student-t), 400 trainval / 400
+# test-seen / 200 test-unseen
+INSECT_SEEN_CLASSES, INSECT_PER_SEEN = 40, 20
+INSECT_UNSEEN_CLASSES, INSECT_PER_UNSEEN = 25, 8
+INSECT_CL_BATCH, INSECT_CL_STEPS, INSECT_CL_SPLIT = 400, 2, 240
+METHOD_BATCH = 40  # the method CLIs' batch (method_one_eval.py:295)
+N_METHOD_KEYS, N_METHOD_SPLIT, METHOD_TRAIN_STEPS = 480, 240, 2
+
+
+def _insect_species():
+    seen = [f"s{i}" for i in range(INSECT_SEEN)]
+    return seen, [f"u{i}" for i in range(INSECT_UNSEEN)]
+
+
+def _insect_mats(root, rng):
+    """res101.mat, att_splits.mat (1-based indices), the species JSON and
+    a BERT-small-style vocab.txt under `root` -> their paths."""
+    import numpy as np
+    import scipy.io as sio
+
+    seen, unseen = _insect_species()
+    species, labels = [], []
+    for c in range(INSECT_SEEN_CLASSES):
+        species += [seen[c]] * INSECT_PER_SEEN
+        labels += [c + 1] * INSECT_PER_SEEN
+    for c in range(INSECT_UNSEEN_CLASSES):
+        species += [unseen[c]] * INSECT_PER_UNSEEN
+        labels += [INSECT_SEEN_CLASSES + c + 1] * INSECT_PER_UNSEEN
+    n = len(species)
+    base = {s: b for s, b in zip(sorted(set(species)),
+                                 _barcodes(rng, len(set(species))))}
+    barcodes = [_mutate(rng, base[s], 4) for s in species]
+    ids = [f"INSECT{i:05d}" for i in range(n)]
+
+    def cell(strings):
+        return np.array([[np.array([s])] for s in strings], dtype=object)
+
+    sio.savemat(str(root / "res101.mat"), {
+        "ids": cell(ids), "nucleotides": cell(barcodes),
+        "species": cell(species), "labels": np.array(labels)[:, None]})
+    n_seen = INSECT_SEEN_CLASSES * INSECT_PER_SEEN
+    row = np.arange(n_seen) % INSECT_PER_SEEN
+    one = np.arange(1, n + 1)  # 1-based
+    splits = {"train_loc": one[:n_seen][row < 8],
+              "val_loc": one[:n_seen][(row >= 8) & (row < 10)],
+              "trainval_loc": one[:n_seen][row < 10],
+              "test_seen_loc": one[:n_seen][row >= 10],
+              "test_unseen_loc": one[n_seen:]}
+    sio.savemat(str(root / "att_splits.mat"),
+                {k: v[None, :] for k, v in splits.items()})
+    s2o = {s: {"order": ORDERS[i % 4], "family": f"{FAMILIES[i % 4]}{i % 40}",
+               "genus": f"g{i % 400}"}
+           for i, s in enumerate(seen + unseen)}
+    with open(root / "specie_to_other_labels.json", "w") as f:
+        json.dump(s2o, f)
+    (root / "vocab.txt").write_text("\n".join(VOCAB + ["s", "u", "g"]))
+    return {"path_to_att_splits_mat": str(root / "att_splits.mat"),
+            "path_to_res_101_mat": str(root / "res101.mat"),
+            "path_to_image_hdf5": str(root / "unused.hdf5"),
+            "species_to_other": str(root / "specie_to_other_labels.json"),
+            "vocab": str(root / "vocab.txt")}
+
+
+def _insect_split(ins, split, rng, frames=True):
+    """One INSECT split as `InsectLoader` builds it, from the .mat files
+    (`data/insect.py`), with tiled (256, 341) uint8 frames in place of the
+    HDF5's JPEGs (the card's machine has no h5py or decoder): a record
+    dict for `_take` / `_batches`."""
+    from bioscan_clip_tpu_torch.data.insect import (
+        load_insect_mat,
+        species_list_to_input_string_list,
+        species_list_to_labels,
+    )
+    from bioscan_clip_tpu_torch.data.tokenizers import (
+        tokenize_dna_batch,
+        tokenize_labels_longest,
+    )
+
+    ids, barcodes, species = load_insect_mat(
+        ins["path_to_att_splits_mat"], ins["path_to_res_101_mat"], split)
+    with open(ins["species_to_other"]) as f:
+        s2o = json.load(f)
+    rec = {"dna": tokenize_dna_batch(barcodes),
+           "language": tokenize_labels_longest(
+               species_list_to_input_string_list(species, s2o),
+               vocab_path=ins["vocab"]),
+           "label_dicts": species_list_to_labels(species, s2o), "ids": ids}
+    if frames:
+        rec["image_u8"] = _eval_records(rng, len(ids),
+                                        EVAL_FRAME)["image_u8"]
+    return rec
+
+
+def _insect_train(rec, rng, b, steps):
+    """A train loader over `rec` in InsectLoader's contract: `steps`
+    batches of `b` (instance labels indexing `label_dicts`), the rows
+    shuffled anew each pass over the split."""
+    import numpy as np
+
+    n = len(rec["ids"])
+    order = np.concatenate([rng.permutation(n)
+                            for _ in range(-(-steps * b // n))])
+    batches = []
+    for s in range(steps):
+        idx = order[s * b:(s + 1) * b]
+        batch = _take(rec, idx)
+        batches.append({"image_u8": batch["image_u8"], "dna": batch["dna"],
+                        "language": batch["language"], "labels": idx})
+    loader = _MemoryLoader(batches)
+    loader.label_dicts = rec["label_dicts"]
+    return loader
+
+
+def _eval_loader(rec, b):
+    import numpy as np
+
+    n = len(rec["ids"])
+    return _MemoryLoader([_take(rec, np.arange(s, min(s + b, n)))
+                          for s in range(0, n, b)])
+
+
+def _timed_steps(module, name, times, peaks):
+    """Wrap `module.name` (a step factory) so that each step it makes is
+    timed by CUDA events into `times` and the peak memory since its first
+    step goes into `peaks`."""
+    import torch
+
+    real = getattr(module, name)
+
+    def factory(*a, **kw):
+        step = real(*a, **kw)
+
+        def timed(state, batch, seed):
+            if not times:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            out = step(state, batch, seed)
+            ev[1].record()
+            times.append(ev)
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            return out
+
+        timed.model = step.model
+        return timed
+
+    return factory
+
+
+def _median_ms(times):
+    import statistics
+
+    import torch
+
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(z) for a, z in times]
+    return statistics.median(ms[1:] if len(ms) > 1 else ms), ms
+
+
+def phase_insect():
+    """The INSECT path and the supervised fine-tunes at full width on the
+    card (random seeded weights, bf16), their loaders in memory in
+    `InsectLoader`'s contract (the .mat splits written with
+    scipy.io.savemat and read back with `load_insect_mat`; (256, 341)
+    uint8 frames in place of the HDF5's JPEGs):
+    1. cli/fine_tune_vitb_on_insect.run: ViT-B/16 (`lora_rank=0`) + a
+       797-way head, every weight trained, B=200, 4 steps; eval on 400
+       test-seen records; the pre-head feature CSV of 1,000 records;
+    2. cli/supervised_fine_tune_bioscan_clip_model_on_insect.run: the
+       flagship's image and DNA towers + two 797-way heads, B=200, 3 steps;
+       eval; the heads and the BZSL CSVs written;
+    3. cli/extract_feature_for_insect_dataset.run, then cli/bzsl_eval.run
+       on its CSVs;
+    4. cli/train_cl.run in INSECT mode: B=400 with ColorJitter, 2 steps,
+       the eval phase over the four splits of 240 merged as keys;
+    5. cli/method_one_eval.run and cli/method_two_fine_tuning_and_eval.run
+       on in-memory BIOSCAN loaders (480 seen keys, 240 per other split),
+       method 2's fine-tune 1 epoch of 2 steps, thresholds at 1000
+       intervals.
+    Checks: finite losses; every ViT parameter moved; the CSV shapes;
+    finite BZSL accuracies; K1 and K3 (1), K1, K2d and K3 (2), K1, K2d,
+    K3, K2 and K4 (4), K1, K2 and K4 (5) launched and no plain version.
+    Prints ms per step and peak GiB of the full-ViT and the joint step.
+    Returns the phase's launch counts."""
+    import math
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import bioscan_clip_tpu_torch.retrieval.report as report_mod
+    import bioscan_clip_tpu_torch.train.fine_tuning as ft_mod
+    import bioscan_clip_tpu_torch.train.loop as loop_mod
+    from bioscan_clip_tpu_torch.cli import (
+        bzsl_eval,
+        extract_feature_for_insect_dataset as extract_cli,
+        fine_tune_vitb_on_insect as vitb_cli,
+        method_one_eval as m1_cli,
+        method_two_fine_tuning_and_eval as m2_cli,
+        supervised_fine_tune_bioscan_clip_model_on_insect as joint_cli,
+        train_cl,
+    )
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+
+    torch.cuda.empty_cache()
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log("  " + card)
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(13)
+    root = Path("build") / "chip_smoke_insect"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    ins = _insect_mats(root, rng)
+    trainval = _insect_split(ins, "trainval_loc", rng)
+    test_seen = _insect_split(ins, "test_seen_loc", rng)
+    everything = _insect_split(ins, "all", rng)
+    seen, _ = _insect_species()
+    # train_loc as the fine-tunes read it: its species name the classes,
+    # 797 as in INSECT (label dicts only: the CLIs read no more of it)
+    with open(ins["species_to_other"]) as f:
+        s2o = json.load(f)
+    key_labels = [dict(s2o[s], species=s) for s in seen]
+    train_for_key = _MemoryLoader([{"label_dicts": key_labels[s:s + 200]}
+                                   for s in range(0, INSECT_SEEN, 200)])
+    log(f"  INSECT splits from the .mat files: trainval "
+        f"{len(trainval['ids'])}, test seen {len(test_seen['ids'])}, all "
+        f"{len(everything['ids'])} records, {INSECT_SEEN} seen species")
+
+    def args(**extra):
+        mc = dict(FLAGSHIP, batch_size=FT_BATCH, evaluation_period=1,
+                  model_output_name="insect")
+        mc.update(extra.pop("mc", {}))
+        return ConfigNode(dict({
+            "model_config": mc, "insect_data": ins,
+            "general_fine_tune_setting": {"batch_size": FT_BATCH,
+                                          "epoch": 1},
+            "inference_and_eval_setting": {"k_list": [1, 3, 5],
+                                           "retrieval_precision": "high"},
+            "project_root_path": str(root), "model_output_dir": "ckpt",
+            "save_ckpt": True, "debug_flag": False, "activate_wandb": False,
+            "save_inference": False, "device": "cuda",
+            "tpu": {"frozen_dtype": "bfloat16"}}, **extra))
+
+    def loaders(train_steps, split_batch=FT_BATCH):
+        def insect(a, load_all_in_one=False, **_):
+            if load_all_in_one:
+                return _eval_loader(everything, split_batch)
+            return (None, train_for_key, None,
+                    _eval_loader(test_seen, split_batch), None)
+
+        def trainval_loader(a, **_):
+            return _insect_train(trainval, rng, FT_BATCH, train_steps)
+
+        return insect, trainval_loader
+
+    def quiet(lines):
+        def out(line):
+            lines.append(line)
+            if line.startswith(("epoch", "Evaluation", "Image Evaluation",
+                                "DNA Evaluation", "BZSL", "best threshold",
+                                "wrote")) or ".csv" in line:
+                log(f"    | {line}")
+        return out
+
+    patched = []
+
+    def patch(module, name, value):
+        patched.append((module, name, getattr(module, name)))
+        setattr(module, name, value)
+
+    counts_by = {}
+    reset_counts()  # the insect path's launches are counted from here
+    try:
+        # ---- 1. the full ViT-B/16 fine-tune
+        ins_l, tv_l = loaders(FT_VIT_STEPS)
+        patch(vitb_cli, "load_insect_dataloader", ins_l)
+        patch(vitb_cli, "load_insect_dataloader_trainval", tv_l)
+        vit_times, vit_peaks = [], []
+        patch(ft_mod, "make_classifier_train_step", _timed_steps(
+            ft_mod, "make_classifier_train_step", vit_times, vit_peaks))
+        built = {}
+        real_build = vitb_cli.build_classifier
+
+        def build(*a, **kw):
+            clf = real_build(*a, **kw)
+            built["init"] = {n: p.detach().clone()
+                             for n, p in clf.named_parameters()}
+            return clf
+
+        patch(vitb_cli, "build_classifier", build)
+        lines = []
+        t = time.perf_counter()
+        before = launch_counts()
+        state = vitb_cli.run(args(), out=quiet(lines))
+        torch.cuda.synchronize()
+        vit_s = time.perf_counter() - t
+        counts_by["fine_tune_vitb"] = _delta(before)
+        vit_ms, vit_all = _median_ms(vit_times)
+        vit_loss = float(next(ln for ln in lines
+                              if ln.startswith("epoch 0")).split()[-1])
+        still = [n for n, p in state.model.named_parameters()
+                 if torch.equal(p, built["init"][n])]
+        n_params = sum(p.numel() for p in state.model.parameters())
+        heads = state.model.new_linear_layer.out_features
+        csv = next(ln for ln in lines if ".csv" in ln).split()[0]
+        csv_shape = np.loadtxt(csv, delimiter=",").shape
+        log(f"  fine_tune_vitb: {vit_s:.1f} s; {n_params / 1e6:.1f} M "
+            f"trainable parameters, {heads}-way head; step at B={FT_BATCH}: "
+            f"{vit_ms:.1f} ms (CUDA events, median of steps 2-"
+            f"{len(vit_all)}; all {[round(x, 1) for x in vit_all]}), peak "
+            f"{vit_peaks[-1]:.2f} GiB ({card}); CSV {csv_shape}")
+        del state, built["init"]
+        torch.cuda.empty_cache()
+
+        # ---- 2. the joint image + DNA fine-tune
+        ins_l, tv_l = loaders(FT_JOINT_STEPS)
+        patch(joint_cli, "load_insect_dataloader", ins_l)
+        patch(joint_cli, "load_insect_dataloader_trainval", tv_l)
+        joint_times, joint_peaks = [], []
+        patch(ft_mod, "make_joint_classifier_train_step", _timed_steps(
+            ft_mod, "make_joint_classifier_train_step", joint_times,
+            joint_peaks))
+        lines = []
+        t = time.perf_counter()
+        before = launch_counts()
+        state = joint_cli.run(args(), out=quiet(lines))
+        torch.cuda.synchronize()
+        joint_s = time.perf_counter() - t
+        counts_by["supervised_fine_tune"] = _delta(before)
+        joint_ms, joint_all = _median_ms(joint_times)
+        joint_loss = float(next(ln for ln in lines
+                                if ln.startswith("epoch 0")).split()[-1])
+        joint_csvs = sorted(np.loadtxt(ln.split()[0], delimiter=",").shape
+                            for ln in lines if ".csv" in ln)
+        joint_files = sorted(p.name for p in (
+            root / "ckpt" / "supervised_fine_tune_bioscan_clip_model_on_"
+            "insect").glob("*/*"))
+        n_params = sum(p.numel() for p in state.model.parameters())
+        log(f"  supervised_fine_tune: {joint_s:.1f} s; {n_params / 1e6:.1f} "
+            f"M trainable parameters; joint step at B={FT_BATCH}: "
+            f"{joint_ms:.1f} ms (CUDA events, median of steps 2-"
+            f"{len(joint_all)}; all {[round(x, 1) for x in joint_all]}), "
+            f"peak {joint_peaks[-1]:.2f} GiB ({card}); CSVs {joint_csvs}, "
+            f"files {joint_files}")
+        del state
+        torch.cuda.empty_cache()
+
+        # ---- 3. extraction into the BZSL CSVs, then BZSL on them
+        patch(extract_cli, "load_insect_dataloader",
+              loaders(0, split_batch=200)[0])
+        lines = []
+        t = time.perf_counter()
+        before = launch_counts()
+        dna_csv, img_csv = extract_cli.run(args(), out=quiet(lines))
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - t
+        counts_by["extract_feature"] = _delta(before)
+        dna_shape = np.loadtxt(dna_csv, delimiter=",").shape
+        img_shape = np.loadtxt(img_csv, delimiter=",").shape
+        t = time.perf_counter()
+        bzsl = bzsl_eval.run(args(), embeddings_dir=str(Path(dna_csv).parent),
+                             out=quiet(lines))
+        bzsl_s = time.perf_counter() - t
+        n_classes = INSECT_SEEN_CLASSES + INSECT_UNSEEN_CLASSES
+        log(f"  extract_feature_for_insect_dataset: {extract_s:.1f} s, CSVs "
+            f"DNA {dna_shape} image {img_shape}; bzsl_eval {bzsl_s:.1f} s "
+            f"(host): {bzsl}")
+
+        # ---- 4. train_cl in INSECT mode
+        pool = _eval_records(rng, max(INSECT_CL_BATCH * INSECT_CL_STEPS,
+                                      4 * INSECT_CL_SPLIT), EVAL_FRAME)
+        cl_train = _MemoryLoader([
+            {"image_u8": b["image_u8"], "dna": b["dna"].astype(np.int64),
+             "language": {k: v.astype(np.int64)
+                          for k, v in b["language"].items()},
+             "labels": np.arange(INSECT_CL_BATCH)}
+            for b in (_take(pool, np.arange(s, s + INSECT_CL_BATCH))
+                      for s in range(0, INSECT_CL_BATCH * INSECT_CL_STEPS,
+                                     INSECT_CL_BATCH))])
+        four = [_batches(_take(pool, np.arange(s, s + INSECT_CL_SPLIT)),
+                         INSECT_CL_SPLIT)
+                for s in range(0, 4 * INSECT_CL_SPLIT, INSECT_CL_SPLIT)]
+        patch(train_cl, "load_insect_dataloader",
+              lambda a, **kw: (cl_train, *four))
+        flags, sweeps = [], []
+        real_draw = loop_mod.draw_train_aug
+        real_sweep = report_mod.inference_and_print_result
+
+        def draw(*a, jitter=False, **kw):
+            flags.append(jitter)
+            return real_draw(*a, jitter=jitter, **kw)
+
+        def sweep(keys, seen_d, unseen_d, **kw):
+            sweeps.append(len(keys["label_list"]))
+            return real_sweep(keys, seen_d, unseen_d, **kw)
+
+        patch(loop_mod, "draw_train_aug", draw)
+        patch(report_mod, "inference_and_print_result", sweep)
+        lines = []
+        cl_args = args(mc={"dataset": "INSECT",
+                           "batch_size": INSECT_CL_BATCH, "epochs": 1})
+        cl_args["save_ckpt"] = False
+        t = time.perf_counter()
+        before = launch_counts()
+        state, best = train_cl.run(cl_args, out=quiet(lines))
+        torch.cuda.synchronize()
+        cl_s = time.perf_counter() - t
+        counts_by["train_cl_insect"] = _delta(before)
+        cl_flags = list(flags)
+        cl_losses = [float(x) for x in next(
+            ln for ln in lines if ln.startswith("epoch 0 losses")
+        )[len("epoch 0 losses "):].strip("[]").split(",")]
+        log(f"  train_cl INSECT: {cl_s:.1f} s for {INSECT_CL_STEPS} steps at "
+            f"B={INSECT_CL_BATCH} (ColorJitter in {sum(cl_flags)} of "
+            f"{len(cl_flags)} draws) and the eval phase over 4 x "
+            f"{INSECT_CL_SPLIT} records ({sweeps} keys); losses {cl_losses}; "
+            f"best {best:.4f}")
+        del state
+        torch.cuda.empty_cache()
+
+        # ---- 5. methods 1 and 2 on BIOSCAN loaders
+        keys_rec = _eval_records(rng, N_METHOD_KEYS, EVAL_FRAME)
+        half = N_METHOD_KEYS - N_METHOD_SPLIT
+        unseen_keys = _eval_records(rng, 2 * N_METHOD_SPLIT, EVAL_FRAME)
+        n_train = METHOD_BATCH * METHOD_TRAIN_STEPS
+        six = [_eval_loader(rec, METHOD_BATCH) for rec in (
+            # train_seen: other specimens of the first keys' species
+            _eval_records(rng, n_train, EVAL_FRAME,
+                          like=_take(keys_rec, np.arange(n_train))),
+            # val_seen: of the last keys' species
+            _eval_records(rng, N_METHOD_SPLIT, EVAL_FRAME,
+                          like=_take(keys_rec, np.arange(half,
+                                                         N_METHOD_KEYS))),
+            # val_unseen: 4-SNP copies of the unseen keys
+            _eval_records(rng, N_METHOD_SPLIT, EVAL_FRAME, snps=4,
+                          like=_take(unseen_keys,
+                                     np.arange(N_METHOD_SPLIT))),
+            keys_rec,
+            _take(unseen_keys, np.arange(N_METHOD_SPLIT)),
+            _take(unseen_keys, np.arange(N_METHOD_SPLIT,
+                                         2 * N_METHOD_SPLIT)))]
+        for cli in (m1_cli, m2_cli):
+            patch(cli, "load_bioscan_dataloader_with_train_seen_and_"
+                  "separate_keys", lambda a, **kw: six)
+        results = {}
+        for name, cli, kw in (("method_one", m1_cli, {}),
+                              ("method_two", m2_cli,
+                               {"fine_tune_epochs": 1})):
+            lines = []
+            t = time.perf_counter()
+            before = launch_counts()
+            seen_out, unseen_out = cli.run(args(), out=quiet(lines),
+                                           num_intervals=1000, **kw)
+            torch.cuda.synchronize()
+            counts_by[name] = _delta(before)
+            results[name] = (seen_out["micro_acc"][1]["species"],
+                             unseen_out["micro_acc"][1]["species"],
+                             seen_out["best_threshold"])
+            log(f"  {name}: {time.perf_counter() - t:.1f} s; top-1 species "
+                f"micro seen {results[name][0]:.4f}, unseen "
+                f"{results[name][1]:.4f}, threshold {results[name][2]:.4f}")
+    finally:
+        for module, name, value in reversed(patched):
+            setattr(module, name, value)
+        shutil.rmtree(root, ignore_errors=True)
+    counts, plain = launch_counts(), plain_calls()
+    torch.cuda.empty_cache()
+    log(f"  launches by run: {counts_by}")
+    log(f"  launches on the insect path: {counts}; plain calls {plain}")
+    log(f"  phase insect: {time.perf_counter() - t_phase:.1f} s ({card})")
+
+    want = {"fine_tune_vitb": ("mha_packed", "mha_bwd"),
+            "supervised_fine_tune": ("mha_packed", "mha_dropout", "mha_bwd"),
+            "extract_feature": ("mha_packed", "mha"),
+            "train_cl_insect": ("mha_packed", "mha_dropout", "mha_bwd",
+                                "mha", "topk"),
+            "method_one": ("mha_packed", "mha", "topk"),
+            "method_two": ("mha_packed", "mha", "topk")}
+    missing = {run: [k for k in keys if counts_by[run][k] <= 0]
+               for run, keys in want.items()}
+    if any(missing.values()) or any(plain.values()):
+        raise AssertionError(f"insect: not launched {missing}, plain {plain}")
+    if not (math.isfinite(vit_loss) and math.isfinite(joint_loss)
+            and all(math.isfinite(x) for x in cl_losses)):
+        raise AssertionError(f"insect: losses {vit_loss}, {joint_loss}, "
+                             f"{cl_losses}")
+    if still:
+        raise AssertionError(f"fine_tune_vitb: not moved {still[:3]}")
+    if heads != INSECT_SEEN or csv_shape != (768, 1000):
+        raise AssertionError(f"fine_tune_vitb: head {heads}, CSV {csv_shape}")
+    if (joint_csvs != [(768, n_classes), (768, 1000)]
+            or "joint_last" not in joint_files):
+        raise AssertionError(f"supervised: CSVs {joint_csvs}, files "
+                             f"{joint_files}")
+    if (dna_shape != (768, n_classes) or img_shape != (768, 1000)
+            or not all(math.isfinite(bzsl[k])
+                       for k in ("seen", "unseen", "harmonic"))):
+        raise AssertionError(f"extract/bzsl: {dna_shape}, {img_shape}, {bzsl}")
+    if not (cl_flags and all(cl_flags)) or sweeps != [4 * INSECT_CL_SPLIT]:
+        raise AssertionError(f"train_cl INSECT: jitter {cl_flags}, keys "
+                             f"{sweeps}")
+    for name, (s, u, thr) in results.items():
+        if not (0 <= s <= 1 and 0 <= u <= 1 and 0 <= thr <= 1):
+            raise AssertionError(f"{name}: {results[name]}")
+    log("phase insect ok")
+    return counts
+
+
+def _delta(before):
+    now = launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
 def _check_resume(fresh_state, ckpt_dir, batch, ref, ref_losses, train0,
                   resume_at):
     """Restore the checkpoint into a state built from other weights and
@@ -3069,6 +3635,7 @@ def phase_parity():
     _train_step_parity(cpu, gpu)
     del cpu, gpu
     _openclip_parity(x)
+    _fine_tune_parity()
     log("phase parity ok")
 
 
@@ -3215,6 +3782,102 @@ def _train_step_parity(cpu, gpu, openclip_norm=False, what=""):
         raise AssertionError(f"parity AdamW: {err} > 1e-6")
 
 
+def _fine_tune_parity():
+    """The supervised fine-tunes' steps in fp32 on the card against the
+    CPU: ViT-B/16 and BarcodeBERT at full width and 2 layers each under
+    797-way heads, every weight trainable, B=8, i.i.d. noise frames (224,
+    224: the augmentation only casts them), dropout 0.1 in BarcodeBERT
+    (row-keyed: the same masks on both devices). The classifier step (K1,
+    K3) and the joint step (K1, K2d, K3): the loss within 1e-5 relative,
+    each gradient within 1e-4 * max |g| (BERT's key biases, whose gradient
+    is zero in exact arithmetic, within 1e-6 of the step's largest |g| on
+    both devices), and AdamW on the card, given the card's gradients,
+    equal to AdamW on the CPU given the same gradients (atol 1e-6)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BARCODE_BERT_CONFIG,
+        BarcodeBertDnaEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import init_weights
+    from bioscan_clip_tpu_torch.models.heads import EncoderWithHead
+    from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+    from bioscan_clip_tpu_torch.train import fine_tuning as ft
+
+    towers = (ViTImageEncoder(ViTConfig(num_layers=2)),
+              BarcodeBertDnaEncoder(dataclasses.replace(BARCODE_BERT_CONFIG,
+                                                        num_layers=2)))
+    heads = [init_weights(EncoderWithHead(t, 768, INSECT_SEEN), seed=4 + i)
+             for i, t in enumerate(towers)]
+    rng = np.random.default_rng(8)
+    host = _train_batch(rng, 8, tiled=False)
+    target = rng.integers(0, INSECT_SEEN, size=8)
+    seed = 0x5EED4321
+    cases = (
+        ("classifier", lambda img, dna: ft.make_classifier_train_step(img),
+         {"input": host["image_u8"], "target": target},
+         ("mha_packed", "mha_bwd")),
+        ("joint", ft.make_joint_classifier_train_step,
+         {"image": host["image_u8"], "dna": host["dna"], "target": target},
+         ("mha_packed", "mha_dropout", "mha_bwd")))
+    for name, make, batch, want in cases:
+        cpu = [copy.deepcopy(h) for h in heads]
+        gpu = [copy.deepcopy(h).cuda() for h in heads]
+        step_c, step_g = make(*cpu), make(*gpu)
+        st_c = ft.create_fine_tune_state(step_c.model)
+        st_g = ft.create_fine_tune_state(step_g.model)
+        step_c.model.train()
+        loss_c = step_c.loss_fn({k: torch.from_numpy(v)
+                                 for k, v in batch.items()}, seed)
+        loss_c.backward()
+        reset_counts()
+        _, loss_g = step_g(st_g, {k: torch.from_numpy(v).cuda()
+                                  for k, v in batch.items()}, seed)
+        counts, plain = launch_counts(), plain_calls()
+        rel = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+        log(f"  fine-tune {name} step, fp32: loss card {loss_g.item():.7f}, "
+            f"cpu {loss_c.item():.7f}, rel {rel:.3g} (tol 1e-5)")
+        pc = dict(step_c.model.named_parameters())
+        pg = dict(step_g.model.named_parameters())
+        top = max(p.grad.abs().max().item() for p in pc.values())
+        worst, noise = (0.0, ""), 0.0
+        for n, p in pc.items():
+            gg = pg[n].grad.cpu()
+            if n.endswith("attention.self.key.bias"):
+                # zero in exact arithmetic (a softmax ignores a shift of a
+                # row): each device holds fp32 noise, held to its size
+                noise = max(noise, gg.abs().max().item(),
+                            p.grad.abs().max().item())
+            else:
+                err = ((gg - p.grad).abs().max().item()
+                       / max(p.grad.abs().max().item(), 1e-30))
+                worst = max(worst, (err, n))
+            p.grad = gg  # the CPU AdamW below takes the card's gradients
+        st_c.apply_gradients()
+        moved = max((pg[n].detach().cpu() - p.detach()).abs().max().item()
+                    for n, p in pc.items())
+        log(f"  fine-tune {name} step: grads max |card - cpu| / max |g| "
+            f"{worst[0]:.3g} ({worst[1]}) (tol 1e-4); BERT key biases' "
+            f"|g| {noise:.3g} against the largest |g| {top:.3g} (tol 1e-6 of "
+            f"it); params after AdamW max |card - cpu| {moved:.3g} (tol "
+            f"1e-6), {len(pc)} tensors; launches "
+            f"{dict((k, counts[k]) for k in want)}")
+        if not (rel <= 1e-5 and worst[0] <= 1e-4 and noise <= 1e-6 * top
+                and moved <= 1e-6):
+            raise AssertionError(f"parity fine-tune {name}: loss {rel}, "
+                                 f"grads {worst}, key-bias noise {noise}, "
+                                 f"params {moved}")
+        if any(counts[k] <= 0 for k in want) or any(plain.values()):
+            raise AssertionError(f"parity fine-tune {name}: launches "
+                                 f"{counts}, plain {plain}")
+        del cpu, gpu, step_c, step_g, st_c, st_g
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3253,6 +3916,8 @@ def main(argv=None) -> int:
         path_counts["openclip_training"] = phase_openclip_training()
     if "train_cl" in phases:
         path_counts["train_cl"] = phase_train_cl()
+    if "insect" in phases:
+        path_counts["insect"] = phase_insect()
     if "distributed" in phases:
         path_counts["distributed"] = phase_distributed()
     if "graphs" in phases:

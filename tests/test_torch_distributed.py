@@ -6,7 +6,9 @@ cli/train_cl.py). The JAX counterpart is tests/test_multiprocess.py.
 One worker pair (this file run as a script) covers every mode in one
 spawn: the plain step, GradCache with a chunked stage 1, micro
 accumulation at n = 4 over W = 2, the plain step fed by the loader's
-process-strided shards, the sharded search, and the CLI. The model is a
+process-strided shards, the supervised fine-tune's classifier and joint
+steps (every weight trainable, train/fine_tuning.py), the sharded search,
+and the CLI. The model is a
 tiny tri-modal one (1-layer towers, width 32, dropout 0.1, perturbed
 adapters, a learnable logit scale) fed uint8 frames that take the device
 train augmentation, so every per-row draw is sliced from the global
@@ -91,11 +93,13 @@ def _rows(batch, rows):
             for k, v in batch.items()}
 
 
-def _fingerprint(model):
+def _fingerprint(model, skip=()):
     """Each trainable tensor's sum of |p|, then of its last gradient's
     |g|: AdamW's first steps hardly see a gradient's scale, so the
-    gradients are compared too."""
-    ps = [p for p in model.parameters() if p.requires_grad]
+    gradients are compared too. `skip`: name endings of tensors left
+    out."""
+    ps = [p for n, p in model.named_parameters()
+          if p.requires_grad and not n.endswith(skip)]
     return ([float(p.detach().double().abs().sum()) for p in ps]
             + [float(p.grad.double().abs().sum()) for p in ps
                if p.grad is not None])
@@ -130,6 +134,40 @@ def train(mode, batches, mesh=None):
         state, loss = step(state, device_batch(batch, "cpu"), SEED + i)
         losses.append(float(loss))
     return losses, _fingerprint(model)
+
+
+def train_classifier(mode, batches, mesh=None):
+    """STEPS fine-tune steps: the image classifier ("classifier") or the
+    image and DNA classifiers ("joint") over the tiny towers, 4 classes,
+    heads seeded -> (losses, fingerprint)."""
+    from bioscan_clip_tpu_torch.models.clip import init_weights
+    from bioscan_clip_tpu_torch.models.heads import EncoderWithHead
+    from bioscan_clip_tpu_torch.train import fine_tuning as ft
+
+    clip = tiny_model()
+    heads = [EncoderWithHead(tower, 32, 4) for tower in
+             (clip.image_encoder, clip.dna_encoder)]
+    for seed, clf in enumerate(heads):
+        init_weights(clf.new_linear_layer, seed=3 + seed)
+    if mode == "joint":
+        step = ft.make_joint_classifier_train_step(*heads, mesh=mesh)
+        model = step.model
+    else:
+        model = heads[0]
+        step = ft.make_classifier_train_step(model, mesh=mesh)
+    state = ft.create_fine_tune_state(model)
+    losses = []
+    for i, batch in enumerate(batches):
+        tb = {"input": torch.from_numpy(batch["image_u8"]),
+              "image": torch.from_numpy(batch["image_u8"]),
+              "dna": torch.from_numpy(batch["dna"]),
+              "target": torch.from_numpy(batch["labels"] % 4)}
+        state, loss = step(state, tb, SEED + i)
+        losses.append(float(loss))
+    # BERT's key bias trains here, and its gradient is zero in exact
+    # arithmetic (a softmax ignores a shift of a row): fp32 noise, which
+    # AdamW scales by its own size
+    return losses, _fingerprint(model, skip=("attention.self.key.bias",))
 
 
 def loader_args(path, batch_size=4):
@@ -219,6 +257,9 @@ def worker(rank, port, path, out_path, out_dir):
         res[mode] = train(mode, [_rows(host_batch(s), mine)
                                  for s in range(STEPS)], mesh)
     res["loader"] = train("plain", loader_batches(path, rank, W), mesh)
+    for mode in ("classifier", "joint"):
+        res[mode] = train_classifier(mode, [_rows(host_batch(s), mine)
+                                            for s in range(STEPS)], mesh)
     res["search"] = search(mesh)
     res["cli"] = run_cli(path, out_dir, rank)
     with open(out_path, "w") as f:
@@ -264,10 +305,14 @@ def pair(tmp_path_factory):
     return [json.loads(o.read_text()) for o in outs], path, tmp
 
 
-@pytest.mark.parametrize("mode", ["plain", "gradcache", "accum", "loader"])
+@pytest.mark.parametrize("mode", ["plain", "gradcache", "accum", "loader",
+                                  "classifier", "joint"])
 def test_two_processes_train_as_one(pair, mode):
     results, path, _ = pair
-    if mode == "loader":  # the two shards in rank order
+    if mode in ("classifier", "joint"):
+        ref_losses, ref_fp = train_classifier(
+            mode, [host_batch(s) for s in range(STEPS)])
+    elif mode == "loader":  # the two shards in rank order
         parts = [loader_batches(path, r, W) for r in range(W)]
         batches = [{k: _cat([p[i][k] for p in parts])
                     for k in ("image_u8", "dna", "language", "labels")}

@@ -1097,3 +1097,111 @@ def test_a_failed_capture_raises_naming_its_line(gen):
                        r"failed at bioscan_clip_tpu_torch/data/transforms"):
         graphs.run(state, [{"x": x}] * 2, [0, 1])
     assert state.step == 1  # the warm-up ran; the captured step did not
+
+
+def _fine_tune_towers(dropout=0.1, dtype=torch.bfloat16):
+    """ViT-B/16 and BarcodeBERT at full width and 2 layers each, LoRA
+    rank 4 (every weight trains all the same), seeded, on the card."""
+    import dataclasses
+
+    from bioscan_clip_tpu_torch.models.bert import (
+        BARCODE_BERT_CONFIG,
+        BarcodeBertDnaEncoder,
+    )
+    from bioscan_clip_tpu_torch.models.clip import init_weights
+    from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+
+    vit = ViTImageEncoder(ViTConfig(num_layers=2), dtype)
+    dna = BarcodeBertDnaEncoder(dataclasses.replace(
+        BARCODE_BERT_CONFIG, num_layers=2, hidden_dropout=dropout,
+        attention_dropout=dropout), dtype=dtype)
+    return (init_weights(vit.cuda(), seed=1),
+            init_weights(dna.cuda(), seed=2))
+
+
+def _plain_attention_calls():
+    return attention.mha_reference.calls + attention.mha_bwd_reference.calls
+
+
+def test_full_weight_classifier_step_launches_k1_and_k3(gen):
+    """The supervised fine-tune's classifier step (every weight trainable,
+    bf16, uint8 frames through the device train augmentation): K1 forward
+    and K3 backward launched, no plain version, every parameter's .grad
+    set and finite, the loss finite."""
+    from bioscan_clip_tpu_torch.models.heads import EncoderWithHead
+    from bioscan_clip_tpu_torch.train import fine_tuning as ft
+
+    vit, _ = _fine_tune_towers()
+    clf = EncoderWithHead(vit, 768, 797, dtype=torch.bfloat16).cuda()
+    state = ft.create_fine_tune_state(clf)
+    step = ft.make_classifier_train_step(clf)
+    batch = {"input": torch.randint(0, 256, (8, 256, 341, 3),
+                                    dtype=torch.uint8, device="cuda",
+                                    generator=gen),
+             "target": torch.randint(0, 797, (8,), device="cuda",
+                                     generator=gen)}
+    k1, k3 = attention.mha_packed.launches, attention.mha_bwd.launches
+    plain = _plain_attention_calls()
+    state, loss = step(state, batch, 0x5EED)
+    assert attention.mha_packed.launches == k1 + 2  # one per layer
+    assert attention.mha_bwd.launches == k3 + 2
+    assert _plain_attention_calls() == plain
+    assert torch.isfinite(loss).item()
+    for n, p in clf.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), n
+
+
+def test_joint_step_launches_k2d(gen):
+    """The joint image + DNA step: BarcodeBERT's dropout forward K2d and
+    the backward K3 launched in both towers, no plain version."""
+    from bioscan_clip_tpu_torch.models.heads import EncoderWithHead
+    from bioscan_clip_tpu_torch.train import fine_tuning as ft
+
+    vit, dna = _fine_tune_towers()
+    heads = [EncoderWithHead(t, 768, 797, dtype=torch.bfloat16).cuda()
+             for t in (vit, dna)]
+    step = ft.make_joint_classifier_train_step(*heads)
+    state = ft.create_fine_tune_state(step.model)
+    batch = {"image": torch.randint(0, 256, (8, 256, 341, 3),
+                                    dtype=torch.uint8, device="cuda",
+                                    generator=gen),
+             "dna": torch.randint(3, 1027, (8, 133), device="cuda",
+                                  generator=gen),
+             "target": torch.randint(0, 797, (8,), device="cuda",
+                                     generator=gen)}
+    k2d, k3 = attention.mha_dropout.launches, attention.mha_bwd.launches
+    plain = _plain_attention_calls()
+    state, loss = step(state, batch, 0x5EED)
+    assert attention.mha_dropout.launches == k2d + 2
+    assert attention.mha_bwd.launches == k3 + 4
+    assert _plain_attention_calls() == plain
+    assert torch.isfinite(loss).item()
+
+
+def test_insect_batches_evaluate_on_the_card_as_on_the_cpu(gen):
+    """`evaluate_classifier` over batches in InsectLoader's uint8 eval
+    contract ((B, 256, 341, 3) frames, label dicts; the card's machine has
+    no h5py to read the loader's HDF5): fp32, the same accuracies on the
+    card (K1, the device eval transform) as on the CPU (the plain
+    versions)."""
+    import copy
+
+    from bioscan_clip_tpu_torch.models.heads import EncoderWithHead
+    from bioscan_clip_tpu_torch.train import fine_tuning as ft
+
+    vit, _ = _fine_tune_towers(dtype=torch.float32)
+    card = EncoderWithHead(vit, 768, 7).cuda()
+    cpu = copy.deepcopy(card).cpu()
+    species = [f"species_{i}" for i in range(7)]
+    batches = []
+    for b in (16, 16, 9):
+        batches.append({
+            "image_u8": torch.randint(0, 256, (b, 256, 341, 3),
+                                      dtype=torch.uint8, generator=gen,
+                                      device="cuda").cpu().numpy(),
+            "label_dicts": [{"species": species[i % 7]} for i in range(b)],
+        })
+    k1 = attention.mha_packed.launches
+    got = ft.evaluate_classifier(card, batches, species)
+    assert attention.mha_packed.launches > k1
+    assert got == ft.evaluate_classifier(cpu, batches, species)

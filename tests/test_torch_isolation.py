@@ -32,12 +32,20 @@ def test_no_forbidden_imports():
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     # the OpenCLIP slices' modules, the probe, the training CLI with its
-    # loader and logger, and the parallel layer are among those checked
+    # loader and logger, the parallel layer, and the INSECT, fine-tune and
+    # BZSL modules with their CLIs are among those checked
     assert {f"bioscan_clip_tpu_torch/{m}.py" for m in (
         "models/openclip", "models/mlp", "models/heads",
         "data/clip_tokenizer", "tools/bench_topk_variants",
         "train/checkpoint", "cli/train_cl", "utils/logging",
-        "data/pipeline", "parallel/mesh", "parallel/distributed")} <= names
+        "data/pipeline", "parallel/mesh", "parallel/distributed",
+        "data/insect", "train/fine_tuning", "retrieval/methods",
+        "retrieval/bzsl", "retrieval/bzsl_classifier",
+        "cli/extract_feature_for_insect_dataset", "cli/bzsl_eval",
+        "cli/fine_tune_vitb_on_insect",
+        "cli/supervised_fine_tune_bioscan_clip_model_on_insect",
+        "cli/method_one_eval", "cli/method_two_fine_tuning_and_eval")
+    } <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
@@ -83,3 +91,22 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert resolve_device("cpu").type == "cpu"
     assert RetrievalService(MultiModalCLIP(), device="cpu").info()[
         "backend"] == "cpu"
+
+
+@pytest.mark.parametrize("name", [
+    "extract_feature_for_insect_dataset", "fine_tune_vitb_on_insect",
+    "supervised_fine_tune_bioscan_clip_model_on_insect", "method_one_eval",
+    "method_two_fine_tuning_and_eval"])
+def test_insect_and_method_clis_need_cuda_unless_cpu_is_asked(name):
+    """The INSECT, fine-tune and method CLIs run on the card by default:
+    without CUDA they raise before reading anything (their CPU runs:
+    tests/test_torch_{insect,methods}.py)."""
+    import importlib
+
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+    cli = importlib.import_module(f"bioscan_clip_tpu_torch.cli.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(ConfigNode({"model_config": {}}))

@@ -8,7 +8,9 @@ resumed from `last` as it stood after epoch 0 repeats the uninterrupted
 run's epoch-1 losses bit for bit (same config, so the same schedule);
 `tpu.steps_per_call=2` gives the epochs' losses and the `last` checkpoint of
 one step per call, and runs one step per call under `accum_mode: micro`, as
-in JAX; INSECT mode raises, naming its ROADMAP.md entry;
+in JAX; INSECT mode trains on the INSECT loaders with ColorJitter and
+evaluates against the four splits merged, and raises without a label
+tokenizer;
 `tpu.fast_ln` builds bf16 LayerNorms; `train_epoch` hands wandb one `loss`
 record per step; one process asking for a mesh of several devices
 raises."""
@@ -17,6 +19,7 @@ import ast
 import os
 import shutil
 
+import numpy as np
 import pytest
 
 from test_torch_train_loader import synthetic_dataset
@@ -122,16 +125,76 @@ def test_train_cl_gradcache_checkpoints_and_bit_equal_resume(args,
     assert state2.step == 4
 
 
-def test_insect_mode_and_steps_per_call_raise(args):
-    """INSECT mode raises; `tpu.steps_per_call` no longer does (its runs:
+@pytest.fixture
+def insect_args(args, tmp_path):
+    """`args` in INSECT mode over the JAX package's INSECT fixture
+    (tests/test_insect.py), built from its seed."""
+    import tests.test_insect as ti
+
+    class Factory:
+        def mktemp(self, name):
+            p = tmp_path / name
+            p.mkdir()
+            return p
+
+    jax_args = ti.insect_fixture.__wrapped__(Factory())
+    args.cfg.merge({"insect_data": dict(jax_args.cfg.insect_data)})
+    args.cfg.model_config.merge({"dataset": "INSECT"})
+    return args
+
+
+def test_insect_mode_and_steps_per_call_raise(insect_args, monkeypatch):
+    """INSECT mode no longer raises for want of a port (it runs:
+    `test_train_cl_insect_mode`); without a BERT-small vocabulary its label
+    tokenizer raises, where the JAX loader falls back to salted hash() ids;
+    `tpu.steps_per_call` does not raise (its runs:
     `test_steps_per_call_equals_one_step_per_call`)."""
     from bioscan_clip_tpu_torch.cli import train_cl
 
-    args.cfg.tpu.merge({"steps_per_call": 2})
-    args.cfg.model_config.merge({"dataset": "INSECT"})
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 6"):
-        train_cl.run(args)
+    monkeypatch.delenv("BSCAN_BERT_VOCAB", raising=False)
+    monkeypatch.delenv("BIOSCAN_CLIP_TPU_ALLOW_DOWNLOAD", raising=False)
+    insect_args.cfg.tpu.merge({"steps_per_call": 2})
+    with pytest.raises(RuntimeError, match="BSCAN_BERT_VOCAB"):
+        train_cl.run(insect_args)
+
+
+def test_train_cl_insect_mode(insect_args, tmp_path, monkeypatch):
+    """INSECT mode end to end (JAX train_cl.py:76-89, :193-238, :336-349):
+    the INSECT loaders, ColorJitter in every step's augmentation draw,
+    GradCache 2 x 4, and the eval phase over the four splits merged into
+    the keys (12 train + 6 val + 3 test-seen + 3 test-unseen records) with
+    test seen and unseen as the queries."""
+    import bioscan_clip_tpu_torch.retrieval.report as report
+    import bioscan_clip_tpu_torch.train.loop as loop
+    from bioscan_clip_tpu_torch.cli import train_cl
+
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]",
+                                 "[MASK]", "order", "family", "genus", "_",
+                                 "0", "1", "2", "3"]) + "\n")
+    monkeypatch.setenv("BSCAN_BERT_VOCAB", str(vocab))
+    flags, sweeps = [], []
+    real_draw = loop.draw_train_aug
+    real_sweep = report.inference_and_print_result
+
+    def draw(*a, jitter=False, **kw):
+        flags.append(jitter)
+        return real_draw(*a, jitter=jitter, **kw)
+
+    def sweep(keys, seen, unseen, **kw):
+        sweeps.append((len(keys["label_list"]), len(seen["label_list"]),
+                       len(unseen["label_list"])))
+        return real_sweep(keys, seen, unseen, **kw)
+
+    monkeypatch.setattr(loop, "draw_train_aug", draw)
+    monkeypatch.setattr(report, "inference_and_print_result", sweep)
+    lines = []
+    state, best = train_cl.run(insect_args, out=lines.append)
+    assert state.step == 2  # 2 epochs of the one full batch of 8 of 12
+    assert best is not None and 0.0 <= best <= 1.0
+    assert flags and all(flags)
+    assert sweeps == [(24, 3, 3)] * 2
+    assert all(np.isfinite(_losses(lines, e)).all() for e in (0, 1))
 
 
 def test_steps_per_call_equals_one_step_per_call(args, tmp_path):
