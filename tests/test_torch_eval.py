@@ -30,7 +30,7 @@ from bioscan_clip_tpu.retrieval import metrics as jax_metrics
 from bioscan_clip_tpu.retrieval import report as jax_report
 from bioscan_clip_tpu_torch.data import transforms
 from bioscan_clip_tpu_torch.retrieval import metrics, report
-from tests.fixtures import SyntheticArgs, build_synthetic_dataset
+from tests.fixtures import SyntheticArgs
 
 FEATURES = ("encoded_image_feature", "encoded_dna_feature",
             "encoded_language_feature", "averaged_feature",
@@ -151,9 +151,10 @@ def test_sweep_matches_jax(precision, tmp_path, monkeypatch):
 
 
 @pytest.fixture(scope="module")
-def dataset_path(tmp_path_factory):
-    p = tmp_path_factory.mktemp("data") / "synthetic.hdf5"
-    return str(build_synthetic_dataset(str(p), n_classes=4, per_class=6))
+def dataset_path():
+    from test_torch_train_loader import synthetic_dataset
+
+    return synthetic_dataset()  # 4 species x 6, shared in the process
 
 
 def _loaders(path, split, **kw):

@@ -19,7 +19,8 @@ dropout from its PRNG key, the port from (step seed, row)), B = 8 on a
 - `evaluate_classifier` on float and uint8 (device eval transform) batches
   with equal top-1/3/5 accuracies; `label_batch_to_species_idx` and
   `get_all_unique_species_from_loader` equal.
-Each JAX step is jitted once for the file."""
+Each JAX step is jitted once for the file; the weights are seeded numpy
+arrays in the shapes of the models' `init`."""
 
 import jax
 import jax.numpy as jnp
@@ -95,10 +96,28 @@ def jax_state(params, mesh):
         replicated(mesh))
 
 
-def jax_init(model, x):
-    """`model.init` jitted: one compile instead of op-by-op dispatch."""
-    return jax.tree.map(np.array, jax.jit(
-        lambda key: model.init(key, x))(jax.random.PRNGKey(0))["params"])
+def jax_init(model, x, seed=0):
+    """Seeded numpy weights in the shapes of `model.init`, which is traced
+    (`eval_shape`), never compiled: kernels, embeddings and adapters
+    lecun-normal over their fan-in (a patch kernel's is its patch), norm
+    scales near 1, small biases."""
+    shapes = jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), x))["params"]
+    rng = np.random.default_rng(seed)
+
+    def fill(path, leaf):
+        shape, name = leaf.shape, path[-1].key
+        if name == "scale":
+            w = 1.0 + 0.1 * rng.standard_normal(shape)
+        elif name == "bias":
+            w = 0.02 * rng.standard_normal(shape)
+        else:
+            fan_in = (np.prod(shape[:-1]) if len(shape) == 4
+                      else shape[-2] if len(shape) > 1 else 1)
+            w = rng.standard_normal(shape) / np.sqrt(fan_in)
+        return w.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
 def run_jax(step, params, batch, mesh):
@@ -143,8 +162,8 @@ def joint_case(mesh):
     dna = JaxHead(JaxDna(JaxBertConfig(vocab_size=1027, lora_rank=2, **BERT,
                                        **NO_DROP), output_dim=D_OUT),
                   N_CLASSES)
-    params = {"image": jax_init(img, jnp.zeros((2, 224, 224, 3))),
-              "dna": jax_init(dna, jnp.zeros((2, 133), jnp.int32))}
+    params = {"image": jax_init(img, jnp.zeros((2, 224, 224, 3)), seed=1),
+              "dna": jax_init(dna, jnp.zeros((2, 133), jnp.int32), seed=2)}
     rng = np.random.default_rng(1)
     batch = {"image": images(rng),
              "dna": rng.integers(3, 1027, size=(B, 133)).astype(np.int32),

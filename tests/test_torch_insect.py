@@ -175,14 +175,17 @@ def test_train_loader_matches_jax(insect, process_index):
 
 
 def test_label_tokens_need_a_tokenizer(insect, monkeypatch):
-    """No vocab and no cached HF tokenizer: the port raises, where JAX
-    falls back to salted hash() ids."""
+    """No vocab and no HF tokenizer (`transformers` unimportable, as on
+    the card's machine): the port raises, where JAX falls back to salted
+    hash() ids."""
     from bioscan_clip_tpu_torch.data.insect import InsectLoader
+    from test_torch_train_loader import without_transformers
 
     _, port_args, _ = insect
     monkeypatch.delenv("BSCAN_BERT_VOCAB", raising=False)
     monkeypatch.delenv("BIOSCAN_CLIP_TPU_ALLOW_DOWNLOAD", raising=False)
-    with pytest.raises(RuntimeError, match="BSCAN_BERT_VOCAB"):
+    with without_transformers(), pytest.raises(RuntimeError,
+                                               match="BSCAN_BERT_VOCAB"):
         InsectLoader(port_args, "val_loc")
 
 

@@ -18,6 +18,9 @@ and method 2 CLIs, against the JAX package on the same inputs:
   host-transformed `image` by default); one port epoch then trains it on
   those float images."""
 
+import sys
+import types
+
 import numpy as np
 import pytest
 
@@ -138,11 +141,11 @@ def test_bzsl_classifier_matches_jax():
 
 @pytest.fixture(scope="module")
 def dataset_path(tmp_path_factory):
-    from tests.fixtures import build_synthetic_dataset
+    from test_torch_train_loader import build_fixture
 
     p = tmp_path_factory.mktemp("methods") / "synthetic.hdf5"
     # 6 species: method 2 takes the classifier's top 5
-    return str(build_synthetic_dataset(str(p), n_classes=6, per_class=6))
+    return build_fixture(str(p), n_classes=6, per_class=6)
 
 
 @pytest.fixture(scope="module")
@@ -199,6 +202,15 @@ def method_args(dataset_path, tiny_params, jax_embed_steps, tmp_path,
     monkeypatch.setattr(jax_mesh, "create_mesh", lambda *a, **kw: real_mesh(
         devices=jax.devices()[:1]))
     monkeypatch.setattr(jax_loop, "make_embed_step", jax_embed_steps)
+    # no checkpoint is read here: JAX's CLIs get the two names they import
+    # from train/checkpoint without the module's ~6 s import of orbax
+    ckpt = types.ModuleType("bioscan_clip_tpu.train.checkpoint")
+
+    def unused(*_a, **_kw):
+        raise AssertionError("no checkpoint is read in these runs")
+
+    ckpt.load_pth_into_params = ckpt.resolve_reference_ckpt = unused
+    monkeypatch.setitem(sys.modules, ckpt.__name__, ckpt)
     jax_args = SyntheticArgs(dataset_path, batch_size=8)
     jax_args.cfg.merge({
         "project_root_path": str(tmp_path),
@@ -236,7 +248,6 @@ def test_method_one_cli_matches_jax(method_args):
 
 def test_method_two_cli_matches_jax(method_args, tiny_params, monkeypatch):
     import jax
-    import jax.numpy as jnp
     import torch
 
     import bioscan_clip_tpu_torch.models.clip as port_clip
@@ -245,14 +256,22 @@ def test_method_two_cli_matches_jax(method_args, tiny_params, monkeypatch):
     from bioscan_clip_tpu_torch.cli import (
         method_two_fine_tuning_and_eval as m2,
     )
-    from test_torch_eval import _jax_tiny
 
     jax_args, port_args = method_args
+    # JAX's classifier init through one jit (op by op it dispatches ~100
+    # small compiles), kept: its head goes into the port's head
+    inits = []
+    real_head_init = EncoderWithHead.init
+
+    def jit_init(self, rng, x):
+        inits.append(jax.jit(lambda r: real_head_init(self, r, x))(rng))
+        return inits[-1]
+
+    monkeypatch.setattr(EncoderWithHead, "init", jit_init)
     ref = jax_m2.run(jax_args, out=lambda *_: None, fine_tune_epochs=0)
     # JAX's initial head over the 6 seen species, into the port's head
-    head = EncoderWithHead(_jax_tiny().image_encoder, 6).init(
-        jax.random.PRNGKey(1), jnp.zeros((2, 224, 224, 3)))["params"][
-        "new_linear_layer"]
+    (init,) = inits
+    head = init["params"]["new_linear_layer"]
     real_init = port_clip.init_weights
 
     def init_weights(model, seed=0):

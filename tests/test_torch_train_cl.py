@@ -146,15 +146,18 @@ def insect_args(args, tmp_path):
 def test_insect_mode_and_steps_per_call_raise(insect_args, monkeypatch):
     """INSECT mode no longer raises for want of a port (it runs:
     `test_train_cl_insect_mode`); without a BERT-small vocabulary its label
-    tokenizer raises, where the JAX loader falls back to salted hash() ids;
+    tokenizer (`transformers` unimportable) raises, where the JAX loader
+    falls back to salted hash() ids;
     `tpu.steps_per_call` does not raise (its runs:
     `test_steps_per_call_equals_one_step_per_call`)."""
     from bioscan_clip_tpu_torch.cli import train_cl
+    from test_torch_train_loader import without_transformers
 
     monkeypatch.delenv("BSCAN_BERT_VOCAB", raising=False)
     monkeypatch.delenv("BIOSCAN_CLIP_TPU_ALLOW_DOWNLOAD", raising=False)
     insect_args.cfg.tpu.merge({"steps_per_call": 2})
-    with pytest.raises(RuntimeError, match="BSCAN_BERT_VOCAB"):
+    with without_transformers(), pytest.raises(RuntimeError,
+                                               match="BSCAN_BERT_VOCAB"):
         train_cl.run(insect_args)
 
 

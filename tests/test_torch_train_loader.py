@@ -6,9 +6,11 @@ instance and BIN labels, uint8 frames fitted to the first frame's slot, and
 the host train augmentation's frames under `train_crop`)."""
 
 import atexit
+import contextlib
 import functools
 import os
 import shutil
+import sys
 import tempfile
 
 import numpy as np
@@ -19,14 +21,32 @@ from tests.fixtures import SyntheticArgs, build_synthetic_dataset
 SPLIT = "no_split_and_seen_train"  # 24 records
 
 
+@contextlib.contextmanager
+def without_transformers():
+    """`transformers` unimportable inside the block. A label tokenizer with
+    no vocab then fails at its import, as it fails here at the missing
+    cached BERT-small (the synthetic fixture then takes its stub tokens,
+    the port's loaders raise), without the ~6 s import."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(sys.modules, "transformers", None)
+        yield
+
+
+def build_fixture(path, **kw) -> str:
+    """`tests/fixtures.build_synthetic_dataset` without the import of
+    `transformers`."""
+    with without_transformers():
+        return str(build_synthetic_dataset(path, **kw))
+
+
 @functools.lru_cache(maxsize=None)
 def synthetic_dataset() -> str:
-    """The synthetic HDF5 fixture, built once per process (its JPEGs take
-    ~10 s); tests/test_torch_train_cl.py reads it too."""
+    """The synthetic HDF5 fixture (4 species x 6), built once per process;
+    tests/test_torch_{train_cl,distributed,eval}.py read it too."""
     d = tempfile.mkdtemp(prefix="bscan_train_")
     atexit.register(shutil.rmtree, d, True)
-    return str(build_synthetic_dataset(os.path.join(d, "synthetic.hdf5"),
-                                       n_classes=4, per_class=6))
+    return build_fixture(os.path.join(d, "synthetic.hdf5"), n_classes=4,
+                         per_class=6)
 
 
 @pytest.fixture(scope="module")
