@@ -1,7 +1,9 @@
-"""HDF5 split-file reader for the BIOSCAN-1M/5M export schema.
+"""HDF5 split-file reader and writer for the BIOSCAN-1M/5M export schema.
 
-A copy of the read half of bioscan_clip_tpu/data/hdf5.py (`get_len_dict`,
-`hdf5_path_for`, `SplitReader` :31-126). Schema: per-split groups
+A copy of bioscan_clip_tpu/data/hdf5.py: the reader (`get_len_dict`,
+`hdf5_path_for`, `SplitReader` :31-126) and the writer (`write_split_hdf5`
+:129-228), which the dataset builder (`cli/generate_hdf5.py`) and the
+test fixtures use. Schema: per-split groups
 (`all_keys`, `val_seen`, `val_unseen`, `test_seen`, `test_unseen`,
 `seen_keys`, `unseen_keys`/`val_unseen_keys`/`test_unseen_keys`, ...) each
 holding `image` (padded JPEG byte rows) + `image_mask` (byte lengths),
@@ -12,9 +14,15 @@ token_type_ids,attention_mask}`. `h5py` is imported when a file is opened.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import numpy as np
 
-from bioscan_clip_tpu_torch.data.tokenizers import tokenize_dna_batch
+from bioscan_clip_tpu_torch.data.tokenizers import (
+    build_label_strings,
+    tokenize_dna_batch,
+    tokenize_labels_bert_small,
+)
 
 LEVELS = ["order", "family", "genus", "species"]
 
@@ -112,3 +120,79 @@ class SplitReader:
             x.decode("utf-8") if isinstance(x, bytes) else str(x)
             for x in self._take(name, idx)
         ]
+
+
+def write_split_hdf5(
+    path: str,
+    splits: dict,
+    max_image_bytes: Optional[int] = None,
+    tokenize_language: bool = True,
+    dataset_flavor: str = "bioscan_1m",
+    vocab_path: Optional[str] = None,
+):
+    """Write a schema-compatible split HDF5 (generate_hdf5_file_5m.py).
+
+    splits: {split_name: {"images": [jpeg bytes...], "barcode": [str...],
+             "order"/"family"/"genus"/"species": [str...],
+             optional "sampleid"/"processid"/"image_file": [str...],
+             optional "language_tokens": dict}}.
+
+    Each split's JPEGs are zero-padded to `max_image_bytes` (default: the
+    longest) with their lengths in `image_mask`. Without "language_tokens"
+    the label strings are tokenized with BERT-small at max_length 20
+    (`vocab_path` / $BSCAN_BERT_VOCAB for the native WordPiece, else the
+    cached HF tokenizer); without either this raises. The JAX writer's
+    `allow_stub_tokens` (ids from Python's per-process salted `hash()`) is
+    not copied.
+    """
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for split, rec in splits.items():
+            g = f.create_group(split)
+            imgs = rec["images"]
+            n = len(imgs)
+            maxlen = max_image_bytes or max((len(b) for b in imgs), default=1)
+            arr = np.zeros((n, maxlen), dtype=np.uint8)
+            mask = np.zeros((n,), dtype=np.int64)
+            for i, b in enumerate(imgs):
+                bb = np.frombuffer(b, dtype=np.uint8)
+                arr[i, : len(bb)] = bb
+                mask[i] = len(bb)
+            g.create_dataset("image", data=arr)
+            g.create_dataset("image_mask", data=mask)
+
+            str_dt = h5py.string_dtype()
+
+            def strings(name, values):
+                g.create_dataset(name, data=np.array(values, dtype=object),
+                                 dtype=str_dt)
+
+            strings("barcode", rec["barcode"])
+            for lvl in LEVELS:
+                strings(lvl, rec[lvl])
+            strings("sampleid",
+                    rec.get("sampleid", [f"sample_{i}" for i in range(n)]))
+            if dataset_flavor == "bioscan_5m":
+                strings("processid",
+                        rec.get("processid", [f"proc_{i}" for i in range(n)]))
+            else:
+                strings("image_file", rec.get(
+                    "image_file", [f"img_{i}.jpg" for i in range(n)]))
+
+            lt = rec.get("language_tokens")
+            if lt is None and tokenize_language:
+                try:
+                    lt = tokenize_labels_bert_small(
+                        build_label_strings(rec["order"], rec["family"],
+                                            rec["genus"], rec["species"]),
+                        vocab_path=vocab_path)
+                except (ImportError, OSError) as e:
+                    raise RuntimeError(
+                        "write_split_hdf5: no BERT-small tokenizer for the "
+                        "label strings: pass vocab_path or set "
+                        "BSCAN_BERT_VOCAB to a vocab.txt, or cache "
+                        "prajjwal1/bert-small for transformers") from e
+            if lt is not None:
+                for k, v in lt.items():
+                    g.create_dataset(f"language_tokens_{k}", data=v)

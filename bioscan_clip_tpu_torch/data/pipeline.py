@@ -14,14 +14,21 @@ Images come out in one of four forms, as in JAX:
   "image_u8", each image on its own numpy stream spawned from (seed,
   epoch, first index of the batch);
 - otherwise (B, H, W, 3) uint8 under "image_u8", each frame resized on the
-  host to shorter side 256 (cv2) and fitted to the first frame's slot, for
-  the device eval transform;
+  host to shorter side 256 and fitted to the first frame's slot, for the
+  device eval transform;
 - with `eval_host_crop` as well, that frame's (224, 224) center crop
   (`eval_pre_cropped`), which the device only casts.
 
-Decoding is Python (cv2, else PIL) in a thread pool. The JAX package's
-native libjpeg decode pool (`data/native_io.py`) is not ported
-(`ROADMAP.md` queue 1, item 5): this loader never looks for it.
+Decoding, as in JAX: once the host's libjpeg decode pool is built
+(`data/native_io.build()`), the train-crop and uint8 paths take it
+(`use_native`): it decodes straight to shorter side 256 by DCT scaling and
+a bilinear finish, into the slot of the first image's resized shape. A
+loader whose first image is smaller than `host_resize_to` drops the pool
+(the pool's edge is downscaling). Otherwise, and always for the eval-parity
+path, decoding is Python (cv2, else PIL) in a thread pool, with a cv2
+resize. One difference from JAX: a JPEG the pool cannot decode raises,
+naming its index in the batch, where JAX's loader switches to Python
+decode for the rest of its life.
 
 `for_training=True` gives train batches: "labels" (instance ids, or the
 BIN labels passed in) instead of label dicts and ids, `drop_last` by
@@ -40,6 +47,7 @@ from typing import Optional
 
 import numpy as np
 
+from bioscan_clip_tpu_torch.data import native_io
 from bioscan_clip_tpu_torch.data.hdf5 import SplitReader
 from bioscan_clip_tpu_torch.data.transforms import (
     decode_jpeg,
@@ -216,6 +224,10 @@ class BioscanLoader(PrefetchLoader):
         self.labels = labels
         if for_training and labels is None:
             self.labels = np.arange(self.n, dtype=np.int64)
+        # the host's decode pool once built (JAX pipeline.py:180-189)
+        self.use_native = bool(with_image and host_resize_to
+                               and native_io.available())
+        self._native_hw = None
 
     def __len__(self):
         if self.drop_last:
@@ -248,11 +260,42 @@ class BioscanLoader(PrefetchLoader):
         if not self.drop_last and n_full * bs < len(idx):
             yield idx[n_full * bs :]
 
+    def _native_out_hw(self, first_buf) -> tuple:
+        """The pool's output slot: the first image's shorter-side-resized
+        shape (BIOSCAN images share one aspect ratio, so every pixel
+        stays; outliers are center-cropped or edge-padded). A first image
+        smaller than `host_resize_to` drops the pool for this loader (JAX
+        pipeline.py:230-247)."""
+        if self._native_hw is None:
+            h, w = decode_jpeg(first_buf).shape[:2]
+            s = self.host_resize_to
+            if min(h, w) < s:
+                self.use_native = False
+            if h <= w:
+                self._native_hw = (s, max(1, int(round(s * w / h))))
+            else:
+                self._native_hw = (max(1, int(round(s * h / w))), s)
+        return self._native_hw
+
+    def _native_frames(self, bufs):
+        """The pool's (B, h, w, 3) uint8 frames, or None where this loader
+        decodes in Python. A JPEG the pool cannot decode raises."""
+        if not self.use_native:
+            return None
+        out_h, out_w = self._native_out_hw(bufs[0])
+        if not self.use_native:
+            return None
+        return native_io.decode_batch(
+            bufs, target_short=self.host_resize_to, out_h=out_h, out_w=out_w,
+            threads=self.decode_threads)
+
     def _make_batch(self, idx, pool) -> dict:
         batch = {}
         if self.with_image:
             bufs = self.reader.read_images_bytes(idx)
-            imgs = list(pool.map(decode_jpeg, bufs))
+            frames = None if self.eval_parity else self._native_frames(bufs)
+            imgs = (list(frames) if frames is not None
+                    else list(pool.map(decode_jpeg, bufs)))
             if self.eval_parity:
                 batch["image"] = np.stack(list(pool.map(
                     lambda im: host_eval_image(
@@ -260,7 +303,9 @@ class BioscanLoader(PrefetchLoader):
                     imgs)))
             elif self.train_crop:
                 # independent per-image streams, deterministic in
-                # (seed, epoch, first index of the batch)
+                # (seed, epoch, first index of the batch); the pool's
+                # frames are already shorter-side 256, which
+                # host_train_augment's Resize leaves as they are
                 rngs = np.random.default_rng(
                     [self.seed, self.epoch, int(idx[0])]).spawn(len(imgs))
                 batch["image_u8"] = np.stack(list(pool.map(
@@ -268,6 +313,16 @@ class BioscanLoader(PrefetchLoader):
                         t[0], t[1], size=self.train_crop_size,
                         resize_to=self.host_resize_to),
                     zip(imgs, rngs))))
+            elif frames is not None:
+                if self.eval_pre_cropped:
+                    # the center crop of the pool's slot: the same
+                    # two-stage geometry as the device center crop
+                    s = self.eval_crop_size
+                    t = (frames.shape[1] - s) // 2
+                    left = (frames.shape[2] - s) // 2
+                    frames = np.ascontiguousarray(
+                        frames[:, t:t + s, left:left + s])
+                batch["image_u8"] = frames
             else:
                 if self.host_resize_to:
                     imgs = list(pool.map(

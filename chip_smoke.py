@@ -4,8 +4,10 @@
     python3 chip_smoke.py --phases kernels   # device, build and kernel phases
 
 Phases, in order; any failure exits non-zero:
-  device    the card's name and power limit (nvidia-smi), and whether
-            libjpeg is on the machine (jpeglib.h, libjpeg.so)
+  device    the card's name and power limit (nvidia-smi), whether libjpeg
+            (jpeglib.h, libjpeg.so) and CUDA's nvJPEG (nvjpeg.h,
+            libnvjpeg) are on the machine, and which of pandas, h5py, PIL,
+            cv2, matplotlib, sklearn and scipy import (a report)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
             prints ptxas' registers, shared memory and spills per kernel
             (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k and one
@@ -79,6 +81,20 @@ Phases, in order; any failure exits non-zero:
             split, method 2's fine-tune 2 steps); ms per step and peak
             memory of the full-ViT and the joint step; K1, K2, K2d, K3 and
             K4 launched, no plain version
+  data_tools
+            the slice's tools that need none of the packages the card's
+            machine lacks (h5py, matplotlib, sklearn, libjpeg):
+            utils/flops' counts per sample against FLOPS_PER_SAMPLE;
+            data/splits.create_splits over 200,000 records of 4,000
+            long-tailed species, get_species_taxo_labels over that table,
+            process_insect_dataset's .mat -> CSV at INSECT's 21,212 images;
+            interop/torch_export.save_pth of the flagship
+            at full width (random seeded weights, bf16) read back by
+            train/checkpoint.load_pth_into_params into a fresh model, state
+            dicts and one batch's embeddings bit-equal; the 5 x 6 sweep's
+            results.csv (retrieval/report.py, 96 keys, 48 seen and 48
+            unseen records) through cli/flatten_csv, one row per (metric,
+            value column); K1, K2 and K4 launched, no plain version
   distributed
             the distributed train step over a 1-rank NCCL group on the
             card (parallel/distributed.py, parallel/mesh.py): the flagship
@@ -114,6 +130,11 @@ Phases, in order; any failure exits non-zero:
             fine-tunes' classifier and joint steps (ViT-B/16 and
             BarcodeBERT at 2 layers, every weight trainable, B=8)
 
+Every flagship step time (training, train_cl, insect, distributed, graphs)
+and the eval phase's extraction rate has an MFU line beside it: utils/flops'
+matmul FLOPs per sample over the 989 TFLOP/s bf16 dense peak, with the
+card's name and power limit.
+
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}. Needs CUDA: without it the script exits 1
 and prints no result.
@@ -122,6 +143,7 @@ and prints no result.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -133,9 +155,16 @@ import time
 # their type.
 PEAK = {"bytes": 3.35e12, "bfloat16": 989e12, "float32": 67e12,
         "int8": 1979e12}
+# Matmul FLOPs per sample of the flagship's steps by the JAX package's count
+# (utils/flops.py; tests/test_torch_flops_viz_export.py ties these to it):
+# the data_tools phase holds the port's counts against them.
+FLOPS_PER_SAMPLE = {"plain": 118467084288.0, "gradcache": 177601994752.0,
+                    "extract": 59134910464.0, "vit_full": 105381900288.0,
+                    "joint_full": 175586697216.0}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
               "training", "openclip_training", "train_cl", "insect",
-              "distributed", "graphs", "streaming", "probe", "parity")
+              "data_tools", "distributed", "graphs", "streaming", "probe",
+              "parity")
 
 
 def log(msg: str) -> None:
@@ -165,19 +194,104 @@ def bound_ms(n_bytes: float, n_ops: float, dtype_name: str):
                                        else "operations")
 
 
-def phase_device():
-    import torch
-
-    line = subprocess.run(
+@functools.lru_cache(maxsize=None)
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip()
+
+
+def phase_device():
+    import torch
+
+    line = card_line()
     log(line)
     log(f"  libjpeg: {_libjpeg()}")
+    log(f"  nvJPEG: {_nvjpeg()}")
+    log(f"  host libraries that import: {_host_libraries()}")
     log(f"phase device ok: {torch.cuda.get_device_name(0)}, "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     return line
+
+
+# the host libraries the port imports only inside the functions that need
+# them; the device phase reports which of them the machine has
+HOST_LIBRARIES = ("pandas", "h5py", "PIL", "cv2", "matplotlib", "sklearn",
+                  "scipy")
+
+
+def _host_libraries() -> dict:
+    """name -> its version, or "missing": each imported in a child process,
+    so this one does not load them. A report, never a failure."""
+    code = ("import importlib, json\nout = {}\n"
+            f"for name in {HOST_LIBRARIES!r}:\n"
+            "    try:\n"
+            "        m = importlib.import_module(name)\n"
+            "        out[name] = getattr(m, '__version__', 'present')\n"
+            "    except Exception as e:\n"
+            "        out[name] = f'missing ({type(e).__name__})'\n"
+            "print(json.dumps(out))\n")
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    try:
+        return json.loads(r.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        return {"error": (r.stderr or r.stdout)[-300:]}
+
+
+def _nvjpeg() -> str:
+    """Whether CUDA's nvJPEG is on the machine, for a card-side JPEG decode:
+    nvjpeg.h in the toolkit's include paths, libnvjpeg in its library paths
+    and the Python wheels', and by ctypes.util.find_library. A report,
+    never a failure."""
+    import ctypes.util
+    import glob
+    import os
+    import site
+
+    heads = sorted({h for d in ("/usr/local/cuda/include",
+                                "/usr/local/cuda/targets/*/include",
+                                "/usr/include")
+                    for h in glob.glob(os.path.join(d, "nvjpeg.h"))})
+    lib_dirs = ["/usr/local/cuda/lib64", "/usr/local/cuda/targets/*/lib",
+                "/usr/lib/x86_64-linux-gnu"]
+    lib_dirs += [os.path.join(p, "nvidia", "*", "lib")
+                 for p in site.getsitepackages()]
+    libs = sorted({x for d in lib_dirs
+                   for x in glob.glob(os.path.join(d, "libnvjpeg.so*"))})
+    return (f"nvjpeg.h {heads or 'not found'}; libnvjpeg {libs or 'not found'}"
+            f"; find_library {ctypes.util.find_library('nvjpeg')}")
+
+
+def _port_flops() -> dict:
+    """The port's utils/flops counts per sample, by FLOPS_PER_SAMPLE's
+    keys."""
+    from bioscan_clip_tpu_torch.utils import flops
+
+    vit, dna = flops.vit_b16(), flops.barcode_bert()
+    return {"plain": flops.flagship_train_flops_per_sample("plain"),
+            "gradcache": flops.flagship_train_flops_per_sample("gradcache"),
+            "extract": flops.flagship_fwd_flops_per_sample(),
+            "vit_full": vit.train_full(),
+            "joint_full": vit.train_full() + dna.train_full()}
+
+
+def _mfu(what, ms, samples, kind):
+    """Log the model-FLOPs utilization of `samples` samples in `ms` by the
+    port's count `kind` (FLOPS_PER_SAMPLE's keys: recomputation is not
+    model work), against the bf16 dense peak, beside the card's name and
+    power limit; returns it."""
+    from bioscan_clip_tpu_torch.utils import flops
+
+    per = _port_flops()[kind]
+    m = flops.mfu(samples / (ms / 1e3), per)
+    log(f"  MFU {what}: {samples} samples in {ms:.1f} ms x "
+        f"{per / 1e9:.2f} GFLOP ({kind}) = {100 * m:.2f}% of "
+        f"{flops.PEAK_TFLOPS['h100_bf16']:.0f} TFLOP/s bf16 ({card_line()})")
+    return m
 
 
 def _libjpeg() -> str:
@@ -860,9 +974,10 @@ KERNELS = {
 }
 # the main paths that launch each kernel: the first gives its `launches`
 # in that line, every one its count in `launches_by_path`
-KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect"),
-               "mha": ("serving", "insect"),
-               "topk": ("serving", "insect"), "topk_i8": ("eval",),
+KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect", "data_tools"),
+               "mha": ("serving", "insect", "data_tools"),
+               "topk": ("serving", "insect", "data_tools"),
+               "topk_i8": ("eval",),
                "topk_default": ("eval",),
                "mha_dropout": ("training", "graphs", "insect"),
                "mha_bwd": ("training", "graphs", "insect"),
@@ -1431,12 +1546,19 @@ def phase_eval():
     for name, batches in loaders.items():
         n_rows = sum(len(b["ids"]) for b in batches)
         for group, out in ((0, splits), (None, grouped)):
+            how = "per batch" if group == 0 else "grouped"
+            t = time.perf_counter()
             out[name] = _timed(
-                f"extract_features {name} x{n_rows} "
-                f"({'per batch' if group == 0 else 'grouped'})",
+                f"extract_features {name} x{n_rows} ({how})",
                 lambda: extract_features(model, batches,
                                          for_key_set=name == "keys",
                                          group_samples=group))
+            if name == "keys":
+                ms = 1e3 * (time.perf_counter() - t)
+                log(f"  extract_features keys ({how}): "
+                    f"{1e3 * n_rows / ms:.1f} records/s (host clock)")
+                _mfu(f"extract_features keys ({how})", ms, n_rows,
+                     "extract")
         d = splits[name]
         for k in ("encoded_image_feature", "encoded_dna_feature",
                   "encoded_language_feature"):
@@ -1749,6 +1871,9 @@ def phase_training():
         f"{stats.get('samples_per_s_steady', float('nan')):.1f}, peak "
         f"memory {peak / 2**30:.2f} GiB (max_memory_allocated), B="
         f"{TRAIN_BATCH}")
+    _mfu(f"training, the plain step at B={TRAIN_BATCH} (steps 2-"
+         f"{TRAIN_STEPS} mean)", float(np.mean(step_ms[1:])), TRAIN_BATCH,
+         "plain")
     log(f"  launches on the training path: {counts}; plain calls {plain}")
 
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
@@ -2056,10 +2181,7 @@ def phase_train_cl():
     from bioscan_clip_tpu_torch.train.checkpoint import wait_for_checkpoints
 
     torch.cuda.empty_cache()
-    log("  " + subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    log("  " + card_line())
     rng = np.random.default_rng(10)
     t0 = time.perf_counter()
     train = _MemoryLoader([_train_cl_batch(rng, TRAIN_BATCH)
@@ -2206,6 +2328,7 @@ def phase_train_cl():
     del st, step, b
     log(f"  plain step: {ms0:.1f} ms (CUDA events, steps 2-3), peak "
         f"{peak0:.2f} GiB, samples/s {1e3 * TRAIN_BATCH / ms0:.1f}")
+    _mfu("train_cl, the plain step", ms0, TRAIN_BATCH, "plain")
     for policy in ("full", "dots"):
         r_args = _train_cl_args(root, remat=True, remat_policy=policy)
         lr, gr, msr, peakr, st, step, b = _step_grads(
@@ -2218,6 +2341,7 @@ def phase_train_cl():
             f"{lr[0]:.7f} vs {l0[0]:.7f} (rel {drel:.3g}), grads rel "
             f"{norm:.3g} (norm), worst tensor {rel:.3g} ({name}) (tol: loss "
             "1e-3, grads 2e-2 max, bf16)")
+        _mfu(f"train_cl, remat {policy}", msr, TRAIN_BATCH, "plain")
         if not (drel <= 1e-3 and rel <= 2e-2):
             raise AssertionError(f"remat {policy}: loss {drel}, grads {rel}")
     lg, gg, msg, peakg, st, step, b = _step_grads(
@@ -2232,6 +2356,8 @@ def phase_train_cl():
         f"{1e3 * TRAIN_BATCH / msg:.1f}; loss rel {drel:.3g}; grads against "
         f"the plain step: rel {norm:.3g} (norm; tol 5e-2, bf16), worst "
         f"tensor max rel {rel:.3g} ({name})")
+    _mfu(f"train_cl, GradCache {TRAIN_CL_ACCUM} x "
+         f"{TRAIN_BATCH // TRAIN_CL_ACCUM}", msg, TRAIN_BATCH, "gradcache")
     # bf16: stage 1's embeddings (merged weights, chunks of 200) differ from
     # the recompute's by ~2^-8, which the logit scale 1/0.07 turns into a
     # few percent of the softmax; fp32 is exact to 1e-4 (tests/
@@ -2474,10 +2600,7 @@ def phase_insect():
     from bioscan_clip_tpu_torch.config.core import ConfigNode
 
     torch.cuda.empty_cache()
-    card = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
+    card = card_line()
     log("  " + card)
     t_phase = time.perf_counter()
     rng = np.random.default_rng(13)
@@ -2583,6 +2706,8 @@ def phase_insect():
             f"{vit_ms:.1f} ms (CUDA events, median of steps 2-"
             f"{len(vit_all)}; all {[round(x, 1) for x in vit_all]}), peak "
             f"{vit_peaks[-1]:.2f} GiB ({card}); CSV {csv_shape}")
+        _mfu(f"fine_tune_vitb, the full ViT-B/16 step at B={FT_BATCH}",
+             vit_ms, FT_BATCH, "vit_full")
         del state, built["init"]
         torch.cuda.empty_cache()
 
@@ -2616,6 +2741,8 @@ def phase_insect():
             f"{len(joint_all)}; all {[round(x, 1) for x in joint_all]}), "
             f"peak {joint_peaks[-1]:.2f} GiB ({card}); CSVs {joint_csvs}, "
             f"files {joint_files}")
+        _mfu(f"supervised_fine_tune, the joint step at B={FT_BATCH}",
+             joint_ms, FT_BATCH, "joint_full")
         del state
         torch.cuda.empty_cache()
 
@@ -2969,6 +3096,9 @@ def phase_distributed():
                        f"{busy:.1f} ms ({100 * busy / wall:.1f}%), NCCL "
                        f"kernels {nccl:.3f} ms ({100 * nccl / busy:.3f}% "
                        "of busy)"))
+                _mfu(f"distributed {name} {what}",
+                     float(np.median(ms[which])), TRAIN_BATCH,
+                     "plain" if name == "plain" else "gradcache")
             del kept, state, step, b
             torch.cuda.empty_cache()
         # the repaired fault: remat "dots" saves the attention outputs
@@ -3219,10 +3349,7 @@ def phase_graphs():
     from bioscan_clip_tpu_torch.train.state import cast_frozen_params
 
     torch.cuda.empty_cache()
-    log("  " + subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip())
+    log("  " + card_line())
     counts, table = {}, {}
     rng = np.random.default_rng(12)
     t0 = time.perf_counter()
@@ -3309,6 +3436,11 @@ def phase_graphs():
             f"{name} {r[0]:.1f} -> {r[1]:.1f} ms, "
             + ("busy not measured" if r[2] is None else f"busy {r[2]:.1f}%")
             + f", {r[3]:.2f} / {r[4]:.2f} GiB" for name, r in table.items()))
+    for name, r in table.items():
+        if name != "openclip":  # the flagship's rows, B=400
+            kind = "gradcache" if name == "gradcache" else "plain"
+            _mfu(f"graphs {name}, eager", r[0], TRAIN_BATCH, kind)
+            _mfu(f"graphs {name}, graphed", r[1], TRAIN_BATCH, kind)
     log("phase graphs ok")
     return counts
 
@@ -3878,6 +4010,237 @@ def _fine_tune_parity():
     torch.cuda.empty_cache()
 
 
+N_TOOLS_KEYS, N_TOOLS_QUERIES = 96, 48  # the data_tools phase's sweep
+# the split generator's table: cut in records from BIOSCAN-1M's 1.1 M
+# (data/splits.py masks every record once per species)
+N_SPLIT_RECORDS, N_SPLIT_SPECIES = 200_000, 4_000
+N_TAXO_ROWS = 20_000
+# INSECT (Badirli et al.): 21,212 images of 1,213 species, 13,165 trainval,
+# 4,965 test-seen, 3,082 test-unseen
+N_INSECT, N_INSECT_SPECIES = 21_212, 1_213
+INSECT_TRAINVAL, INSECT_TEST_SEEN = 13_165, 4_965
+
+
+def _split_table(rng, n, n_species):
+    """A BIOSCAN-like metadata table: long-tailed (Zipf 1.1) species over
+    n records, 5% not_classified, with taxonomy columns."""
+    import numpy as np
+    import pandas as pd
+
+    w = 1.0 / np.arange(1, n_species + 1) ** 1.1
+    sp = rng.choice(n_species, size=n, p=w / w.sum())
+    species = np.array([f"species_{i}" for i in range(n_species)],
+                       dtype=object)[sp]
+    species[rng.random(n) < 0.05] = "not_classified"
+    return pd.DataFrame({
+        "sampleid": [f"S{i:07d}" for i in range(n)],
+        "uri": [f"BOLD:{i % 9973}" for i in range(n)],
+        "image_file": [f"{i}.jpg" for i in range(n)],
+        "species": species, "genus": [f"genus_{i % 997}" for i in sp],
+        "family": [f"family_{i % 211}" for i in sp],
+        "order": [f"order_{i % 13}" for i in sp]})
+
+
+def _host_tables(rng, root):
+    """The pandas and scipy tools at full size: data/splits.create_splits
+    (every record placed once, no species in both seen and unseen splits),
+    cli/get_species_taxo_labels' local-table mode over the table's first
+    N_TAXO_ROWS rows (it walks rows in Python), cli/process_insect_dataset's
+    .mat -> metadata CSV at INSECT's size."""
+    import numpy as np
+    import pandas as pd
+    import scipy.io as sio
+
+    from bioscan_clip_tpu_torch.cli import get_species_taxo_labels as taxo
+    from bioscan_clip_tpu_torch.cli import process_insect_dataset as insect
+    from bioscan_clip_tpu_torch.data.splits import create_splits
+
+    md = _split_table(rng, N_SPLIT_RECORDS, N_SPLIT_SPECIES)
+    t = time.perf_counter()
+    out = create_splits(md, seed=0)
+    secs = time.perf_counter() - t
+    seen = set(out.loc[out["split"].isin(["train_seen", "val_seen",
+                                          "test_seen"]), "species"])
+    unseen = set(out.loc[out["split"].isin(["val_unseen", "test_unseen"]),
+                         "species"])
+    if not (len(out) == len(md) and out["sampleid"].is_unique
+            and not seen & unseen):
+        raise AssertionError("create_splits: a record or a species placed "
+                             "twice")
+    log(f"  data/splits.create_splits: {len(md)} records of "
+        f"{md['species'].nunique()} species in {secs:.2f} s; "
+        f"{out['split'].value_counts().to_dict()}")
+    table = root / "taxonomy.tsv"
+    md[:N_TAXO_ROWS].to_csv(table, sep="\t", index=False)
+    t = time.perf_counter()
+    mapping = taxo.from_metadata_table(str(table))
+    if len(mapping) != md[:N_TAXO_ROWS]["species"].nunique():
+        raise AssertionError(f"get_species_taxo_labels: {len(mapping)}")
+    log(f"  get_species_taxo_labels: {N_TAXO_ROWS} rows, {len(mapping)} "
+        "species in "
+        f"{time.perf_counter() - t:.2f} s")
+
+    labels = rng.integers(0, N_INSECT_SPECIES, size=N_INSECT)
+
+    def cell(strings):
+        return np.array([[x] for x in strings], dtype=object)
+
+    sio.savemat(str(root / "res101.mat"), {
+        "ids": cell([f"IMG{i:05d}" for i in range(N_INSECT)]),
+        "bold_ids": cell([f"BOLD{i:05d}" for i in range(N_INSECT)]),
+        "species": cell([f"species_{c}" for c in labels]),
+        "nucleotides": cell(_barcodes(rng, N_INSECT)),
+        "labels": (labels + 1).reshape(-1, 1)})
+    idx = rng.permutation(N_INSECT) + 1
+    test = INSECT_TRAINVAL + INSECT_TEST_SEEN
+    sio.savemat(str(root / "att_splits.mat"), {
+        "trainval_loc": idx[:INSECT_TRAINVAL][None],
+        "train_loc": idx[:INSECT_TRAINVAL * 3 // 4][None],
+        "val_loc": idx[INSECT_TRAINVAL * 3 // 4:INSECT_TRAINVAL][None],
+        "test_seen_loc": idx[INSECT_TRAINVAL:test][None],
+        "test_unseen_loc": idx[test:][None]})
+    t = time.perf_counter()
+    df = insect.save_metadata_csv(str(root / "res101.mat"),
+                                  str(root / "att_splits.mat"),
+                                  str(root / "INSECT_metadata.csv"))
+    back = pd.read_csv(root / "INSECT_metadata.csv")
+    sizes = {k: int(back[k].sum()) for k in insect.SPLITS}
+    if (len(back) != N_INSECT or (back["labels"].to_numpy() != labels).any()
+            or sizes["trainval_loc"] != INSECT_TRAINVAL
+            or sizes["test_unseen_loc"] != N_INSECT - test):
+        raise AssertionError(f"process_insect_dataset: {len(df)} rows, "
+                             f"split sizes {sizes}")
+    log(f"  process_insect_dataset .mat -> INSECT_metadata.csv: {len(back)} "
+        f"rows in {time.perf_counter() - t:.2f} s, split sizes {sizes}")
+
+
+def phase_data_tools():
+    """The slice's tools that need none of the packages the card's machine
+    lacks (h5py, matplotlib, sklearn and libjpeg, by the device phase's
+    report of PR 14; it has pandas and scipy), at full width: the port's
+    utils/flops counts against FLOPS_PER_SAMPLE; data/splits, the
+    taxonomy table and INSECT's .mat -> CSV step (`_host_tables`);
+    interop/torch_export.save_pth of the flagship
+    (random seeded weights, bf16, on the card) and train/checkpoint.
+    load_pth_into_params into a fresh model, the state dicts and one
+    batch's embeddings bit-equal; the 5 x 6 sweep's results.csv, written
+    by retrieval/report.py on embeddings of N_TOOLS_KEYS keys and
+    N_TOOLS_QUERIES seen and unseen records, through cli/flatten_csv: one
+    row per (metric, value column), each value the table's. Every step is
+    fixed here, none chosen at run time. Returns the launch counts of the
+    run (K1 and K2 in the embeddings)."""
+    import csv
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from bioscan_clip_tpu_torch.cli import flatten_csv
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.interop.torch_export import save_pth
+    from bioscan_clip_tpu_torch.models.clip import load_clip_model
+    from bioscan_clip_tpu_torch.retrieval.report import (
+        inference_and_print_result,
+    )
+    from bioscan_clip_tpu_torch.train.checkpoint import load_pth_into_params
+    from bioscan_clip_tpu_torch.train.loop import extract_features
+
+    counts = _port_flops()
+    log("  utils/flops per sample: " + ", ".join(
+        f"{k} {v / 1e9:.3f} GFLOP" for k, v in counts.items()))
+    if counts != FLOPS_PER_SAMPLE:
+        raise AssertionError(f"utils/flops: {counts} != {FLOPS_PER_SAMPLE}")
+
+    root = Path("build") / "chip_smoke_data_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    cwd = os.getcwd()
+    try:
+        _host_tables(np.random.default_rng(15), root)
+        torch.cuda.empty_cache()
+        reset_counts()
+        args = ConfigNode({"model_config": dict(FLAGSHIP)})
+        model = load_clip_model(args, device="cuda", dtype=torch.bfloat16,
+                                seed=0)
+        path = root / "flagship.pth"
+        t = time.perf_counter()
+        save_pth(model, str(path))
+        log(f"  save_pth (flagship, bf16 -> float32): "
+            f"{path.stat().st_size / 2**20:.1f} MiB in "
+            f"{time.perf_counter() - t:.2f} s")
+        fresh = load_clip_model(args, device="cuda", dtype=torch.bfloat16,
+                                seed=1)
+        t = time.perf_counter()
+        load_pth_into_params(str(path), fresh)
+        log(f"  load_pth_into_params into a fresh model: "
+            f"{time.perf_counter() - t:.2f} s")
+        want, got = model.state_dict(), fresh.state_dict()
+        bad = [k for k in want if not torch.equal(want[k], got[k])]
+        if set(want) != set(got) or bad:
+            raise AssertionError(f"save_pth -> load_pth_into_params: "
+                                 f"differing {bad[:5]}")
+        rng = np.random.default_rng(14)
+        keys = _eval_records(rng, N_TOOLS_KEYS, EVAL_FRAME)
+        batch = _batches(keys, EVAL_BATCH)[:1]
+        a = extract_features(model, batch, for_key_set=True)
+        b = extract_features(fresh, batch, for_key_set=True)
+        feats = [k for k in a if isinstance(a[k], np.ndarray)]
+        bad = [k for k in feats if not np.array_equal(a[k], b[k])]
+        if bad or not feats:
+            raise AssertionError(f"embeddings after the round trip: {bad}")
+        log(f"  {len(want)} tensors and a batch's {len(feats)} embedding "
+            "arrays bit-equal after the round trip")
+        del fresh
+        path.unlink()
+
+        seen = _eval_records(rng, N_TOOLS_QUERIES, EVAL_FRAME, like=_take(
+            keys, np.arange(N_TOOLS_QUERIES)))
+        unseen = _eval_records(rng, N_TOOLS_QUERIES, EVAL_FRAME, snps=4,
+                               like=_take(keys, np.arange(
+                                   N_TOOLS_KEYS - N_TOOLS_QUERIES,
+                                   N_TOOLS_KEYS)))
+        splits = [extract_features(model, _batches(rec, len(rec["ids"])),
+                                   for_key_set=i == 0)
+                  for i, rec in enumerate((keys, seen, unseen))]
+        os.chdir(root)  # report.py writes logs/ where it runs
+        sweep_args = ConfigNode({"model_config": dict(FLAGSHIP),
+                                 "save_inference": True})
+        inference_and_print_result(*splits, args=sweep_args,
+                                   k_list=[1, 3, 5], device="cuda",
+                                   out=lambda *_: None)
+        with open("logs/results.csv") as f:
+            table = list(csv.DictReader(f))
+        flatten_csv.main(["-i", "logs/results.csv", "-o", "flat.csv"])
+        with open("flat.csv") as f:
+            flat = list(csv.DictReader(f))
+        cols = flatten_csv.METRIC_VALUE_COLUMNS
+        fields = ("Query", "Key", "micro_macro", "top_k", "seen_unseen",
+                  "taxon", "value")
+        want = [(r["Query"], r["Key"], r["Metric"].split("_")[0],
+                 r["Metric"].split("_")[1].replace("Top-", ""),
+                 *c.split("_"), r[c]) for r in table for c in cols]
+        got = [tuple(r[k] for k in fields) for r in flat]
+        if got != want or len(flat) != len(table) * len(cols):
+            raise AssertionError(f"flatten_csv: {len(flat)} rows for a "
+                                 f"table of {len(table)} x {len(cols)}")
+        log(f"  flatten_csv: the sweep's results.csv ({len(table)} rows x "
+            f"{len(cols)} value columns) -> {len(flat)} rows, each value "
+            "the table's")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    counts, plain = launch_counts(), plain_calls()
+    log(f"  launches on the data_tools path: {counts}; plain calls {plain}")
+    if counts["mha_packed"] <= 0 or counts["mha"] <= 0 or any(plain.values()):
+        raise AssertionError(f"data_tools: launches {counts}, plain {plain}")
+    del model
+    torch.cuda.empty_cache()
+    log("phase data_tools ok")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -3918,6 +4281,8 @@ def main(argv=None) -> int:
         path_counts["train_cl"] = phase_train_cl()
     if "insect" in phases:
         path_counts["insect"] = phase_insect()
+    if "data_tools" in phases:
+        path_counts["data_tools"] = phase_data_tools()
     if "distributed" in phases:
         path_counts["distributed"] = phase_distributed()
     if "graphs" in phases:

@@ -11,7 +11,8 @@ setup(
     package_data={
         "bioscan_clip_tpu": ["config/*.yaml", "config/**/*.yaml"],
         "bioscan_clip_tpu_torch": [
-            "csrc/*.cu", "csrc/*.cuh", "config/*.yaml", "config/**/*.yaml",
+            "csrc/*.cu", "csrc/*.cuh", "csrc/host/*.cc", "config/*.yaml",
+            "config/**/*.yaml",
         ],
     },
     python_requires=">=3.10",
@@ -31,7 +32,8 @@ setup(
         "viz": ["matplotlib", "seaborn", "scikit-learn"],
         "data": ["opencv-python", "scipy"],
         # the PyTorch/CUDA port (bioscan_clip_tpu_torch); its kernels build
-        # with nvcc from the CUDA toolkit at first use
+        # with nvcc from the CUDA toolkit at first use, its host JPEG decode
+        # pool with g++ and libjpeg on data.native_io.build()
         "torch": ["torch", "numpy"],
     },
 )

@@ -22,6 +22,7 @@ import torch
 
 from bioscan_clip_tpu.ops import attention as jax_attention
 from bioscan_clip_tpu_torch.ops import attention
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-5
 B, N, D, HEADS, RATE = 2, 20, 64, 4, 0.1

@@ -33,6 +33,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, W, STEPS, SEED = 16, 2, 2, 0x5EED

@@ -15,6 +15,7 @@ from bioscan_clip_tpu.models import common as jax_common
 from bioscan_clip_tpu.ops import attention as jax_attention
 from bioscan_clip_tpu_torch.models import common
 from bioscan_clip_tpu_torch.ops import attention
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 RATE = 0.1
 

@@ -31,6 +31,7 @@ from bioscan_clip_tpu.retrieval import report as jax_report
 from bioscan_clip_tpu_torch.data import transforms
 from bioscan_clip_tpu_torch.retrieval import metrics, report
 from tests.fixtures import SyntheticArgs
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FEATURES = ("encoded_image_feature", "encoded_dna_feature",
             "encoded_language_feature", "averaged_feature",

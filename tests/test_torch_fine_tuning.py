@@ -50,6 +50,7 @@ from bioscan_clip_tpu_torch.models.bert import (
 from bioscan_clip_tpu_torch.models.heads import EncoderWithHead
 from bioscan_clip_tpu_torch.models.vit import ViT, ViTConfig, ViTImageEncoder
 from bioscan_clip_tpu_torch.train import fine_tuning as ft
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B, N_CLASSES, D_OUT = 8, 5, 24
 VIT = dict(image_size=224, patch_size=32, hidden_size=32, num_layers=2,
@@ -96,13 +97,11 @@ def jax_state(params, mesh):
         replicated(mesh))
 
 
-def jax_init(model, x, seed=0):
-    """Seeded numpy weights in the shapes of `model.init`, which is traced
-    (`eval_shape`), never compiled: kernels, embeddings and adapters
-    lecun-normal over their fan-in (a patch kernel's is its patch), norm
-    scales near 1, small biases."""
-    shapes = jax.eval_shape(
-        lambda: model.init(jax.random.PRNGKey(0), x))["params"]
+def seeded_like(shapes, seed=0):
+    """Seeded numpy weights in the shapes of a JAX parameter tree (leaves
+    with `.shape`): kernels, embeddings and adapters lecun-normal over
+    their fan-in (a patch kernel's is its patch), norm scales near 1,
+    small biases."""
     rng = np.random.default_rng(seed)
 
     def fill(path, leaf):
@@ -118,6 +117,13 @@ def jax_init(model, x, seed=0):
         return w.astype(np.float32)
 
     return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+def jax_init(model, x, seed=0):
+    """`seeded_like` the shapes of `model.init`, which is traced
+    (`eval_shape`), never compiled."""
+    return seeded_like(jax.eval_shape(
+        lambda: model.init(jax.random.PRNGKey(0), x))["params"], seed)
 
 
 def run_jax(step, params, batch, mesh):

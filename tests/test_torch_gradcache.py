@@ -48,6 +48,7 @@ from bioscan_clip_tpu_torch.train.loop import (
 from bioscan_clip_tpu_torch.train.state import create_train_state
 from test_torch_towers import jax_params, port_model
 from test_torch_train import jax_model, train_batch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 8
 SEED = 0x2468ACE1

@@ -22,6 +22,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "order", "family",
          "genus", "species", "not", "_", "0", "1", "2", "classified"]

@@ -24,6 +24,7 @@ from bioscan_clip_tpu.retrieval import engine as jax_engine
 from bioscan_clip_tpu.retrieval.engine import l2norm_np
 from bioscan_clip_tpu_torch.ops import topk as topk_mod
 from bioscan_clip_tpu_torch.retrieval import engine
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIM_ATOL = 1e-6
 TILE = 512

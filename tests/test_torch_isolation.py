@@ -44,7 +44,11 @@ def test_no_forbidden_imports():
         "cli/extract_feature_for_insect_dataset", "cli/bzsl_eval",
         "cli/fine_tune_vitb_on_insect",
         "cli/supervised_fine_tune_bioscan_clip_model_on_insect",
-        "cli/method_one_eval", "cli/method_two_fine_tuning_and_eval")
+        "cli/method_one_eval", "cli/method_two_fine_tuning_and_eval",
+        "utils/flops", "data/splits", "data/native_io", "cli/generate_hdf5",
+        "cli/process_insect_dataset", "cli/get_species_taxo_labels",
+        "cli/flatten_csv", "cli/read_image_with_image_file_as_name",
+        "cli/loading_speed_test", "utils/viz", "interop/torch_export")
     } <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
@@ -72,6 +76,34 @@ def test_import_leaves_jax_out():
     leaked = roots & (FORBIDDEN | {"yaml", "PIL", "cv2", "h5py",
                                    "transformers", "wandb", "pandas"})
     assert not leaked, sorted(leaked)
+
+
+# what the card's machine lacks: a module of the port imports these only
+# inside the functions that need them
+HOST_LIBRARIES = ("pandas", "h5py", "PIL", "cv2", "matplotlib", "sklearn",
+                  "seaborn", "psutil", "yaml", "transformers", "Bio", "umap")
+
+
+def test_import_without_the_host_libraries():
+    """Every module of the port, and chip_smoke.py, imports with the host
+    libraries the card's machine lacks made unimportable."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        f"for name in {HOST_LIBRARIES!r}:\n"
+        "    sys.modules[name] = None\n"
+        "import bioscan_clip_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    pkg.__path__, pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "import chip_smoke\n"
+        "print(len(names))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert int(r.stdout.split()[-1]) > 60
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():

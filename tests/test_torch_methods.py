@@ -30,6 +30,7 @@ from bioscan_clip_tpu.retrieval import methods as jax_methods
 from bioscan_clip_tpu.train.loop import make_embed_step as jax_make_embed_step
 from bioscan_clip_tpu_torch.retrieval import bzsl, bzsl_classifier as bc
 from bioscan_clip_tpu_torch.retrieval import methods
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 LEVELS = ["order", "family", "genus", "species"]
 
@@ -150,13 +151,16 @@ def dataset_path(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def tiny_params():
+    """Seeded weights in the shapes of the tiny model's init (traced,
+    not compiled)."""
     import jax
 
     from bioscan_clip_tpu.models.clip import init_clip_params
     from test_torch_eval import _jax_tiny
+    from test_torch_fine_tuning import seeded_like
 
-    return jax.jit(lambda key: init_clip_params(_jax_tiny(), key))(
-        jax.random.PRNGKey(0))
+    return seeded_like(jax.eval_shape(
+        lambda: init_clip_params(_jax_tiny(), jax.random.PRNGKey(0))))
 
 
 @pytest.fixture(scope="module")
@@ -256,18 +260,21 @@ def test_method_two_cli_matches_jax(method_args, tiny_params, monkeypatch):
     from bioscan_clip_tpu_torch.cli import (
         method_two_fine_tuning_and_eval as m2,
     )
+    from test_torch_fine_tuning import seeded_like
 
     jax_args, port_args = method_args
-    # JAX's classifier init through one jit (op by op it dispatches ~100
-    # small compiles), kept: its head goes into the port's head
+    # JAX's classifier init gives seeded weights in its shapes (traced,
+    # not compiled: op by op it dispatches ~100 small compiles), kept: its
+    # head goes into the port's head
     inits = []
     real_head_init = EncoderWithHead.init
 
-    def jit_init(self, rng, x):
-        inits.append(jax.jit(lambda r: real_head_init(self, r, x))(rng))
+    def seeded_init(self, rng, x):
+        inits.append(seeded_like(jax.eval_shape(
+            lambda: real_head_init(self, rng, x)), seed=1))
         return inits[-1]
 
-    monkeypatch.setattr(EncoderWithHead, "init", jit_init)
+    monkeypatch.setattr(EncoderWithHead, "init", seeded_init)
     ref = jax_m2.run(jax_args, out=lambda *_: None, fine_tune_epochs=0)
     # JAX's initial head over the 6 seen species, into the port's head
     (init,) = inits

@@ -56,6 +56,7 @@ from bioscan_clip_tpu_torch.models.openclip import (
     causal_mask,
 )
 from bioscan_clip_tpu_torch.ops import attention
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D_OUT = 24
 VISION = dict(image_size=28, patch_size=14, width=32, layers=2, heads=4,

@@ -92,6 +92,7 @@ from bioscan_clip_tpu_torch.train.state import (
 from test_torch_towers import jax_model as flagship_jax_model
 from test_torch_towers import jax_params as flagship_jax_params
 from test_torch_towers import port_model as flagship_port_model
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 D_OUT = 24
 VISION = dict(image_size=224, patch_size=14, width=32, layers=2, heads=4,

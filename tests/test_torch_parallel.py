@@ -37,6 +37,7 @@ from bioscan_clip_tpu_torch.config.core import ConfigNode
 from bioscan_clip_tpu_torch.parallel import distributed, mesh
 from bioscan_clip_tpu_torch.retrieval import engine
 from test_torch_topk import _assert_same
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 N_KEYS, D, BQ, K = 1000, 64, 8, 5
 

@@ -30,6 +30,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 from bioscan_clip_tpu_torch.tools import bench_topk_variants as probe
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parent.parent
 BQ, D, N, TILE, Q_BLOCK = 16, 64, 64, 16, 8

@@ -54,6 +54,7 @@ from bioscan_clip_tpu_torch.train.state import create_train_state
 from test_torch_gradcache import jax_gradcache_reference, shared_params
 from test_torch_towers import BERT, D_OUT, VIT
 from test_torch_train import train_batch
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 4
 SEED = 0x13572468

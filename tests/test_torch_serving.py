@@ -24,6 +24,7 @@ from bioscan_clip_tpu_torch.retrieval.service import (
     handle_request,
 )
 from tests.test_torch_towers import D_OUT, jax_model, jax_params, port_model
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SIM_ATOL = 1e-4
 VOCAB = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "diptera",

@@ -7,6 +7,7 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import _build
 from bioscan_clip_tpu_torch.tools import sweep_topk_i8
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_every_variant_edits_the_source():

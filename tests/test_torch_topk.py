@@ -15,6 +15,7 @@ import torch
 from bioscan_clip_tpu.ops.topk_pallas import pallas_topk, topk_search_pallas
 from bioscan_clip_tpu.retrieval.engine import l2norm_np
 from bioscan_clip_tpu_torch.ops import topk as topk_mod
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 VAL_ATOL = 1e-6
 TIE = 1e-5

@@ -20,6 +20,7 @@ import torch
 from bioscan_clip_tpu.ops.topk_pallas import pallas_topk
 from bioscan_clip_tpu.retrieval.engine import l2norm_np
 from bioscan_clip_tpu_torch.ops import topk as topk_mod
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 BQ, N, D, K, TILE = 16, 512, 768, 5, 128
 TOL = 1e-6

@@ -41,6 +41,7 @@ from bioscan_clip_tpu_torch.models.bert import (
 from bioscan_clip_tpu_torch.models.clip import MultiModalCLIP
 from bioscan_clip_tpu_torch.models.lora import merge_lora
 from bioscan_clip_tpu_torch.models.vit import ViTConfig, ViTImageEncoder
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 ATOL = 1e-4
 D_OUT = 24

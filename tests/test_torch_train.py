@@ -78,6 +78,7 @@ from bioscan_clip_tpu_torch.train.state import (
 )
 from test_torch_towers import BERT, D_OUT, VIT, jax_params, port_embed, \
     port_model
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 4
 STEP_SEED = 0x1234ABCD

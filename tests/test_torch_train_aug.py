@@ -21,6 +21,7 @@ import torch
 
 from bioscan_clip_tpu.data import transforms as jt
 from bioscan_clip_tpu_torch.data import transforms as pt
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 4
 

@@ -24,6 +24,7 @@ import pytest
 
 from test_torch_train_loader import synthetic_dataset
 from tests.fixtures import SyntheticArgs
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

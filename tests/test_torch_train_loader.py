@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 
 from tests.fixtures import SyntheticArgs, build_synthetic_dataset
+from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 SPLIT = "no_split_and_seen_train"  # 24 records
 
