@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # nvcc's output (ptxas register / shared-memory / spill lines) per source
-# built by this process.
+# (or per `build_sources` variant) built by this process.
 build_logs: dict[str, str] = {}
 
 
@@ -118,6 +118,7 @@ def build_sources(sources: dict, out_dir) -> dict[str, ctypes.CDLL]:
     libs = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
+        build_logs[name] = log
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(str(Path(out_dir) / name / "lib.so"))

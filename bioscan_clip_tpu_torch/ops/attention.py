@@ -21,7 +21,9 @@ K1/K1m/K2/K2d, the backward K3 or K3m. As ops of the dispatcher their
 outputs are what a selective remat policy saves (`ATTENTION_OPS`, JAX's
 `attn_ctx`). On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
-`mma.sync`, the forward above N = 32; fp32 in FFMA) or raises; on a CPU
+`mma.sync`, the forward above N = 32; fp32 in FFMA; K1 on bf16 at head dim
+64 and 33 <= N <= 272 on `csrc/mha_fwd_sm90.cu`, TMA and `wgmma`, by the
+plan of `plan_packed_fwd`) or raises; on a CPU
 tensor it runs its plain PyTorch version (`mha_reference`,
 `mha_bwd_reference`), which has the same contract. The bf16 kernels read
 q/k/v (and g) in 16-byte pieces, so those tensors must start 16-byte
@@ -32,13 +34,15 @@ The dropout hash (`_mix32`, `dropout_keep_2d/4d`, :60-113) is uint32
 arithmetic done in int64 tensors and masked to 32 bits; seeds are Python
 ints or int64 tensors holding uint32 values.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches`; the plain
+Each wrapper counts its kernel launches in `<wrapper>.launches` (K1's
+launches on the Hopper body also in `mha_packed.sm90_launches`); the plain
 versions count their calls in `<function>.calls`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import numpy as np
@@ -236,6 +240,100 @@ def _bwd_kernel():
 
 
 @functools.lru_cache(maxsize=None)
+def _sm90_kernel():
+    lib = _build.load("mha_fwd_sm90")
+    fn = lib.bscan_mha_fwd_sm90
+    fn.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float]
+        + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+# --- K1's plan on the Hopper body (csrc/mha_fwd_sm90.cu, `make_plan`) ----
+
+SM90_HEAD_DIM = 64
+SM90_MIN_N, SM90_MAX_N = 33, 272
+_TMA_MAX_BOX = 256          # TMA's largest box dimension
+_TILE_ROWS = 64             # wgmma M: the query rows of a consumer
+_CONSUMERS = 2              # consumer warpgroups a CTA, one query tile each
+_ROW_BYTES = 2 * SM90_HEAD_DIM
+_TILE_BYTES = _TILE_ROWS * _ROW_BYTES
+_STAGES = 2
+_ALIGN, _BARRIER_BYTES = 1024, 64
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedFwdPlan:
+    """How `mha_packed` runs (B, N, heads, head_dim) on the card.
+
+    `body` is "sm90" (`csrc/mha_fwd_sm90.cu`: bf16, no mask, head dim 64,
+    33 <= N <= 272), "mma" (the bf16 `mma.sync` body of `csrc/mha_fwd.cu`)
+    or "ffma" (its fp32 body, also bf16 at N <= 32). The other fields
+    describe the sm90 launch and are 0 for the other bodies: keys padded
+    to 16 (`key_rows`), loaded in `kv_loads` TMA boxes of `kv_box` rows
+    per tensor; `q_tiles` 64-row query tiles; `items` work items (batch
+    row, head, pair of query tiles: one tile per consumer warpgroup; item =
+    (b * heads + h) * pairs + pair), CTA c taking items c, c + grid, ...;
+    `smem` bytes of dynamic shared memory a CTA."""
+
+    body: str
+    b: int
+    n: int
+    heads: int
+    key_rows: int = 0
+    kv_box: int = 0
+    kv_loads: int = 0
+    q_tiles: int = 0
+    items: int = 0
+    grid: int = 0
+    smem: int = 0
+
+
+def plan_packed_fwd(b: int, n: int, heads: int, hd: int,
+                    dtype=torch.bfloat16, masked: bool = False,
+                    sms: int = H100_SMS) -> PackedFwdPlan:
+    """The body and launch of `mha_packed` at (B, N, heads, head dim):
+    the sm90 body for bf16 without a mask at head dim 64 and 33 <= N <=
+    272, else the bodies of `csrc/mha_fwd.cu` ("mma" for bf16 above
+    N = 32, "ffma" otherwise). `sms`: the card's SM count, the most
+    persistent CTAs."""
+    if (dtype == torch.bfloat16 and not masked and hd == SM90_HEAD_DIM
+            and SM90_MIN_N <= n <= SM90_MAX_N):
+        key_rows = -(-n // 16) * 16
+        kv_loads = 1 if key_rows <= _TMA_MAX_BOX else 2
+        q_tiles = -(-n // _TILE_ROWS)
+        items = b * heads * -(-q_tiles // _CONSUMERS)
+        stage = _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
+        smem = (_ALIGN + _STAGES * stage + _CONSUMERS * _TILE_BYTES
+                + _BARRIER_BYTES)
+        return PackedFwdPlan("sm90", b, n, heads, key_rows,
+                             key_rows // kv_loads, kv_loads, q_tiles, items,
+                             min(items, sms), smem)
+    body = "mma" if dtype == torch.bfloat16 and n > 32 else "ffma"
+    return PackedFwdPlan(body, b, n, heads)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def _launch_sm90(qkv, out, plan: PackedFwdPlan, scale):
+    lib, fn = _sm90_kernel()
+    dev = qkv.device
+    _check_smem("mha_packed", plan.smem, plan.n, SM90_HEAD_DIM, dev)
+    with torch.cuda.device(dev):
+        err = fn(qkv.data_ptr(), out.data_ptr(), plan.b, plan.n, plan.heads,
+                 SM90_HEAD_DIM, float(scale), plan.key_rows, plan.kv_box,
+                 plan.kv_loads, plan.q_tiles, plan.items, plan.grid,
+                 plan.smem, torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "mha_packed sm90 launch")
+
+
+@functools.lru_cache(maxsize=None)
 def _max_smem(device_index: int) -> int:
     lib = _build.load("mha_fwd")
     limit = lib.bscan_max_smem_per_block
@@ -364,10 +462,18 @@ def _packed_forward(qkv, mask, heads, scale):
             raise ValueError(f"mha_packed: mask must be ({n}, {n}) on "
                              f"{qkv.device}")
     out = torch.empty((b, n, d), dtype=qkv.dtype, device=qkv.device)
-    p = qkv.data_ptr()
-    es = qkv.element_size()
-    _launch_fwd((p, p + d * es, p + 2 * d * es), out, b, n, heads, d // heads,
-                d3, scale, qkv.dtype, None, mask=mask)
+    idx = (qkv.device.index if qkv.device.index is not None
+           else torch.cuda.current_device())
+    plan = plan_packed_fwd(b, n, heads, d // heads, qkv.dtype,
+                           mask is not None, _sm_count(idx))
+    if plan.body == "sm90":
+        _launch_sm90(qkv, out, plan, scale)
+        mha_packed.sm90_launches += 1
+    else:
+        p = qkv.data_ptr()
+        es = qkv.element_size()
+        _launch_fwd((p, p + d * es, p + 2 * d * es), out, b, n, heads,
+                    d // heads, d3, scale, qkv.dtype, None, mask=mask)
     if mask is None:
         mha_packed.launches += 1
     else:
@@ -504,6 +610,7 @@ def mha_packed(qkv, heads: int, scale=None, mask=None):
 
 mha_packed.launches = 0
 mha_packed.mask_launches = 0
+mha_packed.sm90_launches = 0  # the K1 launches of `launches` on the sm90 body
 
 
 def mha(q, k, v, heads: int, bias=None, scale=None,

@@ -1,0 +1,113 @@
+"""K1 (`ops/attention.mha_packed`, no mask, bf16) on the card at the main
+path's ViT shapes, beside SDPA and the bound.
+
+Shapes (B, N, D, heads): ViT-B/16 at serving's 8 images, eval's batches of
+24 and training's 256 and 400 (N = 197, D = 768, h = 12), and ViT-L/14 at
+B = 256 (N = 257, D = 1024, h = 16). Each call is captured --reps times
+into one CUDA graph and the replay timed with CUDA events, so the time is
+the card's and not the wrapper's host cost. One JSON object per shape:
+
+  shape        [B, N, D, heads]
+  k1_ms        card ms per `mha_packed` call
+  sdpa_ms      card ms per `scaled_dot_product_attention` on the same q, k,
+               v (heads-major views of the packed tensor)
+  bound_ms     max(bytes / 3.35 TB/s, operations / 989 TFLOP/s): q, k, v
+               read once, o written once; 4 B h N^2 hd operations
+  max_abs_err  |mha_packed - mha_reference| (the plain version)
+  sm90         the package has the sm90 body and this call went through it
+
+The package is the one on the import path, so one checkout's script times
+another checkout's K1: run it from that checkout's root with
+`PYTHONPATH=.`, and compare two packages in one call, in turns:
+
+    PYTHONPATH=. python3 path/to/bench_k1.py [--reps 20]
+
+The first line names the imported package's file and the card (name and
+power limit, as nvidia-smi gives them).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+
+SHAPES = ((8, 197, 768, 12), (24, 197, 768, 12), (256, 197, 768, 12),
+          (400, 197, 768, 12), (256, 257, 1024, 16))
+PEAK_BYTES, PEAK_BF16 = 3.35e12, 989e12
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """Card ms per call of `fn`, captured `reps` times into one CUDA graph
+    and replayed: no host time between the launches, so a kernel shorter
+    than its wrapper's host cost is timed as the card runs it."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+    import torch.nn.functional as F
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    if not torch.cuda.is_available():
+        raise SystemExit("bench_k1: needs a CUDA device")
+    card = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(json.dumps({"package": attention.__file__, "card": card}),
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    for b, n, d, heads in SHAPES:
+        hd = d // heads
+        qkv = torch.randn(b, n, 3 * d, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        q, k, v = (qkv[..., i * d:(i + 1) * d].view(b, n, heads, hd)
+                   .transpose(1, 2) for i in range(3))
+        with torch.inference_mode():
+            before = getattr(attention.mha_packed, "sm90_launches", None)
+            out = attention.mha_packed(qkv, heads)
+            sm90 = (before is not None
+                    and attention.mha_packed.sm90_launches == before + 1)
+            ref = attention.mha_reference(
+                qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:], heads)
+            err = (out.float() - ref.float()).abs().max().item()
+            del out, ref
+            k1 = graph_ms(lambda: attention.mha_packed(qkv, heads),
+                          args.reps)
+            sdpa = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                            args.reps)
+        n_bytes = 4 * b * n * d * 2
+        n_ops = 4 * b * heads * n * n * hd
+        bound = 1e3 * max(n_bytes / PEAK_BYTES, n_ops / PEAK_BF16)
+        print(json.dumps({"shape": [b, n, d, heads], "k1_ms": k1,
+                          "sdpa_ms": sdpa, "bound_ms": bound,
+                          "max_abs_err": err, "sm90": sm90}), flush=True)
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

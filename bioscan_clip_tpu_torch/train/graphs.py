@@ -49,7 +49,8 @@ def _launch_counters():
             for fn in (attention.mha_packed, attention.mha,
                        attention.mha_dropout, attention.mha_bwd, topk.topk,
                        topk.topk_i8, topk.mm_only, topk.tiny)
-            for attr in ("launches", "mask_launches", "default_launches")
+            for attr in ("launches", "mask_launches", "sm90_launches",
+                         "default_launches")
             if hasattr(fn, attr)]
 
 

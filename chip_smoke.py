@@ -10,10 +10,15 @@ Phases, in order; any failure exits non-zero:
             cv2, matplotlib, sklearn and scipy import (a report)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
             prints ptxas' registers, shared memory and spills per kernel
-            (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k and one
-            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation)
+            (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k, one
+            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation and
+            one "K1 sm90 key rows" line per instantiation of K1's Hopper
+            body, with its shared memory and ptxas' advice)
   kernels   each kernel against its plain PyTorch version at the shapes of
-            its path (fp32 FFMA and bf16 tensor-core bodies for attention,
+            its path (K1 bf16 on its sm90 body, TMA and wgmma, at ViT-B/16
+            B = 8, 24, 256, 400 and ViT-L/14 B = 256, timed with SDPA as
+            CUDA graph replays; fp32 FFMA and bf16 tensor-core bodies for
+            attention,
             bf16 forwards at N <= 32 on the FFMA body, the masked K1m and
             its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
             keep mask read out bit for bit, two K3 launches bit-equal; top-k
@@ -29,7 +34,8 @@ Phases, in order; any failure exits non-zero:
             handle_request for dna, text, embedding and embed_images, and
             HTTP /search and /embed on localhost; then the same keys as
             int8 codes under each rescore mode; K1, K2, K4 and K5 must have
-            launched
+            launched, every K1 launch on the sm90 body
+            (`mha_packed.sm90_launches`, as in eval, training and graphs)
   eval      the evaluation job at full width: in-memory batches of 24 (all
             keys 1,920, seen 960, unseen 960 records) through
             train.loop.extract_features per batch and grouped, then the
@@ -312,7 +318,7 @@ def _libjpeg() -> str:
 
 
 def phase_build():
-    from bioscan_clip_tpu_torch.ops import _build
+    from bioscan_clip_tpu_torch.ops import _build, attention
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
 
     secs = _build.build()
@@ -321,7 +327,11 @@ def phase_build():
         for ln in text.splitlines():
             # ptxas -v: "Function properties for <mangled name>", then its
             # stack/spill line, then its "Used N registers" line
-            if "Function properties for" in ln:
+            k1 = re.search(r"Performance Loss: (.*) for the function '.*"
+                           r"mha_fwd_sm90ILi(\d+)E", ln)
+            if k1:  # ptxas' advice on the K1 sm90 body, by key rows
+                log(f"  K1 sm90 key rows {16 * int(k1[2])}: ptxas: {k1[1]}")
+            elif "Function properties for" in ln:
                 fn = ln.rsplit(" ", 1)[-1]
             elif "spill" in ln:
                 spills = ln.strip()
@@ -340,18 +350,31 @@ def phase_build():
                 if k5:  # K5's instantiations, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}")
+                k1 = re.search(r"mha_fwd_sm90ILi(\d+)E", fn)
+                if k1:  # K1's Hopper body, by padded key rows
+                    rows = 16 * int(k1[1])
+                    smem = attention.plan_packed_fwd(1, rows, 1, 64).smem
+                    log(f"  K1 sm90 key rows {rows}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
+                        "bytes of dynamic shared memory")
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
 def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
-                    causal=False):
+                    causal=False, graphed=False):
     """K1/K2 (K1m with `causal`: OpenCLIP's (N, N) -1e9 mask) against the
-    plain version, timed beside SDPA with the same bias or float mask."""
+    plain version, timed beside SDPA with the same bias or float mask;
+    `graphed`: the kernel and SDPA timed as replays of a CUDA graph
+    (`tools/bench_k1.graph_ms`), so a small batch is timed on the card's
+    clock and
+    not its wrapper's. A K1 case that the plan puts on the sm90 body must
+    count its launch in `mha_packed.sm90_launches`."""
     import torch
     import torch.nn.functional as F
 
     from bioscan_clip_tpu_torch.models.openclip import causal_mask
     from bioscan_clip_tpu_torch.ops import attention
+    from bioscan_clip_tpu_torch.tools.bench_k1 import graph_ms
 
     dev = torch.device("cuda")
     hd = d // heads
@@ -390,8 +413,15 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
         return F.scaled_dot_product_attention(view(q), view(k), view(v),
                                               attn_mask=mask)
 
+    sm90 = (packed and not causal and attention.plan_packed_fwd(
+        b, n, heads, hd, dtype).body == "sm90")
+    before = attention.mha_packed.sm90_launches
     out = kernel()
     torch.cuda.synchronize()
+    if attention.mha_packed.sm90_launches - before != int(sm90):
+        raise AssertionError(f"{name} B={b} N={n}: sm90 launches "
+                             f"{attention.mha_packed.sm90_launches - before}"
+                             f", the plan says {int(sm90)}")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
@@ -403,16 +433,19 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
     n_ops = 4 * b * heads * n * n * hd
     dname = str(dtype).split(".")[-1]
     bms, by = bound_ms(n_bytes, n_ops, dname)
+    timer = graph_ms if graphed else time_ms
     row = {
-        "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=3),
-        "library_ms": time_ms(library), "bound_ms": bms, "bound_by": by,
+        "ms": timer(kernel), "plain_ms": time_ms(plain, reps=3),
+        "library_ms": timer(library), "bound_ms": bms, "bound_by": by,
         "max_abs_err": err,
     }
     log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
-        f"{' bias' if with_bias else ''}{' causal mask' if causal else ''}: "
+        f"{' bias' if with_bias else ''}{' causal mask' if causal else ''}"
+        f"{' (sm90 body)' if sm90 else ''}: "
         f"err {err:.3g} (tol {tol:g}), kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
-        f"{bms:.4f} ms ({by})")
+        f"{bms:.4f} ms ({by})" + (", card clock (CUDA graph)" if graphed
+                                   else ""))
     return row
 
 
@@ -882,11 +915,19 @@ def phase_kernels(rows: dict):
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        r = _attention_case("mha_packed", 256, 197, 768, 12, dtype, False,
-                            gen, packed=True)
-        if dtype == torch.bfloat16:
+    # K1 on the sm90 body at the main path's ViT shapes: serving's 8 images,
+    # eval's batches of 24, training's 256 and 400; ViT-L/14 in the
+    # OpenCLIP loop below
+    for b in (8, 24, 256, TRAIN_BATCH):
+        r = _attention_case("mha_packed", b, 197, 768, 12, torch.bfloat16,
+                            False, gen, packed=True, graphed=True)
+        if b == 256:
             rows["mha_packed"] = r
+    torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.float32:
+            _attention_case("mha_packed", 256, 197, 768, 12, dtype, False,
+                            gen, packed=True)
         r = _attention_case("mha", 256, 133, 768, 12, dtype, False, gen,
                             packed=False)
         if dtype == torch.bfloat16:
@@ -921,7 +962,7 @@ def phase_kernels(rows: dict):
         _attention_case("mha_packed", OPENCLIP_BATCH, 20, 768, 12, dtype,
                         False, gen, packed=True, causal=True)
         _attention_case("mha_packed", 256, 257, 1024, 16, dtype, False, gen,
-                        packed=True)
+                        packed=True, graphed=dtype == torch.bfloat16)
         torch.cuda.empty_cache()
     # OpenCLIP training's backward shapes: K3m beside K1m (N = 77) and at
     # the train path's WordPiece N = 20, B = 10; K3 at ViT-L/14
@@ -949,7 +990,9 @@ def phase_kernels(rows: dict):
 
 KERNELS = {
     # name: (route, source, the TPU kernel it replaces)
-    "mha_packed": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
+    # K1 on bf16 at the main path's shapes runs the sm90 body (fp32, and N
+    # outside 33-272, the bodies of csrc/mha_fwd.cu)
+    "mha_packed": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd_sm90.cu",
                    "bioscan_clip_tpu/ops/attention.py:425"),
     "mha": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
             "bioscan_clip_tpu/ops/attention.py:449"),
@@ -990,6 +1033,7 @@ def launch_counts():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
     return {"mha_packed": attention.mha_packed.launches,
+            "mha_packed_sm90": attention.mha_packed.sm90_launches,
             "mha_packed_mask": attention.mha_packed.mask_launches,
             "mha": attention.mha.launches,
             "mha_dropout": attention.mha_dropout.launches,
@@ -1000,6 +1044,16 @@ def launch_counts():
             "topk_i8": topk.topk_i8.launches,
             "mm_only": topk.mm_only.launches,
             "tiny": topk.tiny.launches}
+
+
+def _vit_on_sm90(what, counts):
+    """Every K1 launch of a bf16 path (ViT-B/16 at N = 197, ViT-L/14 at
+    N = 257) went through the sm90 body."""
+    k1, sm90 = counts["mha_packed"], counts["mha_packed_sm90"]
+    log(f"  {what}: K1 launches {k1}, on the sm90 body "
+        f"(mha_packed.sm90_launches) {sm90}")
+    if k1 <= 0 or sm90 != k1:
+        raise AssertionError(f"{what}: K1 launches {k1}, sm90 {sm90}")
 
 
 def _plain_fns():
@@ -1022,6 +1076,7 @@ def reset_counts():
                topk.tiny):
         fn.launches = 0
     attention.mha_packed.mask_launches = 0
+    attention.mha_packed.sm90_launches = 0
     attention.mha_bwd.mask_launches = 0
     topk.topk.default_launches = 0
     for fn in _plain_fns():
@@ -1224,6 +1279,7 @@ def phase_serving():
         _serve_int8(service, keys, labels, rows, queries, rng)
         counts = launch_counts()
     log(f"  launches on the serving path: {counts}")
+    _vit_on_sm90("serving", counts)
     missing = [name for name in ("mha_packed", "mha", "topk", "topk_i8")
                if counts[name] <= 0]
     if missing:
@@ -1583,6 +1639,7 @@ def phase_eval():
                 out=lambda *_: None))
     counts, plain = launch_counts(), plain_calls()
     log(f"  launches on the eval path: {counts}; plain calls {plain}")
+    _vit_on_sm90("eval", counts)
     want = ("mha_packed", "mha", "topk", "topk_default", "topk_i8")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"eval: launches {counts}, plain {plain}")
@@ -1875,6 +1932,7 @@ def phase_training():
          f"{TRAIN_STEPS} mean)", float(np.mean(step_ms[1:])), TRAIN_BATCH,
          "plain")
     log(f"  launches on the training path: {counts}; plain calls {plain}")
+    _vit_on_sm90("training", counts)
 
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"training: losses {losses}")
@@ -3138,9 +3196,10 @@ def phase_distributed():
 
 # graphs phase: K train steps per call as CUDA graphs (train/graphs.py)
 GRAPH_K = 4
-# kernel names in a profiler trace: the attention forwards (K1, K1m, K2d
-# share the bodies) and the backward's passes (K3, K3m)
-FWD_KERNELS = ("mha_fwd_mma", "mha_fwd_kernel")
+# kernel names in a profiler trace: the attention forwards (K1 on its sm90
+# body; K1m, K2d and K1 elsewhere share the bodies of csrc/mha_fwd.cu) and
+# the backward's passes (K3, K3m)
+FWD_KERNELS = ("mha_fwd_sm90", "mha_fwd_mma", "mha_fwd_kernel")
 BWD_KERNELS = ("bwd_query_rows", "bwd_key_rows")
 
 
@@ -3293,9 +3352,10 @@ def _graph_case(what, model, eager_step, scan_step, calls, seeds, counts,
         f"replay captures {captured}")
     fwd = sorted(n for n in names if any(k_ in n for k_ in FWD_KERNELS))
     bwd = sorted(n for n in names if any(k_ in n for k_ in BWD_KERNELS))
+    sm90 = [n for n in fwd if "mha_fwd_sm90" in n]
     log(f"    kernels in the replayed call's trace: forward {fwd[:4]}, "
-        f"backward {bwd[:4]}; plain calls {plain}")
-    if not fwd or not bwd or any(plain.values()):
+        f"backward {bwd[:4]}; K1's sm90 body {sm90}; plain calls {plain}")
+    if not fwd or not bwd or not sm90 or any(plain.values()):
         raise AssertionError(f"graphs {what}: trace forward {fwd}, backward "
                              f"{bwd}, plain {plain}")
     del state, scan, got, ref
@@ -3426,11 +3486,13 @@ def phase_graphs():
     del model, oc
     torch.cuda.empty_cache()
     for name, row in table.items():
-        want = ("mha_packed", "mha_dropout", "mha_bwd")
+        want = ("mha_packed", "mha_packed_sm90", "mha_dropout", "mha_bwd")
         if name == "openclip":
             want += ("mha_packed_mask", "mha_bwd_mask")
         _want_launched(name, row[5], want)
+        _vit_on_sm90(f"graphs {name}, the profiled call", row[5])
     _graph_train_cl(counts)
+    _vit_on_sm90("graphs", counts)
     log("  graphed against eager, ms per step (CUDA events), card busy % "
         "of a graphed call, peak GiB eager / graphed: " + "; ".join(
             f"{name} {r[0]:.1f} -> {r[1]:.1f} ms, "
@@ -4311,6 +4373,9 @@ def main(argv=None) -> int:
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
         })
+        if name == "mha_packed":  # the K1 launches that ran the sm90 body
+            kernels[-1]["sm90_launches"] = path_counts.get(
+                KERNEL_PATH[name][0], {}).get("mha_packed_sm90")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ the JAX package, so it also runs on a machine without them:
 
 Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
-before P.V on both sides), the masked forward (K1m) as K1; the attention
+before P.V on both sides), the masked forward (K1m) as K1, K1's sm90 body
+(bf16, head dim 64, 33 <= N <= 272: TMA and wgmma) as K1, with one case
+where its output must equal the plain version's bit for bit; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
 per gradient. bf16 runs the tensor-core (mma.sync) bodies (the forward
 above N = 32), fp32 the FFMA ones; K2d's keep mask reads out bit for bit
@@ -66,6 +68,73 @@ def test_attention_kernels_match_plain(gen, dtype, tol):
             out = attention.mha(q, k, v, heads, bias=b)
             ref = attention.mha_reference(q, k, v, heads, bias=b)
             assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def _k1_case(gen, b, n, d, heads):
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    before = (attention.mha_packed.launches,
+              attention.mha_packed.sm90_launches)
+    out = attention.mha_packed(qkv, heads)
+    torch.cuda.synchronize()
+    launched = (attention.mha_packed.launches - before[0],
+                attention.mha_packed.sm90_launches - before[1])
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], heads)
+    return (out.float() - ref.float()).abs().max().item(), launched
+
+
+@pytest.mark.parametrize("b,n,d,heads", [
+    (3, 33, 768, 12), (3, 64, 768, 12), (3, 65, 768, 12), (2, 197, 768, 12),
+    (3, 256, 768, 12), (2, 257, 768, 12), (3, 272, 768, 12),
+    (1, 197, 768, 12), (256, 197, 768, 12), (256, 257, 1024, 16)])
+def test_k1_sm90_body_matches_plain(gen, b, n, d, heads):
+    """K1 on the sm90 body (bf16, head dim 64, 33 <= N <= 272) against
+    the plain version at the ragged and tile-boundary N and both ViT
+    shapes (ViT-B/16 at B=256, ViT-L/14), within 2e-2 (one bf16 ulp at
+    |o| ~ 1 is 7.8e-3, and p is rounded to bf16 before P.V on both
+    sides)."""
+    err, launched = _k1_case(gen, b, n, d, heads)
+    assert launched == (1, 1)
+    assert err <= 2e-2
+
+
+@pytest.mark.parametrize("n,hd", [(273, 64), (32, 64), (197, 32),
+                                  (197, 128)])
+def test_k1_outside_the_sm90_range_keeps_its_body(gen, n, hd):
+    err, launched = _k1_case(gen, 2, n, 4 * hd, 4)
+    assert launched == (1, 0)
+    assert err <= 2e-2
+
+
+def test_k1_sm90_body_rounds_p_to_bf16(gen):
+    """q = 0 makes every score 0, so p = 1/197 exactly on every side;
+    rounded to bf16 it is 83 * 2**-14, and o = sum over 197 keys of p * 1
+    = 16351 * 2**-14 exactly in fp32, which is 0.99609375 in bf16. An
+    unrounded p gives 1.0, and a key past N that took part gives another
+    value: every output is 0.99609375, as the plain version's."""
+    b, n, d, heads = 2, 197, 768, 12
+    qkv = torch.zeros(b, n, 3 * d, device="cuda", dtype=torch.bfloat16)
+    qkv[..., d : 2 * d] = torch.randn(b, n, d, device="cuda", generator=gen)
+    qkv[..., 2 * d :] = 1.0
+    before = attention.mha_packed.sm90_launches
+    out = attention.mha_packed(qkv, heads)
+    assert attention.mha_packed.sm90_launches == before + 1
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], heads)
+    assert torch.equal(out, ref)
+    assert torch.equal(out, torch.full_like(out, 0.99609375))
+
+
+def test_k1_sm90_body_refuses_a_misaligned_base(gen):
+    d = 768
+    flat = torch.randn(2 * 197 * 3 * d + 1, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    qkv = flat[1:].view(2, 197, 3 * d)  # starts 2 bytes past 16-byte
+    before = attention.mha_packed.sm90_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.mha_packed(qkv, 12)
+    assert attention.mha_packed.sm90_launches == before
 
 
 def _seeds(gen, b):
