@@ -12,7 +12,10 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
 - `mha_bwd` (`_pallas_mha_bwd` :321, body `_attend_bwd_one_row` :212): K3,
   dq/dk/dv (+ dbias) with the probabilities and the dropout mask recomputed,
   and with an (N, N) score mask (`has_mask`, :363-367) K3m, the backward of
-  K1m, counted apart in `mha_bwd.mask_launches`.
+  K1m, counted apart in `mha_bwd.mask_launches`; K3 on bf16 at head dim 64
+  and 33 <= N <= 272 without a mask or key bias runs `csrc/mha_bwd_sm90.cu`
+  (TMA and `wgmma`, by the plan of `plan_bwd`), counted also in
+  `mha_bwd.sm90_launches`.
 
 `mha_packed`, `mha` and `mha_dropout` call `torch.library` custom ops
 (`bscan::mha_packed`, `bscan::mha`, `bscan::mha_dropout`) with a registered
@@ -21,9 +24,10 @@ K1/K1m/K2/K2d, the backward K3 or K3m. As ops of the dispatcher their
 outputs are what a selective remat policy saves (`ATTENTION_OPS`, JAX's
 `attn_ctx`). On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
-`mma.sync`, the forward above N = 32; fp32 in FFMA; K1 on bf16 at head dim
-64 and 33 <= N <= 272 on `csrc/mha_fwd_sm90.cu`, TMA and `wgmma`, by the
-plan of `plan_packed_fwd`) or raises; on a CPU
+`mma.sync`, the forward above N = 32; fp32 in FFMA; K1 and K3 on bf16 at
+head dim 64 and 33 <= N <= 272 without a mask (and K3 without a key bias)
+on `csrc/mha_fwd_sm90.cu` and `csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by
+the plans of `plan_packed_fwd` and `plan_bwd`) or raises; on a CPU
 tensor it runs its plain PyTorch version (`mha_reference`,
 `mha_bwd_reference`), which has the same contract. The bf16 kernels read
 q/k/v (and g) in 16-byte pieces, so those tensors must start 16-byte
@@ -34,9 +38,10 @@ The dropout hash (`_mix32`, `dropout_keep_2d/4d`, :60-113) is uint32
 arithmetic done in int64 tensors and masked to 32 bits; seeds are Python
 ints or int64 tensors holding uint32 values.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches` (K1's
-launches on the Hopper body also in `mha_packed.sm90_launches`); the plain
-versions count their calls in `<function>.calls`.
+Each wrapper counts its kernel launches in `<wrapper>.launches` (K1's and
+K3's launches on the Hopper bodies also in `mha_packed.sm90_launches` and
+`mha_bwd.sm90_launches`); the plain versions count their calls in
+`<function>.calls`.
 """
 
 from __future__ import annotations
@@ -251,6 +256,20 @@ def _sm90_kernel():
     return lib, fn
 
 
+@functools.lru_cache(maxsize=None)
+def _bwd_sm90_kernel():
+    lib = _build.load("mha_bwd_sm90")
+    fn = lib.bscan_mha_bwd_sm90
+    fn.argtypes = (
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
+           ctypes.c_int] + [ctypes.c_void_p] * 3
+    )
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
 # --- K1's plan on the Hopper body (csrc/mha_fwd_sm90.cu, `make_plan`) ----
 
 SM90_HEAD_DIM = 64
@@ -316,6 +335,76 @@ def plan_packed_fwd(b: int, n: int, heads: int, hd: int,
     return PackedFwdPlan(body, b, n, heads)
 
 
+# --- K3's plan on the Hopper body (csrc/mha_bwd_sm90.cu, `make_plan`) ----
+
+BWD_SM90_MIN_N, BWD_SM90_MAX_N = 33, 272
+_BWD_THREADS = 128 * _CONSUMERS  # two warpgroups; thread 0 also loads
+_STATS = 3                               # m, 1 / l, D of every query row
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How `mha_bwd` runs (B, N, heads, head_dim) on the card.
+
+    `body` is "sm90" (`csrc/mha_bwd_sm90.cu`: bf16, head dim 64, 33 <= N
+    <= 272, no mask, no key bias), "mma" (the bf16 `mma.sync` passes of
+    `csrc/mha_bwd.cu`) or "ffma" (its fp32 passes). The other fields
+    describe the sm90 launches and are 0 for the other bodies: N padded to
+    16 (`key_rows`: K_h and V_h in pass A, Q_h and G_h in pass B), loaded in
+    `loads` TMA boxes of `box` rows per tensor; `tiles` 64-row tiles (query
+    tiles in pass A, key tiles in pass B); `rows` = 64 * tiles, the rows of
+    the (B, heads, 3, rows) statistics; `items` work items of either pass
+    (batch row, head, pair of tiles: one tile per consumer warpgroup; item
+    = (b * heads + h) * pairs + pair), CTA c taking items c, c + grid, ...;
+    `threads` a CTA's; `smem_a`, `smem_b` each pass's dynamic shared
+    memory a CTA."""
+
+    body: str
+    b: int
+    n: int
+    heads: int
+    key_rows: int = 0
+    box: int = 0
+    loads: int = 0
+    tiles: int = 0
+    rows: int = 0
+    items: int = 0
+    grid_a: int = 0
+    grid_b: int = 0
+    threads: int = 0
+    smem_a: int = 0
+    smem_b: int = 0
+
+
+def plan_bwd(b: int, n: int, heads: int, hd: int, dtype=torch.bfloat16,
+             packed: bool = True, masked: bool = False, biased: bool = False,
+             need_dbias: bool = False, sms: int = H100_SMS) -> BwdPlan:
+    """The body and launches of `mha_bwd` at (B, N, heads, head dim): the
+    sm90 body for bf16 at head dim 64 and 33 <= N <= 272 without a score
+    mask (K3m), a key bias or its gradient, in either layout (`packed`
+    qkv or split q/k/v); else the passes of `csrc/mha_bwd.cu` ("mma" for
+    bf16, "ffma" for fp32). `sms`: the card's SM count, the most
+    persistent CTAs of each pass."""
+    del packed  # both layouts take the same plan
+    if (dtype == torch.bfloat16 and hd == SM90_HEAD_DIM and not masked
+            and not biased and not need_dbias
+            and BWD_SM90_MIN_N <= n <= BWD_SM90_MAX_N):
+        key_rows = -(-n // 16) * 16
+        loads = 1 if key_rows <= _TMA_MAX_BOX else 2
+        tiles = -(-n // _TILE_ROWS)
+        rows = tiles * _TILE_ROWS
+        items = b * heads * -(-tiles // _CONSUMERS)
+        tiles_bytes = 2 * _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
+        stage_b = -(-(tiles_bytes + _STATS * rows * 4) // _ALIGN) * _ALIGN
+        grid = min(items, sms)
+        return BwdPlan(
+            "sm90", b, n, heads, key_rows, key_rows // loads, loads, tiles,
+            rows, items, grid, grid, _BWD_THREADS,
+            _ALIGN + _STAGES * tiles_bytes + _BARRIER_BYTES,
+            _ALIGN + _STAGES * stage_b + _BARRIER_BYTES)
+    return BwdPlan("mma" if dtype == torch.bfloat16 else "ffma", b, n, heads)
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
@@ -353,6 +442,108 @@ def _check_smem(name, need, n, hd, dev):
             f"{name}: N={n}, head_dim={hd} needs {need} bytes of shared "
             f"memory per block; this card allows {limit}"
         )
+
+
+def _launch_bwd_sm90(plan: BwdPlan, q, k, v, g, scale, drop,
+                     packed_qkv=None, scores=(None, None)):
+    """Both passes of K3's sm90 body; returns dqkv (packed) or (dq, dk,
+    dv). `drop`: `_drop_args`' tuple; `scores`: the read-out pointers."""
+    lib, fn = _bwd_sm90_kernel()
+    dev = g.device
+    _check_smem("mha_bwd", max(plan.smem_a, plan.smem_b), plan.n,
+                SM90_HEAD_DIM, dev)
+    if packed_qkv is not None:
+        dqkv = torch.empty_like(packed_qkv)
+        ins = (packed_qkv.data_ptr(),) * 3
+        outs = (dqkv.data_ptr(),) * 3
+    else:
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    stats = torch.empty((plan.b, plan.heads, _STATS, plan.rows),
+                        dtype=torch.float32, device=dev)
+    rows, scalar, thr, kscale, on = drop
+    with torch.cuda.device(dev):
+        err = fn(
+            *ins, g.data_ptr(), *outs, stats.data_ptr(), plan.b, plan.n,
+            plan.heads, SM90_HEAD_DIM, int(packed_qkv is not None),
+            float(scale), plan.key_rows, plan.box, plan.loads, plan.tiles,
+            plan.rows, plan.items, plan.grid_a, plan.grid_b, plan.smem_a,
+            plan.smem_b, None if rows is None else rows.data_ptr(), scalar,
+            thr, kscale, on, *scores, torch.cuda.current_stream(dev)
+            .cuda_stream)
+    _build.check(lib, err, "mha_bwd sm90 launch")
+    return dqkv if packed_qkv is not None else (dq, dk, dv)
+
+
+def bwd_sm90_scores(qkv, g, heads: int, scale=None):
+    """Test read-out of K3's sm90 body on a packed bf16 qkv at head dim 64
+    and 193 <= N <= 208, without dropout: (s_a, s_b, dqkv), s_a and s_b the
+    (B, heads, N, N) fp32 scaled scores q . k * scale as pass A (q in
+    wgmma's A role) and pass B (k in the A role) formed them. Not counted
+    in `mha_bwd`'s launches."""
+    b, n, d3 = qkv.shape
+    d = d3 // 3
+    if scale is None:
+        scale = (d // heads) ** -0.5
+    _check_cuda("bwd_sm90_scores", [qkv, g], torch.bfloat16)
+    _check_aligned("bwd_sm90_scores", [qkv, g])
+    plan = plan_bwd(b, n, heads, d // heads, qkv.dtype)
+    if plan.body != "sm90":
+        raise ValueError(f"bwd_sm90_scores: (B={b}, N={n}) is not on the "
+                         "sm90 body")
+    s_a, s_b = (torch.full((b, heads, n, n), float("nan"),
+                           device=qkv.device) for _ in range(2))
+    dqkv = _launch_bwd_sm90(plan, None, None, None, g, scale,
+                            _drop_args(0.0, None, b, qkv.device), qkv,
+                            (s_a.data_ptr(), s_b.data_ptr()))
+    return s_a, s_b, dqkv
+
+
+def _launch_bwd(q, k, v, g, heads, scale, drop, packed_qkv=None, bias=None,
+                need_dbias=False, mask=None):
+    """K3/K3m on the passes of `csrc/mha_bwd.cu` (bf16 `mma.sync`, fp32
+    FFMA) at any shape they take; returns dqkv (packed) or (dq, dk, dv,
+    dbias)."""
+    b, n, d = q.shape
+    if b > 65535:
+        raise ValueError(f"mha_bwd: batch {b} > 65535; split the batch")
+    lib, fn, smem = _bwd_kernel()
+    dev = q.device
+    _check_smem("mha_bwd", smem(n, d // heads, _DTYPE_CODE[q.dtype]), n,
+                d // heads, dev)
+    es = q.element_size()
+    if packed_qkv is not None:
+        p = packed_qkv.data_ptr()
+        ins = (p, p + d * es, p + 2 * d * es)
+        dqkv = torch.empty_like(packed_qkv)
+        o = dqkv.data_ptr()
+        outs = (o, o + d * es, o + 2 * d * es)
+        row = 3 * d
+    else:
+        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+        outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+        row = d
+    stats = torch.empty((b, heads, n, 3), dtype=torch.float32, device=dev)
+    dbias = part = None
+    if need_dbias and bias is not None:
+        dbias = torch.empty((b, n), dtype=torch.float32, device=dev)
+        part = torch.empty((b, heads, n), dtype=torch.float32, device=dev)
+    rows, scalar, thr, kscale, on = drop
+    with torch.cuda.device(dev):
+        err = fn(
+            *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
+            None if mask is None else mask.data_ptr(), *outs,
+            None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+            None if part is None else part.data_ptr(),
+            b, n, heads, d // heads, row, n * row, row, n * row,
+            float(scale), _DTYPE_CODE[q.dtype],
+            None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+            on, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(lib, err, "mha_bwd launch")
+    return dqkv if packed_qkv is not None else (dq, dk, dv, dbias)
 
 
 def _check_aligned(name, tensors):
@@ -662,7 +853,9 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     (dq, dk, dv, dbias) in the input dtype (dbias fp32 (B, N) when
     `need_dbias` and a bias are given, else None), or the (B, N, 3D) dqkv
     for a packed input. An (N, N) fp32 score `mask`, shared across the
-    batch, makes it K3m (counted in `mha_bwd.mask_launches`)."""
+    batch, makes it K3m (counted in `mha_bwd.mask_launches`). K3 with a
+    key bias is counted also in `mha_bwd.bias_launches`, K3 on the sm90
+    body (`plan_bwd`) in `mha_bwd.sm90_launches`."""
     packed = packed_qkv is not None
     if packed:
         d = packed_qkv.shape[-1] // 3
@@ -687,57 +880,36 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
         if mask.device != q.device or tuple(mask.shape) != (n, n):
             raise ValueError(f"mha_bwd: mask must be ({n}, {n}) on "
                              f"{q.device}")
-    if b > 65535:
-        raise ValueError(f"mha_bwd: batch {b} > 65535; split the batch")
-    lib, fn, smem = _bwd_kernel()
-    dev = q.device
-    _check_smem("mha_bwd", smem(n, d // heads, _DTYPE_CODE[q.dtype]), n,
-                d // heads, dev)
-    es = q.element_size()
     if packed:
         _check_cuda("mha_bwd", [packed_qkv, g], packed_qkv.dtype)
         _check_aligned("mha_bwd", [packed_qkv, g])
-        p = packed_qkv.data_ptr()
-        ins = (p, p + d * es, p + 2 * d * es)
-        dqkv = torch.empty_like(packed_qkv)
-        o = dqkv.data_ptr()
-        outs = (o, o + d * es, o + 2 * d * es)
-        row = 3 * d
     else:
         _check_split("mha_bwd", q, k, v, bias)
         _check_cuda("mha_bwd g", [g], q.dtype)
         _check_aligned("mha_bwd", [q, k, v, g])
-        ins = (q.data_ptr(), k.data_ptr(), v.data_ptr())
-        dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-        outs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-        row = d
-    stats = torch.empty((b, heads, n, 3), dtype=torch.float32, device=dev)
-    dbias = part = None
-    if need_dbias and bias is not None:
-        dbias = torch.empty((b, n), dtype=torch.float32, device=dev)
-        part = torch.empty((b, heads, n), dtype=torch.float32, device=dev)
-    rows, scalar, thr, kscale, drop = _drop_args(dropout_rate, dropout_seed,
-                                                 b, dev)
-    with torch.cuda.device(dev):
-        err = fn(
-            *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), *outs,
-            None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
-            None if part is None else part.data_ptr(),
-            b, n, heads, d // heads, row, n * row, row, n * row,
-            float(scale), _DTYPE_CODE[q.dtype],
-            None if rows is None else rows.data_ptr(), scalar, thr, kscale,
-            drop, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, err, "mha_bwd launch")
-    if mask is None:
-        mha_bwd.launches += 1
+    dev = q.device
+    drop = _drop_args(dropout_rate, dropout_seed, b, dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    plan = plan_bwd(b, n, heads, d // heads, q.dtype, packed,
+                    mask is not None, bias is not None,
+                    need_dbias and bias is not None, _sm_count(idx))
+    if plan.body == "sm90":
+        out = _launch_bwd_sm90(plan, q, k, v, g, scale, drop, packed_qkv)
+        mha_bwd.sm90_launches += 1
+        if not packed:
+            out = (*out, None)
     else:
+        out = _launch_bwd(q, k, v, g, heads, scale, drop, packed_qkv, bias,
+                          need_dbias, mask)
+    if mask is not None:
         mha_bwd.mask_launches += 1
-    if packed:
-        return dqkv
-    return dq, dk, dv, dbias
+    else:
+        mha_bwd.launches += 1
+        mha_bwd.bias_launches += int(bias is not None)
+    return out
 
 
 mha_bwd.launches = 0
 mha_bwd.mask_launches = 0
+mha_bwd.sm90_launches = 0  # the K3 launches of `launches` on the sm90 body
+mha_bwd.bias_launches = 0  # the K3 launches of `launches` with a key bias

@@ -11,9 +11,11 @@ Phases, in order; any failure exits non-zero:
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
             prints ptxas' registers, shared memory and spills per kernel
             (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k, one
-            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation and
-            one "K1 sm90 key rows" line per instantiation of K1's Hopper
-            body, with its shared memory and ptxas' advice)
+            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation, one
+            "K1 sm90 key rows" line per instantiation of K1's Hopper
+            body, with its shared memory and ptxas' advice, and one "K3
+            sm90 pass A key rows" / "K3 sm90 pass B" line per
+            instantiation of K3's)
   kernels   each kernel against its plain PyTorch version at the shapes of
             its path (K1 bf16 on its sm90 body, TMA and wgmma, at ViT-B/16
             B = 8, 24, 256, 400 and ViT-L/14 B = 256, timed with SDPA as
@@ -21,7 +23,10 @@ Phases, in order; any failure exits non-zero:
             attention,
             bf16 forwards at N <= 32 on the FFMA body, the masked K1m and
             its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
-            keep mask read out bit for bit, two K3 launches bit-equal; top-k
+            keep mask read out bit for bit, two K3 launches bit-equal, K3
+            bf16 on its sm90 body (TMA and wgmma) at ViT-B/16 and
+            BarcodeBERT B = 400 and ViT-L/14 B = 64 and 10, timed beside
+            the mma.sync body of csrc/mha_bwd.cu and SDPA's backward; top-k
             in "high" and "default" precision at Bq 256, 64, 16, 1 and
             keys whose scores rise with the index at Bq 256;
             int8 top-k bit for bit at 1,048,576 keys (Bq 256, 64, 16, 1,
@@ -47,7 +52,10 @@ Phases, in order; any failure exits non-zero:
             driven by train_epoch) at full width, B=400, bf16, frozen
             weights in bf16, dropout 0.1: 6 steps over one synthetic batch;
             finite falling loss, frozen weights unchanged, adapters and
-            heads moved, K1, K2d and K3 launched, K2 and no plain version
+            heads moved, K1, K2d and K3 launched, K2 and no plain version;
+            every K3 launch without a key bias on K3's sm90 body
+            (`mha_bwd.sm90_launches`, as in train_cl, insect,
+            distributed and graphs)
   openclip  the OpenCLIP ablation (ViT-L/14 + OpenCLIP text + BarcodeBERT)
             at full width, same service, keys and request kinds (text as
             WordPiece ids at N = 20), plus encode_language at context 77;
@@ -329,8 +337,13 @@ def phase_build():
             # stack/spill line, then its "Used N registers" line
             k1 = re.search(r"Performance Loss: (.*) for the function '.*"
                            r"mha_fwd_sm90ILi(\d+)E", ln)
+            k3 = re.search(r"Performance Loss: (.*) for the function '.*"
+                           r"mha_bwd_sm90_pass_(a|b)I(?:Li(\d+)E)?", ln)
             if k1:  # ptxas' advice on the K1 sm90 body, by key rows
                 log(f"  K1 sm90 key rows {16 * int(k1[2])}: ptxas: {k1[1]}")
+            elif k3:  # and on K3's, by pass (and pass A's key rows)
+                rows = f" key rows {16 * int(k3[3])}" if k3[3] else ""
+                log(f"  K3 sm90 pass {k3[2].upper()}{rows}: ptxas: {k3[1]}")
             elif "Function properties for" in ln:
                 fn = ln.rsplit(" ", 1)[-1]
             elif "spill" in ln:
@@ -357,6 +370,20 @@ def phase_build():
                     log(f"  K1 sm90 key rows {rows}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
                         "bytes of dynamic shared memory")
+                k3 = re.search(r"mha_bwd_sm90_pass_(a|b)I(?:Li(\d+)E)?"
+                               r"Lb(\d)ELb(\d)E", fn)
+                if k3:  # K3's Hopper body: pass A by key rows, and pass B
+                    what = (f"pass A key rows {16 * int(k3[2])}"
+                            if k3[1] == "a" else "pass B")
+                    plan = attention.plan_bwd(
+                        1, 16 * int(k3[2]) if k3[2] else 272, 1, 64)
+                    smem = plan.smem_a if k3[1] == "a" else plan.smem_b
+                    log(f"  K3 sm90 {what}"
+                        f"{' dropout' if k3[3] == '1' else ''}"
+                        f"{' score read-out' if k3[4] == '1' else ''}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
+                        "bytes of dynamic shared memory" + (
+                            "" if k3[1] == "a" else " at most (N = 272)"))
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
@@ -830,7 +857,11 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
               with_bias=False, rate=0.0, causal=False):
     """K3 (K3m with `causal`: OpenCLIP's (N, N) -1e9 mask, packed) against
     its plain version: every gradient within tol * max(1, max |plain|);
-    timed beside SDPA's backward with the same bias or float mask."""
+    timed beside SDPA's backward with the same bias or float mask. A case
+    that the plan (`plan_bwd`) puts on the sm90 body must count its launch
+    in `mha_bwd.sm90_launches`, and is also timed on the mma.sync body of
+    csrc/mha_bwd.cu (`mma_ms`, the body that shape took before the sm90
+    one)."""
     import torch
     import torch.nn.functional as F
 
@@ -861,7 +892,14 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
     def plain():
         return attention.mha_bwd_reference(q, k, v, g, heads, **kw)
 
+    sm90 = attention.plan_bwd(b, n, heads, hd, dtype, packed, causal,
+                              with_bias, with_bias).body == "sm90"
+    before = attention.mha_bwd.sm90_launches
     out = kernel()
+    if attention.mha_bwd.sm90_launches - before != int(sm90):
+        raise AssertionError(f"{name} B={b} N={n}: sm90 launches "
+                             f"{attention.mha_bwd.sm90_launches - before}, "
+                             f"the plan says {int(sm90)}")
     again = kernel()
     torch.cuda.synchronize()
     pairs = zip((out,), (again,)) if packed else zip(out, again)
@@ -900,12 +938,19 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
             lo, (lq, lk, lv), lg, retain_graph=True)),
         "bound_ms": bms, "bound_by": by, "max_abs_err": err,
     }
+    mma = ""
+    if sm90:
+        drop = attention._drop_args(rate, seeds, b, q.device)
+        row["mma_ms"] = time_ms(lambda: attention._launch_bwd(
+            q, k, v, g, heads, hd ** -0.5, drop,
+            packed_qkv=qkv if packed else None))
+        mma = f" (sm90 body; the mma.sync body {row['mma_ms']:.4f} ms)"
     log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
         f"{' bias+dbias' if with_bias else ''}"
         f"{' causal mask' if causal else ''}"
         f"{f' rate={rate}' if rate else ''}: err/max(1,|plain|) {err:.3g} "
-        f"(tol {tol:g}), two launches bit-equal, kernel {row['ms']:.4f} ms, "
-        f"plain "
+        f"(tol {tol:g}), two launches bit-equal, kernel {row['ms']:.4f} ms"
+        f"{mma}, plain "
         f"{row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} "
         f"ms, bound {bms:.4f} ms ({by})")
     return row
@@ -947,8 +992,10 @@ def phase_kernels(rows: dict):
                       gen, packed=True)
         if dtype == torch.bfloat16:
             rows["mha_bwd"] = r
-        _bwd_case("mha_bwd", TRAIN_BATCH, 133, 768, 12, dtype, gen,
-                  rate=0.1)
+        r = _bwd_case("mha_bwd", TRAIN_BATCH, 133, 768, 12, dtype, gen,
+                      rate=0.1)
+        if dtype == torch.bfloat16:
+            rows["mha_bwd barcodebert"] = r
         _bwd_case("mha_bwd", TRAIN_BATCH, 20, 512, 8, dtype, gen,
                   with_bias=True, rate=0.1)
         torch.cuda.empty_cache()
@@ -974,8 +1021,10 @@ def phase_kernels(rows: dict):
         _bwd_case("mha_bwd packed", OPENCLIP_TRAIN_BATCH, 20, 768, 12, dtype,
                   gen, packed=True, causal=True)
         for b in (OPENCLIP_TRAIN_BATCH, OPENCLIP_BATCH):
-            _bwd_case("mha_bwd packed", b, 257, 1024, 16, dtype, gen,
-                      packed=True)
+            r = _bwd_case("mha_bwd packed", b, 257, 1024, 16, dtype, gen,
+                          packed=True)
+            if dtype == torch.bfloat16 and b == OPENCLIP_BATCH:
+                rows["mha_bwd vit-l14"] = r
         torch.cuda.empty_cache()
     keys, rows["topk"], rows["topk_default"] = _topk_case(gen)
     rows["mm_only"] = _mm_only_case(gen, keys)
@@ -998,7 +1047,10 @@ KERNELS = {
             "bioscan_clip_tpu/ops/attention.py:449"),
     "mha_dropout": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
                     "bioscan_clip_tpu/ops/attention.py:449"),
-    "mha_bwd": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd.cu",
+    # K3 on bf16 at head dim 64 and 33 <= N <= 272 without a mask or key
+    # bias runs the sm90 body (fp32, BERT-small's biased N = 20 and other
+    # shapes, the passes of csrc/mha_bwd.cu)
+    "mha_bwd": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd_sm90.cu",
                 "bioscan_clip_tpu/ops/attention.py:321"),
     "topk": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
@@ -1038,6 +1090,8 @@ def launch_counts():
             "mha": attention.mha.launches,
             "mha_dropout": attention.mha_dropout.launches,
             "mha_bwd": attention.mha_bwd.launches,
+            "mha_bwd_sm90": attention.mha_bwd.sm90_launches,
+            "mha_bwd_bias": attention.mha_bwd.bias_launches,
             "mha_bwd_mask": attention.mha_bwd.mask_launches,
             "topk": topk.topk.launches,
             "topk_default": topk.topk.default_launches,
@@ -1054,6 +1108,21 @@ def _vit_on_sm90(what, counts):
         f"(mha_packed.sm90_launches) {sm90}")
     if k1 <= 0 or sm90 != k1:
         raise AssertionError(f"{what}: K1 launches {k1}, sm90 {sm90}")
+
+
+def _k3_on_sm90(what, counts):
+    """Every K3 launch of a bf16 training path without a key bias (ViT-B/16
+    at N = 197, BarcodeBERT at N = 133, ViT-L/14 at N = 257: all within
+    `plan_bwd`'s N) went through the sm90 body; only BERT-small's, N = 20
+    with its padding bias (`mha_bwd.bias_launches`), keep the mma.sync
+    body."""
+    k3, bias, sm90 = (counts["mha_bwd"], counts["mha_bwd_bias"],
+                      counts["mha_bwd_sm90"])
+    log(f"  {what}: K3 launches {k3}, with a key bias {bias}, on the sm90 "
+        f"body (mha_bwd.sm90_launches) {sm90}")
+    if sm90 <= 0 or sm90 != k3 - bias:
+        raise AssertionError(f"{what}: K3 launches {k3}, biased {bias}, "
+                             f"sm90 {sm90}")
 
 
 def _plain_fns():
@@ -1078,6 +1147,8 @@ def reset_counts():
     attention.mha_packed.mask_launches = 0
     attention.mha_packed.sm90_launches = 0
     attention.mha_bwd.mask_launches = 0
+    attention.mha_bwd.sm90_launches = 0
+    attention.mha_bwd.bias_launches = 0
     topk.topk.default_launches = 0
     for fn in _plain_fns():
         fn.calls = 0
@@ -1825,10 +1896,13 @@ def _profile_step(state, step, batch):
 
     from bioscan_clip_tpu_torch.train.loop import device_batch
 
-    groups = (("K3/K3m mha_bwd pass A", ("bwd_query_rows",)),
-              ("K3/K3m mha_bwd pass B + C", ("bwd_key_rows",
-                                             "dbias_sum_heads")),
-              ("K1/K1m/K2d mha_fwd", ("mha_fwd_kernel", "mha_fwd_mma")),
+    groups = (("K3 sm90 pass A", ("mha_bwd_sm90_pass_a",)),
+              ("K3 sm90 pass B", ("mha_bwd_sm90_pass_b",)),
+              ("K3/K3m mha_bwd pass A (mma.sync, FFMA)", ("bwd_query_rows",)),
+              ("K3/K3m mha_bwd pass B + C (mma.sync, FFMA)",
+               ("bwd_key_rows", "dbias_sum_heads")),
+              ("K1/K1m/K2d mha_fwd", ("mha_fwd_kernel", "mha_fwd_mma",
+                                      "mha_fwd_sm90")),
               ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
     b = device_batch(batch, "cuda")
     torch.cuda.synchronize()
@@ -1933,6 +2007,7 @@ def phase_training():
          "plain")
     log(f"  launches on the training path: {counts}; plain calls {plain}")
     _vit_on_sm90("training", counts)
+    _k3_on_sm90("training", counts)
 
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
         raise AssertionError(f"training: losses {losses}")
@@ -2372,6 +2447,7 @@ def phase_train_cl():
     want = ("mha_packed", "mha_dropout", "mha_bwd", "mha", "topk")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"train_cl: launches {counts}, plain {plain}")
+    _k3_on_sm90("train_cl", counts)
 
     # ---- outside the CLI: remat, GradCache against the plain step
     from bioscan_clip_tpu_torch.train.loop import (
@@ -2939,6 +3015,7 @@ def phase_insect():
                for run, keys in want.items()}
     if any(missing.values()) or any(plain.values()):
         raise AssertionError(f"insect: not launched {missing}, plain {plain}")
+    _k3_on_sm90("insect", counts)
     if not (math.isfinite(vit_loss) and math.isfinite(joint_loss)
             and all(math.isfinite(x) for x in cl_losses)):
         raise AssertionError(f"insect: losses {vit_loss}, {joint_loss}, "
@@ -3190,6 +3267,7 @@ def phase_distributed():
     if any(counts.get(k, 0) <= 0 for k in want) or any(plain_calls().values()):
         raise AssertionError(f"distributed: launches {counts}")
     log(f"  launches on the distributed path: {counts}")
+    _k3_on_sm90("distributed", counts)
     log("phase distributed ok")
     return counts
 
@@ -3200,7 +3278,7 @@ GRAPH_K = 4
 # body; K1m, K2d and K1 elsewhere share the bodies of csrc/mha_fwd.cu) and
 # the backward's passes (K3, K3m)
 FWD_KERNELS = ("mha_fwd_sm90", "mha_fwd_mma", "mha_fwd_kernel")
-BWD_KERNELS = ("bwd_query_rows", "bwd_key_rows")
+BWD_KERNELS = ("mha_bwd_sm90", "bwd_query_rows", "bwd_key_rows")
 
 
 def _graph_schedule(step):
@@ -3491,8 +3569,10 @@ def phase_graphs():
             want += ("mha_packed_mask", "mha_bwd_mask")
         _want_launched(name, row[5], want)
         _vit_on_sm90(f"graphs {name}, the profiled call", row[5])
+        _k3_on_sm90(f"graphs {name}, the profiled call", row[5])
     _graph_train_cl(counts)
     _vit_on_sm90("graphs", counts)
+    _k3_on_sm90("graphs", counts)
     log("  graphed against eager, ms per step (CUDA events), card busy % "
         "of a graphed call, peak GiB eager / graphed: " + "; ".join(
             f"{name} {r[0]:.1f} -> {r[1]:.1f} ms, "
@@ -4373,9 +4453,15 @@ def main(argv=None) -> int:
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
         })
-        if name == "mha_packed":  # the K1 launches that ran the sm90 body
+        if name in ("mha_packed", "mha_bwd"):  # the launches on sm90 bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
-                KERNEL_PATH[name][0], {}).get("mha_packed_sm90")
+                KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
+        if name == "mha_bwd":  # K3's other main-path shapes, its mma.sync body
+            kernels[-1]["mma_ms"] = r.get("mma_ms")
+            kernels[-1]["shapes"] = {
+                key: {k: rows.get(f"mha_bwd {key}", {}).get(k) for k in (
+                    "ms", "mma_ms", "library_ms", "bound_ms", "max_abs_err")}
+                for key in ("barcodebert", "vit-l14")}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,9 +11,12 @@ before P.V on both sides), the masked forward (K1m) as K1, K1's sm90 body
 (bf16, head dim 64, 33 <= N <= 272: TMA and wgmma) as K1, with one case
 where its output must equal the plain version's bit for bit; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
-per gradient. bf16 runs the tensor-core (mma.sync) bodies (the forward
-above N = 32), fp32 the FFMA ones; K2d's keep mask reads out bit for bit
-and two K3 launches are bit-equal. fp32 top-k (K4) values atol 1e-5 on
+per gradient; K3's sm90 body (bf16, head dim 64, 33 <= N <= 272, no mask,
+no key bias: TMA and wgmma) as K3, with one case where its dqkv must equal
+the plain version's bit for bit and one where its two passes' scores must.
+bf16 runs the tensor-core (mma.sync) bodies (the forward above N = 32),
+fp32 the FFMA ones; K2d's keep mask reads out bit for bit and two K3
+launches are bit-equal. fp32 top-k (K4) values atol 1e-5 on
 unit vectors, in "high" (six bf16 products of the operands' three-way
 split, fp32 sums, within fp32 rounding of the plain version's fp32) and
 "default" precision (bf16 operands: exact products, fp32 sums), index sets
@@ -140,6 +143,140 @@ def test_k1_sm90_body_refuses_a_misaligned_base(gen):
 def _seeds(gen, b):
     return torch.randint(0, 2**32, (b,), device="cuda", generator=gen,
                          dtype=torch.int64)
+
+
+def _k3_inputs(gen, b, n, d, heads, packed, rate, seed):
+    if packed:
+        qkv = torch.randn(b, n, 3 * d, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        q, k, v = qkv[..., :d], qkv[..., d : 2 * d], qkv[..., 2 * d :]
+    else:
+        qkv = None
+        q, k, v = (torch.randn(b, n, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(3))
+    g = torch.randn(b, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    if rate > 0 and seed is None:
+        seed = _seeds(gen, b)
+    kw = dict(dropout_rate=rate, dropout_seed=seed) if rate > 0 else {}
+
+    def kernel():
+        if packed:
+            dqkv = attention.mha_bwd(None, None, None, g, heads,
+                                     packed_qkv=qkv, **kw)
+            return tuple(dqkv.split(d, dim=-1))
+        return attention.mha_bwd(q, k, v, g, heads, **kw)[:3]
+
+    return q, k, v, g, kw, kernel
+
+
+# K3's sm90 body (bf16, head dim 64, 33 <= N <= 272, no mask, no bias):
+# ViT-B/16 and BarcodeBERT (row-keyed dropout, and a scalar seed) at B=400,
+# ViT-L/14 at B=64, the ragged N = 33, 65, 200 and the plan's largest N.
+@pytest.mark.parametrize("b,n,d,heads,packed,rate,seed", [
+    (400, 197, 768, 12, True, 0.0, None),
+    (400, 133, 768, 12, False, 0.1, None),
+    (8, 133, 768, 12, False, 0.1, 0x9E3779B9),
+    (64, 257, 1024, 16, True, 0.0, None),
+    (3, 33, 768, 12, True, 0.0, None),
+    (3, 65, 768, 12, False, 0.1, None),
+    (3, 200, 768, 12, True, 0.0, None),
+    (3, 272, 768, 12, False, 0.1, None)])
+def test_k3_sm90_body_matches_plain(gen, b, n, d, heads, packed, rate, seed):
+    """Each gradient within 2e-2 * max(1, max |plain|) (one bf16 ulp at
+    |x| ~ 1 is 7.8e-3; y and ds * scale are rounded to bf16 on both
+    sides); one launch, on the sm90 body; a second launch bit-equal."""
+    q, k, v, g, kw, kernel = _k3_inputs(gen, b, n, d, heads, packed, rate,
+                                        seed)
+    before = (attention.mha_bwd.launches, attention.mha_bwd.sm90_launches)
+    out = kernel()
+    torch.cuda.synchronize()
+    assert (attention.mha_bwd.launches - before[0],
+            attention.mha_bwd.sm90_launches - before[1]) == (1, 1)
+    again = kernel()
+    assert all(torch.equal(a, a2) for a, a2 in zip(out, again))
+    del again
+    ref = attention.mha_bwd_reference(q, k, v, g, heads, **kw)[:3]
+    _close_grads(out, ref, 2e-2)
+
+
+def test_k3_sm90_body_rounds_y_to_bf16(gen):
+    """q = 0 makes every score 0, so p = 1/197 exactly on every side (keys
+    past N must score -inf in pass A, else l = 208); v = 0 makes dp, ds, dq
+    and dk 0; with g = 1, dv = the sum over 197 query rows of y = p rounded
+    to bf16 (83 * 2**-14) = 16351 * 2**-14 exactly in fp32, 0.99609375 in
+    bf16 (an unrounded y gives 1.0): dqkv equals the plain version's bit for
+    bit."""
+    b, n, d, heads = 2, 197, 768, 12
+    qkv = torch.zeros(b, n, 3 * d, device="cuda", dtype=torch.bfloat16)
+    qkv[..., d : 2 * d] = torch.randn(b, n, d, device="cuda", generator=gen)
+    g = torch.ones(b, n, d, device="cuda", dtype=torch.bfloat16)
+    before = attention.mha_bwd.sm90_launches
+    dqkv = attention.mha_bwd(None, None, None, g, heads, packed_qkv=qkv)
+    assert attention.mha_bwd.sm90_launches == before + 1
+    ref = attention.mha_bwd_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                      qkv[..., 2 * d :], g, heads)
+    assert torch.equal(dqkv, torch.cat(ref[:3], dim=-1))
+    assert not dqkv[..., : 2 * d].any()
+    assert torch.equal(dqkv[..., 2 * d :],
+                       torch.full_like(g, 0.99609375))
+
+
+def test_k3_sm90_passes_form_the_same_scores(gen):
+    """Pass B rebuilds p from pass A's m and 1 / l, so it must form each
+    score as pass A did: s read out of pass A (q in wgmma's A role) and of
+    pass B (k in the A role) at every (b, h, i, j), bit for bit; both
+    within fp32 rounding of q . k * scale; the read-out launch's dqkv is
+    the plain launch's."""
+    b, n, d, heads = 4, 197, 768, 12
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    g = torch.randn(b, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    s_a, s_b, dqkv = attention.bwd_sm90_scores(qkv, g, heads)
+    torch.cuda.synchronize()
+    qh, kh = (qkv[..., i * d:(i + 1) * d].float().view(b, n, heads, 64)
+              for i in range(2))
+    ref = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * 0.125
+    assert (s_a - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+    assert torch.equal(s_a, s_b)
+    assert torch.equal(dqkv, attention.mha_bwd(None, None, None, g, heads,
+                                               packed_qkv=qkv))
+
+
+@pytest.mark.parametrize("n,hd,bias,dtype", [
+    (32, 64, False, torch.bfloat16), (273, 64, False, torch.bfloat16),
+    (197, 32, False, torch.bfloat16), (133, 64, True, torch.bfloat16),
+    (197, 64, False, torch.float32)])
+def test_k3_outside_the_sm90_plan_keeps_its_body(gen, n, hd, bias, dtype):
+    heads = 4
+    d = heads * hd
+    q, k, v, g = (torch.randn(2, n, d, device="cuda", generator=gen).to(dtype)
+                  for _ in range(4))
+    kb = None
+    if bias:
+        kb = torch.zeros(2, n, device="cuda")
+        kb[1, n // 2:] = -1e9
+    before = (attention.mha_bwd.launches, attention.mha_bwd.sm90_launches)
+    out = attention.mha_bwd(q, k, v, g, heads, bias=kb, need_dbias=bias)
+    assert (attention.mha_bwd.launches - before[0],
+            attention.mha_bwd.sm90_launches - before[1]) == (1, 0)
+    ref = attention.mha_bwd_reference(q, k, v, g, heads, bias=kb)
+    _close_grads([o for o in out if o is not None],
+                 [r for r in ref if r is not None],
+                 2e-2 if dtype == torch.bfloat16 else 1e-5)
+
+
+def test_k3_sm90_body_refuses_a_misaligned_base(gen):
+    d = 768
+    flat = torch.randn(2 * 197 * 3 * d + 1, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    qkv = flat[1:].view(2, 197, 3 * d)  # starts 2 bytes past 16-byte
+    g = torch.randn(2, 197, d, device="cuda", generator=gen).to(torch.bfloat16)
+    before = (attention.mha_bwd.launches, attention.mha_bwd.sm90_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv)
+    assert (attention.mha_bwd.launches,
+            attention.mha_bwd.sm90_launches) == before
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
