@@ -21,7 +21,11 @@
 // 768 bf16 operations (Bq * 1.6 us at 989 TFLOP/s) and "high" six times as
 // many (Bq * 9.8 us): bound by bytes at every Bq of a request in "default",
 // and by the six products above Bq ~ 100 in "high" (FFMA would take Bq * 24
-// us at 67 TFLOP/s). Design (the K4 section below): pass 1 computes each
+// us at 67 TFLOP/s). From the plan's crossing up (`ops/topk.plan_f32`: 17
+// queries in "high", every Bq in "default", at widths that are a multiple
+// of 64) K4 runs the Hopper body of topk_sm90.cu instead, one walk of the
+// keys for up to 256 queries. Design of this body (the K4 section below),
+// which serves the rest: pass 1 computes each
 // tile's products with bf16 `mma.sync` (m16n8k16) over a query block of 16,
 // 32 or 64 rows chosen from Bq, with the key axis split across about two
 // blocks per SM; keys and the block's queries stream through one `cp.async`
@@ -72,6 +76,7 @@
 #include <cuda_runtime.h>
 
 #include "attention_common.cuh"
+#include "topk_common.cuh"
 
 #include <limits.h>
 #include <math.h>
@@ -81,161 +86,11 @@
 namespace {
 
 constexpr int KT = 128;           // keys per tile
-constexpr int TPB = 256;          // 8 warps, 16 keys of a tile each
-constexpr int BUF = 32;           // screened scores per query per merge
 constexpr int CLUSTER = 2;        // key splits merged before pass 2
-constexpr int kPass2Threads = 128;
 
-constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
-
-using bf16_t = bscan::bf16;
-
-__device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
-  return av > bv || (av == bv && ai < bi);
-}
-
-// Insert (v, i) into a sorted list; the caller has checked that it beats the
-// last entry, which drops out. Constant indices keep the list in registers.
-template <int MAXK>
-__device__ __forceinline__ void insert(float (&lv)[MAXK], int (&li)[MAXK],
-                                       float v, int i) {
-  bool placed = false;
-#pragma unroll
-  for (int p = MAXK - 1; p > 0; --p) {
-    if (!placed) {
-      if (better(v, i, lv[p - 1], li[p - 1])) {
-        lv[p] = lv[p - 1];
-        li[p] = li[p - 1];
-      } else {
-        lv[p] = v;
-        li[p] = i;
-        placed = true;
-      }
-    }
-  }
-  if (!placed) {
-    lv[0] = v;
-    li[0] = i;
-  }
-}
-
-template <int MAXK>
-__device__ __forceinline__ void init_list(float (&lv)[MAXK], int (&li)[MAXK]) {
-#pragma unroll
-  for (int p = 0; p < MAXK; ++p) {
-    lv[p] = -INFINITY;
-    li[p] = INT_MAX;
-  }
-}
-
-// ---- pass 1's lists, screen and cluster merge (K4 and K5) ----------------
+// ---- pass 1's screen and cluster merge (K4's mma.sync body and K5); the
+// lists are in topk_common.cuh --------------------------------------------
 //
-// Per query of the block, in shared memory: its sorted list (MAXK entries),
-// its buffer of screened scores (BUF), its threshold (value, index) and the
-// buffer's count, each array at a fixed offset from one base, so that a
-// block keeps one pointer, not seven.
-
-template <int QB, int MAXK>
-struct Lists {
-  unsigned char* base;
-  __device__ float* lv() const { return reinterpret_cast<float*>(base); }
-  __device__ int* li() const {
-    return reinterpret_cast<int*>(base) + QB * MAXK;
-  }
-  __device__ float* bv() const {
-    return reinterpret_cast<float*>(base) + 2 * QB * MAXK;
-  }
-  __device__ int* bi() const {
-    return reinterpret_cast<int*>(base) + 2 * QB * MAXK + QB * BUF;
-  }
-  __device__ float* thv() const {
-    return reinterpret_cast<float*>(base) + 2 * QB * (MAXK + BUF);
-  }
-  __device__ int* thi() const {
-    return reinterpret_cast<int*>(base) + 2 * QB * (MAXK + BUF) + QB;
-  }
-  __device__ int* cnt() const {
-    return reinterpret_cast<int*>(base) + 2 * QB * (MAXK + BUF) + 2 * QB;
-  }
-};
-
-__host__ __device__ constexpr size_t lists_bytes(int qb, int maxk) {
-  return sizeof(float) * qb * (2 * maxk + 2 * BUF + 3);
-}
-
-// The lists of QB queries at `base`, set to empty: entries (-inf, INT_MAX),
-// which every score beats, and no buffered score.
-template <int QB, int MAXK>
-__device__ __forceinline__ Lists<QB, MAXK> init_lists(unsigned char* base) {
-  const Lists<QB, MAXK> L{base};
-  for (int i = threadIdx.x; i < QB * MAXK; i += TPB) {
-    L.lv()[i] = -INFINITY;
-    L.li()[i] = INT_MAX;
-  }
-  for (int i = threadIdx.x; i < QB; i += TPB) {
-    L.thv()[i] = -INFINITY;
-    L.thi()[i] = INT_MAX;
-    L.cnt()[i] = 0;
-  }
-  return L;
-}
-
-// Merge one query's screened scores (its buffer, n_buf entries) into its
-// sorted list of k entries, by one warp: each entry's rank in the union is
-// the count of entries better than it (the list's own order, plus a binary
-// search of the list for a buffered entry, plus a count over the buffer);
-// key indices are unique, so the ranks are distinct, and the entries ranked
-// below k are the new list. Then the threshold is its k-th entry.
-template <int MAXK>
-__device__ __forceinline__ void merge_row(float* lv, int* li, const float* bv,
-                                          const int* bi, int n_buf, int k,
-                                          float* thv, int* thi, int* cnt,
-                                          int lane) {
-  constexpr int PER = (MAXK + BUF + 31) / 32;
-  float v[PER];
-  int ix[PER], rk[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int e = lane + 32 * j;
-    rk[j] = INT_MAX;
-    if (e < k + n_buf) {
-      int r;
-      if (e < k) {
-        v[j] = lv[e];
-        ix[j] = li[e];
-        r = e;
-      } else {
-        v[j] = bv[e - k];
-        ix[j] = bi[e - k];
-        int lo = 0, hi = k;  // list entries better than it: a prefix
-        while (lo < hi) {
-          const int mid = (lo + hi) >> 1;
-          if (better(lv[mid], li[mid], v[j], ix[j]))
-            lo = mid + 1;
-          else
-            hi = mid;
-        }
-        r = lo;
-      }
-      for (int b = 0; b < n_buf; ++b) r += better(bv[b], bi[b], v[j], ix[j]);
-      rk[j] = r;
-    }
-  }
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < PER; ++j)
-    if (rk[j] < k) {
-      lv[rk[j]] = v[j];
-      li[rk[j]] = ix[j];
-    }
-  __syncwarp();
-  if (lane == 0) {
-    *thv = lv[k - 1];
-    *thi = li[k - 1];
-    *cnt = 0;
-  }
-}
-
 // Screen one finished tile's scores against each query's threshold theta
 // and merge those that beat it (by `better`: a score equal to theta passes
 // when its key index is smaller) into the query's list. Thread (warp, lane)
@@ -435,30 +290,6 @@ __host__ __device__ constexpr size_t f32_smem(int qb, int maxk, int terms) {
 
 __device__ __forceinline__ int f32_at(int r, int u) {
   return r * F32_DC + ((u ^ ((r & 1) << 2)) << 2);
-}
-
-// x and y (two adjacent k-slots) as TERMS packed bf16 pairs, the lower
-// k-slot in the low half. TERMS = 1: each rounded to bf16 (nearest even).
-// TERMS = 3: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid).
-template <int TERMS>
-struct Pieces {
-  unsigned p[TERMS];
-};
-
-template <int TERMS>
-__device__ __forceinline__ Pieces<TERMS> split_bf16(float x, float y) {
-  Pieces<TERMS> out;
-#pragma unroll
-  for (int i = 0; i < TERMS; ++i) {
-    const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-    out.p[i] = *reinterpret_cast<const unsigned*>(&h);
-    if (i + 1 < TERMS) {
-      const float2 f = __bfloat1622float2(h);
-      x = __fsub_rn(x, f.x);
-      y = __fsub_rn(y, f.y);
-    }
-  }
-  return out;
 }
 
 // c[nb] += a . (piece J of B fragment nb), on the tensor cores.
@@ -953,69 +784,7 @@ __global__ void __launch_bounds__(128)
   out[(long long)row * 128 + threadIdx.x] = m;
 }
 
-// ---- pass 2 and the launches ----------------------------------------------
-
-template <int MAXK>
-__global__ void __launch_bounds__(kPass2Threads)
-    topk_pass2(const float* __restrict__ cand_v,
-               const int* __restrict__ cand_i, int bq, int n_cand, int k,
-               float* __restrict__ out_v, int* __restrict__ out_i) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= bq) return;  // whole warps exit together
-
-  float lv[MAXK];
-  int li[MAXK];
-  init_list<MAXK>(lv, li);
-  const float* cv = cand_v + (long long)row * n_cand;
-  const int* ci = cand_i + (long long)row * n_cand;
-  for (int c = lane; c < n_cand; c += 32) {
-    const float v = cv[c];
-    const int i = ci[c];
-    if (better(v, i, lv[MAXK - 1], li[MAXK - 1])) insert<MAXK>(lv, li, v, i);
-  }
-
-  for (int r = 0; r < k; ++r) {
-    float bv = lv[0];
-    int bi = li[0];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (better(ov, oi, bv, bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (lane == 0) {
-      out_v[(long long)row * k + r] = bv;
-      out_i[(long long)row * k + r] = bi;
-    }
-    if (lv[0] == bv && li[0] == bi) {  // key indices are unique: one owner
-#pragma unroll
-      for (int p = 0; p < MAXK - 1; ++p) {
-        lv[p] = lv[p + 1];
-        li[p] = li[p + 1];
-      }
-      lv[MAXK - 1] = -INFINITY;
-      li[MAXK - 1] = INT_MAX;
-    }
-  }
-}
-
-template <int MAXK>
-cudaError_t launch_pass2(int bq, int n_cand, int k, const float* cand_v,
-                         const int* cand_i, float* out_v, int* out_i,
-                         cudaStream_t stream) {
-  const int warps_per_block = kPass2Threads / 32;
-  const int grid2 = (bq + warps_per_block - 1) / warps_per_block;
-  topk_pass2<MAXK><<<grid2, kPass2Threads, 0, stream>>>(
-      cand_v, cand_i, bq, n_cand, k, out_v, out_i);
-  return cudaGetLastError();
-}
-
-template <int V>
-using Int = std::integral_constant<int, V>;
+// ---- the launches ---------------------------------------------------------
 
 // f(Int<qb>{}) for the plan's query block (16, 32 or 64).
 template <class F>
@@ -1023,15 +792,6 @@ cudaError_t by_qb(int qb, const F& f) {
   if (qb == 16) return f(Int<16>{});
   if (qb == 32) return f(Int<32>{});
   return f(Int<64>{});
-}
-
-// f(Int<MAXK>{}) for the list size of k: 8, 16, 32 or (up to MAX) 64.
-template <int MAX, class F>
-cudaError_t by_maxk(int k, const F& f) {
-  if (k <= 8) return f(Int<8>{});
-  if (k <= 16) return f(Int<16>{});
-  if (MAX == 32 || k <= 32) return f(Int<32>{});
-  return f(Int<MAX>{});
 }
 
 template <int MAXK, int QB, int TERMS>
@@ -1100,19 +860,28 @@ __global__ void tiny_kernel(const float* __restrict__ x, float* __restrict__ o,
 
 extern "C" {
 
-// K4. Shapes the wrapper must respect: q (bq, d) and keys (n, d) contiguous
-// fp32, 16-byte aligned, d % 32 == 0, 1 <= k <= 32, k <= n_valid <= n.
-// precision: 0 "high" (the six-product bf16 split, fp32 sums), 1 "default"
-// (operands rounded to bf16, fp32 sums); qb, splits, tiles_per_split and
-// the candidate buffers' size from bscan_topk_f32_plan. Returns
-// cudaError_t.
+// K4's mma.sync body. Shapes the wrapper must respect: q (bq, d) and keys
+// (n, d) contiguous fp32, 16-byte aligned, d % 32 == 0, 1 <= k <= 32, k <=
+// n_valid <= n. precision: 0 "high" (the six-product bf16 split, fp32
+// sums), 1 "default" (operands rounded to bf16, fp32 sums). The plan
+// (`plan_f32` in ops/topk.py): the query block qb (16, 32 or 64), splits (a
+// multiple of CLUSTER) x tiles_per_split covering the n / KT key tiles with
+// no empty cluster, n_cand = bq * (splits / CLUSTER) * k entries per
+// candidate buffer. Otherwise it returns cudaErrorInvalidValue and
+// launches nothing. Returns the cudaError_t of the launches.
 int bscan_topk_f32(const float* q, const float* keys, int bq, int n, int d,
                    int n_valid, int k, int precision, int qb, int splits,
-                   int tiles_per_split, float* cand_v, int* cand_i,
-                   float* out_v, int* out_i, void* stream) {
+                   int tiles_per_split, long long n_cand, float* cand_v,
+                   int* cand_i, float* out_v, int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % F32_DC != 0 || k < 1 || k > 32 || n_valid > n || precision < 0 ||
-      precision > 1 || (qb != 16 && qb != 32 && qb != 64))
+  const int n_tiles = (n + KT - 1) / KT;
+  if (bq < 1 || d < F32_DC || d % F32_DC != 0 || k < 1 || k > 32 ||
+      n_valid < k || n_valid > n || precision < 0 || precision > 1 ||
+      (qb != 16 && qb != 32 && qb != 64) || splits < CLUSTER ||
+      splits % CLUSTER != 0 || tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split < n_tiles ||
+      (long long)(splits - CLUSTER) * tiles_per_split >= n_tiles ||
+      n_cand != (long long)bq * (splits / CLUSTER) * k)
     return (int)cudaErrorInvalidValue;
   return (int)by_qb(qb, [&](auto qbc) {
     return by_maxk<32>(k, [&](auto mk) {
@@ -1126,20 +895,6 @@ int bscan_topk_f32(const float* q, const float* keys, int bq, int n, int d,
                                      out_i, s);
     });
   });
-}
-
-// K4's launch plan for (bq, n, k) on a card with `sm_count` SMs: the query
-// block (16 rows for bq <= 16, 32 for bq <= 32, else 64), key splits (a
-// multiple of CLUSTER) so that about two pass-1 blocks per SM are in
-// flight, key tiles per split, and the candidate entries (per buffer) the
-// wrapper allocates: k per query and cluster.
-void bscan_topk_f32_plan(int bq, int n, int k, int sm_count, int* qb,
-                         int* splits, int* tiles_per_split,
-                         long long* n_cand) {
-  *qb = bq <= 16 ? 16 : (bq <= 32 ? 32 : 64);
-  int clusters;
-  plan_splits(bq, n, *qb, sm_count, splits, tiles_per_split, &clusters);
-  *n_cand = (long long)bq * clusters * k;
 }
 
 // The dynamic shared memory of topk_f32_pass1<maxk, qb, terms>, in bytes.
@@ -1174,7 +929,7 @@ int bscan_topk_i8(const signed char* q, const float* q_scale,
 // K5's launch plan for (bq, n, d, k) on a card with `sm_count` SMs: the
 // query block (16 rows for bq <= 16, 32 for bq <= 32, else 64; smaller
 // where the staged block would not fit in shared memory), key splits, key
-// tiles per split and the candidate entries, as K4's plan.
+// tiles per split and the candidate entries (k per query and cluster).
 void bscan_topk_i8_plan(int bq, int n, int d, int k, int sm_count, int* qb,
                         int* splits, int* tiles_per_split,
                         long long* n_cand) {

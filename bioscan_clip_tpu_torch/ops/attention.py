@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from bioscan_clip_tpu_torch.ops import _build
+from bioscan_clip_tpu_torch.ops._device import H100_SMS, sm_count
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -281,7 +282,6 @@ _ROW_BYTES = 2 * SM90_HEAD_DIM
 _TILE_BYTES = _TILE_ROWS * _ROW_BYTES
 _STAGES = 2
 _ALIGN, _BARRIER_BYTES = 1024, 64
-H100_SMS = 132
 
 
 @dataclasses.dataclass(frozen=True)
@@ -403,11 +403,6 @@ def plan_bwd(b: int, n: int, heads: int, hd: int, dtype=torch.bfloat16,
             _ALIGN + _STAGES * tiles_bytes + _BARRIER_BYTES,
             _ALIGN + _STAGES * stage_b + _BARRIER_BYTES)
     return BwdPlan("mma" if dtype == torch.bfloat16 else "ffma", b, n, heads)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _launch_sm90(qkv, out, plan: PackedFwdPlan, scale):
@@ -656,7 +651,7 @@ def _packed_forward(qkv, mask, heads, scale):
     idx = (qkv.device.index if qkv.device.index is not None
            else torch.cuda.current_device())
     plan = plan_packed_fwd(b, n, heads, d // heads, qkv.dtype,
-                           mask is not None, _sm_count(idx))
+                           mask is not None, sm_count(idx))
     if plan.body == "sm90":
         _launch_sm90(qkv, out, plan, scale)
         mha_packed.sm90_launches += 1
@@ -892,7 +887,7 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     plan = plan_bwd(b, n, heads, d // heads, q.dtype, packed,
                     mask is not None, bias is not None,
-                    need_dbias and bias is not None, _sm_count(idx))
+                    need_dbias and bias is not None, sm_count(idx))
     if plan.body == "sm90":
         out = _launch_bwd_sm90(plan, q, k, v, g, scale, drop, packed_qkv)
         mha_bwd.sm90_launches += 1

@@ -31,14 +31,23 @@ broadcast over 128 columns: K4's products ("high" or "default") or K5's
 version and to the TPU's bf16 products of the codes), with a row max in
 place of the screen and lists.
 
+K4 has two bodies on the card, chosen by `plan_f32`: the Hopper body
+(`csrc/topk_sm90.cu`: keys as `wgmma`'s M side split in registers, queries
+split once a call and loaded by TMA, one walk of the keys for up to 256
+queries) from `SM90_MIN_BQ[precision]` queries up (17 in "high", every
+Bq in "default") at widths that are a multiple of 64, and the `mma.sync`
+body of `csrc/topk.cu` below that.
+
 `<wrapper>.launches` count kernel launches (`topk.launches` the "high"
-ones, `topk.default_launches` the "default" ones), `<plain version>.calls`
-the plain versions' calls.
+ones, `topk.default_launches` the "default" ones, of either body;
+`topk.sm90_launches` those of K4's Hopper body, `topk.mma_launches` those
+of its `mma.sync` body), `<plain version>.calls` the plain versions' calls.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from types import SimpleNamespace
 
@@ -46,6 +55,7 @@ import numpy as np
 import torch
 
 from bioscan_clip_tpu_torch.ops import _build
+from bioscan_clip_tpu_torch.ops._device import H100_SMS, sm_count
 
 MAX_K = 32  # K4 keeps lists of up to 32 entries
 # K5 keeps lists of up to 64: the engine oversamples int8 searches to
@@ -160,15 +170,10 @@ def _kernel():
     lib = _build.load("topk")
     fn = lib.bscan_topk_f32
     fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 9 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 5
     )
     fn.restype = ctypes.c_int
-    plan = lib.bscan_topk_f32_plan
-    plan.argtypes = [ctypes.c_int] * 4 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
-    ]
-    plan.restype = None
     fn_i8 = lib.bscan_topk_i8
     fn_i8.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
@@ -191,21 +196,145 @@ def _kernel():
     fn_tiny = lib.bscan_tiny
     fn_tiny.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn_tiny.restype = ctypes.c_int
-    return SimpleNamespace(lib=lib, topk=fn, plan=plan, topk_i8=fn_i8,
+    return SimpleNamespace(lib=lib, topk=fn, topk_i8=fn_i8,
                            plan_i8=plan_i8, mm_only=fn_mm, tiny=fn_tiny,
                            smem_f32=smem_f32)
 
 
-def plan_f32(bq: int, n: int, k: int, dev):
-    """K4's (query block rows: 16, 32 or 64 from Bq; key splits; key tiles
-    per split; candidate entries) for one launch."""
-    qb, splits, per_split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    n_cand = ctypes.c_longlong()
-    _kernel().plan(
-        bq, n, k, torch.cuda.get_device_properties(dev).multi_processor_count,
-        ctypes.byref(qb), ctypes.byref(splits), ctypes.byref(per_split),
-        ctypes.byref(n_cand))
-    return qb.value, splits.value, per_split.value, n_cand.value
+@functools.lru_cache(maxsize=None)
+def _sm90_kernel():
+    """K4's Hopper body (csrc/topk_sm90.cu), argument types set."""
+    return sm90_entry(_build.load("topk_sm90"))
+
+
+def sm90_entry(lib):
+    """The entry points of a library built from csrc/topk_sm90.cu (or one of
+    its design variants), argument types set."""
+    fn = lib.bscan_topk_f32_sm90
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_longlong] * 2
+        + [ctypes.c_void_p] * 5
+    )
+    fn.restype = ctypes.c_int
+    smem = lib.bscan_topk_f32_sm90_smem
+    smem.argtypes = [ctypes.c_int] * 4
+    smem.restype = ctypes.c_longlong
+    depth = lib.bscan_topk_f32_sm90_slot_depth
+    depth.argtypes = [ctypes.c_int]
+    depth.restype = ctypes.c_int
+    lib.bscan_error_string.argtypes = [ctypes.c_int]
+    lib.bscan_error_string.restype = ctypes.c_char_p
+    return SimpleNamespace(lib=lib, topk=fn, smem=smem, slot_depth=depth)
+
+
+# --- K4's plan (the launch checks of csrc/topk.cu's `bscan_topk_f32` and
+# csrc/topk_sm90.cu's `bscan_topk_f32_sm90` refuse any other) --------------
+
+MAX_SMEM = 232_448          # a block's opt-in shared memory on Hopper
+# the crossing: fewer queries run the mma body ("default" runs the sm90
+# body at every Bq: it was faster there at Bq = 1 and 16 too)
+SM90_MIN_BQ = {"high": 17, "highest": 17, "default": 1}
+_KEY_TILE = 128             # keys per tile, both bodies
+_BUF = 32                   # screened scores per query per merge
+_CLUSTER = 2                # the mma body's key splits merged before pass 2
+_SM90_CHUNK = 64            # depth values per ring chunk of the sm90 body
+_SM90_KEY_BYTES = 2 * _KEY_TILE * 32 * 4   # a chunk's keys: two TMA boxes
+_SM90_ALIGN, _SM90_BARRIER_BYTES = 1024, 64
+_SM90_STAGES = (4, 3, 2)    # ring slots, the most that fit first
+
+
+@dataclasses.dataclass(frozen=True)
+class F32Plan:
+    """How `topk` runs (Bq, N, k, precision) on the card.
+
+    `body`: "sm90" (`csrc/topk_sm90.cu`) or "mma" (the `mma.sync` body of
+    `csrc/topk.cu`). `qb`: the query block (the sm90 body's wgmma N: 64,
+    128 or 256; the mma body's 16, 32 or 64). The key axis: `splits`
+    blocks of `tiles_per_split` 128-key tiles, covering every tile of N
+    once. `stages`: ring slots; `smem`: a pass-1 block's dynamic shared
+    memory; `n_cand`: the candidate entries per buffer that pass 2 reads,
+    k per query and sm90 split, or per mma cluster of two splits."""
+
+    body: str
+    qb: int
+    splits: int
+    tiles_per_split: int
+    stages: int
+    smem: int
+    n_cand: int
+
+
+def _maxk(k: int) -> int:
+    return 8 if k <= 8 else 16 if k <= 16 else 32
+
+
+def lists_bytes(qb: int, maxk: int) -> int:
+    """The lists of qb queries (topk_common.cuh `lists_bytes`)."""
+    return 4 * qb * (2 * maxk + 2 * _BUF + 3)
+
+
+def sm90_smem(qb: int, maxk: int, terms: int, stages: int) -> int:
+    """csrc/topk_sm90.cu `smem_bytes`: alignment, the ring (keys and query
+    pieces), the lists and the barriers."""
+    return (_SM90_ALIGN + stages * (_SM90_KEY_BYTES + terms * qb * 2
+                                    * _SM90_CHUNK)
+            + lists_bytes(qb, maxk) + _SM90_BARRIER_BYTES)
+
+
+def _sm90_blocks(precision: str):
+    return (64, 128, 256) if precision == "default" else (64, 128)
+
+
+def plan_f32(bq: int, n: int, k: int, precision: str = "high", d: int = 768,
+             sms: int = H100_SMS, body: str | None = None) -> F32Plan:
+    """K4's body and launch for Bq queries over N keys at width d on a card
+    of `sms` SMs: the sm90 body from SM90_MIN_BQ[precision] queries up when
+    d % 64 == 0, with the smallest query block that holds Bq (else the
+    largest), as many ring stages as fit; else the mma body, its query
+    block 16, 32 or 64 from Bq. `body` overrides the choice of body."""
+    terms = 3 if PRECISIONS[precision] == 0 else 1
+    maxk = _maxk(k)
+    n_tiles = -(-n // _KEY_TILE)
+    if body is None:
+        body = ("sm90" if bq >= SM90_MIN_BQ[precision]
+                and d % _SM90_CHUNK == 0 else "mma")
+    if body == "mma":
+        qb = 16 if bq <= 16 else 32 if bq <= 32 else 64
+        q_blocks = -(-bq // qb)
+        want = min(max(-(-2 * sms // q_blocks), 1), n_tiles)
+        per_split = -(-n_tiles // want)
+        clusters = -(-n_tiles // (per_split * _CLUSTER))
+        st = 3 if qb == 64 else 4
+        smem = (4 * st * (_KEY_TILE + qb) * 32 + 2 * terms * qb * 40
+                + lists_bytes(qb, maxk))
+        return F32Plan("mma", qb, clusters * _CLUSTER, per_split, st, smem,
+                       bq * clusters * k)
+    fits = [b for b in _sm90_blocks(precision)
+            if sm90_smem(b, maxk, terms, 2) <= MAX_SMEM]
+    qb = next((b for b in fits if b >= bq), fits[-1])
+    stages = next(s for s in _SM90_STAGES
+                  if sm90_smem(qb, maxk, terms, s) <= MAX_SMEM)
+    return sm90_plan(bq, n, k, precision, sms, qb, stages)
+
+
+def sm90_plan(bq: int, n: int, k: int, precision: str, sms: int, qb: int,
+              stages: int) -> F32Plan:
+    """The sm90 body's launch at query block `qb` and `stages` ring slots:
+    about one CTA per SM over the query blocks and key splits, every split
+    holding at least one key tile."""
+    terms = 3 if PRECISIONS[precision] == 0 else 1
+    n_tiles = -(-n // _KEY_TILE)
+    q_blocks = -(-bq // qb)
+    want = min(max(sms // q_blocks, 1), n_tiles)
+    per_split = -(-n_tiles // want)
+    splits = -(-n_tiles // per_split)
+    return F32Plan("sm90", qb, splits, per_split, stages,
+                   sm90_smem(qb, _maxk(k), terms, stages), bq * splits * k)
+
+
+def _device_sms(dev) -> int:
+    return sm_count(dev.index if dev.index is not None
+                     else torch.cuda.current_device())
 
 
 def plan_i8(bq: int, n: int, d: int, k: int, dev):
@@ -257,21 +386,15 @@ def topk(queries, keys, n_valid: int, k: int, precision: str = "high"):
     if k > MAX_K:
         raise ValueError(f"topk: kernel takes k <= {MAX_K}, got {k}")
     dev = queries.device
-    kern = _kernel()
-    qb, splits, per_split, n_cand = plan_f32(bq, n, k, dev)
-    cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
-    out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
     mode = PRECISIONS[precision]
-    with torch.cuda.device(dev):  # a launch goes to the current card
-        err = kern.topk(
-            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
-            qb, splits, per_split, cand_v.data_ptr(), cand_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "topk launch")
+    plan = plan_f32(bq, n, k, precision, d, _device_sms(dev))
+    if plan.body == "sm90":
+        out_v, out_i = _launch_sm90(_sm90_kernel(), queries, keys, n_valid, k,
+                                    precision, plan)
+        topk.sm90_launches += 1
+    else:
+        out_v, out_i = _launch_mma(queries, keys, n_valid, k, mode, plan)
+        topk.mma_launches += 1
     if mode:
         topk.default_launches += 1
     else:
@@ -279,8 +402,55 @@ def topk(queries, keys, n_valid: int, k: int, precision: str = "high"):
     return out_v, out_i
 
 
+def _outputs(bq, k, n_cand, dev):
+    return (torch.empty(n_cand, dtype=torch.float32, device=dev),
+            torch.empty(n_cand, dtype=torch.int32, device=dev),
+            torch.empty((bq, k), dtype=torch.float32, device=dev),
+            torch.empty((bq, k), dtype=torch.int32, device=dev))
+
+
+def _launch_mma(queries, keys, n_valid, k, mode, plan: F32Plan):
+    """K4's mma.sync body (csrc/topk.cu) under `plan`."""
+    (bq, d), n, dev = queries.shape, keys.shape[0], queries.device
+    kern = _kernel()
+    cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
+    with torch.cuda.device(dev):  # a launch goes to the current card
+        err = kern.topk(
+            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
+            plan.qb, plan.splits, plan.tiles_per_split, plan.n_cand,
+            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(kern.lib, err, "topk launch")
+    return out_v, out_i
+
+
+def _launch_sm90(kern, queries, keys, n_valid, k, precision, plan: F32Plan):
+    """K4's Hopper body under `plan`, through `kern` (`_sm90_kernel()`, or
+    a design variant's library with the same entry point): the query
+    pieces into a scratch tensor, pass 1, pass 2."""
+    (bq, d), n, dev = queries.shape, keys.shape[0], queries.device
+    mode = PRECISIONS[precision]
+    pieces = torch.empty((1 if mode else 3, bq, d), dtype=torch.bfloat16,
+                         device=dev)
+    cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
+    with torch.cuda.device(dev):
+        err = kern.topk(
+            queries.data_ptr(), keys.data_ptr(), pieces.data_ptr(), bq, n, d,
+            n_valid, k, mode, plan.qb, plan.splits, plan.tiles_per_split,
+            plan.stages, plan.smem, plan.n_cand, cand_v.data_ptr(),
+            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(kern.lib, err, "topk sm90 launch")
+    return out_v, out_i
+
+
 topk.launches = 0
 topk.default_launches = 0
+topk.sm90_launches = 0
+topk.mma_launches = 0
 
 
 def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
@@ -387,8 +557,11 @@ def mm_only(queries, keys, n_valid: int, int8: bool = False,
         raise ValueError(f"mm_only: widths {d} / {keys.shape[1]} must match "
                          f"and be a multiple of {step}")
     kern = _kernel()
-    qb, splits, per_split, _ = (plan_i8(bq, n, d, 1, dev) if int8
-                                else plan_f32(bq, n, 1, dev))
+    if int8:
+        qb, splits, per_split, _ = plan_i8(bq, n, d, 1, dev)
+    else:
+        p = plan_f32(bq, n, 1, precision, d, _device_sms(dev), body="mma")
+        qb, splits, per_split = p.qb, p.splits, p.tiles_per_split
     part = torch.empty(bq * splits, dtype=torch.float32, device=dev)
     out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -41,13 +41,14 @@ import torch
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
 TILING = ("pass 1: 16, 32 or 64 queries from Bq x 128 keys per tile "
-          "(bscan_topk_f32_plan, bscan_topk_i8_plan), key axis split over "
-          "~2 blocks per SM")
+          "(K6 on the mma.sync walks: ops.topk.plan_f32's mma plan, "
+          "bscan_topk_i8_plan), key axis split over ~2 blocks per SM")
 I8_MIN_K = 21  # max(4k, k + 16) at the engine's default k = 5
 
 
 def query_block(bq: int) -> int:
-    """The query block of K4's and K5's plans at width 768."""
+    """The query block of the mma.sync walks' plans (K6, K5) at width
+    768."""
     return 16 if bq <= 16 else (32 if bq <= 32 else 64)
 
 
@@ -130,8 +131,12 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
             calls.append((dict(variant="mm_only_f32", precision=prec),
                           lambda v, p=prec: topk_ops.mm_only(
                               v[0], keys, n_keys, precision=p)))
+        plan = topk_ops.plan_f32(bq, n_keys, k, "high", dim)
         calls += [
-            (dict(variant="topk_f32", k=k),
+            (dict(variant="topk_f32", k=k, tiling=(
+                f"K4's {plan.body} body: {plan.qb} queries x 128 keys per "
+                "tile (ops.topk.plan_f32)"),
+                tiles=-(-bq // plan.qb) * n_tiles),
              lambda v: topk_ops.topk(v[0], keys, n_keys, k)),
             (dict(variant="mm_only_i8"),
              lambda v: topk_ops.mm_only(v[1], k_i8, n_keys, int8=True)),
@@ -141,8 +146,8 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
         ]
         for extra, fn in calls:
             ms = time_per_call(fn, qs, device)
-            yield dict(row, **extra, ms=ms,
-                       us_per_tile=1e3 * ms / row["tiles"])
+            out = {**row, **extra}
+            yield dict(out, ms=ms, us_per_tile=1e3 * ms / out["tiles"])
 
 
 def main(argv=None, emit=print):

@@ -94,14 +94,23 @@ def build(out_dir, parents=()) -> dict[str, ctypes.CDLL]:
 
 class Launch:
     """One launch configuration of a library's K4 for (bq, n): its plan
-    and buffers, through this tree's entry points (the plan picks the query
-    block) or an older tree's (bscan_topk_plan, 64-query blocks)."""
+    and buffers, through this tree's entry point (`ops/topk.plan_f32`'s
+    mma.sync plan, the candidate count passed for the entry to check) or
+    an older tree's (its C plan `bscan_topk_f32_plan`, or `bscan_topk_plan`
+    and 64-query blocks)."""
 
     def __init__(self, lib, bq, n, dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
         ints = [ctypes.c_int() for _ in range(3)]
         n_cand = ctypes.c_longlong()
-        if hasattr(lib, "bscan_topk_f32_plan"):
+        if not (hasattr(lib, "bscan_topk_f32_plan")
+                or hasattr(lib, "bscan_topk_plan")):
+            plan = topk_ops.plan_f32(bq, n, K, "high", D, sms, body="mma")
+            n_cand.value = plan.n_cand
+            self.plan = [plan.qb, plan.splits, plan.tiles_per_split,
+                         plan.n_cand]
+            plan_types = [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        elif hasattr(lib, "bscan_topk_f32_plan"):
             lib.bscan_topk_f32_plan.argtypes = (
                 [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4)
             lib.bscan_topk_f32_plan.restype = None
@@ -109,6 +118,7 @@ class Launch:
                                     *[ctypes.byref(v) for v in ints],
                                     ctypes.byref(n_cand))
             self.plan = [v.value for v in ints]
+            plan_types = [ctypes.c_int] * 3
         else:
             lib.bscan_topk_plan.argtypes = (
                 [ctypes.c_int] * 4 + [ctypes.c_void_p] * 3)
@@ -117,10 +127,11 @@ class Launch:
                                 *[ctypes.byref(v) for v in ints[1:]],
                                 ctypes.byref(n_cand))
             self.plan = [v.value for v in ints[1:]]
+            plan_types = [ctypes.c_int] * 2
         lib.bscan_topk_f32.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * (6 + len(self.plan))
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + plan_types
             + [ctypes.c_void_p] * 5)
-        self.query_block = self.plan[0] if len(self.plan) == 3 else 64
+        self.query_block = self.plan[0] if len(self.plan) >= 3 else 64
         self.lib, self.bq, self.n = lib, bq, n
         self.cand_v = torch.zeros(n_cand.value, device=dev)
         self.cand_i = torch.zeros(n_cand.value, device=dev,

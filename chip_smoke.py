@@ -10,7 +10,10 @@ Phases, in order; any failure exits non-zero:
             cv2, matplotlib, sklearn and scipy import (a report)
   build     nvcc builds every kernel under bioscan_clip_tpu_torch/csrc and
             prints ptxas' registers, shared memory and spills per kernel
-            (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k, one
+            (one "K4 pass 1 MAXK= QB= TERMS=" line per fp32 top-k
+            instantiation of the mma.sync body, one "K4 sm90 MAXK= NQ=
+            TERMS=" line per instantiation of its Hopper body, with its
+            shared memory at 2 / 3 / 4 ring stages, one
             "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation, one
             "K1 sm90 key rows" line per instantiation of K1's Hopper
             body, with its shared memory and ptxas' advice, and one "K3
@@ -28,7 +31,11 @@ Phases, in order; any failure exits non-zero:
             BarcodeBERT B = 400 and ViT-L/14 B = 64 and 10, timed beside
             the mma.sync body of csrc/mha_bwd.cu and SDPA's backward; top-k
             in "high" and "default" precision at Bq 256, 64, 16, 1 and
-            keys whose scores rise with the index at Bq 256;
+            keys whose scores rise with the index at Bq 256, each on the
+            body its plan chooses and timed on both (the Hopper body of
+            csrc/topk_sm90.cu, the mma.sync body of csrc/topk.cu) beside
+            torch.topk ("default": the keys cast to bf16 before the timing
+            and inside it);
             int8 top-k bit for bit at 1,048,576 keys (Bq 256, 64, 16, 1,
             and keys whose scores rise with the index at Bq 256) and at
             5,000,000 keys (Bq 256, 1); the
@@ -40,7 +47,10 @@ Phases, in order; any failure exits non-zero:
             HTTP /search and /embed on localhost; then the same keys as
             int8 codes under each rescore mode; K1, K2, K4 and K5 must have
             launched, every K1 launch on the sm90 body
-            (`mha_packed.sm90_launches`, as in eval, training and graphs)
+            (`mha_packed.sm90_launches`, as in eval, training and graphs),
+            every K4 launch from topk.SM90_MIN_BQ queries up on its sm90
+            body (`topk.sm90_launches`, as in openclip, eval, train_cl,
+            insect, data_tools and streaming)
   eval      the evaluation job at full width: in-memory batches of 24 (all
             keys 1,920, seen 960, unseen 960 records) through
             train.loop.extract_features per batch and grouped, then the
@@ -359,6 +369,16 @@ def phase_build():
                     log(f"  K4 pass 1 MAXK={k4[1]} QB={k4[2]} "
                         f"TERMS={k4[3]}: {ln.split(':', 1)[-1].strip()}; "
                         f"{spills}; {smem} bytes of dynamic shared memory")
+                k4s = re.search(r"topk_f32_sm90ILi(\d+)ELi(\d+)ELi(\d+)E",
+                                fn)
+                if k4s:  # K4's Hopper body, by list size, N and products
+                    maxk, nq, terms = (int(x) for x in k4s.groups())
+                    smem = [topk_mod.sm90_smem(nq, maxk, terms, s)
+                            for s in (2, 3, 4)]
+                    log(f"  K4 sm90 MAXK={maxk} NQ={nq} TERMS={terms}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}; "
+                        f"{smem[0]} / {smem[1]} / {smem[2]} bytes of dynamic "
+                        "shared memory at 2 / 3 / 4 ring stages")
                 k5 = re.search(r"topk_i8_pass1ILi(\d+)ELi(\d+)E", fn)
                 if k5:  # K5's instantiations, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
@@ -519,11 +539,15 @@ def _topk_row(q, keys, k, precision, what):
     version's), index sets equal except for keys whose float64 scores over
     the operands as the precision sees them lie within 1e-5 of the k-th
     value (a near-tie that summation order may break either way), and a
-    second launch bit-equal to the first; timed beside the plain version,
-    torch.topk over the product of the operands as the precision sees them
-    (fp32, or bf16 cast before the timing) and the bound: the keys' bytes
-    against the products on the tensor cores (six for "high"), with FFMA's
-    time for "high" in the log line. Returns (row, kernel indices)."""
+    second launch bit-equal to the first, on the body the plan chooses;
+    then each body (the Hopper body of csrc/topk_sm90.cu and the mma.sync
+    body of csrc/topk.cu, each under its own plan) within 1e-5 of the plain
+    version, and timed beside the plain version, torch.topk over the
+    product of the operands as the precision sees them (fp32; in "default"
+    bf16, cast before the timing and, as `library_cast_ms`, inside it) and
+    the bound: the keys' bytes against the products on the tensor cores
+    (six for "high"), with FFMA's time for "high" in the log line. Returns
+    (row, kernel indices)."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
@@ -552,6 +576,25 @@ def _topk_row(q, keys, k, precision, what):
             if (sc - rv[r, -1].double()).abs().max().item() > 1e-5:
                 raise AssertionError(f"topk {precision} {what} row {r}: "
                                      f"{sorted(a)} vs {sorted(bset)}")
+    sms = topk_mod._device_sms(q.device)
+    plan = topk_mod.plan_f32(bq, n, k, precision, d, sms)
+    bodies = {}
+    for body in ("sm90", "mma"):
+        bp = topk_mod.plan_f32(bq, n, k, precision, d, sms, body=body)
+        if body == "sm90":
+            def run(bp=bp):
+                return topk_mod._launch_sm90(topk_mod._sm90_kernel(), q, keys,
+                                             n, k, precision, bp)
+        else:
+            def run(bp=bp):
+                return topk_mod._launch_mma(q, keys, n, k,
+                                            topk_mod.PRECISIONS[precision],
+                                            bp)
+        e = (run()[0] - rv).abs().max().item()
+        if not e <= 1e-5:
+            raise AssertionError(f"topk {precision} {what} on the {body} "
+                                 f"body: max |kernel - plain| {e} > 1e-5")
+        bodies[body] = (time_ms(run, reps=5, warmup=1), e, bp)
     n_bytes = n * d * 4 + bq * d * 4 + bq * k * 8
     products = 6 if precision == "high" else 1
     bms, by = bound_ms(n_bytes, 2 * products * bq * n * d, "bfloat16")
@@ -563,17 +606,27 @@ def _topk_row(q, keys, k, precision, what):
             q, keys, n, k, precision=precision), reps=2, warmup=1),
         "library_ms": time_ms(lambda: torch.topk(ql @ kl.T, k, dim=1),
                               reps=5, warmup=1),
+        "library_cast_ms": (time_ms(lambda: torch.topk(
+            q.to(torch.bfloat16) @ keys.to(torch.bfloat16).T, k, dim=1),
+            reps=5, warmup=1) if precision == "default" else None),
         "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+        "body": plan.body, "sm90_ms": bodies["sm90"][0],
+        "mma_ms": bodies["mma"][0],
     }
     del ql, kl
-    qb, splits, _, _ = topk_mod.plan_f32(bq, n, k, q.device)
     ffma = (f", FFMA {1e3 * 2 * bq * n * d / PEAK['float32']:.4f} ms"
             if precision == "high" else "")
-    log(f"  topk {precision} {what} N={n} D={d} k={k} (query block {qb}, "
-        f"{splits} key splits): err {err:.3g} (tol 1e-5), two launches "
-        f"bit-equal, kernel {row['ms']:.4f} ms, plain "
-        f"{row['plain_ms']:.4f} ms, torch.topk "
-        f"{row['library_ms']:.4f} ms, bound {bms:.4f} ms ({by}{ffma})")
+    cast = (f", {row['library_cast_ms']:.4f} ms with the keys' cast"
+            if precision == "default" else "")
+    s90, mma = bodies["sm90"], bodies["mma"]
+    log(f"  topk {precision} {what} N={n} D={d} k={k}: plan {plan.body} "
+        f"body: err {err:.3g} (tol 1e-5), two launches bit-equal, "
+        f"{row['ms']:.4f} ms; sm90 body {s90[0]:.4f} ms (N side "
+        f"{s90[2].qb}, {s90[2].splits} key splits, {s90[2].stages} stages, "
+        f"err {s90[1]:.3g}), mma.sync body {mma[0]:.4f} ms (query block "
+        f"{mma[2].qb}, {mma[2].splits} key splits, err {mma[1]:.3g}); plain "
+        f"{row['plain_ms']:.4f} ms, torch.topk {row['library_ms']:.4f} ms"
+        f"{cast}, bound {bms:.4f} ms ({by}{ffma})")
     return row, idx
 
 
@@ -1052,9 +1105,11 @@ KERNELS = {
     # shapes, the passes of csrc/mha_bwd.cu)
     "mha_bwd": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd_sm90.cu",
                 "bioscan_clip_tpu/ops/attention.py:321"),
-    "topk": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+    # K4 from topk.SM90_MIN_BQ[precision] queries up runs the sm90 body
+    # (fewer queries, the mma.sync body of csrc/topk.cu)
+    "topk": ("cuda", "bioscan_clip_tpu_torch/csrc/topk_sm90.cu",
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
-    "topk_default": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+    "topk_default": ("cuda", "bioscan_clip_tpu_torch/csrc/topk_sm90.cu",
                      "bioscan_clip_tpu/ops/topk_pallas.py:185"),
     "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
                 "bioscan_clip_tpu/ops/topk_pallas.py:253"),
@@ -1095,6 +1150,8 @@ def launch_counts():
             "mha_bwd_mask": attention.mha_bwd.mask_launches,
             "topk": topk.topk.launches,
             "topk_default": topk.topk.default_launches,
+            "topk_sm90": topk.topk.sm90_launches,
+            "topk_mma": topk.topk.mma_launches,
             "topk_i8": topk.topk_i8.launches,
             "mm_only": topk.mm_only.launches,
             "tiny": topk.tiny.launches}
@@ -1125,6 +1182,23 @@ def _k3_on_sm90(what, counts):
                              f"sm90 {sm90}")
 
 
+def _k4_on_sm90(what, counts):
+    """Every K4 launch of a path ran on a body of its plan: the Hopper body
+    from `topk.SM90_MIN_BQ[precision]` queries up (`topk.sm90_launches`),
+    the mma.sync body below (`topk.mma_launches`); the two add up to the
+    "high" and "default" launches, and the Hopper body ran."""
+    from bioscan_clip_tpu_torch.ops import topk
+
+    k4 = counts["topk"] + counts["topk_default"]
+    sm90, mma = counts["topk_sm90"], counts["topk_mma"]
+    log(f"  {what}: K4 launches {k4}, on the sm90 body "
+        f"(topk.sm90_launches) {sm90}, on the mma.sync body (Bq below "
+        f"{topk.SM90_MIN_BQ['high']} in \"high\") {mma}")
+    if sm90 <= 0 or sm90 + mma != k4:
+        raise AssertionError(f"{what}: K4 launches {k4}, sm90 {sm90}, "
+                             f"mma {mma}")
+
+
 def _plain_fns():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
@@ -1150,6 +1224,8 @@ def reset_counts():
     attention.mha_bwd.sm90_launches = 0
     attention.mha_bwd.bias_launches = 0
     topk.topk.default_launches = 0
+    topk.topk.sm90_launches = 0
+    topk.topk.mma_launches = 0
     for fn in _plain_fns():
         fn.calls = 0
 
@@ -1351,6 +1427,7 @@ def phase_serving():
         counts = launch_counts()
     log(f"  launches on the serving path: {counts}")
     _vit_on_sm90("serving", counts)
+    _k4_on_sm90("serving", counts)
     missing = [name for name in ("mha_packed", "mha", "topk", "topk_i8")
                if counts[name] <= 0]
     if missing:
@@ -1500,6 +1577,7 @@ def phase_openclip():
     want = ("mha_packed_mask", "mha_packed", "mha", "topk")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"openclip: launches {counts}, plain {plain}")
+    _k4_on_sm90("openclip", counts)
     del service
     torch.cuda.empty_cache()
     log("phase openclip ok")
@@ -1711,6 +1789,7 @@ def phase_eval():
     counts, plain = launch_counts(), plain_calls()
     log(f"  launches on the eval path: {counts}; plain calls {plain}")
     _vit_on_sm90("eval", counts)
+    _k4_on_sm90("eval", counts)
     want = ("mha_packed", "mha", "topk", "topk_default", "topk_i8")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"eval: launches {counts}, plain {plain}")
@@ -2448,6 +2527,7 @@ def phase_train_cl():
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"train_cl: launches {counts}, plain {plain}")
     _k3_on_sm90("train_cl", counts)
+    _k4_on_sm90("train_cl", counts)
 
     # ---- outside the CLI: remat, GradCache against the plain step
     from bioscan_clip_tpu_torch.train.loop import (
@@ -3016,6 +3096,7 @@ def phase_insect():
     if any(missing.values()) or any(plain.values()):
         raise AssertionError(f"insect: not launched {missing}, plain {plain}")
     _k3_on_sm90("insect", counts)
+    _k4_on_sm90("insect", counts)
     if not (math.isfinite(vit_loss) and math.isfinite(joint_loss)
             and all(math.isfinite(x) for x in cl_losses)):
         raise AssertionError(f"insect: losses {vit_loss}, {joint_loss}, "
@@ -3855,6 +3936,7 @@ def phase_streaming():
     if any(counts.get(k, 0) <= 0 for k in want) or any(plain_calls().values()):
         raise AssertionError(f"streaming: launches {counts}")
     log(f"  launches on the streamed and sharded searches: {counts}")
+    _k4_on_sm90("streaming", counts)
     log(f"phase streaming ok: {differ} fp32 rows differ from the resident "
         "search, each only by near-ties")
     return counts
@@ -4377,6 +4459,7 @@ def phase_data_tools():
     log(f"  launches on the data_tools path: {counts}; plain calls {plain}")
     if counts["mha_packed"] <= 0 or counts["mha"] <= 0 or any(plain.values()):
         raise AssertionError(f"data_tools: launches {counts}, plain {plain}")
+    _k4_on_sm90("data_tools", counts)
     del model
     torch.cuda.empty_cache()
     log("phase data_tools ok")
@@ -4456,6 +4539,11 @@ def main(argv=None) -> int:
         if name in ("mha_packed", "mha_bwd"):  # the launches on sm90 bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
+        if name in ("topk", "topk_default"):  # K4's two bodies
+            kernels[-1]["sm90_launches"] = path_counts.get(
+                KERNEL_PATH[name][0], {}).get("topk_sm90")
+            for key in ("body", "sm90_ms", "mma_ms", "library_cast_ms"):
+                kernels[-1][key] = r.get(key)
         if name == "mha_bwd":  # K3's other main-path shapes, its mma.sync body
             kernels[-1]["mma_ms"] = r.get("mma_ms")
             kernels[-1]["shapes"] = {

@@ -21,9 +21,13 @@ unit vectors, in "high" (six bf16 products of the operands' three-way
 split, fp32 sums, within fp32 rounding of the plain version's fp32) and
 "default" precision (bf16 operands: exact products, fp32 sums), index sets
 equal up to near-ties within 1e-5, two launches bit-equal, at every query
-block of its plan and its ragged edge, k = 1, 5, 20 and 32, fewer keys
+block of its plan and its ragged edge on both bodies (the mma.sync body
+below the plan's crossing, the Hopper body of csrc/topk_sm90.cu from it
+up, each launch counted on its body), k = 1, 5, 20 and 32, fewer keys
 than one tile, scores rising with the key index and duplicate keys tied at
-the k-th place; int8 top-k (K5)
+the k-th place, and on the Hopper body inputs whose answer is exact
+(one-hot and integer-valued rows: values and indices equal to the plain
+version's), and each body refusing a plan that is not its own; int8 top-k (K5)
 bit-equal to its plain version, values and indices (exact integer dots times
 two scales in the same order, the same tie rule), at every query block of
 its plan and its ragged edge, k = 1, 21 and 64, widths 64 and 768, fewer
@@ -32,6 +36,8 @@ tied at the k-th place; the matmul-only control
 (K6) int8 bit-equal, fp32 atol 1e-5 on unit vectors in both precisions (fp32
 sums of 768 products in another order); K7 exact.
 """
+
+import dataclasses
 
 import pytest
 import torch
@@ -430,10 +436,14 @@ def _same_f32(q, keys, n_valid, k, precision):
     sees them) lies within 1e-5 of the k-th value, and a second launch bit-
     equal to the first. Returns the kernel's (values, indices)."""
     counter = "launches" if precision == "high" else "default_launches"
-    before = getattr(topk.topk, counter)
+    body = topk.plan_f32(q.shape[0], keys.shape[0], k, precision,
+                         q.shape[1]).body
+    on_body = "sm90_launches" if body == "sm90" else "mma_launches"
+    before = getattr(topk.topk, counter), getattr(topk.topk, on_body)
     v, i = topk.topk(q, keys, n_valid, k, precision=precision)
     v2, i2 = topk.topk(q, keys, n_valid, k, precision=precision)
-    assert getattr(topk.topk, counter) == before + 2
+    assert (getattr(topk.topk, counter),
+            getattr(topk.topk, on_body)) == (before[0] + 2, before[1] + 2)
     assert torch.equal(v, v2) and torch.equal(i, i2)
     rv, ri = topk.topk_reference(q, keys, n_valid, k, precision=precision)
     assert (v - rv).abs().max().item() <= 1e-5
@@ -454,16 +464,110 @@ def keys_f32(gen):
     return _unit(torch.randn(20_000, 768, device="cuda", generator=gen))
 
 
-# every query block of K4's plan (16, 32, 64 rows) and its ragged edge, at
-# k = 1, 5, 20 and 32 (lists of 8, 16 and 32 entries), in both precisions
+# every query block of K4's plan and its ragged edge, at k = 1, 5, 20 and
+# 32 (lists of 8, 16 and 32 entries), in both precisions: the mma.sync body
+# (16 rows) below the crossing, the Hopper body's 64, 128 and 256 above
 @pytest.mark.parametrize("precision", ["high", "default"])
 @pytest.mark.parametrize("k", [1, 5, 20, 32])
-@pytest.mark.parametrize("bq", [1, 16, 17, 33, 64, 65, 256])
+@pytest.mark.parametrize("bq", [1, 16, 17, 33, 64, 65, 128, 129, 256, 257])
 def test_topk_every_query_block(gen, keys_f32, bq, k, precision):
     q = _unit(torch.randn(bq, 768, device="cuda", generator=gen))
     _same_f32(q, keys_f32, 19_937, k, precision)  # 19,937 % 128 = 97
-    qb = topk.plan_f32(bq, keys_f32.shape[0], k, keys_f32.device)[0]
-    assert qb == (16 if bq <= 16 else 32 if bq <= 32 else 64)
+    plan = topk.plan_f32(bq, keys_f32.shape[0], k, precision)
+    if bq < topk.SM90_MIN_BQ[precision]:
+        assert (plan.body, plan.qb) == ("mma", 16)
+        return
+    big = 256 if precision == "default" and k <= 8 else 128
+    assert plan.body == "sm90"
+    assert plan.qb == (64 if bq <= 64 else 128 if bq <= 128 else big)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("bq", [17, 130, 256])
+def test_topk_sm90_exact_answers(gen, bq, precision):
+    """Inputs whose scores are exact in either precision, so the Hopper
+    body's values and indices must equal the plain version's: one-hot keys
+    (key j: (j // 768 + 1) at depth j % 768) against one-hot queries, which
+    holds each query depth against the same key depth through the k-slot
+    order; then integer-valued rows in -4 .. 4 (bf16 holds them, their dots
+    are exact in fp32 in any order), whose many equal scores test the tie
+    rule."""
+    d, n = 768, 6_000
+    j = torch.arange(n, device="cuda")
+    keys = torch.zeros(n, d, device="cuda")
+    keys[j, j % d] = (j // d + 1).float()
+    q = torch.zeros(bq, d, device="cuda")
+    q[torch.arange(bq, device="cuda"), (7 * torch.arange(bq, device="cuda")
+                                        + 3) % d] = 1.0
+    ints = torch.randint(-4, 5, (n + bq, d), device="cuda", generator=gen)
+    for kk, qq in ((keys, q), (ints[:n].float(), ints[n:].float())):
+        for k in (1, 5, 32):
+            before = topk.topk.sm90_launches
+            v, i = topk.topk(qq, kk, n - 5, k, precision=precision)
+            assert topk.topk.sm90_launches == before + 1
+            rv, ri = topk.topk_reference(qq, kk, n - 5, k,
+                                         precision=precision)
+            assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+def test_topk_plans_agree_with_the_libraries(gen):
+    """The Python plan's shared memory of the mma.sync body is
+    csrc/topk.cu's; the sm90 body's shared memory is csrc/topk_sm90.cu's,
+    and its k-slot order a permutation of each 64-deep chunk that keeps
+    each 32-deep half (one TMA box of keys) whole."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    kern = topk._kernel()
+    for bq in (1, 16, 17, 64, 300):
+        for n in (97, 19_937, 1 << 20):
+            for k in (1, 20):
+                for precision, terms in (("high", 3), ("default", 1)):
+                    plan = topk.plan_f32(bq, n, k, precision, sms=sms,
+                                         body="mma")
+                    maxk = 8 if k <= 8 else 16 if k <= 16 else 32
+                    assert plan.smem == kern.smem_f32(plan.qb, maxk, terms)
+    sm90 = topk._sm90_kernel()
+    for qb in (64, 128, 256):
+        for maxk in (8, 16, 32):
+            for terms in (1, 3):
+                for stages in (2, 3, 4):
+                    assert sm90.smem(qb, maxk, terms, stages) == (
+                        topk.sm90_smem(qb, maxk, terms, stages))
+    depth = [sm90.slot_depth(j) for j in range(64)]
+    assert sorted(depth) == list(range(64))
+    assert all(depth[j] // 32 == j // 32 for j in range(64))
+
+
+def test_topk_sm90_refuses_a_plan_that_is_not_its_own(gen, keys_f32):
+    q = _unit(torch.randn(40, 768, device="cuda", generator=gen))
+    plan = topk.plan_f32(40, keys_f32.shape[0], 5, "high")
+    kern = topk._sm90_kernel()
+    for bad in (dataclasses.replace(plan, smem=plan.smem + 1024),
+                dataclasses.replace(plan, qb=256),
+                dataclasses.replace(plan, splits=plan.splits + 1),
+                dataclasses.replace(plan, n_cand=plan.n_cand - 1),
+                dataclasses.replace(plan, stages=5)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            topk._launch_sm90(kern, q, keys_f32, 19_937, 5, "high", bad)
+    v, _ = topk._launch_sm90(kern, q, keys_f32, 19_937, 5, "high", plan)
+    rv, _ = topk.topk_reference(q, keys_f32, 19_937, 5)
+    assert (v - rv).abs().max().item() <= 1e-5
+
+
+def test_topk_mma_refuses_a_plan_that_is_not_its_own(gen, keys_f32):
+    q = _unit(torch.randn(40, 768, device="cuda", generator=gen))
+    plan = topk.plan_f32(40, keys_f32.shape[0], 5, "high", body="mma")
+    for bad in (dataclasses.replace(plan, qb=128),
+                dataclasses.replace(plan, splits=plan.splits + 1),
+                dataclasses.replace(plan, splits=plan.splits + 2),
+                dataclasses.replace(plan, tiles_per_split=0),
+                # n_cand as the splits need, but the splits miss keys
+                dataclasses.replace(plan, splits=2, n_cand=40 * 5),
+                dataclasses.replace(plan, n_cand=plan.n_cand - 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            topk._launch_mma(q, keys_f32, 19_937, 5, 0, bad)
+    v, _ = topk._launch_mma(q, keys_f32, 19_937, 5, 0, plan)
+    rv, _ = topk.topk_reference(q, keys_f32, 19_937, 5)
+    assert (v - rv).abs().max().item() <= 1e-5
 
 
 @pytest.mark.parametrize("precision", ["high", "default"])
@@ -494,14 +598,14 @@ def test_topk_scores_rising_with_the_key_index(gen, precision):
     u = _unit(torch.randn(1, 768, device="cuda", generator=gen))
     keys = u * (1 + torch.arange(n, device="cuda",
                                  dtype=torch.float32)[:, None] / n)
-    noise = 0.1 * torch.randn(40, 768, device="cuda", generator=gen)
-    q = _unit(torch.cat([u + noise[:20], -u + noise[20:]]))
+    noise = 0.1 * torch.randn(130, 768, device="cuda", generator=gen)
+    q = _unit(torch.cat([u + noise[:20], -u + noise[20:40], u + noise[40:]]))
     for k in (1, 5, 20, 32):
-        for bq in (1, 16, 40):
+        for bq in (1, 16, 40, 130):
             _, i = _same_f32(q[:bq].contiguous(), keys, n - 3, k, precision)
             if precision == "high":  # bf16 keys tie in runs of equal values
                 assert i[0].tolist() == list(range(n - 4, n - 4 - k, -1))
-                if bq == 40:
+                if bq >= 40:
                     assert i[39].tolist() == list(range(k))
 
 
