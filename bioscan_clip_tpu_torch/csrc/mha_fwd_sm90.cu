@@ -1,34 +1,48 @@
-// K1, ViT's packed attention forward, for Hopper: TMA loads behind
-// mbarriers, wgmma products, the exact softmax held in registers.
+// The attention forward for Hopper: TMA loads behind mbarriers, wgmma
+// products, the exact softmax held in registers. One body serves K1 (ViT's
+// packed qkv), K2 and K2d (the BERT towers' split q, k, v, with a key bias
+// and in-kernel dropout).
 //
-// Replaces (TPU Pallas kernel in bioscan_clip_tpu/ops/attention.py):
-//   K1 `_pallas_mha_packed` without a mask (:425; `_packed_kernel` :153,
-//   body `_attend_one_row` :116-150), on bf16 input at head dim 64 and
-//   33 <= N <= 272: ViT-B/16's N = 197 and ViT-L/14's N = 257. Every other
-//   case of `mha_packed` (another head dim, N <= 32 or N > 272, fp32, the
-//   (N, N) mask of K1m) stays on the bodies of mha_fwd.cu.
+// Replaces (TPU Pallas kernels in bioscan_clip_tpu/ops/attention.py), on
+// bf16 input at head dim 64 and 33 <= N <= 272:
+//   K1  `_pallas_mha_packed` without a mask (:425; `_packed_kernel` :153):
+//       ViT-B/16's N = 197 and ViT-L/14's N = 257;
+//   K2  `_pallas_mha_split` (:449; `_split_kernel`, `_split_bias_kernel`):
+//       BarcodeBERT's N = 133;
+//   K2d the same with counter-hash dropout (`_split_drop_kernel` :195,
+//       `_split_bias_drop_kernel` :203, `_row_drop` :184).
+// All share the body `_attend_one_row` (:116-150). Every other case (another
+// head dim, N outside the plan's range, fp32, K1m's (N, N) mask) stays on
+// the bodies of mha_fwd.cu. The body takes base pointers and a row stride:
+// packed is (p, p + D, p + 2 D; stride 3 D), split (q, k, v; stride D).
 //
-// Contract (`_attend_one_row`): per head, s = (q . k) * scale in fp32,
-// p = exp(s - max) / sum in fp32 (the SFU's exp times 1 / l, as
-// `bscan::prob`), p rounded to bf16, o = p . v summed in fp32 and written
-// in bf16.
+// Contract (`_attend_one_row` with `bias_row` and `drop`): per head, s =
+// (q . k) * scale in fp32, then + bias[b, j] in fp32 (the (B, N) key bias:
+// 0 / -1e9 padding); keys past N score -inf; p = exp(s - max) / sum in fp32
+// (the SFU's exp times 1 / l, as `bscan::prob`); with dropout p times
+// keep_scale or 0 in fp32 (`bscan::Dropout::factor`: the counter over the
+// real N, row-keyed seeds with b = 0 or one scalar seed with the batch
+// index); p rounded to bf16; o = p . v summed in fp32 and written in bf16.
 //
 // What bounds it on an H100: at ViT-B B=256 N=197 D=768 h=12 the bytes are
 // q, k, v read once and o written once, 4 * 256 * 197 * 768 * 2 = 310 MB:
 // 0.0925 ms at 3.35 TB/s; the products, 4 * B * h * N^2 * 64 = 30.5 GFLOP,
-// take 0.031 ms at 989 TFLOP/s. So the bound is bytes, and the kernel's job
-// is to keep the loads streaming while the products and the softmax run.
+// take 0.031 ms at 989 TFLOP/s. BarcodeBERT at B=400 N=133 moves 327 MB
+// (0.0976 ms) for 21.7 GFLOP. So the bound is bytes, and the kernel's job
+// is to keep the loads streaming while the products, the softmax and the
+// dropout hash run.
 //
-// Why the scores stay in registers. JAX rounds the normalised fp32 p to
-// bf16 before P . V. An online softmax rescales unnormalised exp(s), so it
-// rounds other values; the `mma.sync` body of mha_fwd.cu keeps JAX's
-// rounding by forming every score twice (one sweep for max and sum, one
-// for p). Here one consumer warpgroup owns 64 query rows and holds their
-// whole score rows in its accumulators (pad16(N) / 2 fp32 a thread: 104 at
-// N = 197, 136 at N = 257), so each score is one product: max and sum over
-// the quad, p = e * (1 / l) rounded to bf16 and packed straight into the
-// register A fragments of O += P . V (wgmma m64n64k16, A from registers,
-// B = V_h transposed from shared memory).
+// Why the scores stay in registers. JAX rounds the normalised fp32 p (times
+// the keep factor) to bf16 before P . V. An online softmax rescales
+// unnormalised exp(s), so it rounds other values; the `mma.sync` body of
+// mha_fwd.cu keeps JAX's rounding by forming every score twice (one sweep
+// for max and sum, one for p). Here one consumer warpgroup owns 64 query
+// rows and holds their whole score rows in its accumulators (pad16(N) / 2
+// fp32 a thread: 72 at N = 133, 104 at N = 197, 136 at N = 257), so each
+// score is one product: max and sum over the quad, p = e * (1 / l) (times
+// the keep factor, hashed there) rounded to bf16 and packed straight into
+// the register A fragments of O += P . V (wgmma m64n64k16, A from
+// registers, B = V_h transposed from shared memory).
 //
 // Design. A persistent grid (one CTA per SM, the plan's grid) walks work
 // items (batch row, head, pair of 64-row query tiles), pair fastest, so the
@@ -48,10 +62,31 @@
 //   shared memory with one TMA store (rows past N are not written). The
 //   two consumers take turns to issue their products (named barriers 3
 //   and 4: S of 0, S of 1, P . V of 0, P . V of 1, ...), so one's softmax
-//   runs on the ALUs and SFUs while the other's products run on the
+//   and hash run on the ALUs and SFUs while the other's products run on the
 //   tensor cores; issued together, both would wait on the tensor cores,
 //   then both on the SFUs (0.168 ms against 0.150 at ViT-B B=256 on an
 //   H100 at 700 W, tools/sweep_k1_sm90.py).
+// - The key bias (K2, K2d): the bias row's N fp32 are not 16-byte aligned
+//   rows (N = 133), so no TMA map takes them. Each consumer thread reads
+//   its few columns of the row with `__ldg` (from L2: the (B, N) bias is
+//   213 KB at B=400) before it waits for the stage, writes them to the
+//   warpgroup's own pad16(N) floats of shared memory while its S product
+//   runs, and the softmax adds them from there, two columns a load.
+// - The dropout hash (K2d): the keep bits hang on the indices alone, so
+//   each thread hashes its scores' bits (two `mix32` a score, into 32-bit
+//   words) while its S product runs, skipping a warp's 16 rows that all
+//   lie past N; the softmax then takes p * keep_scale or 0 by the bit. The
+//   hash is integer work, ~99.5 M hashes at BarcodeBERT B=400 (two full
+//   query tiles and a warp of the third a head), and it bounds K2d there:
+//   0.41 ms against 0.18 with every bit set, on an H100 at 700 W
+//   (tools/sweep_k2_sm90.py, variant no_hash). Hashing after the softmax,
+//   on one consumer while the other does its softmax, in the producer
+//   warpgroup, with right shifts as `__umulhi`, or skipping 8-row and
+//   8-key halves past N all ran slower.
+// `BIAS` and `DROP` are template flags: as uniform runtime branches, one
+// for each score, they cut the straight-line code into a block per score
+// (K2d at BarcodeBERT B=400 0.51 ms, against 0.41 as flags), and K1's
+// instantiations compile without either.
 // Why persistent and not several co-resident CTAs: a consumer needs up to
 // ~170 registers for its scores and O, so an SM holds two consumer
 // warpgroups; two CTAs of one consumer each would load K_h and V_h for
@@ -72,8 +107,9 @@
 // Shared memory: two stages of (2 Q tiles + K_h + V_h) = 2 * (16 KB + 2 *
 // pad16(N) * 128 B), two 8 KB O tiles and the barriers, with 1 KB of slack
 // for the 1024-byte alignment of the swizzled tiles: 156,736 B at N = 197,
-// 189,504 B at N = 272 (`plan_packed_fwd` in ops/attention.py gives the
-// same number; the launch checks it).
+// 189,504 B at N = 272; with a key bias 2 * pad16(N) * 4 B more:
+// 125,120 B at N = 133, 191,680 B at N = 272 (`sm90_fwd_plan` in
+// ops/attention.py gives the same numbers; the launch checks them).
 
 #include <cuda.h>
 #include <stdint.h>
@@ -92,13 +128,13 @@ constexpr int kTileBytes = kTileRows * kRowBytes;  // 8 KB
 constexpr int kConsumers = 2;                     // consumer warpgroups
 constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kStages = 2;
-constexpr int kMinN = 33;
+constexpr int kMinN = 1;  // the least instantiation: 16 key rows
 constexpr int kMaxN = 272;
 constexpr int kMaxBox = 256;  // TMA's largest box dimension
 constexpr int kAlign = 1024;  // the 128-byte swizzle's atom: 8 rows
 constexpr int kBarrierBytes = 64;
 
-// ---- the plan (`plan_packed_fwd` in ops/attention.py is its twin) ------
+// ---- the plan (`sm90_fwd_plan` in ops/attention.py is its twin) -------
 
 struct Plan {
   int key_rows;   // keys padded to 16
@@ -113,24 +149,31 @@ __host__ __device__ constexpr int stage_bytes(int key_rows) {
   return kConsumers * kTileBytes + 2 * key_rows * kRowBytes;
 }
 
-constexpr long long smem_bytes(int key_rows) {
-  return kAlign + (long long)kStages * stage_bytes(key_rows) +
-         kConsumers * kTileBytes + kBarrierBytes;
+// a consumer's staged bias row: pad16(N) fp32
+__host__ __device__ constexpr int bias_bytes(int key_rows) {
+  return key_rows * 4;
 }
 
-Plan make_plan(int b, int n, int heads) {
+constexpr long long smem_bytes(int key_rows, bool biased) {
+  return kAlign + (long long)kStages * stage_bytes(key_rows) +
+         kConsumers * kTileBytes + kBarrierBytes +
+         (biased ? kConsumers * bias_bytes(key_rows) : 0);
+}
+
+Plan make_plan(int b, int n, int heads, bool biased) {
   Plan p;
   p.key_rows = bscan::pad16(n);
   p.kv_loads = p.key_rows > kMaxBox ? 2 : 1;
   p.kv_box = p.key_rows / p.kv_loads;
   p.q_tiles = (n + kTileRows - 1) / kTileRows;
   p.items = b * heads * ((p.q_tiles + kConsumers - 1) / kConsumers);
-  p.smem = smem_bytes(p.key_rows);
+  p.smem = smem_bytes(p.key_rows, biased);
   return p;
 }
 
 // ---- turns and pieces (the PTX wrappers are sm90_common.cuh's) --------
 
+using bscan::Dropout;
 using bscan::smem_addr;
 using namespace bscan::sm90;
 
@@ -161,16 +204,41 @@ __device__ __forceinline__ void for_pieces(F&& f) {
   }
 }
 
+// The keep bits of a consumer thread's 8 * KT scores (query rows `row` and
+// row + 8 of the tile, keys of its quad column t): score x of chunk j (key
+// 16 j + 8 (x / 4) + 2 t + x % 2, row + 8 when x / 2 is odd) is bit
+// (8 j + x) % 32 of word (8 j + x) / 32, set (in `keep`, zero on entry)
+// when mix32(seed ^ mix32((base + i) * n + k)) >= threshold
+// (`Dropout::factor`).
+template <int KT>
+__device__ __forceinline__ void keep_bits(uint32_t (&keep)[(KT + 3) / 4],
+                                          int row, int t, int n,
+                                          unsigned base, unsigned seed,
+                                          unsigned threshold) {
+  const unsigned ctr0 = (base + (unsigned)row) * (unsigned)n + 2u * t;
+  const unsigned ctr1 = ctr0 + 8u * (unsigned)n;
+#pragma unroll
+  for (int e = 0; e < 8 * KT; ++e) {
+    const int x = e & 7;
+    const unsigned ctr = ((x & 2) ? ctr1 : ctr0) +
+                         (unsigned)(16 * (e >> 3) + 8 * (x >> 2) + (x & 1));
+    if (bscan::mix32(seed ^ bscan::mix32(ctr)) >= threshold)
+      keep[e >> 5] |= 1u << (e & 31);
+  }
+}
+
 // Shared memory, from the 1024-aligned base: stage s at s * stage_bytes
 // (Q tile 0, Q tile 1, K_h, V_h), then the consumers' O tiles, then the
-// barriers full[2] and empty[2].
-template <int KT>
+// barriers full[2] and empty[2], then (with a bias) the consumers' bias
+// rows.
+template <int KT, bool BIAS, bool DROP>
 __global__ void __launch_bounds__(kThreads, 1)
     mha_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
-                 const __grid_constant__ CUtensorMap tm_kv,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o, int n, int heads,
                  int q_tiles, int items, int kv_box, int kv_loads,
-                 float scale) {
+                 float scale, const float* __restrict__ bias, Dropout drop) {
   constexpr int kKeyRows = 16 * KT;
   constexpr int kStage = stage_bytes(kKeyRows);
   extern __shared__ unsigned char smem_raw[];
@@ -180,7 +248,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t bars = o_tiles + kConsumers * kTileBytes;
   // full[s] at bars + 8 s, empty[s] at bars + 16 + 8 s
   const int pairs = (q_tiles + kConsumers - 1) / kConsumers;
-  const int d_model = heads * kHeadDim;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -213,10 +280,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         const uint32_t ks = st + kConsumers * kTileBytes;
         const uint32_t vs = ks + kKeyRows * kRowBytes;
         for (int l = 0; l < kv_loads; ++l) {
-          tma_load(ks + l * kv_box * kRowBytes, &tm_kv, full,
-                   d_model + w.h * kHeadDim, l * kv_box, w.b);
-          tma_load(vs + l * kv_box * kRowBytes, &tm_kv, full,
-                   2 * d_model + w.h * kHeadDim, l * kv_box, w.b);
+          tma_load(ks + l * kv_box * kRowBytes, &tm_k, full, w.h * kHeadDim,
+                   l * kv_box, w.b);
+          tma_load(vs + l * kv_box * kRowBytes, &tm_v, full, w.h * kHeadDim,
+                   l * kv_box, w.b);
         }
       }
     }
@@ -228,6 +295,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const uint32_t o_tile = o_tiles + c * kTileBytes;
+    // this warpgroup's bias row (pad16(N) fp32), when there is a bias
+    float* const bias_s = reinterpret_cast<float*>(
+        smem_raw + (bars + kBarrierBytes - raw) + c * bias_bytes(kKeyRows));
+    constexpr int kBiasCols = (kKeyRows + 127) / 128;  // staged a thread
     bool stored = false;  // this warpgroup has a TMA store in flight
     // Turns, in order: S of consumer 0, S of 1, P . V of 0, P . V of 1, the
     // next item's S of 0, ...: while one consumer's products run, the other
@@ -244,6 +315,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t qs = st + c * kTileBytes;
       const uint32_t ks = st + kConsumers * kTileBytes;
       const uint32_t vs = ks + kKeyRows * kRowBytes;
+      // the bias columns and the dropout seed, read before the wait
+      float bv[kBiasCols];
+      unsigned dbase = 0, dseed = 0;
+      if constexpr (DROP) drop.row(w.b, w.h, heads, n, &dbase, &dseed);
+      if constexpr (BIAS) {
+        if (tile < q_tiles) {
+          const float* row = bias + (long long)w.b * n;
+#pragma unroll
+          for (int r = 0; r < kBiasCols; ++r) {
+            const int col = tid + 128 * r;
+            bv[r] = col < n ? __ldg(row + col) : 0.f;
+          }
+        }
+      }
       mbar_wait(bars + 8 * s, (it >> 1) & 1);
       if (tile >= q_tiles) {  // an odd tile count: nothing for this one
         turn_wait(c);
@@ -270,6 +355,25 @@ __global__ void __launch_bounds__(kThreads, 1)
         });
       wgmma_commit();
       turn_pass(c);
+      if constexpr (BIAS) {
+        // the bias row into shared memory while S runs (the last item's
+        // reads ended at its O store's warpgroup barriers)
+#pragma unroll
+        for (int r = 0; r < kBiasCols; ++r) {
+          const int col = tid + 128 * r;
+          if (col < kKeyRows) bias_s[col] = bv[r];
+        }
+        warpgroup_sync(1 + c);
+      }
+      // The keep bits hang on the indices alone: hashed while S runs. A
+      // warp whose 16 rows all lie past N hashes nothing (its rows are not
+      // stored).
+      uint32_t keep[(KT + 3) / 4] = {};
+      const int row0 = tile * kTileRows + 16 * warp;
+      if constexpr (DROP) {
+        if (row0 < n)
+          keep_bits<KT>(keep, row0 + g, t, n, dbase, dseed, drop.threshold);
+      }
       wgmma_wait();
       fence_regs(sc);
 
@@ -281,6 +385,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
         for (int x = 0; x < 8; ++x) {
           float v = __fmul_rn(sc[8 * j + x], scale);
+          if constexpr (BIAS) {
+            const float2 bb = *reinterpret_cast<const float2*>(
+                bias_s + 16 * j + 8 * (x >> 2) + 2 * t);
+            v = __fadd_rn(v, (x & 1) ? bb.y : bb.x);
+          }
           if (j == KT - 1 && 16 * j + 8 * (x >> 2) + 2 * t + (x & 1) >= n)
             v = -INFINITY;
           sc[8 * j + x] = v;
@@ -305,16 +414,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       const float inv0 = 1.f / bscan::quad_sum(l0);
       const float inv1 = 1.f / bscan::quad_sum(l1);
+      // p = e * (1 / l), with dropout times keep_scale or 0 (its keep bit)
+      auto prob = [&](int j, int x) {
+        const float p = sc[8 * j + x] * ((x & 2) ? inv1 : inv0);
+        if constexpr (DROP) {
+          const int e = 8 * j + x;
+          return (keep[e >> 5] >> (e & 31)) & 1u ? p * drop.keep_scale : 0.f;
+        }
+        return p;
+      };
       // p rounded to bf16, packed as the A fragments of P . V, all of them
       // before the products (the scores' registers are free by then)
       uint32_t pa[KT][4];
 #pragma unroll
       for (int j = 0; j < KT; ++j) {
-        const float* e = sc + 8 * j;
-        pa[j][0] = bscan::pack_bf16(e[0] * inv0, e[1] * inv0);
-        pa[j][1] = bscan::pack_bf16(e[2] * inv1, e[3] * inv1);
-        pa[j][2] = bscan::pack_bf16(e[4] * inv0, e[5] * inv0);
-        pa[j][3] = bscan::pack_bf16(e[6] * inv1, e[7] * inv1);
+        pa[j][0] = bscan::pack_bf16(prob(j, 0), prob(j, 1));
+        pa[j][1] = bscan::pack_bf16(prob(j, 2), prob(j, 3));
+        pa[j][2] = bscan::pack_bf16(prob(j, 4), prob(j, 5));
+        pa[j][3] = bscan::pack_bf16(prob(j, 6), prob(j, 7));
       }
       fence_regs(pa);
 
@@ -352,11 +469,14 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host: tensor maps and the launch ----------------------------------
 
+struct Maps {
+  CUtensorMap q, k, v, o;
+};
 
-template <int KT>
-cudaError_t launch(const CUtensorMap& q, const CUtensorMap& kv,
-                   const CUtensorMap& o, const Plan& p, int n, int heads,
-                   int grid, float scale, cudaStream_t stream) {
+template <int KT, bool BIAS, bool DROP>
+cudaError_t launch(const Maps& m, const Plan& p, int n, int heads, int grid,
+                   float scale, const float* bias, const Dropout& drop,
+                   cudaStream_t stream) {
   // the shared-memory attribute is set once per card for each instantiation
   constexpr int kMaxDevices = 64;
   static bool ready[kMaxDevices] = {};
@@ -365,56 +485,91 @@ cudaError_t launch(const CUtensorMap& q, const CUtensorMap& kv,
   if (err != cudaSuccess) return err;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!ready[dev]) {
-    err = cudaFuncSetAttribute(mha_fwd_sm90<KT>,
+    err = cudaFuncSetAttribute(mha_fwd_sm90<KT, BIAS, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(16 * KT));
+                               (int)smem_bytes(16 * KT, BIAS));
     if (err != cudaSuccess) return err;
     ready[dev] = true;
   }
-  mha_fwd_sm90<KT><<<grid, kThreads, p.smem, stream>>>(
-      q, kv, o, n, heads, p.q_tiles, p.items, p.kv_box, p.kv_loads, scale);
+  mha_fwd_sm90<KT, BIAS, DROP><<<grid, kThreads, p.smem, stream>>>(
+      m.q, m.k, m.v, m.o, n, heads, p.q_tiles, p.items, p.kv_box,
+      p.kv_loads, scale, bias, drop);
   return cudaGetLastError();
+}
+
+template <bool BIAS, bool DROP>
+cudaError_t dispatch(const Maps& m, const Plan& p, int n, int heads,
+                     int grid, float scale, const float* bias,
+                     const Dropout& drop, cudaStream_t s) {
+  switch (p.key_rows / 16) {
+#define BSCAN_KT(KT)                                                      \
+  case KT:                                                                \
+    return launch<KT, BIAS, DROP>(m, p, n, heads, grid, scale, bias, drop, \
+                                  s);
+    BSCAN_KT(1) BSCAN_KT(2) BSCAN_KT(3) BSCAN_KT(4) BSCAN_KT(5) BSCAN_KT(6)
+    BSCAN_KT(7) BSCAN_KT(8) BSCAN_KT(9) BSCAN_KT(10) BSCAN_KT(11)
+    BSCAN_KT(12) BSCAN_KT(13) BSCAN_KT(14) BSCAN_KT(15) BSCAN_KT(16)
+    BSCAN_KT(17)
+#undef BSCAN_KT
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1 on the Hopper body: qkv (B, N, 3 * heads * 64) bf16, 16-byte aligned,
-// -> out (B, N, heads * 64) bf16. The plan's fields (`plan_packed_fwd`)
-// must equal what this library computes for (b, n, heads), and grid lie in
-// [1, items]; otherwise, and outside head dim 64 and 33 <= N <= 272, it
-// returns cudaErrorInvalidValue and launches nothing. Returns the
-// cudaError_t of the launch (0 on success).
-int bscan_mha_fwd_sm90(const void* qkv, void* out, int b, int n, int heads,
-                       int head_dim, float scale, int key_rows, int kv_box,
-                       int kv_loads, int q_tiles, int items, int grid,
-                       long long smem, void* stream) {
-  if (head_dim != kHeadDim || n < kMinN || n > kMaxN || b < 1 || heads < 1)
+// The attention forward on the Hopper body: q, k, v bf16 (B, N, heads * 64)
+// views with row stride `row_stride` elements (3 D for a packed qkv: k = q
+// + D, v = q + 2 D; D for split tensors), each 16-byte aligned -> out (B,
+// N, heads * 64) bf16. bias: nullptr or (B, N) fp32. Dropout (drop != 0):
+// row_seeds (B,) uint32 on the card or nullptr for the scalar `seed`,
+// keep when the hash >= threshold, kept p times keep_scale. The plan's
+// fields (`sm90_fwd_plan`) must equal what this library computes for (b,
+// n, heads, a bias or not), and grid lie in [1, items]; otherwise, and
+// outside head dim 64 and 1 <= N <= 272, it returns cudaErrorInvalidValue
+// and launches nothing. Returns the cudaError_t of the launch (0 on
+// success).
+int bscan_mha_fwd_sm90(const void* q, const void* k, const void* v,
+                       void* out, long long row_stride, const void* bias,
+                       const void* row_seeds, unsigned seed,
+                       unsigned threshold, float keep_scale, int drop, int b,
+                       int n, int heads, int head_dim, float scale,
+                       int key_rows, int kv_box, int kv_loads, int q_tiles,
+                       int items, int grid, long long smem, void* stream) {
+  if (head_dim != kHeadDim || n < kMinN || n > kMaxN ||
+      b < 1 || heads < 1 || row_stride < (long long)heads * kHeadDim ||
+      row_stride > (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(b, n, heads);
+  const Plan p = make_plan(b, n, heads, bias != nullptr);
   if (key_rows != p.key_rows || kv_box != p.kv_box ||
       kv_loads != p.kv_loads || q_tiles != p.q_tiles || items != p.items ||
       smem != p.smem || grid < 1 || grid > p.items)
     return (int)cudaErrorInvalidValue;
   const int d = heads * kHeadDim;
-  CUtensorMap tq, tkv, to;
-  if (!encode(&tq, qkv, b, n, 3 * d, kTileRows) ||
-      !encode(&tkv, qkv, b, n, 3 * d, p.kv_box) ||
-      !encode(&to, out, b, n, d, kTileRows))
+  const int stride = (int)row_stride;
+  Maps m;
+  if (!encode(&m.q, q, b, n, d, kTileRows, stride) ||
+      !encode(&m.k, k, b, n, d, p.kv_box, stride) ||
+      !encode(&m.v, v, b, n, d, p.kv_box, stride) ||
+      !encode(&m.o, out, b, n, d, kTileRows))
     return (int)cudaErrorInvalidValue;
+  Dropout dr{static_cast<const unsigned*>(row_seeds), seed, threshold,
+             keep_scale, drop};
+  const float* bias_f = static_cast<const float*>(bias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p.key_rows / 16) {
-#define BSCAN_KT(KT) \
-  case KT:           \
-    return (int)launch<KT>(tq, tkv, to, p, n, heads, grid, scale, s);
-    BSCAN_KT(3) BSCAN_KT(4) BSCAN_KT(5) BSCAN_KT(6) BSCAN_KT(7) BSCAN_KT(8)
-    BSCAN_KT(9) BSCAN_KT(10) BSCAN_KT(11) BSCAN_KT(12) BSCAN_KT(13)
-    BSCAN_KT(14) BSCAN_KT(15) BSCAN_KT(16) BSCAN_KT(17)
-#undef BSCAN_KT
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  if (bias_f && drop)
+    return (int)dispatch<true, true>(m, p, n, heads, grid, scale, bias_f, dr,
+                                     s);
+  if (bias_f)
+    return (int)dispatch<true, false>(m, p, n, heads, grid, scale, bias_f,
+                                      dr, s);
+  if (drop)
+    return (int)dispatch<false, true>(m, p, n, heads, grid, scale, nullptr,
+                                      dr, s);
+  return (int)dispatch<false, false>(m, p, n, heads, grid, scale, nullptr, dr,
+                                     s);
 }
 
 const char* bscan_error_string(int err) {

@@ -541,17 +541,18 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// A map over a (batch, rows, cols) bf16 tensor, boxes of (1, box_rows, 64)
+// A map over a (batch, rows, cols) bf16 tensor whose rows lie `row_stride`
+// elements apart (0: cols, a contiguous tensor), boxes of (1, box_rows, 64)
 // in the 128-byte swizzle; rows past `rows` load as zeros and are not
 // stored.
 inline bool encode(CUtensorMap* map, const void* ptr, int batch, int rows,
-                   int cols, int box_rows) {
+                   int cols, int box_rows, int row_stride = 0) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
+  const cuuint64_t stride = row_stride ? row_stride : cols;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
-                                 (cuuint64_t)rows * cols * 2};
+  const cuuint64_t strides[2] = {stride * 2, (cuuint64_t)rows * stride * 2};
   const cuuint32_t box[3] = {(cuuint32_t)kBoxCols, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),

@@ -8,7 +8,11 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
 - `mha` (:680, over `_pallas_mha_split` :449) without dropout: K2;
 - `mha_dropout`, which `mha(..., dropout_rate > 0)` calls: K2d, the split
   forward with counter-hash probability dropout (`_split_drop_kernel` :195,
-  `_split_bias_drop_kernel` :203, `_row_drop` :184);
+  `_split_bias_drop_kernel` :203, `_row_drop` :184); K1 (without a mask,
+  33 <= N <= 272), K2 and K2d (N <= 272, but for the N and batches of
+  `SPLIT_MMA_FROM`) on bf16 at head dim 64 share one Hopper body,
+  `csrc/mha_fwd_sm90.cu` (TMA and `wgmma`, by the plans of
+  `plan_packed_fwd` and `plan_split_fwd`);
 - `mha_bwd` (`_pallas_mha_bwd` :321, body `_attend_bwd_one_row` :212): K3,
   dq/dk/dv (+ dbias) with the probabilities and the dropout mask recomputed,
   and with an (N, N) score mask (`has_mask`, :363-367) K3m, the backward of
@@ -24,10 +28,11 @@ K1/K1m/K2/K2d, the backward K3 or K3m. As ops of the dispatcher their
 outputs are what a selective remat policy saves (`ATTENTION_OPS`, JAX's
 `attn_ctx`). On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
-`mma.sync`, the forward above N = 32; fp32 in FFMA; K1 and K3 on bf16 at
-head dim 64 and 33 <= N <= 272 without a mask (and K3 without a key bias)
-on `csrc/mha_fwd_sm90.cu` and `csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by
-the plans of `plan_packed_fwd` and `plan_bwd`) or raises; on a CPU
+`mma.sync`, the forward above N = 32; fp32 in FFMA; K1, K2, K2d and K3 on
+bf16 at head dim 64 and 33 <= N <= 272 (K2 and K2d from N = 1) without a
+mask (and K3 without a key bias) on `csrc/mha_fwd_sm90.cu` and
+`csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by the plans of
+`plan_packed_fwd`, `plan_split_fwd` and `plan_bwd`) or raises; on a CPU
 tensor it runs its plain PyTorch version (`mha_reference`,
 `mha_bwd_reference`), which has the same contract. The bf16 kernels read
 q/k/v (and g) in 16-byte pieces, so those tensors must start 16-byte
@@ -38,9 +43,10 @@ The dropout hash (`_mix32`, `dropout_keep_2d/4d`, :60-113) is uint32
 arithmetic done in int64 tensors and masked to 32 bits; seeds are Python
 ints or int64 tensors holding uint32 values.
 
-Each wrapper counts its kernel launches in `<wrapper>.launches` (K1's and
-K3's launches on the Hopper bodies also in `mha_packed.sm90_launches` and
-`mha_bwd.sm90_launches`); the plain versions count their calls in
+Each wrapper counts its kernel launches in `<wrapper>.launches` (those on
+the Hopper bodies also in `<wrapper>.sm90_launches`: `mha_packed`, `mha`,
+`mha_dropout`, `mha_bwd`; K2's and K2d's on the mma.sync body in
+`<wrapper>.mma_launches`); the plain versions count their calls in
 `<function>.calls`.
 """
 
@@ -245,16 +251,23 @@ def _bwd_kernel():
     return lib, fn, smem
 
 
-@functools.lru_cache(maxsize=None)
-def _sm90_kernel():
-    lib = _build.load("mha_fwd_sm90")
+def sm90_entry(lib):
+    """(lib, its `bscan_mha_fwd_sm90` with argtypes set): the C entry of a
+    library built from `csrc/mha_fwd_sm90.cu` (or a variant of it)."""
     fn = lib.bscan_mha_fwd_sm90
     fn.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float]
-        + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+        + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 5
+        + [ctypes.c_float] + [ctypes.c_int] * 6
+        + [ctypes.c_longlong, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm90_kernel():
+    return sm90_entry(_build.load("mha_fwd_sm90"))
 
 
 @functools.lru_cache(maxsize=None)
@@ -271,10 +284,16 @@ def _bwd_sm90_kernel():
     return lib, fn
 
 
-# --- K1's plan on the Hopper body (csrc/mha_fwd_sm90.cu, `make_plan`) ----
+# --- the forward's plan on the Hopper body (csrc/mha_fwd_sm90.cu,
+# `make_plan`): K1 (`plan_packed_fwd`), K2 and K2d (`plan_split_fwd`) ------
 
 SM90_HEAD_DIM = 64
-SM90_MIN_N, SM90_MAX_N = 33, 272
+SM90_MIN_N, SM90_MAX_N = 33, 272  # K1's range
+# the body's least N (16 key rows), where K2/K2d's range starts: BERT-small's
+# N = 20 ran 2.8x (K2, B=256 + bias) and 2.2x (K2d, B=400 + bias) faster
+# on it than on the FFMA body, N = 16 2.4x and 2.0x (H100 at 700 W,
+# tools/bench_k2.py; PERF.md section 6)
+SM90_BODY_MIN_N = 1
 _TMA_MAX_BOX = 256          # TMA's largest box dimension
 _TILE_ROWS = 64             # wgmma M: the query rows of a consumer
 _CONSUMERS = 2              # consumer warpgroups a CTA, one query tile each
@@ -285,18 +304,20 @@ _ALIGN, _BARRIER_BYTES = 1024, 64
 
 
 @dataclasses.dataclass(frozen=True)
-class PackedFwdPlan:
-    """How `mha_packed` runs (B, N, heads, head_dim) on the card.
+class FwdPlan:
+    """How `mha_packed`, `mha` or `mha_dropout` runs (B, N, heads,
+    head_dim) on the card.
 
-    `body` is "sm90" (`csrc/mha_fwd_sm90.cu`: bf16, no mask, head dim 64,
-    33 <= N <= 272), "mma" (the bf16 `mma.sync` body of `csrc/mha_fwd.cu`)
-    or "ffma" (its fp32 body, also bf16 at N <= 32). The other fields
-    describe the sm90 launch and are 0 for the other bodies: keys padded
-    to 16 (`key_rows`), loaded in `kv_loads` TMA boxes of `kv_box` rows
-    per tensor; `q_tiles` 64-row query tiles; `items` work items (batch
-    row, head, pair of query tiles: one tile per consumer warpgroup; item =
-    (b * heads + h) * pairs + pair), CTA c taking items c, c + grid, ...;
-    `smem` bytes of dynamic shared memory a CTA."""
+    `body` is "sm90" (`csrc/mha_fwd_sm90.cu`: bf16, head dim 64, no (N, N)
+    mask, 33 <= N <= 272 packed and 1 <= N <= 272 split), "mma" (the bf16
+    `mma.sync` body of `csrc/mha_fwd.cu`) or "ffma" (its fp32 body, also
+    bf16 at N <= 32). The other fields describe the sm90 launch and are 0
+    for the other bodies: keys padded to 16 (`key_rows`), loaded in `kv_loads` TMA boxes
+    of `kv_box` rows per tensor; `q_tiles` 64-row query tiles; `items` work
+    items (batch row, head, pair of query tiles: one tile per consumer
+    warpgroup; item = (b * heads + h) * pairs + pair), CTA c taking items
+    c, c + grid, ...; `smem` bytes of dynamic shared memory a CTA (with a
+    key bias, each consumer's staged bias row besides)."""
 
     body: str
     b: int
@@ -311,9 +332,33 @@ class PackedFwdPlan:
     smem: int = 0
 
 
+def sm90_fwd_plan(b: int, n: int, heads: int, biased: bool = False,
+                  sms: int = H100_SMS) -> FwdPlan:
+    """The sm90 body's launch at (B, N, heads), for any N it takes
+    (SM90_BODY_MIN_N <= N <= 272); `biased`: a (B, N) key bias is staged.
+    `plan_packed_fwd` and `plan_split_fwd` choose where it runs."""
+    if not SM90_BODY_MIN_N <= n <= SM90_MAX_N:
+        raise ValueError(f"the sm90 forward takes {SM90_BODY_MIN_N} <= N <= "
+                         f"{SM90_MAX_N}, not {n}")
+    key_rows = -(-n // 16) * 16
+    kv_loads = 1 if key_rows <= _TMA_MAX_BOX else 2
+    q_tiles = -(-n // _TILE_ROWS)
+    items = b * heads * -(-q_tiles // _CONSUMERS)
+    stage = _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
+    smem = (_ALIGN + _STAGES * stage + _CONSUMERS * _TILE_BYTES
+            + _BARRIER_BYTES + (_CONSUMERS * 4 * key_rows if biased else 0))
+    return FwdPlan("sm90", b, n, heads, key_rows, key_rows // kv_loads,
+                   kv_loads, q_tiles, items, min(items, sms), smem)
+
+
+def _other_body(b, n, heads, dtype) -> FwdPlan:
+    return FwdPlan("mma" if dtype == torch.bfloat16 and n > 32 else "ffma",
+                   b, n, heads)
+
+
 def plan_packed_fwd(b: int, n: int, heads: int, hd: int,
                     dtype=torch.bfloat16, masked: bool = False,
-                    sms: int = H100_SMS) -> PackedFwdPlan:
+                    sms: int = H100_SMS) -> FwdPlan:
     """The body and launch of `mha_packed` at (B, N, heads, head dim):
     the sm90 body for bf16 without a mask at head dim 64 and 33 <= N <=
     272, else the bodies of `csrc/mha_fwd.cu` ("mma" for bf16 above
@@ -321,18 +366,41 @@ def plan_packed_fwd(b: int, n: int, heads: int, hd: int,
     persistent CTAs."""
     if (dtype == torch.bfloat16 and not masked and hd == SM90_HEAD_DIM
             and SM90_MIN_N <= n <= SM90_MAX_N):
-        key_rows = -(-n // 16) * 16
-        kv_loads = 1 if key_rows <= _TMA_MAX_BOX else 2
-        q_tiles = -(-n // _TILE_ROWS)
-        items = b * heads * -(-q_tiles // _CONSUMERS)
-        stage = _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
-        smem = (_ALIGN + _STAGES * stage + _CONSUMERS * _TILE_BYTES
-                + _BARRIER_BYTES)
-        return PackedFwdPlan("sm90", b, n, heads, key_rows,
-                             key_rows // kv_loads, kv_loads, q_tiles, items,
-                             min(items, sms), smem)
-    body = "mma" if dtype == torch.bfloat16 and n > 32 else "ffma"
-    return PackedFwdPlan(body, b, n, heads)
+        return sm90_fwd_plan(b, n, heads, sms=sms)
+    return _other_body(b, n, heads, dtype)
+
+
+# Where the mma.sync body of csrc/mha_fwd.cu beat the sm90 body on split
+# q/k/v: (least N, largest N, biased, dropout, least B * heads), the mma.sync
+# body faster (by 1-25%) at that B * heads and at every larger one measured,
+# for every measured N of the range (tools/sweep_k2_sm90.py --crossing,
+# D = 768 and 12 heads, B = 10-512, N = 33-272; H100 at 700 W; PERF.md
+# section 6). There the sm90 body pads 33-40 keys with a bias to 48 key
+# rows, or K2d's keep-bit hash, in the consumers alone, outweighs what the
+# products gain: K2d at BarcodeBERT's N = 133 from B = 256 (1.03-1.12x).
+SPLIT_MMA_FROM = ((33, 33, True, False, 128 * 12),
+                  (34, 40, True, False, 256 * 12),
+                  (33, 33, True, True, 256 * 12),
+                  (34, 40, True, True, 400 * 12),
+                  (129, 144, False, True, 256 * 12))
+
+
+def plan_split_fwd(b: int, n: int, heads: int, hd: int,
+                   dtype=torch.bfloat16, biased: bool = False,
+                   dropout: bool = False, sms: int = H100_SMS) -> FwdPlan:
+    """The body and launch of `mha` (K2) and `mha_dropout` (K2d, with
+    `dropout`) over split q, k, v at (B, N, heads, head dim), with a (B,
+    N) key bias when `biased`: for bf16 at head dim 64 and N <= 272 the
+    sm90 body, but the mma.sync body where `SPLIT_MMA_FROM` measured it
+    faster; else the bodies of `csrc/mha_fwd.cu` ("mma" for bf16 above
+    N = 32, "ffma" otherwise)."""
+    if (dtype == torch.bfloat16 and hd == SM90_HEAD_DIM
+            and SM90_BODY_MIN_N <= n <= SM90_MAX_N
+            and not any(lo <= n <= hi and bias == biased and drop == dropout
+                        and b * heads >= rows
+                        for lo, hi, bias, drop, rows in SPLIT_MMA_FROM)):
+        return sm90_fwd_plan(b, n, heads, biased, sms)
+    return _other_body(b, n, heads, dtype)
 
 
 # --- K3's plan on the Hopper body (csrc/mha_bwd_sm90.cu, `make_plan`) ----
@@ -405,16 +473,25 @@ def plan_bwd(b: int, n: int, heads: int, hd: int, dtype=torch.bfloat16,
     return BwdPlan("mma" if dtype == torch.bfloat16 else "ffma", b, n, heads)
 
 
-def _launch_sm90(qkv, out, plan: PackedFwdPlan, scale):
-    lib, fn = _sm90_kernel()
-    dev = qkv.device
-    _check_smem("mha_packed", plan.smem, plan.n, SM90_HEAD_DIM, dev)
+def _launch_sm90(ptrs, out, row_stride, plan: FwdPlan, scale, bias=None,
+                 drop=None, kernel=None):
+    """The forward on the sm90 body under `plan`: `ptrs` the addresses of
+    q, k and v (rows `row_stride` elements apart), `drop` `_drop_args`'
+    tuple (None: no dropout), `kernel` (lib, fn) of `sm90_entry` (default:
+    this package's library)."""
+    lib, fn = kernel or _sm90_kernel()
+    dev = out.device
+    _check_smem("mha sm90", plan.smem, plan.n, SM90_HEAD_DIM, dev)
+    rows, scalar, thr, kscale, on = drop or _NO_DROP
     with torch.cuda.device(dev):
-        err = fn(qkv.data_ptr(), out.data_ptr(), plan.b, plan.n, plan.heads,
-                 SM90_HEAD_DIM, float(scale), plan.key_rows, plan.kv_box,
-                 plan.kv_loads, plan.q_tiles, plan.items, plan.grid,
-                 plan.smem, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "mha_packed sm90 launch")
+        err = fn(*ptrs, out.data_ptr(), row_stride,
+                 None if bias is None else bias.data_ptr(),
+                 None if rows is None else rows.data_ptr(), scalar, thr,
+                 kscale, on, plan.b, plan.n, plan.heads, SM90_HEAD_DIM,
+                 float(scale), plan.key_rows, plan.kv_box, plan.kv_loads,
+                 plan.q_tiles, plan.items, plan.grid, plan.smem,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, "mha sm90 launch")
 
 
 @functools.lru_cache(maxsize=None)
@@ -550,12 +627,15 @@ def _check_aligned(name, tensors):
                              "aligned")
 
 
+_NO_DROP = (None, 0, 0, 1.0, 0)
+
+
 def _drop_args(rate: float, seed, b: int, dev):
     """(row_seeds pointer holder, scalar seed, threshold, scale, drop flag)
     for a kernel launch: a (B,) seed tensor goes as int32 bits on the card;
     a scalar goes by value."""
     if rate <= 0:
-        return None, 0, 0, 1.0, 0
+        return _NO_DROP
     seed = u32(seed)
     if torch.cuda.is_current_stream_capturing() and (
             seed.ndim == 0 or seed.device != dev):
@@ -652,14 +732,14 @@ def _packed_forward(qkv, mask, heads, scale):
            else torch.cuda.current_device())
     plan = plan_packed_fwd(b, n, heads, d // heads, qkv.dtype,
                            mask is not None, sm_count(idx))
+    p = qkv.data_ptr()
+    ptrs = (p, p + d * qkv.element_size(), p + 2 * d * qkv.element_size())
     if plan.body == "sm90":
-        _launch_sm90(qkv, out, plan, scale)
+        _launch_sm90(ptrs, out, d3, plan, scale)
         mha_packed.sm90_launches += 1
     else:
-        p = qkv.data_ptr()
-        es = qkv.element_size()
-        _launch_fwd((p, p + d * es, p + 2 * d * es), out, b, n, heads,
-                    d // heads, d3, scale, qkv.dtype, None, mask=mask)
+        _launch_fwd(ptrs, out, b, n, heads, d // heads, d3, scale, qkv.dtype,
+                    None, mask=mask)
     if mask is None:
         mha_packed.launches += 1
     else:
@@ -677,12 +757,21 @@ def _split_forward(q, k, v, bias, seed, heads, scale, rate):
     _check_split(name, q, k, v, bias)
     _check_aligned(name, [q, k, v])
     out = torch.empty_like(q)
-    _launch_fwd((q.data_ptr(), k.data_ptr(), v.data_ptr()), out, b, n, heads,
-                d // heads, d, scale, q.dtype, bias, rate, seed)
-    if rate > 0:
-        mha_dropout.launches += 1
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    idx = (q.device.index if q.device.index is not None
+           else torch.cuda.current_device())
+    plan = plan_split_fwd(b, n, heads, d // heads, q.dtype, bias is not None,
+                          rate > 0, sm_count(idx))
+    counter = mha_dropout if rate > 0 else mha
+    if plan.body == "sm90":
+        _launch_sm90(ptrs, out, d, plan, scale, bias,
+                     _drop_args(rate, seed, b, q.device))
+        counter.sm90_launches += 1
     else:
-        mha.launches += 1
+        _launch_fwd(ptrs, out, b, n, heads, d // heads, d, scale, q.dtype,
+                    bias, rate, seed)
+        counter.mma_launches += int(plan.body == "mma")
+    counter.launches += 1
     return out
 
 
@@ -819,6 +908,8 @@ def mha(q, k, v, heads: int, bias=None, scale=None,
 
 
 mha.launches = 0
+mha.sm90_launches = 0  # the K2 launches of `launches` on the sm90 body
+mha.mma_launches = 0  # those on the mma.sync body of csrc/mha_fwd.cu
 
 
 def mha_dropout(q, k, v, heads: int, seed, rate: float, bias=None,
@@ -838,6 +929,8 @@ def mha_dropout(q, k, v, heads: int, seed, rate: float, bias=None,
 
 
 mha_dropout.launches = 0
+mha_dropout.sm90_launches = 0  # the K2d launches on the sm90 body
+mha_dropout.mma_launches = 0  # those on the mma.sync body
 
 
 def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,

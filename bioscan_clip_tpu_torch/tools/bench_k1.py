@@ -23,13 +23,20 @@ another checkout's K1: run it from that checkout's root with
     PYTHONPATH=. python3 path/to/bench_k1.py [--reps 20]
 
 The first line names the imported package's file and the card (name and
-power limit, as nvidia-smi gives them).
+power limit, as nvidia-smi gives them). `--sass` adds, after the shapes,
+one row per K1 instantiation they run (208 and 272 key rows) read from the
+package's built library with cuobjdump: `registers`, `stack` and `local`
+bytes (`-res-usage`), the SASS `instructions` and their count by opcode
+(`-sass`), so that two checkouts' K1 code can be compared.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
+import re
+import shutil
 import subprocess
 
 SHAPES = ((8, 197, 768, 12), (24, 197, 768, 12), (256, 197, 768, 12),
@@ -64,6 +71,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sass", action="store_true",
+                    help="also K1's registers and SASS from cuobjdump")
     args = ap.parse_args(argv)
 
     import torch
@@ -107,6 +116,55 @@ def main(argv=None):
                           "max_abs_err": err, "sm90": sm90}), flush=True)
         del qkv, q, k, v
         torch.cuda.empty_cache()
+    if args.sass:
+        lib = attention._sm90_kernel()[0]
+        for row in sass_rows(lib._name, {-(-n // 16) for _, n, _, _ in
+                                         SHAPES}):
+            print(json.dumps(row), flush=True)
+
+
+# K1's instantiation, mangled: mha_fwd_sm90<KT> or mha_fwd_sm90<KT, false,
+# false> (in an anonymous namespace: the template arguments end in "EE")
+K1_SYMBOL = re.compile(r"mha_fwd_sm90ILi(\d+)E(?:Lb0ELb0E)?E")
+
+
+def _cuobjdump(*args) -> str:
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([exe, *args], capture_output=True, text=True,
+                          check=True).stdout
+
+
+def sass_rows(lib_path, kts):
+    """{"sass", "key_rows", "registers", "stack", "local", "instructions",
+    "opcodes"} of each K1 instantiation of `kts` 16-key chunks in the
+    library at `lib_path`."""
+    rows = {}
+    fn = None
+    for ln in _cuobjdump("-res-usage", lib_path).splitlines():
+        m = K1_SYMBOL.search(ln)
+        if "Function" in ln:
+            fn = int(m[1]) if m and int(m[1]) in kts else None
+        elif fn and "REG:" in ln:
+            use = dict(re.findall(r"(\w+):(\d+)", ln))
+            rows[fn] = {"sass": f"K1 mha_fwd_sm90 at {16 * fn} key rows",
+                        "key_rows": 16 * fn,
+                        "registers": int(use["REG"]),
+                        "stack": int(use["STACK"]),
+                        "local": int(use["LOCAL"]),
+                        "instructions": 0, "opcodes": collections.Counter()}
+            fn = None
+    for ln in _cuobjdump("-sass", lib_path).splitlines():
+        m = K1_SYMBOL.search(ln)
+        if "Function :" in ln:
+            fn = int(m[1]) if m and int(m[1]) in rows else None
+            continue
+        ins = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z]\S*)",
+                       ln)
+        if fn and ins:
+            rows[fn]["instructions"] += 1
+            rows[fn]["opcodes"][ins[2].split(".")[0].rstrip(";")] += 1
+    return [dict(r, opcodes=dict(r["opcodes"].most_common()))
+            for _, r in sorted(rows.items())]
 
 
 if __name__ == "__main__":

@@ -33,7 +33,6 @@ in reverse order (round 2). Needs a CUDA device and nvcc.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import re
 import subprocess
@@ -93,7 +92,7 @@ def ptxas_lines(log: str) -> list[str]:
     """ptxas' advice, registers and spills for 208 and 272 key rows."""
     out, fn = [], ""
     for ln in log.splitlines():
-        kt = re.search(r"mha_fwd_sm90ILi(\d+)E", ln)
+        kt = re.search(r"mha_fwd_sm90ILi(\d+)ELb0E", ln)
         if "Performance Loss" in ln and kt and kt[1] in ("13", "17"):
             advice = ln.split(":", 1)[-1].split(" for the function")[0]
             out.append(f"{16 * int(kt[1])}: {advice.strip()}")
@@ -108,26 +107,17 @@ class Launch:
     """K1 of one variant's library at one shape, on its plan."""
 
     def __init__(self, lib, qkv, heads, sms):
-        fn = lib.bscan_mha_fwd_sm90
-        fn.argtypes = (
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float]
-            + [ctypes.c_int] * 6 + [ctypes.c_longlong, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
         b, n, d3 = qkv.shape
         self.plan = attention.plan_packed_fwd(b, n, heads, d3 // 3 // heads,
                                               sms=sms)
-        self.fn, self.qkv, self.heads = fn, qkv, heads
-        self.out = torch.empty(b, n, d3 // 3, dtype=qkv.dtype,
-                               device=qkv.device)
+        self.kernel = attention.sm90_entry(lib)
+        p, d = qkv.data_ptr(), d3 // 3
+        self.ptrs, self.d3 = (p, p + 2 * d, p + 4 * d), d3
+        self.out = torch.empty(b, n, d, dtype=qkv.dtype, device=qkv.device)
 
     def __call__(self):
-        p = self.plan
-        err = self.fn(self.qkv.data_ptr(), self.out.data_ptr(), p.b, p.n,
-                      p.heads, attention.SM90_HEAD_DIM, 0.125, p.key_rows,
-                      p.kv_box, p.kv_loads, p.q_tiles, p.items, p.grid,
-                      p.smem, torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"bscan_mha_fwd_sm90: CUDA error {err}")
+        attention._launch_sm90(self.ptrs, self.out, self.d3, self.plan,
+                               0.125, kernel=self.kernel)
         return self.out
 
 

@@ -15,8 +15,10 @@ Phases, in order; any failure exits non-zero:
             TERMS=" line per instantiation of its Hopper body, with its
             shared memory at 2 / 3 / 4 ring stages, one
             "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation, one
-            "K1 sm90 key rows" line per instantiation of K1's Hopper
-            body, with its shared memory and ptxas' advice, and one "K3
+            "K1/K2 sm90 key rows" / "K2 ... bias" / "K2d ... [bias]
+            dropout" line per instantiation of the forward's Hopper body
+            (K1, K2, K2d), with its shared memory and ptxas' advice, and
+            one "K3
             sm90 pass A key rows" / "K3 sm90 pass B" line per
             instantiation of K3's)
   kernels   each kernel against its plain PyTorch version at the shapes of
@@ -24,9 +26,18 @@ Phases, in order; any failure exits non-zero:
             B = 8, 24, 256, 400 and ViT-L/14 B = 256, timed with SDPA as
             CUDA graph replays; fp32 FFMA and bf16 tensor-core bodies for
             attention,
-            bf16 forwards at N <= 32 on the FFMA body, the masked K1m and
+            K2 bf16 at BarcodeBERT B = 24 and 256 and BERT-small B = 256
+            + bias (N = 20, and 16), K2d at BarcodeBERT B = 400 and
+            BERT-small B = 400 + bias, each on the body its plan chooses
+            (the sm90 body, or mma.sync for BarcodeBERT's K2d at B = 400)
+            and timed on both that sm90 body and the body of
+            csrc/mha_fwd.cu (mma.sync above N = 32, FFMA below) beside
+            SDPA as CUDA graph replays; fp32 forwards
+            and K1m at N <= 32 on the FFMA body, the masked K1m and
             its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
-            keep mask read out bit for bit, two K3 launches bit-equal, K3
+            keep mask read out bit for bit at N = 20, 64 and 133 on the
+            plan's body, the sm90 body and csrc/mha_fwd.cu's, two K3
+            launches bit-equal, K3
             bf16 on its sm90 body (TMA and wgmma) at ViT-B/16 and
             BarcodeBERT B = 400 and ViT-L/14 B = 64 and 10, timed beside
             the mma.sync body of csrc/mha_bwd.cu and SDPA's backward; top-k
@@ -48,7 +59,14 @@ Phases, in order; any failure exits non-zero:
             int8 codes under each rescore mode; K1, K2, K4 and K5 must have
             launched, every K1 launch on the sm90 body
             (`mha_packed.sm90_launches`, as in eval, training and graphs),
-            every K4 launch from topk.SM90_MIN_BQ queries up on its sm90
+            every K2 and K2d launch on the body its plan chooses: the
+            forward's sm90 body (`mha.sm90_launches`,
+            `mha_dropout.sm90_launches`), or the mma.sync body where it
+            was measured faster (`mha_dropout.mma_launches`: BarcodeBERT's
+            K2d at the training batch of 400), as in openclip, eval,
+            training, openclip_training, train_cl, insect, data_tools,
+            distributed and graphs), every K4 launch
+            from topk.SM90_MIN_BQ queries up on its sm90
             body (`topk.sm90_launches`, as in openclip, eval, train_cl,
             insect, data_tools and streaming)
   eval      the evaluation job at full width: in-memory batches of 24 (all
@@ -346,11 +364,11 @@ def phase_build():
             # ptxas -v: "Function properties for <mangled name>", then its
             # stack/spill line, then its "Used N registers" line
             k1 = re.search(r"Performance Loss: (.*) for the function '.*"
-                           r"mha_fwd_sm90ILi(\d+)E", ln)
+                           r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)E", ln)
             k3 = re.search(r"Performance Loss: (.*) for the function '.*"
                            r"mha_bwd_sm90_pass_(a|b)I(?:Li(\d+)E)?", ln)
-            if k1:  # ptxas' advice on the K1 sm90 body, by key rows
-                log(f"  K1 sm90 key rows {16 * int(k1[2])}: ptxas: {k1[1]}")
+            if k1:  # ptxas' advice on the forward's sm90 body
+                log(f"  {_fwd_sm90_name(*k1.groups()[1:])}: ptxas: {k1[1]}")
             elif k3:  # and on K3's, by pass (and pass A's key rows)
                 rows = f" key rows {16 * int(k3[3])}" if k3[3] else ""
                 log(f"  K3 sm90 pass {k3[2].upper()}{rows}: ptxas: {k3[1]}")
@@ -383,11 +401,12 @@ def phase_build():
                 if k5:  # K5's instantiations, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}")
-                k1 = re.search(r"mha_fwd_sm90ILi(\d+)E", fn)
-                if k1:  # K1's Hopper body, by padded key rows
-                    rows = 16 * int(k1[1])
-                    smem = attention.plan_packed_fwd(1, rows, 1, 64).smem
-                    log(f"  K1 sm90 key rows {rows}: "
+                k1 = re.search(r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)E", fn)
+                if k1:  # the forward's Hopper body, by padded key rows,
+                    # bias and dropout
+                    smem = attention.sm90_fwd_plan(
+                        1, 16 * int(k1[1]), 1, k1[2] == "1").smem
+                    log(f"  {_fwd_sm90_name(*k1.groups())}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
                         "bytes of dynamic shared memory")
                 k3 = re.search(r"mha_bwd_sm90_pass_(a|b)I(?:Li(\d+)E)?"
@@ -407,15 +426,30 @@ def phase_build():
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
+def _fwd_sm90_name(kt, bias, drop):
+    """The build phase's name of an instantiation of the forward's sm90
+    body: `mha_fwd_sm90<KT, BIAS, DROP>`."""
+    what = ("K1/K2" if (bias, drop) == ("0", "0") else
+            "K2d" if drop == "1" else "K2")
+    return (f"{what} sm90 key rows {16 * int(kt)}"
+            f"{' bias' if bias == '1' else ''}"
+            f"{' dropout' if drop == '1' else ''}")
+
+
 def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
                     causal=False, graphed=False):
     """K1/K2 (K1m with `causal`: OpenCLIP's (N, N) -1e9 mask) against the
     plain version, timed beside SDPA with the same bias or float mask;
     `graphed`: the kernel and SDPA timed as replays of a CUDA graph
     (`tools/bench_k1.graph_ms`), so a small batch is timed on the card's
-    clock and
-    not its wrapper's. A K1 case that the plan puts on the sm90 body must
-    count its launch in `mha_packed.sm90_launches`."""
+    clock and not its wrapper's. A case must count its launch on the body
+    its plan (`plan_packed_fwd`, `plan_split_fwd`) chooses
+    (`mha_packed.sm90_launches`, `mha.sm90_launches`, `mha.mma_launches`);
+    a bf16 K2 case in the sm90 body's range is also held against the plain
+    version and timed on the sm90 body (`sm90_ms`, under a forced plan
+    where its plan chooses another body) and on the body of
+    csrc/mha_fwd.cu (`mma_ms`: the mma.sync body above N = 32, FFMA at
+    N <= 32)."""
     import torch
     import torch.nn.functional as F
 
@@ -460,20 +494,21 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
         return F.scaled_dot_product_attention(view(q), view(k), view(v),
                                               attn_mask=mask)
 
-    sm90 = (packed and not causal and attention.plan_packed_fwd(
-        b, n, heads, hd, dtype).body == "sm90")
-    before = attention.mha_packed.sm90_launches
+    plan = (attention.plan_packed_fwd(b, n, heads, hd, dtype, causal)
+            if packed else attention.plan_split_fwd(b, n, heads, hd, dtype,
+                                                    with_bias))
+    counter = attention.mha_packed if packed else attention.mha
+    _on_the_plan(f"{name} B={b} N={n}", counter, plan.body, kernel)
     out = kernel()
-    torch.cuda.synchronize()
-    if attention.mha_packed.sm90_launches - before != int(sm90):
-        raise AssertionError(f"{name} B={b} N={n}: sm90 launches "
-                             f"{attention.mha_packed.sm90_launches - before}"
-                             f", the plan says {int(sm90)}")
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     if not err <= tol:
         raise AssertionError(f"{name}: max |kernel - plain| {err} > {tol}")
+    old = fwd = None
+    if not packed and _sm90_takes(dtype, hd, n):
+        old = _old_body(q, k, v, heads, bias, 0.0, None, ref, tol, name)
+        fwd = _sm90_body(q, k, v, heads, bias, 0.0, None, ref, tol, name)
     es = torch.tensor([], dtype=dtype).element_size()
     n_bytes = (4 * b * n * d * es + (0 if bias is None else b * n * 4)
                + (n * n * 4 if causal else 0))
@@ -484,11 +519,16 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
     row = {
         "ms": timer(kernel), "plain_ms": time_ms(plain, reps=3),
         "library_ms": timer(library), "bound_ms": bms, "bound_by": by,
-        "max_abs_err": err,
+        "max_abs_err": err, "body": plan.body,
     }
+    on = f" ({plan.body} body)"
+    if old is not None:
+        row["sm90_ms"], row["mma_ms"] = timer(fwd), timer(old[0])
+        on = (f" ({plan.body} body; sm90 {row['sm90_ms']:.4f} ms, the "
+              f"{old[1]} body {row['mma_ms']:.4f} ms)")
     log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
         f"{' bias' if with_bias else ''}{' causal mask' if causal else ''}"
-        f"{' (sm90 body)' if sm90 else ''}: "
+        f"{on}: "
         f"err {err:.3g} (tol {tol:g}), kernel {row['ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, sdpa {row['library_ms']:.4f} ms, bound "
         f"{bms:.4f} ms ({by})" + (", card clock (CUDA graph)" if graphed
@@ -826,13 +866,100 @@ def _padding_bias(b, n, gen):
     return torch.where(keep, 0.0, -1e9).float()
 
 
+def _old_body(q, k, v, heads, bias, rate, seeds, ref, tol, name):
+    """(a call of the body of csrc/mha_fwd.cu that (q, k, v) took before
+    the sm90 one, its name): `_launch_fwd`, held against the plain
+    version's `ref` within `tol` first."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    b, n, d = q.shape
+    hd = d // heads
+    out = torch.empty_like(q)
+
+    def call():
+        attention._launch_fwd((q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                              out, b, n, heads, hd, d, hd ** -0.5, q.dtype,
+                              bias, rate, seeds)
+        return out
+
+    err = (call().float() - ref.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name} on the body of csrc/mha_fwd.cu: max "
+                             f"|kernel - plain| {err} > {tol}")
+    return call, ("mma" if n > 32 else "ffma")
+
+
+def _sm90_takes(dtype, hd, n):
+    """The forward's sm90 body takes split q/k/v of this dtype, head dim
+    and N (whichever body `plan_split_fwd` chooses)."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    return (dtype == torch.bfloat16 and hd == attention.SM90_HEAD_DIM
+            and attention.SM90_BODY_MIN_N <= n <= attention.SM90_MAX_N)
+
+
+def _sm90_body(q, k, v, heads, bias, rate, seeds, ref, tol, name):
+    """A call of the forward's sm90 body on (q, k, v) under
+    `sm90_fwd_plan` (also where `plan_split_fwd` chooses the mma.sync
+    body), held against the plain version's `ref` within `tol` first."""
+    import torch
+
+    from bioscan_clip_tpu_torch.ops import attention
+
+    b, n, d = q.shape
+    hd = d // heads
+    plan = attention.sm90_fwd_plan(b, n, heads, bias is not None)
+    drop = attention._drop_args(rate, seeds, b, q.device)
+    out = torch.empty_like(q)
+
+    def call():
+        attention._launch_sm90((q.data_ptr(), k.data_ptr(), v.data_ptr()),
+                               out, d, plan, hd ** -0.5, bias, drop)
+        return out
+
+    err = (call().float() - ref.float()).abs().max().item()
+    if not err <= tol:
+        raise AssertionError(f"{name} on the sm90 body: max |kernel - "
+                             f"plain| {err} > {tol}")
+    return call
+
+
+def _on_the_plan(what, counter, body, call):
+    """`call` launches on `body`: `counter.sm90_launches` (and, for K2
+    and K2d, `counter.mma_launches`) rise by one where it names that
+    body, else not at all."""
+    import torch
+
+    attrs = [a for a in ("sm90_launches", "mma_launches")
+             if hasattr(counter, a)]
+    before = [getattr(counter, a) for a in attrs]
+    call()
+    torch.cuda.synchronize()
+    got = [getattr(counter, a) - x for a, x in zip(attrs, before)]
+    want = [int(body == "sm90"), int(body == "mma")][:len(attrs)]
+    if got != want:
+        raise AssertionError(f"{what}: launches {dict(zip(attrs, got))}, "
+                             f"the plan's body is {body}")
+
+
 def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
     """K2d against its plain version (the same hash): row-keyed (B,) seeds,
-    and one scalar seed for the batch-index keying."""
+    and one scalar seed for the batch-index keying; the keep mask read out
+    bit for bit. Each launch must count on the body `plan_split_fwd`
+    chooses (`mha_dropout.sm90_launches`, `mha_dropout.mma_launches`); a
+    bf16 case in the sm90 body's range is also timed on the sm90 body
+    (`sm90_ms`, under a forced plan where its plan chooses another body)
+    and on the body of csrc/mha_fwd.cu (`mma_ms`); bf16 is timed as CUDA
+    graph replays (`tools/bench_k1.graph_ms`)."""
     import torch
     import torch.nn.functional as F
 
     from bioscan_clip_tpu_torch.ops import attention
+    from bioscan_clip_tpu_torch.tools.bench_k1 import graph_ms
 
     hd = d // heads
     q, k, v = (torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
@@ -840,16 +967,27 @@ def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
     bias = _padding_bias(b, n, gen) if with_bias else None
     seeds = _seeds(b, gen)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
+    plan = attention.plan_split_fwd(b, n, heads, hd, dtype, with_bias, True)
     err = 0.0
     for seed in (seeds, 0x9E3779B9):
+        _on_the_plan(f"mha_dropout B={b} N={n}", attention.mha_dropout,
+                     plan.body, lambda: attention.mha_dropout(
+                         q, k, v, heads, seed, rate, bias=bias))
         out = attention.mha_dropout(q, k, v, heads, seed, rate, bias=bias)
-        torch.cuda.synchronize()
         ref = attention.mha_reference(q, k, v, heads, bias=bias,
                                       dropout_rate=rate, dropout_seed=seed)
         err = max(err, (out.float() - ref.float()).abs().max().item())
     if not err <= tol:
         raise AssertionError(f"mha_dropout: max |kernel - plain| {err} > "
                              f"{tol}")
+    old = fwd = None
+    if _sm90_takes(dtype, hd, n):
+        ref = attention.mha_reference(q, k, v, heads, bias=bias,
+                                      dropout_rate=rate, dropout_seed=seeds)
+        old = _old_body(q, k, v, heads, bias, rate, seeds, ref, tol,
+                        "mha_dropout")
+        fwd = _sm90_body(q, k, v, heads, bias, rate, seeds, ref, tol,
+                         "mha_dropout")
     _dropout_readout(b, n, heads, hd, dtype, seeds, rate)
 
     def view(t):
@@ -860,49 +998,80 @@ def _dropout_case(b, n, d, heads, dtype, with_bias, gen, rate=0.1):
     n_bytes = 4 * b * n * d * es + b * 4 + (0 if bias is None else b * n * 4)
     dname = str(dtype).split(".")[-1]
     bms, by = bound_ms(n_bytes, 4 * b * heads * n * n * hd, dname)
+    timer = graph_ms if dtype == torch.bfloat16 else time_ms
     row = {
-        "ms": time_ms(lambda: attention.mha_dropout(q, k, v, heads, seeds,
-                                                    rate, bias=bias)),
+        "ms": timer(lambda: attention.mha_dropout(q, k, v, heads, seeds,
+                                                  rate, bias=bias)),
         "plain_ms": time_ms(lambda: attention.mha_reference(
             q, k, v, heads, bias=bias, dropout_rate=rate,
             dropout_seed=seeds), reps=3),
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+        "library_ms": timer(lambda: F.scaled_dot_product_attention(
             view(q), view(k), view(v), attn_mask=mask, dropout_p=rate)),
         "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+        "body": plan.body,
     }
+    on = f" ({plan.body} body)"
+    if old is not None:
+        row["sm90_ms"], row["mma_ms"] = timer(fwd), timer(old[0])
+        on = (f" ({plan.body} body; sm90 {row['sm90_ms']:.4f} ms, the "
+              f"{old[1]} body {row['mma_ms']:.4f} ms)")
     log(f"  mha_dropout {dname} B={b} N={n} D={d} h={heads} rate={rate}"
-        f"{' bias' if with_bias else ''}: err {err:.3g} (tol {tol:g}), "
+        f"{' bias' if with_bias else ''}{on}: err {err:.3g} (tol {tol:g}), "
         f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
         f"sdpa(dropout_p) {row['library_ms']:.4f} ms, bound {bms:.4f} ms "
-        f"({by})")
+        f"({by})" + (", card clock (CUDA graph)" if timer is graph_ms
+                     else ""))
     return row
 
 
 def _dropout_readout(b, n, heads, hd, dtype, seeds, rate):
-    """K2d's keep mask read out through the output: q = k = 0 makes p =
-    float32(1 / n) exactly, and v's row j in every head is the unit vector
-    e_j of that head's dims (n <= hd), so o[i, hd h + j] = dtype(float32(1
-    / n) * keep(i, j)), bit for bit, against `dropout_keep_4d`."""
+    """K2d's keep mask read out through the output, on the body the plan
+    chooses, on the sm90 body where it takes the shape (`_launch_sm90`
+    under `sm90_fwd_plan`) and on the body of csrc/mha_fwd.cu
+    (`_launch_fwd`): q = k = 0
+    makes p = float32(1 / n) exactly; in read-out r, v's row j in every
+    head is the unit vector e_(j - hd r) of that head's dims for the keys
+    hd r <= j < hd (r + 1) and 0 for the others, so o[i, hd h + j - hd r] =
+    dtype(float32(1 / n) * keep(i, j)), bit for bit, against
+    `dropout_keep_4d`."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import attention
 
-    if n > hd:
-        return
     q = torch.zeros(b, n, heads * hd, device="cuda", dtype=dtype)
-    v = torch.zeros_like(q)
-    j = torch.arange(n, device="cuda")
-    for h in range(heads):
-        v[:, j, h * hd + j] = 1.0
-    out = attention.mha_dropout(q, q, v, heads, seeds, rate)
+    sm90 = _sm90_takes(dtype, hd, n)
     keep = attention.dropout_keep_4d(seeds, b, heads, n, rate, device="cuda")
-    want = (torch.tensor(1.0, device="cuda") / n * keep).to(dtype)
-    got = out.view(b, n, heads, hd).permute(0, 2, 1, 3)
-    if not (torch.equal(got[..., :n], want) and not got[..., n:].any()):
-        raise AssertionError(f"mha_dropout {dtype} B={b} N={n}: the keep "
-                             "mask does not read out bit for bit")
+    p = torch.tensor(1.0, device="cuda") / n
+    for r in range(-(-n // hd)):
+        j = torch.arange(r * hd, min(n, (r + 1) * hd), device="cuda")
+        v = torch.zeros_like(q)
+        for h in range(heads):
+            v[:, j, h * hd + j - r * hd] = 1.0
+        ptrs = (q.data_ptr(), q.data_ptr(), v.data_ptr())
+        outs = [attention.mha_dropout(q, q, v, heads, seeds, rate),
+                torch.empty_like(q)]
+        attention._launch_fwd(ptrs, outs[1], b, n, heads, hd, heads * hd,
+                              hd ** -0.5, dtype, None, rate, seeds)
+        if sm90:
+            outs.append(torch.empty_like(q))
+            attention._launch_sm90(
+                ptrs, outs[2], heads * hd, attention.sm90_fwd_plan(
+                    b, n, heads), hd ** -0.5, None,
+                attention._drop_args(rate, seeds, b, q.device))
+        want = (p * keep[..., j]).to(dtype)
+        for out in outs:
+            got = out.view(b, n, heads, hd).permute(0, 2, 1, 3)
+            if not (torch.equal(got[..., : len(j)], want)
+                    and not got[..., len(j):].any()):
+                raise AssertionError(
+                    f"mha_dropout {dtype} B={b} N={n}: the keep mask does "
+                    "not read out bit for bit")
+        del v, outs
+    body = attention.plan_split_fwd(b, n, heads, hd, dtype, False, True).body
     log(f"  mha_dropout {str(dtype).split('.')[-1]} B={b} N={n} h={heads}: "
-        f"keep mask read out bit for bit ({int((keep == 0).sum())} of "
+        f"keep mask read out bit for bit on the plan's {body} body, "
+        + ("on the sm90 body " if sm90 else "")
+        + f"and on csrc/mha_fwd.cu's ({int((keep == 0).sum())} of "
         f"{keep.numel()} dropped)")
 
 
@@ -1022,23 +1191,38 @@ def phase_kernels(rows: dict):
         if b == 256:
             rows["mha_packed"] = r
     torch.cuda.empty_cache()
+    # K2 at BarcodeBERT's N = 133 (eval's batches of 24, and 256) and
+    # BERT-small's N = 20 with its padding bias, bf16 on the sm90 body and
+    # timed on the body of csrc/mha_fwd.cu it took before, as graph replays
     for dtype in (torch.float32, torch.bfloat16):
-        if dtype == torch.float32:
+        bf16 = dtype == torch.bfloat16
+        if not bf16:
             _attention_case("mha_packed", 256, 197, 768, 12, dtype, False,
                             gen, packed=True)
+        else:
+            rows["mha barcodebert b24"] = _attention_case(
+                "mha", 24, 133, 768, 12, dtype, False, gen, packed=False,
+                graphed=True)
         r = _attention_case("mha", 256, 133, 768, 12, dtype, False, gen,
-                            packed=False)
-        if dtype == torch.bfloat16:
+                            packed=False, graphed=bf16)
+        if bf16:
             rows["mha"] = r
-        _attention_case("mha", 256, 20, 512, 8, dtype, True, gen,
-                        packed=False)
+        r = _attention_case("mha", 256, 20, 512, 8, dtype, True, gen,
+                            packed=False, graphed=bf16)
+        if bf16:
+            rows["mha bert-small"] = r
+            # the body's 16-key instantiation (shorter label strings)
+            _attention_case("mha", 256, 16, 512, 8, dtype, True, gen,
+                            packed=False, graphed=True)
     # K2d and K3 at the flagship config's training batch
     for dtype in (torch.float32, torch.bfloat16):
         r = _dropout_case(TRAIN_BATCH, 133, 768, 12, dtype, False, gen)
         if dtype == torch.bfloat16:
             rows["mha_dropout"] = r
-        _dropout_case(TRAIN_BATCH, 20, 512, 8, dtype, True, gen)
-        # the bf16 tensor-core body's keep mask (above N = 32)
+        r = _dropout_case(TRAIN_BATCH, 20, 512, 8, dtype, True, gen)
+        if dtype == torch.bfloat16:
+            rows["mha_dropout bert-small"] = r
+        # the keep mask at a tile boundary (N = 64)
         _dropout_readout(TRAIN_BATCH, 64, 8, 64, dtype,
                          _seeds(TRAIN_BATCH, gen), 0.1)
         r = _bwd_case("mha_bwd packed", TRAIN_BATCH, 197, 768, 12, dtype,
@@ -1096,9 +1280,13 @@ KERNELS = {
     # outside 33-272, the bodies of csrc/mha_fwd.cu)
     "mha_packed": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd_sm90.cu",
                    "bioscan_clip_tpu/ops/attention.py:425"),
-    "mha": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
+    # K2 and K2d on bf16 at head dim 64 and 1 <= N <= 272 run the same
+    # sm90 body, but where `attention.SPLIT_MMA_FROM` measured the mma.sync
+    # body faster (BarcodeBERT's K2d at B = 400); fp32 and other shapes,
+    # the bodies of csrc/mha_fwd.cu
+    "mha": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd_sm90.cu",
             "bioscan_clip_tpu/ops/attention.py:449"),
-    "mha_dropout": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
+    "mha_dropout": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd_sm90.cu",
                     "bioscan_clip_tpu/ops/attention.py:449"),
     # K3 on bf16 at head dim 64 and 33 <= N <= 272 without a mask or key
     # bias runs the sm90 body (fp32, BERT-small's biased N = 20 and other
@@ -1143,7 +1331,11 @@ def launch_counts():
             "mha_packed_sm90": attention.mha_packed.sm90_launches,
             "mha_packed_mask": attention.mha_packed.mask_launches,
             "mha": attention.mha.launches,
+            "mha_sm90": attention.mha.sm90_launches,
+            "mha_mma": attention.mha.mma_launches,
             "mha_dropout": attention.mha_dropout.launches,
+            "mha_dropout_sm90": attention.mha_dropout.sm90_launches,
+            "mha_dropout_mma": attention.mha_dropout.mma_launches,
             "mha_bwd": attention.mha_bwd.launches,
             "mha_bwd_sm90": attention.mha_bwd.sm90_launches,
             "mha_bwd_bias": attention.mha_bwd.bias_launches,
@@ -1165,6 +1357,26 @@ def _vit_on_sm90(what, counts):
         f"(mha_packed.sm90_launches) {sm90}")
     if k1 <= 0 or sm90 != k1:
         raise AssertionError(f"{what}: K1 launches {k1}, sm90 {sm90}")
+
+
+def _k2_on_its_bodies(what, counts):
+    """Every K2 and K2d launch of a bf16 path ran on a tensor-core body its
+    plan (`plan_split_fwd`) chooses: every K2 launch (BarcodeBERT at
+    N = 133, BERT-small at N = 20 and at its shorter INSECT labels) and
+    K2d's below `SPLIT_MMA_FROM`'s batches on the forward's sm90 body, the
+    K2d launches at BarcodeBERT's N = 133 from B = 256 (the training batch
+    of 400) on the mma.sync body, none on FFMA; and the sm90 body ran."""
+    k2, k2d = counts["mha"], counts["mha_dropout"]
+    sm90, sm90d = counts["mha_sm90"], counts["mha_dropout_sm90"]
+    mmad = counts["mha_dropout_mma"]
+    log(f"  {what}: K2 launches {k2}, on the sm90 body (mha.sm90_launches) "
+        f"{sm90}; K2d launches {k2d}, on the sm90 body "
+        f"(mha_dropout.sm90_launches) {sm90d}, on the mma.sync body "
+        f"(mha_dropout.mma_launches) {mmad}")
+    if (k2 + k2d <= 0 or sm90 + sm90d <= 0 or sm90 != k2
+            or sm90d + mmad != k2d):
+        raise AssertionError(f"{what}: K2 launches {k2}, sm90 {sm90}; K2d "
+                             f"launches {k2d}, sm90 {sm90d}, mma {mmad}")
 
 
 def _k3_on_sm90(what, counts):
@@ -1220,6 +1432,10 @@ def reset_counts():
         fn.launches = 0
     attention.mha_packed.mask_launches = 0
     attention.mha_packed.sm90_launches = 0
+    attention.mha.sm90_launches = 0
+    attention.mha.mma_launches = 0
+    attention.mha_dropout.sm90_launches = 0
+    attention.mha_dropout.mma_launches = 0
     attention.mha_bwd.mask_launches = 0
     attention.mha_bwd.sm90_launches = 0
     attention.mha_bwd.bias_launches = 0
@@ -1427,6 +1643,7 @@ def phase_serving():
         counts = launch_counts()
     log(f"  launches on the serving path: {counts}")
     _vit_on_sm90("serving", counts)
+    _k2_on_its_bodies("serving", counts)
     _k4_on_sm90("serving", counts)
     missing = [name for name in ("mha_packed", "mha", "topk", "topk_i8")
                if counts[name] <= 0]
@@ -1577,6 +1794,7 @@ def phase_openclip():
     want = ("mha_packed_mask", "mha_packed", "mha", "topk")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"openclip: launches {counts}, plain {plain}")
+    _k2_on_its_bodies("openclip", counts)
     _k4_on_sm90("openclip", counts)
     del service
     torch.cuda.empty_cache()
@@ -1789,6 +2007,7 @@ def phase_eval():
     counts, plain = launch_counts(), plain_calls()
     log(f"  launches on the eval path: {counts}; plain calls {plain}")
     _vit_on_sm90("eval", counts)
+    _k2_on_its_bodies("eval", counts)
     _k4_on_sm90("eval", counts)
     want = ("mha_packed", "mha", "topk", "topk_default", "topk_i8")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
@@ -2086,6 +2305,7 @@ def phase_training():
          "plain")
     log(f"  launches on the training path: {counts}; plain calls {plain}")
     _vit_on_sm90("training", counts)
+    _k2_on_its_bodies("training", counts)
     _k3_on_sm90("training", counts)
 
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
@@ -2215,6 +2435,7 @@ def phase_openclip_training():
             f"{OPENCLIP_TRAIN_BATCH}")
         log(f"  launches on the OpenCLIP training path: {counts}; plain calls "
             f"{plain}")
+        _k2_on_its_bodies("openclip_training", counts)
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"openclip_training: losses {losses}")
         if not np.mean(losses[3:]) < losses[0]:
@@ -2526,6 +2747,7 @@ def phase_train_cl():
     want = ("mha_packed", "mha_dropout", "mha_bwd", "mha", "topk")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"train_cl: launches {counts}, plain {plain}")
+    _k2_on_its_bodies("train_cl", counts)
     _k3_on_sm90("train_cl", counts)
     _k4_on_sm90("train_cl", counts)
 
@@ -3095,6 +3317,7 @@ def phase_insect():
                for run, keys in want.items()}
     if any(missing.values()) or any(plain.values()):
         raise AssertionError(f"insect: not launched {missing}, plain {plain}")
+    _k2_on_its_bodies("insect", counts)
     _k3_on_sm90("insect", counts)
     _k4_on_sm90("insect", counts)
     if not (math.isfinite(vit_loss) and math.isfinite(joint_loss)
@@ -3348,6 +3571,7 @@ def phase_distributed():
     if any(counts.get(k, 0) <= 0 for k in want) or any(plain_calls().values()):
         raise AssertionError(f"distributed: launches {counts}")
     log(f"  launches on the distributed path: {counts}")
+    _k2_on_its_bodies("distributed", counts)
     _k3_on_sm90("distributed", counts)
     log("phase distributed ok")
     return counts
@@ -3355,8 +3579,9 @@ def phase_distributed():
 
 # graphs phase: K train steps per call as CUDA graphs (train/graphs.py)
 GRAPH_K = 4
-# kernel names in a profiler trace: the attention forwards (K1 on its sm90
-# body; K1m, K2d and K1 elsewhere share the bodies of csrc/mha_fwd.cu) and
+# kernel names in a profiler trace: the attention forwards (K1, K2 and K2d
+# on the sm90 body; K1m, BarcodeBERT's K2d at B = 400 and the rest on the
+# bodies of csrc/mha_fwd.cu) and
 # the backward's passes (K3, K3m)
 FWD_KERNELS = ("mha_fwd_sm90", "mha_fwd_mma", "mha_fwd_kernel")
 BWD_KERNELS = ("mha_bwd_sm90", "bwd_query_rows", "bwd_key_rows")
@@ -3650,9 +3875,11 @@ def phase_graphs():
             want += ("mha_packed_mask", "mha_bwd_mask")
         _want_launched(name, row[5], want)
         _vit_on_sm90(f"graphs {name}, the profiled call", row[5])
+        _k2_on_its_bodies(f"graphs {name}, the profiled call", row[5])
         _k3_on_sm90(f"graphs {name}, the profiled call", row[5])
     _graph_train_cl(counts)
     _vit_on_sm90("graphs", counts)
+    _k2_on_its_bodies("graphs", counts)
     _k3_on_sm90("graphs", counts)
     log("  graphed against eager, ms per step (CUDA events), card busy % "
         "of a graphed call, peak GiB eager / graphed: " + "; ".join(
@@ -4459,6 +4686,7 @@ def phase_data_tools():
     log(f"  launches on the data_tools path: {counts}; plain calls {plain}")
     if counts["mha_packed"] <= 0 or counts["mha"] <= 0 or any(plain.values()):
         raise AssertionError(f"data_tools: launches {counts}, plain {plain}")
+    _k2_on_its_bodies("data_tools", counts)
     _k4_on_sm90("data_tools", counts)
     del model
     torch.cuda.empty_cache()
@@ -4536,9 +4764,21 @@ def main(argv=None) -> int:
             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
             "bound_by": r.get("bound_by"), "library_ms": r.get("library_ms"),
         })
-        if name in ("mha_packed", "mha_bwd"):  # the launches on sm90 bodies
+        if name in ("mha_packed", "mha", "mha_dropout", "mha_bwd"):
+            # the launches on sm90 bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
+        if name in ("mha", "mha_dropout"):  # K2's and K2d's two bodies
+            kernels[-1]["mma_launches"] = path_counts.get(
+                KERNEL_PATH[name][0], {}).get(f"{name}_mma")
+            for key in ("body", "sm90_ms", "mma_ms"):
+                kernels[-1][key] = r.get(key)
+            kernels[-1]["shapes"] = {
+                key: {k: rows.get(f"{name} {key}", {}).get(k) for k in (
+                    "body", "ms", "sm90_ms", "mma_ms", "library_ms",
+                    "bound_ms", "max_abs_err")}
+                for key in (("barcodebert b24", "bert-small")
+                            if name == "mha" else ("bert-small",))}
         if name in ("topk", "topk_default"):  # K4's two bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get("topk_sm90")

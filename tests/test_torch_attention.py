@@ -2,8 +2,10 @@
 Pallas kernels run in interpret mode, on the same numpy inputs.
 
 Tolerance: atol 1e-5 in fp32. Both sides compute fp32 scores, an fp32
-softmax and fp32 sums over N <= 33 keys of O(1) terms; they differ only in
-summation order (~1e-6).
+softmax and fp32 sums over N <= 133 keys of O(1) terms; they differ only
+in summation order (~1e-6). N = 133 at head dim 64 (two heads) is
+BarcodeBERT's length at the forward's Hopper tile width: two 64-row query
+tiles and a tail of 5.
 """
 
 import jax.numpy as jnp
@@ -39,20 +41,21 @@ def test_mha_packed_matches_jax(n):
     assert attention.mha_packed.launches == before
 
 
-@pytest.mark.parametrize("n", [20, 33])
+@pytest.mark.parametrize("n", [20, 33, 133])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_mha_matches_jax(n, with_bias):
+    d, heads = (128, 2) if n == 133 else (D, HEADS)
     rng = np.random.default_rng(100 + n)
-    q, k, v = (rng.standard_normal((B, n, D)).astype(np.float32)
+    q, k, v = (rng.standard_normal((B, n, d)).astype(np.float32)
                for _ in range(3))
     bias = _bias(rng, n) if with_bias else None
     ref = jax_attention.mha(
-        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=HEADS,
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), heads=heads,
         bias=None if bias is None else jnp.asarray(bias), interpret=True,
     )
     out = attention.mha(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-        HEADS, bias=None if bias is None else torch.from_numpy(bias),
+        heads, bias=None if bias is None else torch.from_numpy(bias),
     )
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=ATOL)
 

@@ -99,8 +99,10 @@ def test_plan_constants_are_the_kernels():
         return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
 
     assert const("kHeadDim") == attention.SM90_HEAD_DIM
-    assert (const("kMinN"), const("kMaxN")) == (attention.SM90_MIN_N,
+    assert (const("kMinN"), const("kMaxN")) == (attention.SM90_BODY_MIN_N,
                                                 attention.SM90_MAX_N)
+    # the plans' range lies within the body's
+    assert attention.SM90_BODY_MIN_N <= attention.SM90_MIN_N
     assert const("kTileRows") == attention._TILE_ROWS
     assert const("kConsumers") == attention._CONSUMERS
     assert const("kStages") == attention._STAGES

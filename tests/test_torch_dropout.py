@@ -3,8 +3,9 @@ numpy inputs: the uint32 hash, the attention masks (scalar and (B,) seeds),
 the per-row seed chains and `ps_dropout` must be bit-equal; the plain K2d
 forward (`mha_reference` with dropout) must equal the JAX Pallas dropout
 kernel run in interpret mode within atol 1e-6 (fp32 softmax and sums over
-N <= 20 keys of O(1) terms in another order; the masks themselves are
-equal bit for bit)."""
+N <= 133 keys of terms below 1 in another order; the masks themselves are
+equal bit for bit), at BERT-small's N = 20 and at BarcodeBERT's N = 133
+with head dim 64 (two 64-row query tiles and a tail)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -97,8 +98,14 @@ def test_ps_dropout_matches_jax(dtype):
 @pytest.mark.parametrize("row_keyed", [False, True])
 @pytest.mark.parametrize("with_bias", [False, True])
 def test_k2d_plain_forward_matches_jax(row_keyed, with_bias):
-    b, n, d, heads = 3, 20, 64, 4
-    rng = np.random.default_rng(10 + 2 * row_keyed + with_bias)
+    salt = 10 + 2 * row_keyed + with_bias
+    for b, n, d, heads, rng_seed in ((3, 20, 64, 4, salt),
+                                     (2, 133, 128, 2, salt + 133)):
+        _k2d_case(b, n, d, heads, row_keyed, with_bias,
+                  np.random.default_rng(rng_seed))
+
+
+def _k2d_case(b, n, d, heads, row_keyed, with_bias, rng):
     q, k, v = (rng.standard_normal((b, n, d)).astype(np.float32)
                for _ in range(3))
     seed = _u32(rng, (b,)) if row_keyed else np.uint32(0xABCDEF01)

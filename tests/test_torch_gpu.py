@@ -9,13 +9,18 @@ Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
 before P.V on both sides), the masked forward (K1m) as K1, K1's sm90 body
 (bf16, head dim 64, 33 <= N <= 272: TMA and wgmma) as K1, with one case
-where its output must equal the plain version's bit for bit; the attention
+where its output must equal the plain version's bit for bit; K2 and K2d on
+that body (split q/k/v, 1 <= N <= 272, with and without a key bias and
+dropout in both seed modes) as K1, with a bit-equal case under a padding
+bias and a refused misaligned base and foreign plan, and K2d on the
+mma.sync body where its plan measured that faster as K1; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
 per gradient; K3's sm90 body (bf16, head dim 64, 33 <= N <= 272, no mask,
 no key bias: TMA and wgmma) as K3, with one case where its dqkv must equal
 the plain version's bit for bit and one where its two passes' scores must.
 bf16 runs the tensor-core (mma.sync) bodies (the forward above N = 32),
-fp32 the FFMA ones; K2d's keep mask reads out bit for bit and two K3
+fp32 the FFMA ones; K2d's keep mask reads out bit for bit on the sm90 body
+and on the bodies of csrc/mha_fwd.cu, and two K3
 launches are bit-equal. fp32 top-k (K4) values atol 1e-5 on
 unit vectors, in "high" (six bf16 products of the operands' three-way
 split, fp32 sums, within fp32 rounding of the plain version's fp32) and
@@ -283,6 +288,175 @@ def test_k3_sm90_body_refuses_a_misaligned_base(gen):
         attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv)
     assert (attention.mha_bwd.launches,
             attention.mha_bwd.sm90_launches) == before
+
+
+def _k2_inputs(gen, b, n, d):
+    return tuple(torch.randn(b, n, d, device="cuda", generator=gen)
+                 .to(torch.bfloat16) for _ in range(3))
+
+
+def _lengths_bias(lengths, n):
+    """(B, N) fp32 key-padding bias: 0 for the first lengths[b] keys of row
+    b, -1e9 after them."""
+    lengths = torch.as_tensor(lengths, device="cuda")
+    keep = torch.arange(n, device="cuda")[None, :] < lengths[:, None]
+    return torch.where(keep, 0.0, -1e9).float()
+
+
+def _k2_case(gen, b, n, d, heads, bias=None, rate=0.0, seed=None):
+    """K2 (K2d with a rate) through `mha` against the plain version: the
+    max |error| and the (launches, sm90 launches) it counted."""
+    q, k, v = _k2_inputs(gen, b, n, d)
+    counter = attention.mha_dropout if rate > 0 else attention.mha
+    kw = dict(bias=bias)
+    if rate > 0:
+        kw.update(dropout_rate=rate, dropout_seed=seed)
+    before = (counter.launches, counter.sm90_launches)
+    out = attention.mha(q, k, v, heads, **kw)
+    torch.cuda.synchronize()
+    launched = (counter.launches - before[0],
+                counter.sm90_launches - before[1])
+    ref = attention.mha_reference(q, k, v, heads, **kw)
+    return (out.float() - ref.float()).abs().max().item(), launched
+
+
+# K2 and K2d on the forward's sm90 body (split q/k/v, bf16, head dim 64,
+# 1 <= N <= 272): the ragged and tile-boundary N, BERT-small's 20 and
+# BarcodeBERT's 133, with and without a padding bias, without dropout, with
+# row-keyed (B,) seeds and with one scalar seed (the batch index in the
+# counter).
+@pytest.mark.parametrize("drop", ["none", "rows", "scalar"])
+@pytest.mark.parametrize("biased", [False, True])
+@pytest.mark.parametrize("n", [1, 5, 16, 17, 20, 32, 33, 64, 65, 133, 197,
+                               256, 272])
+def test_k2_sm90_body_matches_plain(gen, n, biased, drop):
+    """Within 2e-2, as K1 (one bf16 ulp at |o| ~ 1 is 7.8e-3, and p, times
+    the keep factor, is rounded to bf16 before P.V on both sides); the keep
+    bits themselves are read out bit for bit below."""
+    b = 3
+    # the last row pads one key (at N = 1, its only one: a fully padded row)
+    lengths = torch.randint(min(5, n), n + 1, (b,), device="cuda",
+                            generator=gen)
+    lengths[-1] = n - 1
+    bias = _lengths_bias(lengths, n) if biased else None
+    seed = {"none": None, "rows": _seeds(gen, b), "scalar": 0x5EED1234}[drop]
+    err, launched = _k2_case(gen, b, n, 768, 12, bias,
+                             0.0 if drop == "none" else 0.1, seed)
+    assert launched == (1, 1)
+    assert err <= 2e-2
+
+
+def test_k2d_takes_the_mma_body_where_the_plan_measured_it_faster(gen):
+    """BarcodeBERT's K2d at B = 256, N = 133 (`SPLIT_MMA_FROM`): `mha`
+    launches the mma.sync body of csrc/mha_fwd.cu, counted in
+    `mha_dropout.mma_launches`, within 2e-2 of the plain version; the sm90
+    body under a forced plan gives the same result on the same inputs."""
+    b, n, d, heads = 256, 133, 768, 12
+    assert attention.plan_split_fwd(b, n, heads, 64, dropout=True).body == (
+        "mma")
+    seeds = _seeds(gen, b)
+    before = attention.mha_dropout.mma_launches
+    err, launched = _k2_case(gen, b, n, d, heads, rate=0.1, seed=seeds)
+    assert launched == (1, 0)
+    assert attention.mha_dropout.mma_launches == before + 1
+    assert err <= 2e-2
+    q, k, v = _k2_inputs(gen, b, n, d)
+    out = torch.empty_like(q)
+    attention._launch_sm90((q.data_ptr(), k.data_ptr(), v.data_ptr()), out,
+                           d, attention.sm90_fwd_plan(b, n, heads), 0.125,
+                           None, attention._drop_args(0.1, seeds, b,
+                                                      q.device))
+    ref = attention.mha_reference(q, k, v, heads, dropout_rate=0.1,
+                                  dropout_seed=seeds)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+def test_k2_sm90_body_rounds_p_to_bf16_under_a_bias(gen):
+    """q = 0 makes every real key's p = 1 / L for a row of L unpadded keys
+    (the -1e9 bias gives the others p = 0): rounded to bf16 and summed over
+    v = 1 in fp32, o is 0.99609375 in bf16 at each of these L (an unrounded
+    p gives 1.0, and a padded key that took part another value), bit-equal
+    to the plain version's. At BarcodeBERT's N = 133."""
+    lengths = [61, 75, 83, 95, 99, 109, 115, 121, 122]
+    b, n, d, heads = len(lengths), 133, 768, 12
+    q = torch.zeros(b, n, d, device="cuda", dtype=torch.bfloat16)
+    k = torch.randn(b, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    v = torch.ones_like(q)
+    bias = _lengths_bias(lengths, n)
+    before = attention.mha.sm90_launches
+    out = attention.mha(q, k, v, heads, bias=bias)
+    assert attention.mha.sm90_launches == before + 1
+    assert torch.equal(out, attention.mha_reference(q, k, v, heads,
+                                                    bias=bias))
+    assert torch.equal(out, torch.full_like(out, 0.99609375))
+
+
+def test_k2_sm90_body_takes_a_fully_padded_row(gen):
+    """-1e9 on every key of a row: every score is -1e9 (q . k * scale is
+    below its fp32 ulp there), so p is uniform over the N real keys and 0
+    on the padded rows of the tile, as in the plain version; other rows
+    padded from 1, 5 and 100 keys."""
+    for rate, seed in ((0.0, None), (0.1, _seeds(gen, 4))):
+        err, launched = _k2_case(gen, 4, 133, 768, 12,
+                                 _lengths_bias([0, 1, 5, 100], 133), rate,
+                                 seed)
+        assert launched == (1, 1)
+        assert err <= 2e-2
+
+
+@pytest.mark.parametrize("n,hd,dtype", [
+    (273, 64, torch.bfloat16),
+    (133, 32, torch.bfloat16), (133, 128, torch.bfloat16),
+    (20, 32, torch.bfloat16), (133, 64, torch.float32),
+    (20, 64, torch.float32)])
+def test_k2_outside_the_sm90_range_keeps_its_body(gen, n, hd, dtype):
+    """bf16 at N <= 32 with another head dim (the FFMA body), N > 272 and
+    head dims 32 and 128 above N = 32 (the mma.sync body) and fp32 (FFMA)
+    launch the bodies of csrc/mha_fwd.cu, with a bias and dropout as
+    without."""
+    heads, b = 4, 2
+    q, k, v = (torch.randn(b, n, heads * hd, device="cuda", generator=gen)
+               .to(dtype) for _ in range(3))
+    bias = _lengths_bias([n, 3], n)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    for counter, kw in ((attention.mha, {}),
+                        (attention.mha_dropout,
+                         dict(dropout_rate=0.1,
+                              dropout_seed=_seeds(gen, b)))):
+        before = (counter.launches, counter.sm90_launches)
+        out = attention.mha(q, k, v, heads, bias=bias, **kw)
+        assert (counter.launches - before[0],
+                counter.sm90_launches - before[1]) == (1, 0)
+        ref = attention.mha_reference(q, k, v, heads, bias=bias, **kw)
+        assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_k2_sm90_body_refuses_a_misaligned_base_and_a_foreign_plan(gen):
+    d = 768
+    flat = torch.randn(2 * 133 * d + 1, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    q = flat[1:].view(2, 133, d)  # starts 2 bytes past 16-byte
+    before = (attention.mha.launches, attention.mha.sm90_launches)
+    with pytest.raises(ValueError, match="16-byte"):
+        attention.mha(q, q, q, 12)
+    assert (attention.mha.launches, attention.mha.sm90_launches) == before
+    q, k, v = _k2_inputs(gen, 2, 133, d)
+    bias = _lengths_bias([133, 50], 133)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    plan = attention.plan_split_fwd(2, 133, 12, 64, biased=True)
+    out = torch.full_like(q, 7.0)
+    for bad in (attention.plan_split_fwd(2, 133, 12, 64),  # unbiased smem
+                dataclasses.replace(plan, items=plan.items + 1),
+                dataclasses.replace(plan, kv_box=plan.kv_box // 2,
+                                    kv_loads=2),
+                dataclasses.replace(plan, grid=plan.items + 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            attention._launch_sm90(ptrs, out, d, bad, 0.125, bias)
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all())  # nothing was launched
+    attention._launch_sm90(ptrs, out, d, plan, 0.125, bias)
+    ref = attention.mha_reference(q, k, v, 12, bias=bias)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -899,30 +1073,39 @@ def test_eot_pooling_takes_the_first_maximum_on_the_card(gen):
     assert ids.argmax(dim=-1).tolist() == [40] * 3 + [0] + [40] * 60
 
 
-@pytest.mark.parametrize("n", [20, 64])
+@pytest.mark.parametrize("n", [20, 64, 133])
 def test_dropout_mask_reads_out_bit_for_bit(gen, n):
     """K2d's keep mask, read out through the output at BERT-small width (8
-    heads, hd 64), no bias, at N = 20 (the bf16 FFMA body, N <= 32) and 64
-    (the tensor-core body): q = k = 0 makes p = float32(1 / N) exactly, and
-    v's row j in every head is the unit vector e_j of that head's 64 dims,
-    so o[i, 64 h + j] = bf16(float32(1 / N) * keep(i, j)) exactly (0 or the
-    rounded kept value) for j < N and 0 beyond."""
+    heads, hd 64), no bias, at N = 20, 64 and 133, on the body the plan
+    chooses (the sm90 body) and on the bodies of csrc/mha_fwd.cu
+    (`_launch_fwd`: FFMA at N <= 32, the mma.sync body above): q = k = 0 makes p = float32(1 / N) exactly, and in read-out r v's
+    row j of every head is the unit vector e_(j - 64 r) of that head's 64
+    dims for the keys 64 r <= j < 64 (r + 1), 0 for the others, so o[i,
+    64 h + j - 64 r] = bf16(float32(1 / N) * keep(i, j)) exactly (0 or the
+    rounded kept value) for those keys and 0 beyond."""
     b, heads, hd = 4, 8, 64
     q = torch.zeros(b, n, heads * hd, device="cuda", dtype=torch.bfloat16)
-    v = torch.zeros_like(q)
-    j = torch.arange(n, device="cuda")
-    for h in range(heads):
-        v[:, j, h * hd + j] = 1.0
     p = torch.tensor(1.0, device="cuda") / n
     for seed in (_seeds(gen, b), 0x2545F491):
-        out = attention.mha(q, q, v, heads, dropout_rate=0.1,
-                            dropout_seed=seed)
         keep = attention.dropout_keep_4d(seed, b, heads, n, 0.1,
                                          device="cuda")
         assert (keep == 0).any() and (keep != 0).any()
-        got = out.view(b, n, heads, hd).permute(0, 2, 1, 3)
-        assert torch.equal(got[..., :n], (p * keep).to(torch.bfloat16))
-        assert not got[..., n:].any()
+        for r in range(-(-n // hd)):
+            j = torch.arange(r * hd, min(n, (r + 1) * hd), device="cuda")
+            v = torch.zeros_like(q)
+            for h in range(heads):
+                v[:, j, h * hd + j - r * hd] = 1.0
+            plan_out = attention.mha(q, q, v, heads, dropout_rate=0.1,
+                                     dropout_seed=seed)
+            old_out = torch.empty_like(q)
+            attention._launch_fwd(
+                (q.data_ptr(), q.data_ptr(), v.data_ptr()), old_out, b, n,
+                heads, hd, heads * hd, hd ** -0.5, q.dtype, None, 0.1, seed)
+            want = (p * keep[..., j]).to(torch.bfloat16)
+            for out in (plan_out, old_out):
+                got = out.view(b, n, heads, hd).permute(0, 2, 1, 3)
+                assert torch.equal(got[..., : len(j)], want)
+                assert not got[..., len(j):].any()
 
 
 def test_backward_kernel_is_bit_deterministic(gen):
