@@ -78,6 +78,16 @@
 // (one 77 x 77 fp32 mask is 23.7 KB and stays in L1/L2 for the whole grid);
 // it takes no shared memory. Whether there is a mask is a template
 // parameter: K1, K2 and K2d compile without the mask read.
+//
+// What still runs here: bf16 at head dim 64 goes to the Hopper body of
+// mha_fwd_sm90.cu (TMA and wgmma) by the plans of ops/attention.py: K1 at
+// 33 <= N <= 272, K1m at 8 <= N <= 160, K2 and K2d at 1 <= N <= 272. These
+// bodies keep fp32, head dims 32 and 128, K1 at N <= 32 or above 272, K1m
+// above N = 160 (its mask rows no longer fit beside the Hopper body's
+// stages), K2 and K2d above 272, and the shapes where the plans measured
+// this file's bodies faster (`attention.SPLIT_MMA_FROM`: K2d at
+// BarcodeBERT's N = 133 from B = 256 on mma.sync;
+// `attention.SM90_MASK_MIN_N`: K1m below N = 8 on FFMA).
 
 #include "attention_common.cuh"
 

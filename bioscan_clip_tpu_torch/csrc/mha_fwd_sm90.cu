@@ -1,36 +1,43 @@
 // The attention forward for Hopper: TMA loads behind mbarriers, wgmma
 // products, the exact softmax held in registers. One body serves K1 (ViT's
-// packed qkv), K2 and K2d (the BERT towers' split q, k, v, with a key bias
+// packed qkv), K1m (the same with an (N, N) score mask: OpenCLIP's causal
+// text tower), K2 and K2d (the BERT towers' split q, k, v, with a key bias
 // and in-kernel dropout).
 //
 // Replaces (TPU Pallas kernels in bioscan_clip_tpu/ops/attention.py), on
-// bf16 input at head dim 64 and 33 <= N <= 272:
-//   K1  `_pallas_mha_packed` without a mask (:425; `_packed_kernel` :153):
-//       ViT-B/16's N = 197 and ViT-L/14's N = 257;
-//   K2  `_pallas_mha_split` (:449; `_split_kernel`, `_split_bias_kernel`):
-//       BarcodeBERT's N = 133;
+// bf16 input at head dim 64:
+//   K1  `_pallas_mha_packed` without a mask (:425; `_packed_kernel` :153),
+//       33 <= N <= 272: ViT-B/16's N = 197 and ViT-L/14's N = 257;
+//   K1m `_pallas_mha_packed` with an (N, N) mask (`_packed_mask_kernel`
+//       :162), 1 <= N <= 160 (the plan from N = 8: below, the FFMA body of
+//       mha_fwd.cu measured faster): OpenCLIP's text at N = 77 and the
+//       WordPiece N = 20 of its service and training;
+//   K2  `_pallas_mha_split` (:449; `_split_kernel`, `_split_bias_kernel`),
+//       1 <= N <= 272: BarcodeBERT's N = 133, BERT-small's N = 20;
 //   K2d the same with counter-hash dropout (`_split_drop_kernel` :195,
 //       `_split_bias_drop_kernel` :203, `_row_drop` :184).
-// All share the body `_attend_one_row` (:116-150). Every other case (another
-// head dim, N outside the plan's range, fp32, K1m's (N, N) mask) stays on
-// the bodies of mha_fwd.cu. The body takes base pointers and a row stride:
-// packed is (p, p + D, p + 2 D; stride 3 D), split (q, k, v; stride D).
+// All share the body `_attend_one_row` (:116-150). Every other case
+// (another head dim, N outside these ranges, fp32) stays on the bodies of
+// mha_fwd.cu. The body takes base pointers and a row stride: packed is (p,
+// p + D, p + 2 D; stride 3 D), split (q, k, v; stride D).
 //
-// Contract (`_attend_one_row` with `bias_row` and `drop`): per head, s =
-// (q . k) * scale in fp32, then + bias[b, j] in fp32 (the (B, N) key bias:
-// 0 / -1e9 padding); keys past N score -inf; p = exp(s - max) / sum in fp32
-// (the SFU's exp times 1 / l, as `bscan::prob`); with dropout p times
-// keep_scale or 0 in fp32 (`bscan::Dropout::factor`: the counter over the
-// real N, row-keyed seeds with b = 0 or one scalar seed with the batch
-// index); p rounded to bf16; o = p . v summed in fp32 and written in bf16.
+// Contract (`_attend_one_row` with `bias_row` (the key bias or `m_ref`,
+// the mask) and `drop`): per head, s = (q . k) * scale in fp32, then +
+// bias[b, j] (the (B, N) key bias: 0 / -1e9 padding) or + mask[i, j] (the
+// (N, N) score mask, shared across the batch) in fp32; keys past N score
+// -inf; p = exp(s - max) / sum in fp32 (the SFU's exp times 1 / l, as
+// `bscan::prob`); with dropout p times keep_scale or 0 in fp32
+// (`bscan::Dropout::factor`: the counter over the real N, row-keyed seeds
+// with b = 0 or one scalar seed with the batch index); p rounded to bf16;
+// o = p . v summed in fp32 and written in bf16.
 //
 // What bounds it on an H100: at ViT-B B=256 N=197 D=768 h=12 the bytes are
 // q, k, v read once and o written once, 4 * 256 * 197 * 768 * 2 = 310 MB:
 // 0.0925 ms at 3.35 TB/s; the products, 4 * B * h * N^2 * 64 = 30.5 GFLOP,
 // take 0.031 ms at 989 TFLOP/s. BarcodeBERT at B=400 N=133 moves 327 MB
-// (0.0976 ms) for 21.7 GFLOP. So the bound is bytes, and the kernel's job
-// is to keep the loads streaming while the products, the softmax and the
-// dropout hash run.
+// (0.0976 ms) for 21.7 GFLOP; K1m at B=64 N=77 30.3 MB (0.0090 ms) for 1.2
+// GFLOP. So the bound is bytes, and the kernel's job is to keep the loads
+// streaming while the products, the softmax and the dropout hash run.
 //
 // Why the scores stay in registers. JAX rounds the normalised fp32 p (times
 // the keep factor) to bf16 before P . V. An online softmax rescales
@@ -72,6 +79,18 @@
 //   213 KB at B=400) before it waits for the stage, writes them to the
 //   warpgroup's own pad16(N) floats of shared memory while its S product
 //   runs, and the softmax adds them from there, two columns a load.
+// - The score mask (K1m): its rows are N fp32 apart (308 B at N = 77), not
+//   16-byte aligned either. A consumer's query tile owns 64 of them, and
+//   the warpgroup stages them into its own shared memory, 64 rows of
+//   pad16(N) + 8 fp32 (the 8 floats put rows g and g + 2 of a quad's
+//   float2 reads in other banks: no conflict), by 4-byte `cp.async` in
+//   order (coalesced reads) issued before it waits for the stage, so the
+//   copy runs under the TMA loads and its S product; rows and columns past
+//   N stage 0. It stages only when its query tile changes: items walk the
+//   pair fastest and the grid is even, so at N <= 128 (one pair: consumer
+//   c always has tile c) and whenever the grid is a multiple of the pairs,
+//   a CTA stages once. The softmax adds the mask where it adds the bias.
+//   The mask is general (no causal tile skip).
 // - The dropout hash (K2d): the keep bits hang on the indices alone, so
 //   each thread hashes its scores' bits (two `mix32` a score, into 32-bit
 //   words) while its S product runs, skipping a warp's 16 rows that all
@@ -83,10 +102,14 @@
 //   on one consumer while the other does its softmax, in the producer
 //   warpgroup, with right shifts as `__umulhi`, or skipping 8-row and
 //   8-key halves past N all ran slower.
-// `BIAS` and `DROP` are template flags: as uniform runtime branches, one
-// for each score, they cut the straight-line code into a block per score
-// (K2d at BarcodeBERT B=400 0.51 ms, against 0.41 as flags), and K1's
-// instantiations compile without either.
+// `BIAS`, `DROP` and `MASK` are template flags: as uniform runtime
+// branches, one for each score, they cut the straight-line code into a
+// block per score (K2d at BarcodeBERT B=400 0.51 ms, against 0.41 as
+// flags), and K1's instantiations compile without any. The bias and the
+// mask share one pointer argument (no launch has both), so K1's kernel
+// takes the same arguments as before the mask. The mask is instantiated
+// only without a bias or dropout (K1m has neither) and only up to 160
+// key rows.
 // Why persistent and not several co-resident CTAs: a consumer needs up to
 // ~170 registers for its scores and O, so an SM holds two consumer
 // warpgroups; two CTAs of one consumer each would load K_h and V_h for
@@ -108,8 +131,11 @@
 // pad16(N) * 128 B), two 8 KB O tiles and the barriers, with 1 KB of slack
 // for the 1024-byte alignment of the swizzled tiles: 156,736 B at N = 197,
 // 189,504 B at N = 272; with a key bias 2 * pad16(N) * 4 B more:
-// 125,120 B at N = 133, 191,680 B at N = 272 (`sm90_fwd_plan` in
-// ops/attention.py gives the same numbers; the launch checks them).
+// 125,120 B at N = 133, 191,680 B at N = 272; with a mask 2 * 64 *
+// (pad16(N) + 8) * 4 B more: 136,256 B at N = 77, 87,104 B at N = 20,
+// 218,176 B at N = 160, the largest N whose mask tiles fit the 232,448 B
+// a block may have (N = 176 would need 234,560 B). (`sm90_fwd_plan` in
+// ops/attention.py gives the same numbers; the launch checks them.)
 
 #include <cuda.h>
 #include <stdint.h>
@@ -130,6 +156,7 @@ constexpr int kThreads = 128 * (1 + kConsumers);
 constexpr int kStages = 2;
 constexpr int kMinN = 1;  // the least instantiation: 16 key rows
 constexpr int kMaxN = 272;
+constexpr int kMaxMaskN = 160;  // K1m's largest N: its mask tiles fit
 constexpr int kMaxBox = 256;  // TMA's largest box dimension
 constexpr int kAlign = 1024;  // the 128-byte swizzle's atom: 8 rows
 constexpr int kBarrierBytes = 64;
@@ -154,20 +181,33 @@ __host__ __device__ constexpr int bias_bytes(int key_rows) {
   return key_rows * 4;
 }
 
-constexpr long long smem_bytes(int key_rows, bool biased) {
-  return kAlign + (long long)kStages * stage_bytes(key_rows) +
-         kConsumers * kTileBytes + kBarrierBytes +
-         (biased ? kConsumers * bias_bytes(key_rows) : 0);
+// a consumer's staged mask rows: 64 rows of pad16(N) + 8 fp32 (the 8
+// floats of padding: rows g and g + 2 of a quad's float2 reads fall in other
+// banks)
+__host__ __device__ constexpr int mask_stride(int key_rows) {
+  return key_rows + 8;
 }
 
-Plan make_plan(int b, int n, int heads, bool biased) {
+__host__ __device__ constexpr int mask_bytes(int key_rows) {
+  return kTileRows * mask_stride(key_rows) * 4;
+}
+
+constexpr long long smem_bytes(int key_rows, bool biased, bool masked) {
+  return kAlign + (long long)kStages * stage_bytes(key_rows) +
+         kConsumers * kTileBytes + kBarrierBytes +
+         (biased   ? kConsumers * bias_bytes(key_rows)
+          : masked ? kConsumers * mask_bytes(key_rows)
+                   : 0);
+}
+
+Plan make_plan(int b, int n, int heads, bool biased, bool masked) {
   Plan p;
   p.key_rows = bscan::pad16(n);
   p.kv_loads = p.key_rows > kMaxBox ? 2 : 1;
   p.kv_box = p.key_rows / p.kv_loads;
   p.q_tiles = (n + kTileRows - 1) / kTileRows;
   p.items = b * heads * ((p.q_tiles + kConsumers - 1) / kConsumers);
-  p.smem = smem_bytes(p.key_rows, biased);
+  p.smem = smem_bytes(p.key_rows, biased, masked);
   return p;
 }
 
@@ -227,18 +267,53 @@ __device__ __forceinline__ void keep_bits(uint32_t (&keep)[(KT + 3) / 4],
   }
 }
 
+// 4 bytes from global to shared memory, asynchronously; `valid` false
+// writes 4 zero bytes and reads nothing.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// The (N, N) score mask's rows of query tile `tile` into a consumer's
+// shared memory (`dst`: 64 rows of mask_stride(16 KT) fp32) by 4-byte
+// cp.async, the warpgroup's 128 threads in order (coalesced reads), one
+// committed group; rows and columns past N stage 0 (their scores are -inf
+// or not stored). The caller waits for the group (`cp_async_wait_all`)
+// and syncs the warpgroup before the rows are read.
+template <int KT>
+__device__ __forceinline__ void stage_mask(float* dst,
+                                           const float* __restrict__ mask,
+                                           int n, int tile, int tid) {
+  constexpr int kCols = 16 * KT;
+#pragma unroll 8
+  for (int i = 0; i < 8 * KT; ++i) {  // 64 * kCols / 128 elements a thread
+    const int e = tid + 128 * i;
+    const int r = e / kCols, col = e - r * kCols;
+    const int row = tile * kTileRows + r;
+    const bool in = row < n && col < n;
+    cp_async4(dst + r * mask_stride(kCols) + col,
+              in ? mask + (long long)row * n + col : mask, in);
+  }
+  bscan::cp_async_commit();
+}
+
 // Shared memory, from the 1024-aligned base: stage s at s * stage_bytes
 // (Q tile 0, Q tile 1, K_h, V_h), then the consumers' O tiles, then the
 // barriers full[2] and empty[2], then (with a bias) the consumers' bias
-// rows.
-template <int KT, bool BIAS, bool DROP>
+// rows or (with a mask) their mask rows. `add` is the (B, N) key bias
+// (BIAS) or the (N, N) score mask (MASK).
+template <int KT, bool BIAS, bool DROP, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
     mha_fwd_sm90(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_o, int n, int heads,
                  int q_tiles, int items, int kv_box, int kv_loads,
-                 float scale, const float* __restrict__ bias, Dropout drop) {
+                 float scale, const float* __restrict__ add, Dropout drop) {
+  static_assert(!(MASK && (BIAS || DROP)), "K1m has no bias or dropout");
   constexpr int kKeyRows = 16 * KT;
   constexpr int kStage = stage_bytes(kKeyRows);
   extern __shared__ unsigned char smem_raw[];
@@ -295,10 +370,18 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int warp = tid >> 5, lane = tid & 31;
     const int g = lane >> 2, t = lane & 3;
     const uint32_t o_tile = o_tiles + c * kTileBytes;
-    // this warpgroup's bias row (pad16(N) fp32), when there is a bias
+    // this warpgroup's bias row (pad16(N) fp32) or mask rows, when there is
+    // one
     float* const bias_s = reinterpret_cast<float*>(
         smem_raw + (bars + kBarrierBytes - raw) + c * bias_bytes(kKeyRows));
+    float* const mask_s = reinterpret_cast<float*>(
+        smem_raw + (bars + kBarrierBytes - raw) + c * mask_bytes(kKeyRows));
     constexpr int kBiasCols = (kKeyRows + 127) / 128;  // staged a thread
+    constexpr int kMaskStride = mask_stride(kKeyRows);
+    // this thread's mask rows: g and g + 8 of its warp's 16, from column 2 t
+    [[maybe_unused]] const float* const mask_g =
+        mask_s + (16 * warp + g) * kMaskStride + 2 * t;
+    [[maybe_unused]] int staged = -1;  // the tile whose mask rows are staged
     bool stored = false;  // this warpgroup has a TMA store in flight
     // Turns, in order: S of consumer 0, S of 1, P . V of 0, P . V of 1, the
     // next item's S of 0, ...: while one consumer's products run, the other
@@ -319,9 +402,20 @@ __global__ void __launch_bounds__(kThreads, 1)
       float bv[kBiasCols];
       unsigned dbase = 0, dseed = 0;
       if constexpr (DROP) drop.row(w.b, w.h, heads, n, &dbase, &dseed);
+      // the mask rows of this tile, when the tile changed, copied while the
+      // stage's loads and the S product run (the last item's reads ended
+      // at its O store's warpgroup barriers)
+      [[maybe_unused]] bool restaged = false;
+      if constexpr (MASK) {
+        if (tile < q_tiles && tile != staged) {
+          stage_mask<KT>(mask_s, add, n, tile, tid);
+          staged = tile;
+          restaged = true;
+        }
+      }
       if constexpr (BIAS) {
         if (tile < q_tiles) {
-          const float* row = bias + (long long)w.b * n;
+          const float* row = add + (long long)w.b * n;
 #pragma unroll
           for (int r = 0; r < kBiasCols; ++r) {
             const int col = tid + 128 * r;
@@ -365,6 +459,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         warpgroup_sync(1 + c);
       }
+      if constexpr (MASK) {
+        if (restaged) {  // the mask rows copied (all the warpgroup's)
+          bscan::cp_async_wait_all();
+          warpgroup_sync(1 + c);
+        }
+      }
       // The keep bits hang on the indices alone: hashed while S runs. A
       // warp whose 16 rows all lie past N hashes nothing (its rows are not
       // stored).
@@ -389,6 +489,12 @@ __global__ void __launch_bounds__(kThreads, 1)
             const float2 bb = *reinterpret_cast<const float2*>(
                 bias_s + 16 * j + 8 * (x >> 2) + 2 * t);
             v = __fadd_rn(v, (x & 1) ? bb.y : bb.x);
+          }
+          if constexpr (MASK) {
+            const float2 mm = *reinterpret_cast<const float2*>(
+                mask_g + ((x & 2) ? 8 * kMaskStride : 0) + 16 * j +
+                8 * (x >> 2));
+            v = __fadd_rn(v, (x & 1) ? mm.y : mm.x);
           }
           if (j == KT - 1 && 16 * j + 8 * (x >> 2) + 2 * t + (x & 1) >= n)
             v = -INFINITY;
@@ -473,39 +579,44 @@ struct Maps {
   CUtensorMap q, k, v, o;
 };
 
-template <int KT, bool BIAS, bool DROP>
+template <int KT, bool BIAS, bool DROP, bool MASK>
 cudaError_t launch(const Maps& m, const Plan& p, int n, int heads, int grid,
-                   float scale, const float* bias, const Dropout& drop,
+                   float scale, const float* add, const Dropout& drop,
                    cudaStream_t stream) {
-  // the shared-memory attribute is set once per card for each instantiation
-  constexpr int kMaxDevices = 64;
-  static bool ready[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(mha_fwd_sm90<KT, BIAS, DROP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem_bytes(16 * KT, BIAS));
+  if constexpr (MASK && 16 * KT > bscan::pad16(kMaxMaskN)) {
+    return cudaErrorInvalidValue;  // no mask instantiation past kMaxMaskN
+  } else {
+    // the shared-memory attribute is set once per card for each
+    // instantiation
+    constexpr int kMaxDevices = 64;
+    static bool ready[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
     if (err != cudaSuccess) return err;
-    ready[dev] = true;
+    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+    if (!ready[dev]) {
+      err = cudaFuncSetAttribute(mha_fwd_sm90<KT, BIAS, DROP, MASK>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)smem_bytes(16 * KT, BIAS, MASK));
+      if (err != cudaSuccess) return err;
+      ready[dev] = true;
+    }
+    mha_fwd_sm90<KT, BIAS, DROP, MASK><<<grid, kThreads, p.smem, stream>>>(
+        m.q, m.k, m.v, m.o, n, heads, p.q_tiles, p.items, p.kv_box,
+        p.kv_loads, scale, add, drop);
+    return cudaGetLastError();
   }
-  mha_fwd_sm90<KT, BIAS, DROP><<<grid, kThreads, p.smem, stream>>>(
-      m.q, m.k, m.v, m.o, n, heads, p.q_tiles, p.items, p.kv_box,
-      p.kv_loads, scale, bias, drop);
-  return cudaGetLastError();
 }
 
-template <bool BIAS, bool DROP>
+template <bool BIAS, bool DROP, bool MASK>
 cudaError_t dispatch(const Maps& m, const Plan& p, int n, int heads,
-                     int grid, float scale, const float* bias,
+                     int grid, float scale, const float* add,
                      const Dropout& drop, cudaStream_t s) {
   switch (p.key_rows / 16) {
-#define BSCAN_KT(KT)                                                      \
-  case KT:                                                                \
-    return launch<KT, BIAS, DROP>(m, p, n, heads, grid, scale, bias, drop, \
-                                  s);
+#define BSCAN_KT(KT)                                                    \
+  case KT:                                                              \
+    return launch<KT, BIAS, DROP, MASK>(m, p, n, heads, grid, scale, add, \
+                                        drop, s);
     BSCAN_KT(1) BSCAN_KT(2) BSCAN_KT(3) BSCAN_KT(4) BSCAN_KT(5) BSCAN_KT(6)
     BSCAN_KT(7) BSCAN_KT(8) BSCAN_KT(9) BSCAN_KT(10) BSCAN_KT(11)
     BSCAN_KT(12) BSCAN_KT(13) BSCAN_KT(14) BSCAN_KT(15) BSCAN_KT(16)
@@ -523,26 +634,29 @@ extern "C" {
 // The attention forward on the Hopper body: q, k, v bf16 (B, N, heads * 64)
 // views with row stride `row_stride` elements (3 D for a packed qkv: k = q
 // + D, v = q + 2 D; D for split tensors), each 16-byte aligned -> out (B,
-// N, heads * 64) bf16. bias: nullptr or (B, N) fp32. Dropout (drop != 0):
-// row_seeds (B,) uint32 on the card or nullptr for the scalar `seed`,
-// keep when the hash >= threshold, kept p times keep_scale. The plan's
-// fields (`sm90_fwd_plan`) must equal what this library computes for (b,
-// n, heads, a bias or not), and grid lie in [1, items]; otherwise, and
-// outside head dim 64 and 1 <= N <= 272, it returns cudaErrorInvalidValue
-// and launches nothing. Returns the cudaError_t of the launch (0 on
-// success).
+// N, heads * 64) bf16. bias: nullptr or (B, N) fp32. mask: nullptr or the
+// (N, N) fp32 score mask (K1m: N <= 160, no bias, no dropout). Dropout
+// (drop != 0): row_seeds (B,) uint32 on the card or nullptr for the scalar
+// `seed`, keep when the hash >= threshold, kept p times keep_scale. The
+// plan's fields (`sm90_fwd_plan`) must equal what this library computes
+// for (b, n, heads, a bias or not, a mask or not), and grid lie in [1,
+// items]; otherwise, and outside head dim 64 and 1 <= N <= 272, it returns
+// cudaErrorInvalidValue and launches nothing. Returns the cudaError_t of
+// the launch (0 on success).
 int bscan_mha_fwd_sm90(const void* q, const void* k, const void* v,
                        void* out, long long row_stride, const void* bias,
-                       const void* row_seeds, unsigned seed,
-                       unsigned threshold, float keep_scale, int drop, int b,
-                       int n, int heads, int head_dim, float scale,
-                       int key_rows, int kv_box, int kv_loads, int q_tiles,
-                       int items, int grid, long long smem, void* stream) {
+                       const void* mask, const void* row_seeds,
+                       unsigned seed, unsigned threshold, float keep_scale,
+                       int drop, int b, int n, int heads, int head_dim,
+                       float scale, int key_rows, int kv_box, int kv_loads,
+                       int q_tiles, int items, int grid, long long smem,
+                       void* stream) {
   if (head_dim != kHeadDim || n < kMinN || n > kMaxN ||
       b < 1 || heads < 1 || row_stride < (long long)heads * kHeadDim ||
-      row_stride > (1LL << 30))
+      row_stride > (1LL << 30) ||
+      (mask && (bias || drop || n > kMaxMaskN)))
     return (int)cudaErrorInvalidValue;
-  const Plan p = make_plan(b, n, heads, bias != nullptr);
+  const Plan p = make_plan(b, n, heads, bias != nullptr, mask != nullptr);
   if (key_rows != p.key_rows || kv_box != p.kv_box ||
       kv_loads != p.kv_loads || q_tiles != p.q_tiles || items != p.items ||
       smem != p.smem || grid < 1 || grid > p.items)
@@ -558,18 +672,22 @@ int bscan_mha_fwd_sm90(const void* q, const void* k, const void* v,
   Dropout dr{static_cast<const unsigned*>(row_seeds), seed, threshold,
              keep_scale, drop};
   const float* bias_f = static_cast<const float*>(bias);
+  const float* mask_f = static_cast<const float*>(mask);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask_f)
+    return (int)dispatch<false, false, true>(m, p, n, heads, grid, scale,
+                                             mask_f, dr, s);
   if (bias_f && drop)
-    return (int)dispatch<true, true>(m, p, n, heads, grid, scale, bias_f, dr,
-                                     s);
+    return (int)dispatch<true, true, false>(m, p, n, heads, grid, scale,
+                                            bias_f, dr, s);
   if (bias_f)
-    return (int)dispatch<true, false>(m, p, n, heads, grid, scale, bias_f,
-                                      dr, s);
+    return (int)dispatch<true, false, false>(m, p, n, heads, grid, scale,
+                                             bias_f, dr, s);
   if (drop)
-    return (int)dispatch<false, true>(m, p, n, heads, grid, scale, nullptr,
-                                      dr, s);
-  return (int)dispatch<false, false>(m, p, n, heads, grid, scale, nullptr, dr,
-                                     s);
+    return (int)dispatch<false, true, false>(m, p, n, heads, grid, scale,
+                                             nullptr, dr, s);
+  return (int)dispatch<false, false, false>(m, p, n, heads, grid, scale,
+                                            nullptr, dr, s);
 }
 
 const char* bscan_error_string(int err) {

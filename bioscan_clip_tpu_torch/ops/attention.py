@@ -9,7 +9,8 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
 - `mha_dropout`, which `mha(..., dropout_rate > 0)` calls: K2d, the split
   forward with counter-hash probability dropout (`_split_drop_kernel` :195,
   `_split_bias_drop_kernel` :203, `_row_drop` :184); K1 (without a mask,
-  33 <= N <= 272), K2 and K2d (N <= 272, but for the N and batches of
+  33 <= N <= 272), K1m (8 <= N <= 160: below, the FFMA body measured
+  faster), K2 and K2d (N <= 272, but for those of
   `SPLIT_MMA_FROM`) on bf16 at head dim 64 share one Hopper body,
   `csrc/mha_fwd_sm90.cu` (TMA and `wgmma`, by the plans of
   `plan_packed_fwd` and `plan_split_fwd`);
@@ -29,11 +30,11 @@ outputs are what a selective remat policy saves (`ATTENTION_OPS`, JAX's
 `attn_ctx`). On a CUDA tensor each wrapper launches its hand-written kernel
 (`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
 `mma.sync`, the forward above N = 32; fp32 in FFMA; K1, K2, K2d and K3 on
-bf16 at head dim 64 and 33 <= N <= 272 (K2 and K2d from N = 1) without a
-mask (and K3 without a key bias) on `csrc/mha_fwd_sm90.cu` and
-`csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by the plans of
-`plan_packed_fwd`, `plan_split_fwd` and `plan_bwd`) or raises; on a CPU
-tensor it runs its plain PyTorch version (`mha_reference`,
+bf16 at head dim 64 and 33 <= N <= 272 (K2 and K2d from N = 1; K1m at
+8 <= N <= 160) without a mask (but K1m) and K3 without a key bias on
+`csrc/mha_fwd_sm90.cu` and `csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by the
+plans of `plan_packed_fwd`, `plan_split_fwd` and `plan_bwd`) or raises; on
+a CPU tensor it runs its plain PyTorch version (`mha_reference`,
 `mha_bwd_reference`), which has the same contract. The bf16 kernels read
 q/k/v (and g) in 16-byte pieces, so those tensors must start 16-byte
 aligned. Autograd never differentiates the plain forward: the CPU backward
@@ -46,8 +47,9 @@ ints or int64 tensors holding uint32 values.
 Each wrapper counts its kernel launches in `<wrapper>.launches` (those on
 the Hopper bodies also in `<wrapper>.sm90_launches`: `mha_packed`, `mha`,
 `mha_dropout`, `mha_bwd`; K2's and K2d's on the mma.sync body in
-`<wrapper>.mma_launches`); the plain versions count their calls in
-`<function>.calls`.
+`<wrapper>.mma_launches`); K1m's in `mha_packed.mask_launches`, those on the
+Hopper body also in `mha_packed.mask_sm90_launches`; the plain versions
+count their calls in `<function>.calls`.
 """
 
 from __future__ import annotations
@@ -256,7 +258,7 @@ def sm90_entry(lib):
     library built from `csrc/mha_fwd_sm90.cu` (or a variant of it)."""
     fn = lib.bscan_mha_fwd_sm90
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
         + [ctypes.c_uint, ctypes.c_uint, ctypes.c_float] + [ctypes.c_int] * 5
         + [ctypes.c_float] + [ctypes.c_int] * 6
         + [ctypes.c_longlong, ctypes.c_void_p]
@@ -285,10 +287,21 @@ def _bwd_sm90_kernel():
 
 
 # --- the forward's plan on the Hopper body (csrc/mha_fwd_sm90.cu,
-# `make_plan`): K1 (`plan_packed_fwd`), K2 and K2d (`plan_split_fwd`) ------
+# `make_plan`): K1 and K1m (`plan_packed_fwd`), K2 and K2d
+# (`plan_split_fwd`) ------
 
 SM90_HEAD_DIM = 64
 SM90_MIN_N, SM90_MAX_N = 33, 272  # K1's range
+# K1m's plan on the sm90 body: up to `kMaxMaskN` (its two consumers' 64 mask
+# rows of pad16(N) + 8 fp32 beside the stages fit a block's 227 KB up to
+# here), from the least N where the body beat the FFMA body of
+# csrc/mha_fwd.cu at every B measured (tools/sweep_k1_sm90.py --crossing,
+# D = 768 and 12 heads, B = 1-512, N = 1-160; H100 at 700 W; PERF.md
+# section 6): below it one 64-row query tile of 16 key rows does more than
+# the FFMA body's few scores, FFMA 1.0-1.4x faster at N = 1-4 and, at the
+# launch floor's ~4 us, at N = 5-7 at some B; from N = 8 the sm90 body won
+# at every B in three runs (0.11-0.94x).
+SM90_MASK_MIN_N, SM90_MASK_MAX_N = 8, 160
 # the body's least N (16 key rows), where K2/K2d's range starts: BERT-small's
 # N = 20 ran 2.8x (K2, B=256 + bias) and 2.2x (K2d, B=400 + bias) faster
 # on it than on the FFMA body, N = 16 2.4x and 2.0x (H100 at 700 W,
@@ -308,16 +321,19 @@ class FwdPlan:
     """How `mha_packed`, `mha` or `mha_dropout` runs (B, N, heads,
     head_dim) on the card.
 
-    `body` is "sm90" (`csrc/mha_fwd_sm90.cu`: bf16, head dim 64, no (N, N)
-    mask, 33 <= N <= 272 packed and 1 <= N <= 272 split), "mma" (the bf16
-    `mma.sync` body of `csrc/mha_fwd.cu`) or "ffma" (its fp32 body, also
-    bf16 at N <= 32). The other fields describe the sm90 launch and are 0
-    for the other bodies: keys padded to 16 (`key_rows`), loaded in `kv_loads` TMA boxes
-    of `kv_box` rows per tensor; `q_tiles` 64-row query tiles; `items` work
-    items (batch row, head, pair of query tiles: one tile per consumer
-    warpgroup; item = (b * heads + h) * pairs + pair), CTA c taking items
-    c, c + grid, ...; `smem` bytes of dynamic shared memory a CTA (with a
-    key bias, each consumer's staged bias row besides)."""
+    `body` is "sm90" (`csrc/mha_fwd_sm90.cu`: bf16, head dim 64; packed
+    without a mask (K1) at 33 <= N <= 272, with an (N, N) mask (K1m) at
+    1 <= N <= 160 (the plan's from N = 8), split at 1 <= N <= 272),
+    "mma" (the bf16 `mma.sync` body of `csrc/mha_fwd.cu`) or "ffma" (its
+    fp32 body, also bf16 at N <= 32). The other fields describe the sm90
+    launch and are 0 for the other bodies: keys padded to 16
+    (`key_rows`), loaded in `kv_loads` TMA boxes of `kv_box` rows per
+    tensor; `q_tiles` 64-row query tiles; `items` work items (batch row,
+    head, pair of query tiles: one tile per consumer warpgroup; item =
+    (b * heads + h) * pairs + pair), CTA c taking items c, c + grid, ...;
+    `smem` bytes of dynamic shared memory a CTA (with a key bias, each
+    consumer's staged bias row besides; with a mask, each consumer's 64
+    staged mask rows of `key_rows` + 8 fp32)."""
 
     body: str
     b: int
@@ -332,21 +348,36 @@ class FwdPlan:
     smem: int = 0
 
 
+def mask_rows_bytes(key_rows: int) -> int:
+    """A consumer's staged mask rows on the sm90 body: 64 rows of
+    `key_rows` + 8 fp32 (the padding keeps a quad's float2 reads of rows g
+    and g + 2 in other banks; `mask_bytes` in the source)."""
+    return _TILE_ROWS * (key_rows + 8) * 4
+
+
 def sm90_fwd_plan(b: int, n: int, heads: int, biased: bool = False,
-                  sms: int = H100_SMS) -> FwdPlan:
+                  sms: int = H100_SMS, masked: bool = False) -> FwdPlan:
     """The sm90 body's launch at (B, N, heads), for any N it takes
-    (SM90_BODY_MIN_N <= N <= 272); `biased`: a (B, N) key bias is staged.
-    `plan_packed_fwd` and `plan_split_fwd` choose where it runs."""
-    if not SM90_BODY_MIN_N <= n <= SM90_MAX_N:
+    (SM90_BODY_MIN_N <= N <= 272; with `masked` up to SM90_MASK_MAX_N);
+    `biased`: a (B, N) key bias is staged, `masked`: an (N, N) score mask
+    (never both). `plan_packed_fwd` and `plan_split_fwd` choose where it
+    runs."""
+    top = SM90_MASK_MAX_N if masked else SM90_MAX_N
+    if not SM90_BODY_MIN_N <= n <= top:
         raise ValueError(f"the sm90 forward takes {SM90_BODY_MIN_N} <= N <= "
-                         f"{SM90_MAX_N}, not {n}")
+                         f"{top}{' with a mask' if masked else ''}, not {n}")
+    if biased and masked:
+        raise ValueError("the sm90 forward takes a key bias or a score "
+                         "mask, not both")
     key_rows = -(-n // 16) * 16
     kv_loads = 1 if key_rows <= _TMA_MAX_BOX else 2
     q_tiles = -(-n // _TILE_ROWS)
     items = b * heads * -(-q_tiles // _CONSUMERS)
     stage = _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
+    extra = (_CONSUMERS * 4 * key_rows if biased
+             else _CONSUMERS * mask_rows_bytes(key_rows) if masked else 0)
     smem = (_ALIGN + _STAGES * stage + _CONSUMERS * _TILE_BYTES
-            + _BARRIER_BYTES + (_CONSUMERS * 4 * key_rows if biased else 0))
+            + _BARRIER_BYTES + extra)
     return FwdPlan("sm90", b, n, heads, key_rows, key_rows // kv_loads,
                    kv_loads, q_tiles, items, min(items, sms), smem)
 
@@ -359,14 +390,17 @@ def _other_body(b, n, heads, dtype) -> FwdPlan:
 def plan_packed_fwd(b: int, n: int, heads: int, hd: int,
                     dtype=torch.bfloat16, masked: bool = False,
                     sms: int = H100_SMS) -> FwdPlan:
-    """The body and launch of `mha_packed` at (B, N, heads, head dim):
-    the sm90 body for bf16 without a mask at head dim 64 and 33 <= N <=
-    272, else the bodies of `csrc/mha_fwd.cu` ("mma" for bf16 above
-    N = 32, "ffma" otherwise). `sms`: the card's SM count, the most
-    persistent CTAs."""
-    if (dtype == torch.bfloat16 and not masked and hd == SM90_HEAD_DIM
-            and SM90_MIN_N <= n <= SM90_MAX_N):
-        return sm90_fwd_plan(b, n, heads, sms=sms)
+    """The body and launch of `mha_packed` at (B, N, heads, head dim): for
+    bf16 at head dim 64 the sm90 body without a mask (K1) at 33 <= N <=
+    272, and with an (N, N) mask (K1m) at SM90_MASK_MIN_N <= N <=
+    SM90_MASK_MAX_N; else the bodies of `csrc/mha_fwd.cu` ("mma" for bf16
+    above N = 32, "ffma" otherwise).
+    `sms`: the card's SM count, the most persistent CTAs."""
+    if dtype == torch.bfloat16 and hd == SM90_HEAD_DIM:
+        if not masked and SM90_MIN_N <= n <= SM90_MAX_N:
+            return sm90_fwd_plan(b, n, heads, sms=sms)
+        if masked and SM90_MASK_MIN_N <= n <= SM90_MASK_MAX_N:
+            return sm90_fwd_plan(b, n, heads, sms=sms, masked=True)
     return _other_body(b, n, heads, dtype)
 
 
@@ -474,11 +508,11 @@ def plan_bwd(b: int, n: int, heads: int, hd: int, dtype=torch.bfloat16,
 
 
 def _launch_sm90(ptrs, out, row_stride, plan: FwdPlan, scale, bias=None,
-                 drop=None, kernel=None):
+                 drop=None, kernel=None, mask=None):
     """The forward on the sm90 body under `plan`: `ptrs` the addresses of
     q, k and v (rows `row_stride` elements apart), `drop` `_drop_args`'
     tuple (None: no dropout), `kernel` (lib, fn) of `sm90_entry` (default:
-    this package's library)."""
+    this package's library), `mask` the (N, N) fp32 score mask (K1m)."""
     lib, fn = kernel or _sm90_kernel()
     dev = out.device
     _check_smem("mha sm90", plan.smem, plan.n, SM90_HEAD_DIM, dev)
@@ -486,6 +520,7 @@ def _launch_sm90(ptrs, out, row_stride, plan: FwdPlan, scale, bias=None,
     with torch.cuda.device(dev):
         err = fn(*ptrs, out.data_ptr(), row_stride,
                  None if bias is None else bias.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
                  None if rows is None else rows.data_ptr(), scalar, thr,
                  kscale, on, plan.b, plan.n, plan.heads, SM90_HEAD_DIM,
                  float(scale), plan.key_rows, plan.kv_box, plan.kv_loads,
@@ -735,15 +770,16 @@ def _packed_forward(qkv, mask, heads, scale):
     p = qkv.data_ptr()
     ptrs = (p, p + d * qkv.element_size(), p + 2 * d * qkv.element_size())
     if plan.body == "sm90":
-        _launch_sm90(ptrs, out, d3, plan, scale)
-        mha_packed.sm90_launches += 1
+        _launch_sm90(ptrs, out, d3, plan, scale, mask=mask)
     else:
         _launch_fwd(ptrs, out, b, n, heads, d // heads, d3, scale, qkv.dtype,
                     None, mask=mask)
     if mask is None:
         mha_packed.launches += 1
+        mha_packed.sm90_launches += int(plan.body == "sm90")
     else:
         mha_packed.mask_launches += 1
+        mha_packed.mask_sm90_launches += int(plan.body == "sm90")
     return out
 
 
@@ -886,6 +922,7 @@ def mha_packed(qkv, heads: int, scale=None, mask=None):
 mha_packed.launches = 0
 mha_packed.mask_launches = 0
 mha_packed.sm90_launches = 0  # the K1 launches of `launches` on the sm90 body
+mha_packed.mask_sm90_launches = 0  # K1m's of `mask_launches` on the sm90 body
 
 
 def mha(q, k, v, heads: int, bias=None, scale=None,

@@ -50,6 +50,7 @@ def _launch_counters():
                        attention.mha_dropout, attention.mha_bwd, topk.topk,
                        topk.topk_i8, topk.mm_only, topk.tiny)
             for attr in ("launches", "mask_launches", "sm90_launches",
+                         "mask_sm90_launches",
                          "bias_launches", "default_launches", "mma_launches")
             if hasattr(fn, attr)]
 

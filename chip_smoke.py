@@ -16,8 +16,9 @@ Phases, in order; any failure exits non-zero:
             shared memory at 2 / 3 / 4 ring stages, one
             "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation, one
             "K1/K2 sm90 key rows" / "K2 ... bias" / "K2d ... [bias]
-            dropout" line per instantiation of the forward's Hopper body
-            (K1, K2, K2d), with its shared memory and ptxas' advice, and
+            dropout" / "K1m ... mask" line per instantiation of the
+            forward's Hopper body (K1, K2, K2d, K1m), with its shared
+            memory and ptxas' advice, and
             one "K3
             sm90 pass A key rows" / "K3 sm90 pass B" line per
             instantiation of K3's)
@@ -32,9 +33,13 @@ Phases, in order; any failure exits non-zero:
             (the sm90 body, or mma.sync for BarcodeBERT's K2d at B = 400)
             and timed on both that sm90 body and the body of
             csrc/mha_fwd.cu (mma.sync above N = 32, FFMA below) beside
-            SDPA as CUDA graph replays; fp32 forwards
-            and K1m at N <= 32 on the FFMA body, the masked K1m and
-            its backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
+            SDPA as CUDA graph replays; fp32 forwards on the FFMA body;
+            K1m bf16 at OpenCLIP's text shapes (B = 64 at N = 77 and 20,
+            B = 10 at N = 20) on the body its plan chooses (the sm90 body
+            with its (N, N) mask staged in shared memory) and timed on
+            both that sm90 body and the body of csrc/mha_fwd.cu beside
+            SDPA with the float mask as CUDA graph replays; the masked
+            backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
             keep mask read out bit for bit at N = 20, 64 and 133 on the
             plan's body, the sm90 body and csrc/mha_fwd.cu's, two K3
             launches bit-equal, K3
@@ -87,7 +92,10 @@ Phases, in order; any failure exits non-zero:
   openclip  the OpenCLIP ablation (ViT-L/14 + OpenCLIP text + BarcodeBERT)
             at full width, same service, keys and request kinds (text as
             WordPiece ids at N = 20), plus encode_language at context 77;
-            K1m, K1, K2 and K4 must have launched, no plain version
+            K1m, K1, K2 and K4 must have launched, no plain version, every
+            K1m launch on the body its plan chooses (the sm90 body:
+            `mha_packed.mask_sm90_launches`, as in openclip_training and
+            graphs)
   openclip_training
             the OpenCLIP ablation's LoRA step (make_train_step with
             openclip_norm, driven by train_epoch) at full width, B=10, bf16,
@@ -364,7 +372,7 @@ def phase_build():
             # ptxas -v: "Function properties for <mangled name>", then its
             # stack/spill line, then its "Used N registers" line
             k1 = re.search(r"Performance Loss: (.*) for the function '.*"
-                           r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)E", ln)
+                           r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E", ln)
             k3 = re.search(r"Performance Loss: (.*) for the function '.*"
                            r"mha_bwd_sm90_pass_(a|b)I(?:Li(\d+)E)?", ln)
             if k1:  # ptxas' advice on the forward's sm90 body
@@ -401,11 +409,13 @@ def phase_build():
                 if k5:  # K5's instantiations, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}")
-                k1 = re.search(r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)E", fn)
+                k1 = re.search(r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
+                               fn)
                 if k1:  # the forward's Hopper body, by padded key rows,
-                    # bias and dropout
+                    # bias, dropout and mask
                     smem = attention.sm90_fwd_plan(
-                        1, 16 * int(k1[1]), 1, k1[2] == "1").smem
+                        1, 16 * int(k1[1]), 1, k1[2] == "1",
+                        masked=k1[4] == "1").smem
                     log(f"  {_fwd_sm90_name(*k1.groups())}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
                         "bytes of dynamic shared memory")
@@ -426,14 +436,16 @@ def phase_build():
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
-def _fwd_sm90_name(kt, bias, drop):
+def _fwd_sm90_name(kt, bias, drop, mask):
     """The build phase's name of an instantiation of the forward's sm90
-    body: `mha_fwd_sm90<KT, BIAS, DROP>`."""
-    what = ("K1/K2" if (bias, drop) == ("0", "0") else
+    body: `mha_fwd_sm90<KT, BIAS, DROP, MASK>`."""
+    what = ("K1m" if mask == "1" else
+            "K1/K2" if (bias, drop) == ("0", "0") else
             "K2d" if drop == "1" else "K2")
     return (f"{what} sm90 key rows {16 * int(kt)}"
             f"{' bias' if bias == '1' else ''}"
-            f"{' dropout' if drop == '1' else ''}")
+            f"{' dropout' if drop == '1' else ''}"
+            f"{' mask' if mask == '1' else ''}")
 
 
 def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
@@ -444,12 +456,12 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
     (`tools/bench_k1.graph_ms`), so a small batch is timed on the card's
     clock and not its wrapper's. A case must count its launch on the body
     its plan (`plan_packed_fwd`, `plan_split_fwd`) chooses
-    (`mha_packed.sm90_launches`, `mha.sm90_launches`, `mha.mma_launches`);
-    a bf16 K2 case in the sm90 body's range is also held against the plain
-    version and timed on the sm90 body (`sm90_ms`, under a forced plan
-    where its plan chooses another body) and on the body of
-    csrc/mha_fwd.cu (`mma_ms`: the mma.sync body above N = 32, FFMA at
-    N <= 32)."""
+    (`mha_packed.sm90_launches`, `mha_packed.mask_sm90_launches`,
+    `mha.sm90_launches`, `mha.mma_launches`); a bf16 K2 or K1m case in the
+    sm90 body's range is also held against the plain version and timed on
+    the sm90 body (`sm90_ms`, under a forced plan where its plan chooses
+    another body) and on the body of csrc/mha_fwd.cu (`mma_ms`: the
+    mma.sync body above N = 32, FFMA at N <= 32)."""
     import torch
     import torch.nn.functional as F
 
@@ -498,7 +510,9 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
             if packed else attention.plan_split_fwd(b, n, heads, hd, dtype,
                                                     with_bias))
     counter = attention.mha_packed if packed else attention.mha
-    _on_the_plan(f"{name} B={b} N={n}", counter, plan.body, kernel)
+    _on_the_plan(f"{name} B={b} N={n}", counter, plan.body, kernel,
+                 ("mask_sm90_launches",) if causal
+                 else ("sm90_launches", "mma_launches"))
     out = kernel()
     ref = plain()
     err = (out.float() - ref.float()).abs().max().item()
@@ -506,9 +520,12 @@ def _attention_case(name, b, n, d, heads, dtype, with_bias, gen, packed,
     if not err <= tol:
         raise AssertionError(f"{name}: max |kernel - plain| {err} > {tol}")
     old = fwd = None
-    if not packed and _sm90_takes(dtype, hd, n):
-        old = _old_body(q, k, v, heads, bias, 0.0, None, ref, tol, name)
-        fwd = _sm90_body(q, k, v, heads, bias, 0.0, None, ref, tol, name)
+    if (not packed or causal) and _sm90_takes(dtype, hd, n, causal):
+        stride = 3 * d if packed else d
+        old = _old_body(q, k, v, heads, bias, 0.0, None, ref, tol, name,
+                        stride, score_mask)
+        fwd = _sm90_body(q, k, v, heads, bias, 0.0, None, ref, tol, name,
+                         stride, score_mask)
     es = torch.tensor([], dtype=dtype).element_size()
     n_bytes = (4 * b * n * d * es + (0 if bias is None else b * n * 4)
                + (n * n * 4 if causal else 0))
@@ -866,22 +883,26 @@ def _padding_bias(b, n, gen):
     return torch.where(keep, 0.0, -1e9).float()
 
 
-def _old_body(q, k, v, heads, bias, rate, seeds, ref, tol, name):
+def _old_body(q, k, v, heads, bias, rate, seeds, ref, tol, name,
+              row_stride=None, mask=None):
     """(a call of the body of csrc/mha_fwd.cu that (q, k, v) took before
     the sm90 one, its name): `_launch_fwd`, held against the plain
-    version's `ref` within `tol` first."""
+    version's `ref` within `tol` first. `row_stride`: q, k and v's rows
+    apart (default D; 3 D for the views of a packed qkv); `mask`: K1m's
+    (N, N) score mask."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import attention
 
     b, n, d = q.shape
     hd = d // heads
-    out = torch.empty_like(q)
+    out = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
 
     def call():
         attention._launch_fwd((q.data_ptr(), k.data_ptr(), v.data_ptr()),
-                              out, b, n, heads, hd, d, hd ** -0.5, q.dtype,
-                              bias, rate, seeds)
+                              out, b, n, heads, hd, row_stride or d,
+                              hd ** -0.5, q.dtype, bias, rate, seeds,
+                              mask=mask)
         return out
 
     err = (call().float() - ref.float()).abs().max().item()
@@ -891,34 +912,40 @@ def _old_body(q, k, v, heads, bias, rate, seeds, ref, tol, name):
     return call, ("mma" if n > 32 else "ffma")
 
 
-def _sm90_takes(dtype, hd, n):
-    """The forward's sm90 body takes split q/k/v of this dtype, head dim
-    and N (whichever body `plan_split_fwd` chooses)."""
+def _sm90_takes(dtype, hd, n, masked=False):
+    """The forward's sm90 body takes split q/k/v (with `masked`, a packed
+    qkv and an (N, N) mask) of this dtype, head dim and N (whichever body
+    `plan_split_fwd` or `plan_packed_fwd` chooses)."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import attention
 
+    top = attention.SM90_MASK_MAX_N if masked else attention.SM90_MAX_N
     return (dtype == torch.bfloat16 and hd == attention.SM90_HEAD_DIM
-            and attention.SM90_BODY_MIN_N <= n <= attention.SM90_MAX_N)
+            and attention.SM90_BODY_MIN_N <= n <= top)
 
 
-def _sm90_body(q, k, v, heads, bias, rate, seeds, ref, tol, name):
+def _sm90_body(q, k, v, heads, bias, rate, seeds, ref, tol, name,
+               row_stride=None, mask=None):
     """A call of the forward's sm90 body on (q, k, v) under
-    `sm90_fwd_plan` (also where `plan_split_fwd` chooses the mma.sync
-    body), held against the plain version's `ref` within `tol` first."""
+    `sm90_fwd_plan` (also where `plan_split_fwd` or `plan_packed_fwd`
+    chooses another body), held against the plain version's `ref` within
+    `tol` first; `row_stride` and `mask` as `_old_body`'s."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import attention
 
     b, n, d = q.shape
     hd = d // heads
-    plan = attention.sm90_fwd_plan(b, n, heads, bias is not None)
+    plan = attention.sm90_fwd_plan(b, n, heads, bias is not None,
+                                   masked=mask is not None)
     drop = attention._drop_args(rate, seeds, b, q.device)
-    out = torch.empty_like(q)
+    out = torch.empty((b, n, d), dtype=q.dtype, device=q.device)
 
     def call():
         attention._launch_sm90((q.data_ptr(), k.data_ptr(), v.data_ptr()),
-                               out, d, plan, hd ** -0.5, bias, drop)
+                               out, row_stride or d, plan, hd ** -0.5, bias,
+                               drop, mask=mask)
         return out
 
     err = (call().float() - ref.float()).abs().max().item()
@@ -928,14 +955,14 @@ def _sm90_body(q, k, v, heads, bias, rate, seeds, ref, tol, name):
     return call
 
 
-def _on_the_plan(what, counter, body, call):
-    """`call` launches on `body`: `counter.sm90_launches` (and, for K2
-    and K2d, `counter.mma_launches`) rise by one where it names that
-    body, else not at all."""
+def _on_the_plan(what, counter, body, call,
+                 names=("sm90_launches", "mma_launches")):
+    """`call` launches on `body`: the counters `names` of `counter`, its
+    sm90 launches (and, for K2 and K2d, its mma.sync launches), rise by
+    one where they name that body, else not at all."""
     import torch
 
-    attrs = [a for a in ("sm90_launches", "mma_launches")
-             if hasattr(counter, a)]
+    attrs = [a for a in names if hasattr(counter, a)]
     before = [getattr(counter, a) for a in attrs]
     call()
     torch.cuda.synchronize()
@@ -1237,16 +1264,22 @@ def phase_kernels(rows: dict):
                   with_bias=True, rate=0.1)
         torch.cuda.empty_cache()
     # the OpenCLIP ablation's shapes: K1m in the text tower at full context
-    # and at the service's 20 WordPiece tokens, K1 at ViT-L/14
+    # and at the service's 20 WordPiece tokens (B = 64) and training's
+    # (B = 10), bf16 on the body its plan chooses and timed on the sm90
+    # body and csrc/mha_fwd.cu's as graph replays; K1 at ViT-L/14
     for dtype in (torch.float32, torch.bfloat16):
-        r = _attention_case("mha_packed", OPENCLIP_BATCH, 77, 768, 12, dtype,
-                            False, gen, packed=True, causal=True)
-        if dtype == torch.bfloat16:
-            rows["mha_packed_mask"] = r
-        _attention_case("mha_packed", OPENCLIP_BATCH, 20, 768, 12, dtype,
-                        False, gen, packed=True, causal=True)
+        bf16 = dtype == torch.bfloat16
+        for key, b, n in (("", OPENCLIP_BATCH, 77),
+                          (" n20", OPENCLIP_BATCH, 20),
+                          (" b10", OPENCLIP_TRAIN_BATCH, 20)):
+            if key == " b10" and not bf16:
+                continue
+            r = _attention_case("mha_packed", b, n, 768, 12, dtype, False,
+                                gen, packed=True, causal=True, graphed=bf16)
+            if bf16:
+                rows["mha_packed_mask" + key] = r
         _attention_case("mha_packed", 256, 257, 1024, 16, dtype, False, gen,
-                        packed=True, graphed=dtype == torch.bfloat16)
+                        packed=True, graphed=bf16)
         torch.cuda.empty_cache()
     # OpenCLIP training's backward shapes: K3m beside K1m (N = 77) and at
     # the train path's WordPiece N = 20, B = 10; K3 at ViT-L/14
@@ -1301,7 +1334,9 @@ KERNELS = {
                      "bioscan_clip_tpu/ops/topk_pallas.py:185"),
     "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
                 "bioscan_clip_tpu/ops/topk_pallas.py:253"),
-    "mha_packed_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd.cu",
+    # K1m on bf16 at head dim 64 and 8 <= N <= 160 runs the same sm90 body
+    # (fp32, N < 8 and other shapes, the bodies of csrc/mha_fwd.cu)
+    "mha_packed_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd_sm90.cu",
                         "bioscan_clip_tpu/ops/attention.py:162"),
     "mha_bwd_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd.cu",
                      "bioscan_clip_tpu/ops/attention.py:363"),
@@ -1330,6 +1365,7 @@ def launch_counts():
     return {"mha_packed": attention.mha_packed.launches,
             "mha_packed_sm90": attention.mha_packed.sm90_launches,
             "mha_packed_mask": attention.mha_packed.mask_launches,
+            "mha_packed_mask_sm90": attention.mha_packed.mask_sm90_launches,
             "mha": attention.mha.launches,
             "mha_sm90": attention.mha.sm90_launches,
             "mha_mma": attention.mha.mma_launches,
@@ -1357,6 +1393,17 @@ def _vit_on_sm90(what, counts):
         f"(mha_packed.sm90_launches) {sm90}")
     if k1 <= 0 or sm90 != k1:
         raise AssertionError(f"{what}: K1 launches {k1}, sm90 {sm90}")
+
+
+def _k1m_on_sm90(what, counts):
+    """Every K1m launch of a bf16 OpenCLIP path (the text tower at N = 77
+    and 20) ran on the body its plan (`plan_packed_fwd`) chooses there:
+    the forward's sm90 body (`mha_packed.mask_sm90_launches`)."""
+    k1m, sm90 = counts["mha_packed_mask"], counts["mha_packed_mask_sm90"]
+    log(f"  {what}: K1m launches {k1m}, on the sm90 body "
+        f"(mha_packed.mask_sm90_launches) {sm90}")
+    if k1m <= 0 or sm90 != k1m:
+        raise AssertionError(f"{what}: K1m launches {k1m}, sm90 {sm90}")
 
 
 def _k2_on_its_bodies(what, counts):
@@ -1432,6 +1479,7 @@ def reset_counts():
         fn.launches = 0
     attention.mha_packed.mask_launches = 0
     attention.mha_packed.sm90_launches = 0
+    attention.mha_packed.mask_sm90_launches = 0
     attention.mha.sm90_launches = 0
     attention.mha.mma_launches = 0
     attention.mha_dropout.sm90_launches = 0
@@ -1794,6 +1842,7 @@ def phase_openclip():
     want = ("mha_packed_mask", "mha_packed", "mha", "topk")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"openclip: launches {counts}, plain {plain}")
+    _k1m_on_sm90("openclip", counts)
     _k2_on_its_bodies("openclip", counts)
     _k4_on_sm90("openclip", counts)
     del service
@@ -2435,6 +2484,7 @@ def phase_openclip_training():
             f"{OPENCLIP_TRAIN_BATCH}")
         log(f"  launches on the OpenCLIP training path: {counts}; plain calls "
             f"{plain}")
+        _k1m_on_sm90("openclip_training", counts)
         _k2_on_its_bodies("openclip_training", counts)
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"openclip_training: losses {losses}")
@@ -3872,13 +3922,16 @@ def phase_graphs():
     for name, row in table.items():
         want = ("mha_packed", "mha_packed_sm90", "mha_dropout", "mha_bwd")
         if name == "openclip":
-            want += ("mha_packed_mask", "mha_bwd_mask")
+            want += ("mha_packed_mask", "mha_packed_mask_sm90",
+                     "mha_bwd_mask")
+            _k1m_on_sm90(f"graphs {name}, the profiled call", row[5])
         _want_launched(name, row[5], want)
         _vit_on_sm90(f"graphs {name}, the profiled call", row[5])
         _k2_on_its_bodies(f"graphs {name}, the profiled call", row[5])
         _k3_on_sm90(f"graphs {name}, the profiled call", row[5])
     _graph_train_cl(counts)
     _vit_on_sm90("graphs", counts)
+    _k1m_on_sm90("graphs", counts)
     _k2_on_its_bodies("graphs", counts)
     _k3_on_sm90("graphs", counts)
     log("  graphed against eager, ms per step (CUDA events), card busy % "
@@ -4768,6 +4821,16 @@ def main(argv=None) -> int:
             # the launches on sm90 bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
+        if name == "mha_packed_mask":  # K1m's bodies and other shapes
+            kernels[-1]["sm90_launches"] = path_counts.get(
+                KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
+            for key in ("body", "sm90_ms", "mma_ms"):
+                kernels[-1][key] = r.get(key)
+            kernels[-1]["shapes"] = {
+                key: {k: rows.get(f"{name} {key}", {}).get(k) for k in (
+                    "body", "ms", "sm90_ms", "mma_ms", "library_ms",
+                    "bound_ms", "max_abs_err")}
+                for key in ("n20", "b10")}
         if name in ("mha", "mha_dropout"):  # K2's and K2d's two bodies
             kernels[-1]["mma_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get(f"{name}_mma")

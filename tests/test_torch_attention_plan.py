@@ -1,11 +1,13 @@
-"""K1's tile plan (`ops/attention.plan_packed_fwd`) on the CPU.
+"""K1's and K1m's tile plan (`ops/attention.plan_packed_fwd`) on the CPU.
 
 The sm90 body (`csrc/mha_fwd_sm90.cu`) runs only on the card; what
 surrounds it is here: which body a shape gets, the padded key rows and
 their TMA boxes, the persistent grid's walk over (batch row, head, query
-tile), the shared memory, and that the plan's constants are the kernel's.
+tile), the shared memory (with K1m's staged mask rows), and that the
+plan's constants are the kernel's.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -70,16 +72,18 @@ def test_plan(n, hd, b):
 
 @pytest.mark.parametrize("n", [20, 32, 33, 197, 257, 272, 273])
 def test_body_by_dtype_and_mask(n):
-    """bf16 without a mask at head dim 64 and 33 <= N <= 272: sm90; a mask
-    (K1m) or fp32 stay on the bodies of csrc/mha_fwd.cu (FFMA for fp32 and
-    bf16 at N <= 32)."""
+    """bf16 at head dim 64: without a mask (K1) sm90 at 33 <= N <= 272,
+    with a mask (K1m) sm90 at 1 <= N <= 160; above that K1m keeps the
+    mma.sync body, and fp32 stays on FFMA (as bf16 K1 at N <= 32)."""
     bf16 = attention.plan_packed_fwd(8, n, 12, 64)
     masked = attention.plan_packed_fwd(8, n, 12, 64, masked=True)
     fp32 = attention.plan_packed_fwd(8, n, 12, 64, dtype=torch.float32)
     small = n <= 32
     assert bf16.body == ("ffma" if small else "sm90" if n <= 272 else "mma")
-    assert masked.body == ("ffma" if small else "mma")
+    assert masked.body == ("sm90" if n <= 160 else "mma")
     assert fp32.body == "ffma"
+    assert attention.plan_packed_fwd(8, n, 12, 64, dtype=torch.float32,
+                                     masked=True).body == "ffma"
 
 
 @pytest.mark.parametrize("n,smem", [(197, 156_736), (272, 189_504)])
@@ -109,6 +113,92 @@ def test_plan_constants_are_the_kernels():
     assert const("kMaxBox") == attention._TMA_MAX_BOX
     assert const("kAlign") == attention._ALIGN
     assert const("kBarrierBytes") == attention._BARRIER_BYTES
+
+
+@pytest.mark.parametrize("b", [1, 10, 64, 400])
+@pytest.mark.parametrize("n", [1, 4, 7, 8, 16, 17, 20, 32, 33, 64, 65, 77,
+                               128, 129, 160, 161])
+def test_masked_plan(n, b):
+    """K1m (bf16, head dim 64) on the sm90 body from N = 8 (below, the FFMA
+    body measured faster) up to the range's end (160), the mma.sync body
+    one past it; on the body, the keys padded to 16 in one TMA box, every
+    (b, h, query tile) once, and the shared memory K1's plus the two
+    consumers' 64 mask rows of key_rows + 8 fp32, within the card's 227
+    KB."""
+    assert (attention.SM90_MASK_MIN_N, attention.SM90_MASK_MAX_N) == (8, 160)
+    plan = attention.plan_packed_fwd(b, n, HEADS, 64, masked=True)
+    if not 8 <= n <= 160:
+        assert plan.body == ("mma" if n > 32 else "ffma")
+        return
+    assert plan.body == "sm90"
+    assert n <= plan.key_rows < n + 16 and plan.key_rows % 16 == 0
+    assert (plan.kv_loads, plan.kv_box) == (1, plan.key_rows)
+    assert plan.q_tiles == -(-n // 64)
+    assert plan.grid == min(plan.items, 132)
+    assert _covers_once(plan, b, HEADS)
+    assert _covers_once(
+        attention.plan_packed_fwd(b, n, HEADS, 64, masked=True, sms=7), b,
+        HEADS)
+    k1 = attention.sm90_fwd_plan(b, n, HEADS)
+    assert plan == dataclasses.replace(
+        k1, smem=k1.smem + 2 * 64 * (plan.key_rows + 8) * 4)
+    assert plan.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("n,smem", [(20, 87_104), (77, 136_256),
+                                    (160, 218_176)])
+def test_shared_memory_with_the_mask(n, smem):
+    """The masked plan's shared memory at OpenCLIP's N = 20 and 77 and at
+    the range's end: the numbers the kernel's source note gives; N = 176
+    (the next key row count) would need more than a block may have, as
+    the note says."""
+    assert attention.plan_packed_fwd(64, n, 12, 64, masked=True).smem == smem
+    note = " ".join(SOURCE.read_text().split())
+    assert f"{smem:,} B at N = {n}" in note
+    k1 = attention.sm90_fwd_plan(64, 176, 12)
+    beyond = k1.smem + 2 * attention.mask_rows_bytes(176)
+    assert beyond > SMEM_LIMIT
+    assert f"N = 176 would need {beyond:,} B" in note
+    with pytest.raises(ValueError, match="with a mask"):
+        attention.sm90_fwd_plan(64, 161, 12, masked=True)
+    with pytest.raises(ValueError, match="not both"):
+        attention.sm90_fwd_plan(64, 77, 12, biased=True, masked=True)
+
+
+def test_masked_instantiations_cover_the_masked_plans():
+    """The kernel instantiates the mask (`MASK`) up to pad16(kMaxMaskN) key
+    rows, without a bias or dropout, and refuses a mask past kMaxMaskN:
+    the plan's SM90_MASK_MAX_N is that constant, every masked plan's key
+    rows lie within the dispatch's chunk counts and the instantiated ones,
+    and its mask rows' stride is the source's."""
+    text = SOURCE.read_text()
+    top = int(re.search(r"constexpr int kMaxMaskN = (\d+);", text)[1])
+    assert top == attention.SM90_MASK_MAX_N
+    assert "MASK && 16 * KT > bscan::pad16(kMaxMaskN)" in text
+    assert "(mask && (bias || drop || n > kMaxMaskN))" in text
+    assert "dispatch<false, false, true>(" in text
+    assert text.count(", true>(") == 1  # the mask with no bias, no dropout
+    chunks = {int(k) for k in re.findall(r"BSCAN_KT\((\d+)\)", text)}
+    masked = {attention.sm90_fwd_plan(8, n, 12, masked=True).key_rows // 16
+              for n in range(1, top + 1)}
+    assert masked == set(range(1, -(-top // 16) + 1)) and masked <= chunks
+    assert re.search(r"mask_stride\(int key_rows\) \{\s+return key_rows \+ 8;",
+                     text)
+    assert attention.mask_rows_bytes(80) == 64 * 88 * 4
+
+
+def test_cpu_tensors_with_a_mask_take_no_plan():
+    """On the CPU `mha_packed(mask=)` runs the plain version: no K1m
+    launch on any body."""
+    from bioscan_clip_tpu_torch.models.openclip import causal_mask
+
+    qkv = torch.randn(2, 77, 3 * 128, dtype=torch.bfloat16)
+    counters = ("launches", "mask_launches", "sm90_launches",
+                "mask_sm90_launches")
+    before = [getattr(attention.mha_packed, a) for a in counters]
+    out = attention.mha_packed(qkv, 2, mask=causal_mask(77))
+    assert out.shape == (2, 77, 128)
+    assert [getattr(attention.mha_packed, a) for a in counters] == before
 
 
 def test_cpu_tensors_take_no_plan():

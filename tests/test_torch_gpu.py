@@ -9,10 +9,14 @@ Tolerances: attention fp32 atol 1e-5 (fp32 sums in another order), bf16
 atol 2e-2 (one bf16 ulp at |x| ~ 1 is 7.8e-3, and p is rounded to bf16
 before P.V on both sides), the masked forward (K1m) as K1, K1's sm90 body
 (bf16, head dim 64, 33 <= N <= 272: TMA and wgmma) as K1, with one case
-where its output must equal the plain version's bit for bit; K2 and K2d on
-that body (split q/k/v, 1 <= N <= 272, with and without a key bias and
-dropout in both seed modes) as K1, with a bit-equal case under a padding
-bias and a refused misaligned base and foreign plan, and K2d on the
+where its output must equal the plain version's bit for bit; K1m on that
+body (bf16, head dim 64, 1 <= N <= 160, the plan's from N = 8, the (N, N)
+mask staged in shared memory) as K1 under the causal mask, a dense random
+mask and a mask with whole -1e9 rows, with a bit-equal case and a refused
+foreign plan; K2 and
+K2d on that body (split q/k/v, 1 <= N <= 272, with and without a key
+bias and dropout in both seed modes) as K1, with a bit-equal case under a
+padding bias and a refused misaligned base and foreign plan, and K2d on the
 mma.sync body where its plan measured that faster as K1; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
 per gradient; K3's sm90 body (bf16, head dim 64, 33 <= N <= 272, no mask,
@@ -927,22 +931,191 @@ def test_int8_topk_duplicate_blocks_tie_at_the_threshold(gen):
 def test_masked_attention_kernel_matches_plain(gen, dtype, tol):
     """K1m at the OpenCLIP text shapes (N = 77, and the service's 20) under
     the causal mask, and under an arbitrary dense fp32 mask; counted in
-    `mask_launches`, apart from K1."""
+    `mask_launches`, apart from K1, and bf16 in `mask_sm90_launches` (the
+    sm90 body), fp32 not."""
     d = 768
     for n, mask in ((77, causal_mask(77, "cuda")), (20, causal_mask(20, "cuda")),
                     (77, torch.randn(77, 77, device="cuda", generator=gen))):
         qkv = torch.randn(4, n, 3 * d, device="cuda", generator=gen).to(dtype)
         before = (attention.mha_packed.launches,
-                  attention.mha_packed.mask_launches)
+                  attention.mha_packed.mask_launches,
+                  attention.mha_packed.mask_sm90_launches)
         out = attention.mha_packed(qkv, 12, mask=mask)
         assert (attention.mha_packed.launches,
-                attention.mha_packed.mask_launches) == (before[0],
-                                                        before[1] + 1)
+                attention.mha_packed.mask_launches,
+                attention.mha_packed.mask_sm90_launches) == (
+                    before[0], before[1] + 1,
+                    before[2] + int(dtype == torch.bfloat16))
         ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
                                       qkv[..., 2 * d :], 12, mask=mask)
         assert (out.float() - ref.float()).abs().max().item() <= tol
     with pytest.raises(ValueError, match="mask"):
         attention.mha_packed(qkv, 12, mask=mask[:20, :20].contiguous())
+
+
+def _score_mask(gen, kind, n):
+    """An (N, N) fp32 score mask: "causal" (0 on and below the diagonal,
+    -1e9 above), "dense" (standard normal) or "rows" (the causal mask with
+    every third row -1e9 throughout)."""
+    if kind == "dense":
+        return torch.randn(n, n, device="cuda", generator=gen)
+    mask = causal_mask(n, "cuda")
+    if kind == "rows":
+        mask[::3] = -1e9
+    return mask
+
+
+def _k1m_case(gen, b, n, d, heads, mask):
+    """K1m through `mha_packed(mask=)` against the plain version: the max
+    |error| and the (mask launches, sm90 mask launches, K1 launches) it
+    counted."""
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    counters = ("mask_launches", "mask_sm90_launches", "launches")
+    before = [getattr(attention.mha_packed, a) for a in counters]
+    out = attention.mha_packed(qkv, heads, mask=mask)
+    torch.cuda.synchronize()
+    launched = tuple(getattr(attention.mha_packed, a) - x
+                     for a, x in zip(counters, before))
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], heads, mask=mask)
+    return (out.float() - ref.float()).abs().max().item(), launched
+
+
+# K1m on the forward's sm90 body (packed qkv, bf16, head dim 64, the plan's
+# 8 <= N <= 160): the plan's least N, the ragged and tile-boundary N (one,
+# two and three query tiles), OpenCLIP's 20 and 77 and the range's end,
+# under three masks.
+@pytest.mark.parametrize("kind", ["causal", "dense", "rows"])
+@pytest.mark.parametrize("n", [8, 16, 17, 20, 32, 33, 64, 65, 77, 128, 129,
+                               160])
+def test_k1m_sm90_body_matches_plain(gen, n, kind):
+    """Within 2e-2, as K1 (one bf16 ulp at |o| ~ 1 is 7.8e-3, and p is
+    rounded to bf16 before P.V on both sides). A whole -1e9 row scores
+    every key -1e9 (q . k * scale is below its fp32 ulp there): p is
+    uniform over the N keys on both sides."""
+    assert attention.plan_packed_fwd(3, n, 12, 64, masked=True).body == (
+        "sm90")
+    err, launched = _k1m_case(gen, 3, n, 768, 12, _score_mask(gen, kind, n))
+    assert launched == (1, 1, 0)
+    assert err <= 2e-2
+
+
+@pytest.mark.parametrize("n", [1, 2, 4, 7])
+def test_k1m_sm90_body_below_the_plans_range(gen, n):
+    """Below N = 8 the plan keeps the FFMA body (`SM90_MASK_MIN_N`); the sm90
+    body under a forced plan (16 key rows, N - 16 of them past N) agrees
+    with the plain version all the same."""
+    b, d, heads = 3, 768, 12
+    err, launched = _k1m_case(gen, b, n, d, heads, causal_mask(n, "cuda"))
+    assert launched == (1, 0, 0)
+    assert err <= 2e-2
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    mask = torch.randn(n, n, device="cuda", generator=gen)
+    p = qkv.data_ptr()
+    out = torch.empty(b, n, d, device="cuda", dtype=torch.bfloat16)
+    attention._launch_sm90((p, p + 2 * d, p + 4 * d), out, 3 * d,
+                           attention.sm90_fwd_plan(b, n, heads, masked=True),
+                           0.125, mask=mask)
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], heads, mask=mask)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("b", [10, 64, 400])
+def test_k1m_sm90_body_at_openclip_batches(gen, b):
+    """The text tower's batches (training's 10, serving's 64, and more
+    items than the grid's CTAs) at N = 77 and 20 under the causal mask."""
+    for n in (77, 20):
+        err, launched = _k1m_case(gen, b, n, 768, 12, causal_mask(n, "cuda"))
+        assert launched == (1, 1, 0)
+        assert err <= 2e-2
+
+
+@pytest.mark.parametrize("n,hd,dtype", [
+    (161, 64, torch.bfloat16), (7, 64, torch.bfloat16),
+    (77, 32, torch.bfloat16), (77, 128, torch.bfloat16),
+    (20, 32, torch.bfloat16), (77, 64, torch.float32),
+    (20, 64, torch.float32)])
+def test_k1m_outside_the_sm90_range_keeps_its_body(gen, n, hd, dtype):
+    """N > 160, N < 8, head dims 32 and 128 and fp32 launch the bodies of
+    csrc/mha_fwd.cu (mma.sync for bf16 above N = 32, FFMA otherwise)."""
+    heads = 4
+    d = heads * hd
+    qkv = torch.randn(2, n, 3 * d, device="cuda", generator=gen).to(dtype)
+    mask = causal_mask(n, "cuda")
+    before = (attention.mha_packed.mask_launches,
+              attention.mha_packed.mask_sm90_launches)
+    out = attention.mha_packed(qkv, heads, mask=mask)
+    assert (attention.mha_packed.mask_launches - before[0],
+            attention.mha_packed.mask_sm90_launches - before[1]) == (1, 0)
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], heads, mask=mask)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    assert (out.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_k1m_sm90_body_rounds_p_to_bf16(gen):
+    """q = 0 and the causal mask make row i's p = 1 / (i + 1) on its i + 1
+    keys and exactly 0 past them on every side; rounded to bf16 and summed
+    over v = 1 in fp32 (exact: i + 1 copies of an 8-bit value), o is the
+    same bits in the kernel and the plain version, 1.0 in row 0. An
+    unrounded p, or a masked key that took part, gives other bits. At
+    N = 77 (two query tiles) and 160 (three)."""
+    for n in (77, 160):
+        b, d, heads = 2, 768, 12
+        qkv = torch.zeros(b, n, 3 * d, device="cuda", dtype=torch.bfloat16)
+        qkv[..., d : 2 * d] = torch.randn(b, n, d, device="cuda",
+                                          generator=gen)
+        qkv[..., 2 * d :] = 1.0
+        mask = causal_mask(n, "cuda")
+        before = attention.mha_packed.mask_sm90_launches
+        out = attention.mha_packed(qkv, heads, mask=mask)
+        assert attention.mha_packed.mask_sm90_launches == before + 1
+        ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                      qkv[..., 2 * d :], heads, mask=mask)
+        assert torch.equal(out, ref)
+        assert bool((out[:, 0] == 1.0).all())
+
+
+def test_k1m_sm90_body_refuses_a_foreign_plan(gen):
+    """The library refuses a masked launch under K1's plan (its shared
+    memory has no mask rows), K1's launch under the masked plan, a mask
+    with a key bias, a plan whose items differ and a mask past N = 160:
+    nothing is launched."""
+    b, n, d, heads = 2, 77, 768, 12
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    mask = causal_mask(n, "cuda")
+    p = qkv.data_ptr()
+    ptrs = (p, p + 2 * d, p + 4 * d)
+    plan = attention.sm90_fwd_plan(b, n, heads, masked=True)
+    out = torch.full((b, n, d), 7.0, device="cuda", dtype=torch.bfloat16)
+    bias = torch.zeros(b, n, device="cuda")
+    for bad, kw in ((attention.sm90_fwd_plan(b, n, heads), dict(mask=mask)),
+                    (plan, {}),
+                    (plan, dict(mask=mask, bias=bias)),
+                    (dataclasses.replace(plan, items=plan.items + 1),
+                     dict(mask=mask))):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            attention._launch_sm90(ptrs, out, 3 * d, bad, 0.125, **kw)
+    # N = 176 with a mask: refused whatever the plan says
+    long = torch.randn(1, 176, 3 * d, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    lp = long.data_ptr()
+    long_out = torch.full((1, 176, d), 7.0, device="cuda",
+                          dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        attention._launch_sm90((lp, lp + 2 * d, lp + 4 * d), long_out, 3 * d,
+                               attention.sm90_fwd_plan(1, 176, heads), 0.125,
+                               mask=causal_mask(176, "cuda"))
+    torch.cuda.synchronize()
+    assert bool((out == 7.0).all()) and bool((long_out == 7.0).all())
+    attention._launch_sm90(ptrs, out, 3 * d, plan, 0.125, mask=mask)
+    ref = attention.mha_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                  qkv[..., 2 * d :], heads, mask=mask)
+    assert (out.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),

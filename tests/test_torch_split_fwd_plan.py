@@ -148,8 +148,9 @@ def test_the_body_refuses_n_outside_its_instantiations(n):
 
 def test_instantiations_cover_the_plans():
     """The C entry instantiates the body for 1..17 16-key chunks (1 <= N
-    <= 272) with and without a bias and dropout; the plans' least and
-    largest N fall on its first and last instantiation."""
+    <= 272) with and without a bias and dropout (and without K1m's mask,
+    the third flag); the plans' least and largest N fall on its first and
+    last instantiation."""
     text = SOURCE.read_text()
     kts = sorted(int(k) for k in re.findall(r"BSCAN_KT\((\d+)\)", text))
     assert kts == list(range(1, 18))
@@ -157,7 +158,7 @@ def test_instantiations_cover_the_plans():
     assert max(kts) == attention.SM90_MAX_N // 16
     for flags in ("true, true", "true, false", "false, true",
                   "false, false"):
-        assert f"dispatch<{flags}>" in text
+        assert f"dispatch<{flags}, false>" in text
 
 
 def test_cpu_tensors_take_no_plan():
