@@ -53,7 +53,10 @@
 // at N = 1,048,576, D = 768: 0.2417 ms at 3.35 TB/s; 1.1523 ms at N =
 // 5,000,000); its 2 * Bq * N * D integer operations take Bq * 0.8 us at the
 // 1,979 TOP/s int8 tensor-core peak, so it is bound by bytes at every Bq of
-// a request. Design (the K5 section below): K4's, with int8 `mma.sync`
+// a request. From the plan's crossing up (`ops/topk.plan_i8`, at widths
+// that are a multiple of 128) K5 runs the Hopper body of topk_i8_sm90.cu
+// instead, one walk of the keys for up to 128 queries. Design of this body
+// (the K5 section below), which serves the rest: K4's, with int8 `mma.sync`
 // (m16n8k32) products, the query block's codes staged once, and the key
 // codes streaming through the ring.
 //
@@ -819,10 +822,9 @@ cudaError_t launch_i8(const signed char* q, const float* q_scale,
                       int n, int d, int n_valid, int k, int splits,
                       int tiles_per_split, float* cand_v, int* cand_i,
                       float* out_v, int* out_i, cudaStream_t stream) {
+  static bool ready[kMaxDevices] = {};
   const int smem = (int)i8_smem(QB, d, MAXK);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_i8_pass1<MAXK, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+  cudaError_t err = allow_smem(ready, (const void*)topk_i8_pass1<MAXK, QB>);
   if (err != cudaSuccess) return err;
   const dim3 grid1((bq + QB - 1) / QB, splits);
   topk_i8_pass1<MAXK, QB><<<grid1, TPB, smem, stream>>>(
@@ -832,21 +834,6 @@ cudaError_t launch_i8(const signed char* q, const float* q_scale,
   if (err != cudaSuccess) return err;
   return launch_pass2<MAXK>(bq, splits / CLUSTER * k, k, cand_v, cand_i,
                             out_v, out_i, stream);
-}
-
-// Key splits (a multiple of CLUSTER) so that about two pass-1 blocks per SM
-// are in flight over query blocks of qb rows, key tiles per split, and the
-// clusters.
-void plan_splits(int bq, int n, int qb, int sm_count, int* splits,
-                 int* tiles_per_split, int* clusters) {
-  const int n_tiles = (n + KT - 1) / KT;
-  const int q_blocks = (bq + qb - 1) / qb;
-  int want = (2 * sm_count + q_blocks - 1) / q_blocks;
-  want = want < 1 ? 1 : (want > n_tiles ? n_tiles : want);
-  *tiles_per_split = (n_tiles + want - 1) / want;
-  *clusters = (n_tiles + *tiles_per_split * CLUSTER - 1) /
-              (*tiles_per_split * CLUSTER);
-  *splits = *clusters * CLUSTER;
 }
 
 // K7: o = x + 1 over n fp32 elements.
@@ -902,19 +889,29 @@ int bscan_topk_f32_smem(int qb, int maxk, int terms) {
   return (int)f32_smem(qb, maxk, terms);
 }
 
-// K5. Shapes the wrapper must respect: q (bq, d) and keys (n, d) contiguous
-// int8 codes, 16-byte aligned, d % 64 == 0; q_scale (bq,) and k_scale (n,)
-// fp32; 1 <= k <= 64, k <= n_valid <= n; qb, splits, tiles_per_split and
-// the candidate buffers' size from bscan_topk_i8_plan. Returns cudaError_t.
+// K5's mma.sync body. Shapes the wrapper must respect: q (bq, d) and keys
+// (n, d) contiguous int8 codes, 16-byte aligned, d % 64 == 0; q_scale (bq,)
+// and k_scale (n,) fp32; 1 <= k <= 64, k <= n_valid <= n. The plan
+// (`plan_i8` in ops/topk.py): the query block qb (16, 32 or 64) whose
+// staged codes, ring and lists fit in shared memory, splits (a multiple of
+// CLUSTER) x tiles_per_split covering the n / KT key tiles with no empty
+// cluster, n_cand = bq * (splits / CLUSTER) * k entries per candidate
+// buffer. Otherwise it returns cudaErrorInvalidValue and launches nothing.
+// Returns the cudaError_t of the launches.
 int bscan_topk_i8(const signed char* q, const float* q_scale,
                   const signed char* keys, const float* k_scale, int bq,
                   int n, int d, int n_valid, int k, int qb, int splits,
-                  int tiles_per_split, float* cand_v, int* cand_i,
-                  float* out_v, int* out_i, void* stream) {
+                  int tiles_per_split, long long n_cand, float* cand_v,
+                  int* cand_i, float* out_v, int* out_i, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 64 != 0 || k < 1 || k > 64 || n_valid > n ||
-      (qb != 16 && qb != 32 && qb != 64) ||
-      i8_smem(qb, d, i8_maxk(k)) > kMaxSmem)
+  const int n_tiles = (n + KT - 1) / KT;
+  if (bq < 1 || d < 64 || d % 64 != 0 || k < 1 || k > 64 || n_valid < k ||
+      n_valid > n || (qb != 16 && qb != 32 && qb != 64) ||
+      i8_smem(qb, d, i8_maxk(k)) > kMaxSmem || splits < CLUSTER ||
+      splits % CLUSTER != 0 || tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split < n_tiles ||
+      (long long)(splits - CLUSTER) * tiles_per_split >= n_tiles ||
+      n_cand != (long long)bq * (splits / CLUSTER) * k)
     return (int)cudaErrorInvalidValue;
   return (int)by_qb(qb, [&](auto qbc) {
     return by_maxk<64>(k, [&](auto mk) {
@@ -926,27 +923,19 @@ int bscan_topk_i8(const signed char* q, const float* q_scale,
   });
 }
 
-// K5's launch plan for (bq, n, d, k) on a card with `sm_count` SMs: the
-// query block (16 rows for bq <= 16, 32 for bq <= 32, else 64; smaller
-// where the staged block would not fit in shared memory), key splits, key
-// tiles per split and the candidate entries (k per query and cluster).
-void bscan_topk_i8_plan(int bq, int n, int d, int k, int sm_count, int* qb,
-                        int* splits, int* tiles_per_split,
-                        long long* n_cand) {
-  int b = bq <= 16 ? 16 : (bq <= 32 ? 32 : 64);
-  while (b > 16 && i8_smem(b, d, i8_maxk(k)) > kMaxSmem) b /= 2;
-  *qb = b;
-  int clusters;
-  plan_splits(bq, n, b, sm_count, splits, tiles_per_split, &clusters);
-  *n_cand = (long long)bq * clusters * k;
+// The dynamic shared memory of topk_i8_pass1<maxk, qb> at width d, in
+// bytes.
+long long bscan_topk_i8_smem(int qb, int d, int maxk) {
+  return (long long)i8_smem(qb, d, maxk);
 }
 
 // K6. mode 0: q (bq, d) and keys (n, d) fp32, "high" (K4's six products);
 // mode 1: "default" (K4's one bf16 product); mode 2: int8 codes (K5's
 // products). d % 32 == 0 (fp32) or d % 64 == 0 (int8), 16-byte aligned
 // rows, 0 <= n_valid <= n; qb, splits and tiles_per_split from K4's plan
-// (fp32) or K5's (int8); part holds bq * splits floats, out (bq, 128). A
-// row with no valid key comes out -inf. Returns cudaError_t.
+// (fp32) or the plan of K5's mma.sync body (int8); part holds bq * splits
+// floats, out (bq, 128). A row with no valid key comes out -inf. Returns
+// cudaError_t.
 int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
                   int n_valid, int mode, int qb, int splits,
                   int tiles_per_split, float* part, float* out,

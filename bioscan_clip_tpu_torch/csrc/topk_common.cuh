@@ -1,7 +1,8 @@
 // The pieces of the fp32 top-k kernels (K4's two bodies, topk.cu and
 // topk_sm90.cu, and K5's) that do not depend on a body's fragments: the
 // (value desc, index asc) order, the per-query sorted lists in shared
-// memory and their merge, the bf16 split of fp32 values, and pass 2.
+// memory and their merge, the bf16 split of fp32 values, pass 2, and the
+// dynamic shared memory attribute set once per card.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -253,6 +254,25 @@ cudaError_t launch_pass2(int bq, int n_cand, int k, const float* cand_v,
   topk_pass2<MAXK><<<grid2, kPass2Threads, 0, stream>>>(
       cand_v, cand_i, bq, n_cand, k, out_v, out_i);
   return cudaGetLastError();
+}
+
+constexpr int kMaxDevices = 64;
+
+// The dynamic shared memory attribute of `kernel`, set once per card to the
+// most a CTA may take (`ready`: the calling launch function's own flags).
+inline cudaError_t allow_smem(bool (&ready)[kMaxDevices],
+                              const void* kernel) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
+    if (err != cudaSuccess) return err;
+    ready[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 template <int V>

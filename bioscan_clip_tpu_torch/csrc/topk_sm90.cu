@@ -78,6 +78,7 @@
 #include "attention_common.cuh"
 #include "sm90_common.cuh"
 #include "topk_common.cuh"
+#include "topk_sm90_common.cuh"
 
 namespace {
 
@@ -217,93 +218,19 @@ __device__ __forceinline__ void chunk_products(float (&acc)[NQ / 2],
   fence_regs(a);
 }
 
-// Merge the buffer of every query that holds at least `at` scores (one warp
-// a query) and refresh its theta.
-template <int NQ, int MAXK>
-__device__ __forceinline__ void merge_buffers(const Lists<NQ, MAXK>& L,
-                                              int at, int k, int warp,
-                                              int lane) {
-  for (int r = warp; r < NQ; r += TPB / 32) {
-    const int nbuf = min(L.cnt()[r], BUF);
-    if (nbuf >= at)
-      merge_row<MAXK>(L.lv() + r * MAXK, L.li() + r * MAXK, L.bv() + r * BUF,
-                      L.bi() + r * BUF, nbuf, k, L.thv() + r, L.thi() + r,
-                      L.cnt() + r, lane);
-  }
-}
-
 // Screen a finished tile's scores against each query's threshold theta and
-// merge those that beat it into the query's list: csrc/topk.cu's
-// screen_tile on the wgmma accumulators. acc[j] is the score of query 8 (j
-// / 4) + 2 t4 + (j % 2) of the block against key `key` + 8 ((j / 2) % 2)
-// (`key`: the thread's first key row of the tile, global). Each round first
-// marks the pending scores that reach their query's theta value, a loop of
-// loads and compares only, so that its loads issue together (a score below
-// theta's value cannot beat theta, and theta does not change before the
-// round's barrier); only the marked scores are checked against theta's key
-// index and appended to their query's buffer. A query merges its buffer
-// into its list once it holds kMergeAt scores (`flush` merges the rest after
-// the walk): a theta that rises later admits more scores, never fewer, and
-// most tiles then merge nothing. A score that does not fit its query's full
-// buffer stays pending (bit j % 32 of word j / 32) and is screened again
-// after the merge.
+// merge those that beat it into the query's list (topk_sm90_common.cuh's
+// screen_scores): acc[j] is the score of query 8 (j / 4) + 2 t4 + (j % 2)
+// of the block against key `key` + 8 ((j / 2) % 2), `key` the thread's
+// first key row of the tile (global). A query merges its buffer once it
+// holds kMergeAt scores.
 template <int NQ, int MAXK>
 __device__ __forceinline__ void screen(const float (&acc)[NQ / 2],
                                        const Lists<NQ, MAXK>& L, int q0,
                                        int bq, int key, int n_valid, int k,
                                        int warp, int lane) {
-  constexpr int R = NQ / 2, W = R / 32;
-  const int t4 = lane & 3;
-  const float* thv = L.thv();
-  unsigned pend[W];
-#pragma unroll
-  for (int w = 0; w < W; ++w) pend[w] = 0u;
-#pragma unroll
-  for (int j = 0; j < R; ++j) {
-    const int q = 8 * (j >> 2) + 2 * t4 + (j & 1);
-    if (q0 + q < bq && key + 8 * ((j >> 1) & 1) < n_valid)
-      pend[j >> 5] |= 1u << (j & 31);
-  }
-  while (true) {
-    unsigned any = 0u;
-#pragma unroll
-    for (int w = 0; w < W; ++w) {
-      unsigned hit = 0u;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int j = 32 * w + i;
-        if (acc[j] >= thv[8 * (j >> 2) + 2 * t4 + (j & 1)]) hit |= 1u << i;
-      }
-      pend[w] &= hit;
-      any |= pend[w];
-    }
-    if (any) {
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const unsigned bit = 1u << (j & 31);
-        if (!(pend[j >> 5] & bit)) continue;
-        const int q = 8 * (j >> 2) + 2 * t4 + (j & 1);
-        const int kj = key + 8 * ((j >> 1) & 1);
-        const float s = acc[j];
-        if (!better(s, kj, thv[q], L.thi()[q])) {
-          pend[j >> 5] &= ~bit;
-        } else {
-          const int p = atomicAdd(L.cnt() + q, 1);
-          if (p < BUF) {
-            L.bv()[q * BUF + p] = s;
-            L.bi()[q * BUF + p] = kj;
-            pend[j >> 5] &= ~bit;
-          }
-        }
-      }
-    }
-    __syncthreads();  // the buffers are full or the tile screened
-    merge_buffers<NQ, MAXK>(L, kMergeAt, k, warp, lane);
-    any = 0u;
-#pragma unroll
-    for (int w = 0; w < W; ++w) any |= pend[w];
-    if (!__syncthreads_or(any != 0u)) break;  // lists and thetas updated
-  }
+  screen_scores<NQ, MAXK, kMergeAt>([&](int j) { return acc[j]; }, L, q0, bq,
+                                    key, n_valid, k, warp, lane);
 }
 
 // Pass 1. Shared memory from the 1024-aligned base: the ring (slot s at s *
@@ -393,24 +320,6 @@ __global__ void __launch_bounds__(TPB, 1)
 
 // ---- host: tensor maps and the launches ----------------------------------
 
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared memory attribute of `kernel`, set once per card to the
-// most a CTA may take (`ready`: the calling launch function's own flags).
-cudaError_t allow_smem(bool (&ready)[kMaxDevices], const void* kernel) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
-  return cudaSuccess;
-}
-
 // A map over the (n, d) fp32 keys, boxes of 128 rows x 32 floats in the
 // 128-byte swizzle; rows past n load as zeros.
 bool encode_keys(CUtensorMap* map, const float* keys, int n, int d) {
@@ -440,14 +349,6 @@ cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mq,
   const dim3 grid((a.bq + NQ - 1) / NQ, splits);
   kernel<<<grid, TPB, smem, stream>>>(mk, mq, a);
   return cudaGetLastError();
-}
-
-// f(Int<nq>{}) for a query block of 64, 128 or 256 rows
-template <class F>
-cudaError_t by_nq(int nq, const F& f) {
-  if (nq == 64) return f(Int<64>{});
-  if (nq == 128) return f(Int<128>{});
-  return f(Int<256>{});
 }
 
 }  // namespace

@@ -38,10 +38,20 @@ queries) from `SM90_MIN_BQ[precision]` queries up (17 in "high", every
 Bq in "default") at widths that are a multiple of 64, and the `mma.sync`
 body of `csrc/topk.cu` below that.
 
+K5 has two bodies too, chosen by `plan_i8`: the Hopper body
+(`csrc/topk_i8_sm90.cu`: int8 `wgmma` with the keys as its M side and the
+queries as its N side, both TMA tiles of codes loaded by a producer
+warpgroup, one walk of the keys for up to 128 queries, each query's
+threshold seeded by a first launch) at widths that are a multiple of 128,
+and the `mma.sync` body of `csrc/topk.cu` elsewhere and at the few queries
+over few keys where it measured faster (`I8_MMA_WINS`).
+
 `<wrapper>.launches` count kernel launches (`topk.launches` the "high"
 ones, `topk.default_launches` the "default" ones, of either body;
 `topk.sm90_launches` those of K4's Hopper body, `topk.mma_launches` those
-of its `mma.sync` body), `<plain version>.calls` the plain versions' calls.
+of its `mma.sync` body; `topk_i8.sm90_launches` and `topk_i8.mma_launches`
+those of K5's two bodies), `<plain version>.calls` the plain versions'
+calls.
 """
 
 from __future__ import annotations
@@ -176,15 +186,13 @@ def _kernel():
     fn.restype = ctypes.c_int
     fn_i8 = lib.bscan_topk_i8
     fn_i8.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 5
     )
     fn_i8.restype = ctypes.c_int
-    plan_i8 = lib.bscan_topk_i8_plan
-    plan_i8.argtypes = [ctypes.c_int] * 5 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong),
-    ]
-    plan_i8.restype = None
+    smem_i8 = lib.bscan_topk_i8_smem
+    smem_i8.argtypes = [ctypes.c_int] * 3
+    smem_i8.restype = ctypes.c_longlong
     fn_mm = lib.bscan_mm_only
     fn_mm.argtypes = (
         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
@@ -197,7 +205,7 @@ def _kernel():
     fn_tiny.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn_tiny.restype = ctypes.c_int
     return SimpleNamespace(lib=lib, topk=fn, topk_i8=fn_i8,
-                           plan_i8=plan_i8, mm_only=fn_mm, tiny=fn_tiny,
+                           smem_i8=smem_i8, mm_only=fn_mm, tiny=fn_tiny,
                            smem_f32=smem_f32)
 
 
@@ -225,6 +233,32 @@ def sm90_entry(lib):
     lib.bscan_error_string.argtypes = [ctypes.c_int]
     lib.bscan_error_string.restype = ctypes.c_char_p
     return SimpleNamespace(lib=lib, topk=fn, smem=smem, slot_depth=depth)
+
+
+@functools.lru_cache(maxsize=None)
+def _i8_sm90_kernel():
+    """K5's Hopper body (csrc/topk_i8_sm90.cu), argument types set."""
+    return i8_sm90_entry(_build.load("topk_i8_sm90"))
+
+
+def i8_sm90_entry(lib):
+    """The entry points of a library built from csrc/topk_i8_sm90.cu (or
+    one of its design variants), argument types set."""
+    fn = lib.bscan_topk_i8_sm90
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_longlong] * 2
+        + [ctypes.c_int] + [ctypes.c_void_p] * 6
+    )
+    fn.restype = ctypes.c_int
+    smem = lib.bscan_topk_i8_sm90_smem
+    smem.argtypes = [ctypes.c_int] * 3
+    smem.restype = ctypes.c_longlong
+    seed = lib.bscan_topk_i8_sm90_seed
+    seed.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    seed.restype = None
+    lib.bscan_error_string.argtypes = [ctypes.c_int]
+    lib.bscan_error_string.restype = ctypes.c_char_p
+    return SimpleNamespace(lib=lib, topk=fn, smem=smem, seed=seed)
 
 
 # --- K4's plan (the launch checks of csrc/topk.cu's `bscan_topk_f32` and
@@ -337,17 +371,143 @@ def _device_sms(dev) -> int:
                      else torch.cuda.current_device())
 
 
-def plan_i8(bq: int, n: int, d: int, k: int, dev):
-    """K5's (query block rows: 16, 32 or 64 from Bq; key splits; key tiles
-    per split; candidate entries) for one launch."""
-    qb, splits, per_split = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    n_cand = ctypes.c_longlong()
-    _kernel().plan_i8(
-        bq, n, d, k,
-        torch.cuda.get_device_properties(dev).multi_processor_count,
-        ctypes.byref(qb), ctypes.byref(splits), ctypes.byref(per_split),
-        ctypes.byref(n_cand))
-    return qb.value, splits.value, per_split.value, n_cand.value
+# --- K5's plan (the launch checks of csrc/topk.cu's `bscan_topk_i8` and
+# csrc/topk_i8_sm90.cu's `bscan_topk_i8_sm90` refuse any other) ------------
+
+# the seed's launch pays from this many queries up (fewer append few
+# scores anyway: at Bq <= 16 the seed's launch cost more than it saved)
+I8_SEED_MIN_BQ = 32
+# Where the mma.sync body measured faster than the plan's sm90 body, as
+# (least N, most Bq), both only while N / 128 <= the card's SMs
+# (tools/sweep_k5_sm90.py --crossing, rounds of turns, D = 768, k = 21, N
+# = 960-32,768 on 132 SMs; below 960 keys, both launch-bound, taken as at
+# 960). There a single query block's sm90 plan gives each key split one
+# tile, whose scores fill its lists, and pass 2 reads k candidates a query
+# for every tile where mma.sync's clusters of two splits halve them; from
+# 19,937 keys (two tiles a split) the sm90 body won at every Bq.
+I8_MMA_WINS = ((1, 16), (12_288, 32))
+# the largest query block where the seed cannot run (fewer than k whole key
+# tiles): each query's first tile then fills its list, and a block of 128
+# queries took 0.10 ms at N = 1,920, Bq = 960 against 0.06 at 32
+I8_UNSEEDED_MAX_QB = 32
+_I8_SM90_BLOCKS = (16, 32, 64, 128)  # the Hopper body's query blocks (N)
+_I8_SM90_CHUNK = 128               # depth bytes of its ring chunks
+_I8_SM90_ALIGN, _I8_SM90_BARRIER_BYTES = 1024, 128
+_I8_SM90_STAGES = (2, 8)           # ring slots: the most that fit
+_I8_SEED_TILES = 8                 # whole key tiles in a seed group, at most
+
+
+@dataclasses.dataclass(frozen=True)
+class I8Plan:
+    """How `topk_i8` runs (Bq, N, k, D) on the card.
+
+    `body`: "sm90" (`csrc/topk_i8_sm90.cu`) or "mma" (the `mma.sync` body of
+    `csrc/topk.cu`). `qb`: the query block (the sm90 body's wgmma N: 16, 32,
+    64 or 128; the mma body's 16, 32 or 64). The key axis: `splits` blocks of
+    `tiles_per_split` 128-key tiles, covering every tile of N once.
+    `stages`: ring slots; `smem`: a pass-1 block's dynamic shared memory;
+    `n_cand`: the candidate entries per buffer that pass 2 reads, k per
+    query and sm90 split, or per mma cluster of two splits. `seed_groups`:
+    the sm90 body's seed, k key groups whose bests start each query's
+    threshold (`i8_seed`), or 0 for none."""
+
+    body: str
+    qb: int
+    splits: int
+    tiles_per_split: int
+    stages: int
+    smem: int
+    n_cand: int
+    seed_groups: int = 0
+
+
+def _maxk_i8(k: int) -> int:
+    return 8 if k <= 8 else 16 if k <= 16 else 32 if k <= 32 else 64
+
+
+def i8_sm90_smem(qb: int, maxk: int, stages: int,
+                 chunk: int = _I8_SM90_CHUNK) -> int:
+    """csrc/topk_i8_sm90.cu `smem_bytes`: alignment, the ring (key and query
+    codes in chunks of `chunk` depth bytes, the source's by default), the
+    lists, the query scales and the barriers."""
+    return (_I8_SM90_ALIGN + stages * (_KEY_TILE + qb) * chunk
+            + lists_bytes(qb, maxk) + 4 * qb + _I8_SM90_BARRIER_BYTES)
+
+
+def i8_seed(n_valid: int, groups: int) -> tuple[int, int]:
+    """csrc/topk_i8_sm90.cu `SeedGroups`: the seed's whole key tiles a group
+    (0: no seed, fewer than `groups` whole tiles of valid keys) and the
+    tiles from one group's first to the next's, over keys[:n_valid]."""
+    stride = n_valid // _KEY_TILE // groups if groups else 0
+    return min(stride, _I8_SEED_TILES), stride
+
+
+def i8_mma_smem(qb: int, d: int, maxk: int) -> int:
+    """csrc/topk.cu `i8_smem`: the staged query codes (rows padded by 16
+    bytes), the ring of key chunks and the lists."""
+    dc, stages = (64, 3) if qb == 64 else (128, 4)
+    return (qb * (d + 16) + stages * _KEY_TILE * (dc + 16)
+            + lists_bytes(qb, maxk))
+
+
+def _i8_sm90_blocks(maxk: int):
+    """The sm90 body's query blocks whose lists fit beside two stages."""
+    return [b for b in _I8_SM90_BLOCKS
+            if i8_sm90_smem(b, maxk, _I8_SM90_STAGES[0]) <= MAX_SMEM]
+
+
+def plan_i8(bq: int, n: int, k: int, d: int = 768, sms: int = H100_SMS,
+            body: str | None = None) -> I8Plan:
+    """K5's body and launch for Bq queries over N keys at width d on a card
+    of `sms` SMs: the sm90 body when d % 128 == 0, but where I8_MMA_WINS
+    measured the mma body faster, with the smallest query block of 16, 32,
+    64 or 128 rows that holds Bq (else 128; at most I8_UNSEEDED_MAX_QB
+    where N has fewer than k whole key tiles, so that the seed cannot
+    run), as many ring stages as fit, and the seed from I8_SEED_MIN_BQ
+    queries up; else the mma body, its query block 16, 32 or 64 from Bq
+    (halved while its staged codes do not fit). `body` overrides the
+    choice of body."""
+    maxk = _maxk_i8(k)
+    n_tiles = -(-n // _KEY_TILE)
+    if body is None:
+        one_tile = n_tiles <= sms  # a split a tile, for Bq <= 32
+        body = ("sm90" if d % _I8_SM90_CHUNK == 0 and not (one_tile and any(
+            n >= lo and bq <= most for lo, most in I8_MMA_WINS)) else "mma")
+    if body == "mma":
+        qb = 16 if bq <= 16 else 32 if bq <= 32 else 64
+        while qb > 16 and i8_mma_smem(qb, d, maxk) > MAX_SMEM:
+            qb //= 2
+        q_blocks = -(-bq // qb)
+        want = min(max(-(-2 * sms // q_blocks), 1), n_tiles)
+        per_split = -(-n_tiles // want)
+        clusters = -(-n_tiles // (per_split * _CLUSTER))
+        return I8Plan("mma", qb, clusters * _CLUSTER, per_split,
+                      3 if qb == 64 else 4, i8_mma_smem(qb, d, maxk),
+                      bq * clusters * k)
+    fits = _i8_sm90_blocks(maxk)
+    if i8_seed(n, k)[0] == 0:
+        fits = [b for b in fits if b <= I8_UNSEEDED_MAX_QB]
+    qb = next((b for b in fits if b >= bq), fits[-1])
+    lo, hi = _I8_SM90_STAGES
+    stages = max(s for s in range(lo, hi + 1)
+                 if i8_sm90_smem(qb, maxk, s) <= MAX_SMEM)
+    return i8_sm90_plan(bq, n, k, sms, qb, stages)
+
+
+def i8_sm90_plan(bq: int, n: int, k: int, sms: int, qb: int,
+                 stages: int) -> I8Plan:
+    """The sm90 body's launch at query block `qb` and `stages` ring slots,
+    with the seed from I8_SEED_MIN_BQ queries up: about one CTA per SM over
+    the query blocks and key splits, every split holding at least one key
+    tile."""
+    n_tiles = -(-n // _KEY_TILE)
+    q_blocks = -(-bq // qb)
+    want = min(max(sms // q_blocks, 1), n_tiles)
+    per_split = -(-n_tiles // want)
+    splits = -(-n_tiles // per_split)
+    return I8Plan("sm90", qb, splits, per_split, stages,
+                  i8_sm90_smem(qb, _maxk_i8(k), stages), bq * splits * k,
+                  k if bq >= I8_SEED_MIN_BQ else 0)
 
 
 def _check_2d(name, t, dtype, device):
@@ -482,25 +642,71 @@ def topk_i8(q_i8, q_scales, keys_i8, k_scales, n_valid: int, k: int):
                 or t.numel() != rows or not t.is_contiguous()):
             raise ValueError(f"topk_i8: {name} must be {rows} contiguous "
                              f"fp32 on {dev}")
-    kern = _kernel()
-    qb, splits, per_split, n_cand = plan_i8(bq, n, d, k, dev)
-    cand_v = torch.empty(n_cand, dtype=torch.float32, device=dev)
-    cand_i = torch.empty(n_cand, dtype=torch.int32, device=dev)
-    out_v = torch.empty((bq, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((bq, k), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = kern.topk_i8(
-            q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
-            k_scales.data_ptr(), bq, n, d, n_valid, k, qb, splits, per_split,
-            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "topk_i8 launch")
+    plan = plan_i8(bq, n, k, d, _device_sms(dev))
+    if plan.body == "sm90":
+        out_v, out_i = _launch_i8_sm90(_i8_sm90_kernel(), q_i8, q_scales,
+                                       keys_i8, k_scales, n_valid, k, plan)
+        topk_i8.sm90_launches += 1
+    else:
+        out_v, out_i = _launch_i8_mma(q_i8, q_scales, keys_i8, k_scales,
+                                      n_valid, k, plan)
+        topk_i8.mma_launches += 1
     topk_i8.launches += 1
     return out_v, out_i
 
 
+def _own_plan(plan, body: str, what: str):
+    if not isinstance(plan, I8Plan) or plan.body != body:
+        raise ValueError(f"{what}: needs an I8Plan of the {body} body, got "
+                         f"{plan!r}")
+
+
+def _launch_i8_mma(q_i8, q_scales, keys_i8, k_scales, n_valid, k,
+                   plan: I8Plan):
+    """K5's mma.sync body (csrc/topk.cu) under `plan`."""
+    _own_plan(plan, "mma", "topk_i8 mma launch")
+    (bq, d), n, dev = q_i8.shape, keys_i8.shape[0], q_i8.device
+    kern = _kernel()
+    cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
+    with torch.cuda.device(dev):
+        err = kern.topk_i8(
+            q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
+            k_scales.data_ptr(), bq, n, d, n_valid, k, plan.qb, plan.splits,
+            plan.tiles_per_split, plan.n_cand, cand_v.data_ptr(),
+            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(kern.lib, err, "topk_i8 launch")
+    return out_v, out_i
+
+
+def _launch_i8_sm90(kern, q_i8, q_scales, keys_i8, k_scales, n_valid, k,
+                    plan: I8Plan):
+    """K5's Hopper body under `plan`, through `kern` (`_i8_sm90_kernel()`,
+    or a design variant's library with the same entry point): the seed's
+    launch (with `plan.seed_groups`, into a (Bq, k) scratch), pass 1 and
+    pass 2."""
+    _own_plan(plan, "sm90", "topk_i8 sm90 launch")
+    (bq, d), n, dev = q_i8.shape, keys_i8.shape[0], q_i8.device
+    cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
+    part = torch.empty(bq * plan.seed_groups, dtype=torch.float32,
+                       device=dev)
+    with torch.cuda.device(dev):
+        err = kern.topk(
+            q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
+            k_scales.data_ptr(), bq, n, d, n_valid, k, plan.qb, plan.splits,
+            plan.tiles_per_split, plan.stages, plan.smem, plan.n_cand,
+            plan.seed_groups, part.data_ptr() if plan.seed_groups else None,
+            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(kern.lib, err, "topk_i8 sm90 launch")
+    return out_v, out_i
+
+
 topk_i8.launches = 0
+topk_i8.sm90_launches = 0
+topk_i8.mma_launches = 0
 
 
 _MM_MODES = {"high": 0, "default": 1}
@@ -558,10 +764,10 @@ def mm_only(queries, keys, n_valid: int, int8: bool = False,
                          f"and be a multiple of {step}")
     kern = _kernel()
     if int8:
-        qb, splits, per_split, _ = plan_i8(bq, n, d, 1, dev)
+        p = plan_i8(bq, n, 1, d, _device_sms(dev), body="mma")
     else:
         p = plan_f32(bq, n, 1, precision, d, _device_sms(dev), body="mma")
-        qb, splits, per_split = p.qb, p.splits, p.tiles_per_split
+    qb, splits, per_split = p.qb, p.splits, p.tiles_per_split
     part = torch.empty(bq * splits, dtype=torch.float32, device=dev)
     out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):

@@ -41,8 +41,8 @@ import torch
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
 TILING = ("pass 1: 16, 32 or 64 queries from Bq x 128 keys per tile "
-          "(K6 on the mma.sync walks: ops.topk.plan_f32's mma plan, "
-          "bscan_topk_i8_plan), key axis split over ~2 blocks per SM")
+          "(K6 on the mma.sync walks: the mma plans of ops.topk.plan_f32 "
+          "and ops.topk.plan_i8), key axis split over ~2 blocks per SM")
 I8_MIN_K = 21  # max(4k, k + 16) at the engine's default k = 5
 
 
@@ -132,6 +132,7 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
                           lambda v, p=prec: topk_ops.mm_only(
                               v[0], keys, n_keys, precision=p)))
         plan = topk_ops.plan_f32(bq, n_keys, k, "high", dim)
+        plan8 = topk_ops.plan_i8(bq, n_keys, k_i8_eff, dim)
         calls += [
             (dict(variant="topk_f32", k=k, tiling=(
                 f"K4's {plan.body} body: {plan.qb} queries x 128 keys per "
@@ -140,7 +141,10 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
              lambda v: topk_ops.topk(v[0], keys, n_keys, k)),
             (dict(variant="mm_only_i8"),
              lambda v: topk_ops.mm_only(v[1], k_i8, n_keys, int8=True)),
-            (dict(variant="topk_i8", k=k_i8_eff),
+            (dict(variant="topk_i8", k=k_i8_eff, tiling=(
+                f"K5's {plan8.body} body: {plan8.qb} queries x 128 keys per "
+                "tile (ops.topk.plan_i8)"),
+                tiles=-(-bq // plan8.qb) * n_tiles),
              lambda v: topk_ops.topk_i8(v[1], v[2], k_i8, k_sc, n_keys,
                                         k_i8_eff)),
         ]

@@ -1,6 +1,8 @@
-"""Design sweep of the int8 top-k kernel (K5) on the card: variants of
+"""Design sweep of the int8 top-k kernel's mma.sync body (K5 below its
+plan's crossing, and K6's int8 walk) on the card: variants of
 `csrc/topk.cu`, each one text edit of its K5 constants or launches, built
-side by side and timed in one process, so that they share a card.
+side by side and timed in one process, so that they share a card. K5's
+Hopper body has its own sweep, `tools/sweep_k5_sm90.py`.
 
 Variants:
   as_built       the source as it is
@@ -11,11 +13,13 @@ Variants:
   pass1_only     pass 1 alone (pass 2 not launched; no check)
   pass2_only     pass 2 alone on stale candidates (pass 1 not launched; no
                  check)
-Rows, one JSON object each: variant, case (Bq = 1, 16, 64, 256, and
-"rising": Bq = 256 over collinear keys whose scales rise with the index,
-so every score passes the screen), query block, splits, ms (CUDA events
-over --iters launches after a warm-up), and whether the output is
-bit-equal to `ops.topk.topk_i8_reference`. N = --keys, D = 768, k = 21
+Each variant runs under `ops.topk.plan_i8(body="mma")`, its key splits
+rounded to the variant's cluster. Rows, one JSON object each: variant,
+case (Bq = 1, 16, 64, 256, and "rising": Bq = 256 over collinear keys
+whose scales rise with the index, so every score passes the screen),
+query block, splits, ms (CUDA events over --iters launches after a
+warm-up), and whether the output is bit-equal to
+`ops.topk.topk_i8_reference`. N = --keys, D = 768, k = 21
 (the engine's int8 oversampling of k = 5). Needs a CUDA device and nvcc.
 
     python -m bioscan_clip_tpu_torch.tools.sweep_topk_i8 [--keys 1048576]
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import json
 import subprocess
 import sys
@@ -75,11 +80,22 @@ def build(out_dir) -> dict[str, ctypes.CDLL]:
         out_dir)
     for lib in libs.values():
         lib.bscan_topk_i8.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5)
-        lib.bscan_topk_i8_plan.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4)
-        lib.bscan_topk_i8_plan.restype = None
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+            + [ctypes.c_void_p] * 5)
     return libs
+
+
+def variant_plan(name, bq, n, sms):
+    """The mma.sync body's plan for a variant: its key splits (none empty)
+    rounded up to a multiple of the variant's cluster, and the candidates
+    pass 2 then reads."""
+    plan = topk_ops.plan_i8(bq, n, K, D, sms, body="mma")
+    cluster = {"cluster_1": 1, "cluster_4": 4}.get(name, topk_ops._CLUSTER)
+    n_tiles = -(-n // topk_ops._KEY_TILE)
+    used = -(-n_tiles // plan.tiles_per_split)  # splits holding a tile
+    splits = -(-used // cluster) * cluster
+    return dataclasses.replace(plan, splits=splits,
+                               n_cand=bq * splits // cluster * K)
 
 
 def cases(n, gen, dev):
@@ -100,16 +116,14 @@ def cases(n, gen, dev):
     yield "rising", qc, qs, uc.expand(n, D).contiguous(), ks
 
 
-def run(lib, qc, qs, kc, ks, iters):
+def run(lib, name, qc, qs, kc, ks, iters):
     """(ms per launch, query block, splits, output (values, indices))."""
     dev = qc.device
     bq, n = qc.shape[0], kc.shape[0]
-    plan = [ctypes.c_int(), ctypes.c_int(), ctypes.c_int(),
-            ctypes.c_longlong()]
-    lib.bscan_topk_i8_plan(
-        bq, n, D, K, torch.cuda.get_device_properties(dev).multi_processor_count,
-        *[ctypes.byref(v) for v in plan])
-    qb, splits, per_split, n_cand = (v.value for v in plan)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = variant_plan(name, bq, n, sms)
+    qb, splits, per_split, n_cand = (plan.qb, plan.splits,
+                                     plan.tiles_per_split, plan.n_cand)
     cand_v = torch.zeros(n_cand, device=dev)
     cand_i = torch.zeros(n_cand, device=dev, dtype=torch.int32)
     out_v = torch.empty(bq, K, device=dev)
@@ -119,7 +133,7 @@ def run(lib, qc, qs, kc, ks, iters):
     def launch():
         err = lib.bscan_topk_i8(
             qc.data_ptr(), qs.data_ptr(), kc.data_ptr(), ks.data_ptr(), bq, n,
-            D, n, K, qb, splits, per_split, cand_v.data_ptr(),
+            D, n, K, qb, splits, per_split, n_cand, cand_v.data_ptr(),
             cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(), stream)
         if err:
             raise RuntimeError(f"bscan_topk_i8: CUDA error {err}")
@@ -158,7 +172,8 @@ def main(argv=None) -> int:
     for case, qc, qs, kc, ks in cases(args.keys, gen, dev):
         ref = topk_ops.topk_i8_reference(qc, qs, kc, ks, kc.shape[0], K)
         for name, lib in libs.items():
-            ms, qb, splits, (v, i) = run(lib, qc, qs, kc, ks, args.iters)
+            ms, qb, splits, (v, i) = run(lib, name, qc, qs, kc, ks,
+                                         args.iters)
             equal = (torch.equal(v, ref[0]) and torch.equal(i, ref[1])
                      if name in CHECKED else None)
             row = {"variant": name, "case": case, "query_block": qb,

@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero:
             instantiation of the mma.sync body, one "K4 sm90 MAXK= NQ=
             TERMS=" line per instantiation of its Hopper body, with its
             shared memory at 2 / 3 / 4 ring stages, one
-            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation, one
+            "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation of the
+            mma.sync body, one "K5 sm90 MAXK= NQ=" / "K5 sm90 seed NQ="
+            line per instantiation of its Hopper body (pass 1, the seed's
+            launch), with its shared memory, one
             "K1/K2 sm90 key rows" / "K2 ... bias" / "K2d ... [bias]
             dropout" / "K1m ... mask" line per instantiation of the
             forward's Hopper body (K1, K2, K2d, K1m), with its shared
@@ -53,8 +56,11 @@ Phases, in order; any failure exits non-zero:
             torch.topk ("default": the keys cast to bf16 before the timing
             and inside it);
             int8 top-k bit for bit at 1,048,576 keys (Bq 256, 64, 16, 1,
-            and keys whose scores rise with the index at Bq 256) and at
-            5,000,000 keys (Bq 256, 1); the
+            1024, and keys whose scores rise with the index at Bq 256) and
+            at 5,000,000 keys (Bq 256, 1), on the body its plan chooses
+            (two launches bit-equal) and on both bodies (the Hopper body
+            of csrc/topk_i8_sm90.cu, the mma.sync body of csrc/topk.cu),
+            each timed beside _int_mm + torch.topk; the
             matmul-only control K6 and K7), with the kernel's, the plain
             version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
@@ -73,7 +79,12 @@ Phases, in order; any failure exits non-zero:
             distributed and graphs), every K4 launch
             from topk.SM90_MIN_BQ queries up on its sm90
             body (`topk.sm90_launches`, as in openclip, eval, train_cl,
-            insect, data_tools and streaming)
+            insect, data_tools and streaming), every K5 launch on the body
+            `topk.plan_i8` chose for it, launches on each body
+            (`topk_i8.sm90_launches`, `topk_i8.mma_launches`) as many as
+            the plans sent there, with their shapes logged (serving, eval
+            and streaming; train_cl, insect and data_tools where K5
+            launched)
   eval      the evaluation job at full width: in-memory batches of 24 (all
             keys 1,920, seen 960, unseen 960 records) through
             train.loop.extract_features per batch and grouped, then the
@@ -406,9 +417,24 @@ def phase_build():
                         f"{smem[0]} / {smem[1]} / {smem[2]} bytes of dynamic "
                         "shared memory at 2 / 3 / 4 ring stages")
                 k5 = re.search(r"topk_i8_pass1ILi(\d+)ELi(\d+)E", fn)
-                if k5:  # K5's instantiations, by list size and query block
+                if k5:  # K5's mma.sync body, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}")
+                k5s = re.search(r"topk_i8_sm90ILi(\d+)ELi(\d+)ELb(\d)E",
+                                fn)
+                if k5s:  # K5's Hopper body, by list size and N (and its
+                    # seed's launch)
+                    maxk, nq = int(k5s[1]), int(k5s[2])
+                    smem = [topk_mod.i8_sm90_smem(nq, maxk, s)
+                            for s in range(2, 9)]
+                    fit = [s for s, b in zip(range(2, 9), smem)
+                           if b <= topk_mod.MAX_SMEM]
+                    what = (f"seed NQ={nq}" if k5s[3] == "1"
+                            else f"MAXK={maxk} NQ={nq}")
+                    log(f"  K5 sm90 {what}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}; "
+                        f"{smem[0]} bytes of dynamic shared memory at 2 "
+                        f"ring stages, {smem[fit[-1] - 2]} at {fit[-1]}")
                 k1 = re.search(r"mha_fwd_sm90ILi(\d+)ELb(\d)ELb(\d)ELb(\d)E",
                                fn)
                 if k1:  # the forward's Hopper body, by padded key rows,
@@ -690,12 +716,14 @@ def _topk_row(q, keys, k, precision, what):
 def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
                   rising_bq=None):
     """K5 against its plain version, values and indices bit for bit, at
-    each query count of `bqs`; timed beside torch._int_mm + the two scales
-    + torch.topk (Bq padded to 32 rows, as _int_mm needs more than 16).
-    With `rising_bq`, one more row: collinear keys whose scales rise with
-    the index, so every query's scores rise along the key axis (each tile
-    beats the last: the worst case of K5's running threshold). Returns the
-    row of the first query count."""
+    each query count of `bqs`, on the body its plan chooses (two launches
+    bit-equal) and on each of its bodies under their own plans (the Hopper
+    body of csrc/topk_i8_sm90.cu, the mma.sync body of csrc/topk.cu); each
+    timed beside torch._int_mm + the two scales + torch.topk (Bq padded to
+    32 rows, as _int_mm needs more than 16). With `rising_bq`, one more
+    row: collinear keys whose scales rise with the index, so every query's
+    scores rise along the key axis (each tile beats the last: the worst
+    case of K5's running threshold). Returns {case: row}."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
@@ -722,15 +750,37 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
         ks_r = us * (1 + torch.arange(n, device=dev, dtype=torch.float32) / n)
         cases.append((f"Bq={rising_bq} rising scores", qc_r, qs_r,
                       uc.expand(n, d).contiguous(), ks_r))
-    first = None
+    sms = topk_mod._device_sms(dev)
+    rows = {}
     for what, qc, qs, kk, kks in cases:
         bq = qc.shape[0]
         v, i = topk_mod.topk_i8(qc, qs, kk, kks, n, k)
+        v2, i2 = topk_mod.topk_i8(qc, qs, kk, kks, n, k)
         torch.cuda.synchronize()
         rv, ri = topk_mod.topk_i8_reference(qc, qs, kk, kks, n, k)
         if not (torch.equal(v, rv) and torch.equal(i, ri)):
             raise AssertionError(f"topk_i8 N={n} {what}: kernel != plain "
                                  f"(max |dv| {(v - rv).abs().max().item()})")
+        if not (torch.equal(v, v2) and torch.equal(i, i2)):
+            raise AssertionError(f"topk_i8 N={n} {what}: two launches "
+                                 "differ")
+        plan = topk_mod.plan_i8(bq, n, k, d, sms)
+        bodies = {}
+        for body in ("sm90", "mma"):
+            bp = topk_mod.plan_i8(bq, n, k, d, sms, body=body)
+            if body == "sm90":
+                def run(bp=bp):
+                    return topk_mod._launch_i8_sm90(
+                        topk_mod._i8_sm90_kernel(), qc, qs, kk, kks, n, k,
+                        bp)
+            else:
+                def run(bp=bp):
+                    return topk_mod._launch_i8_mma(qc, qs, kk, kks, n, k, bp)
+            bv, bi = run()
+            if not (torch.equal(bv, rv) and torch.equal(bi, ri)):
+                raise AssertionError(f"topk_i8 N={n} {what} on the {body} "
+                                     "body: kernel != plain")
+            bodies[body] = (time_ms(run, reps=5, warmup=1), bp)
         qp = torch.zeros(max(32, -(-bq // 8) * 8), d, device=dev,
                          dtype=torch.int8)
         qp[:bq] = qc
@@ -749,17 +799,23 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
                 qc, qs, kk, kks, n, k), reps=2, warmup=1),
             "library_ms": time_ms(library, reps=5, warmup=1),
             "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0,
+            "body": plan.body, "sm90_ms": bodies["sm90"][0],
+            "mma_ms": bodies["mma"][0], "keys": n, "bq": bq,
         }
-        qb, splits, _, _ = topk_mod.plan_i8(bq, n, d, k, dev)
-        log(f"  topk_i8 {what} N={n} D={d} k={k} (query block {qb}, "
-            f"{splits} key splits): bit-equal to plain, kernel "
-            f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
-            f"_int_mm+topk {row['library_ms']:.4f} ms (values equal: "
-            f"{lib_same}), bound {bms:.4f} ms ({by})")
-        first = first or row
+        s90, mma = bodies["sm90"], bodies["mma"]
+        log(f"  topk_i8 {what} N={n} D={d} k={k}: plan {plan.body} body: "
+            f"bit-equal to plain, two launches bit-equal, {row['ms']:.4f} "
+            f"ms; sm90 body {s90[0]:.4f} ms (N side {s90[1].qb}, "
+            f"{s90[1].splits} key splits, {s90[1].stages} stages, seed "
+            f"{'on' if s90[1].seed_groups else 'off'}), mma.sync "
+            f"body {mma[0]:.4f} ms (query block {mma[1].qb}, "
+            f"{mma[1].splits} key splits); each bit-equal; plain "
+            f"{row['plain_ms']:.4f} ms, _int_mm+topk {row['library_ms']:.4f} "
+            f"ms (values equal: {lib_same}), bound {bms:.4f} ms ({by})")
+        rows[what] = row
     del kc, ks, cases
     torch.cuda.empty_cache()
-    return first
+    return rows
 
 
 def _mm_only_case(gen, keys, bqs=(1, 256)):
@@ -1300,9 +1356,12 @@ def phase_kernels(rows: dict):
     rows["mm_only"] = _mm_only_case(gen, keys)
     del keys
     torch.cuda.empty_cache()
-    rows["topk_i8"] = _topk_i8_case(gen, N_KEYS, (256, 64, 16, 1),
-                                    rising_bq=256)
-    _topk_i8_case(gen, 5_000_000, (256, 1), codes_on_card=True)
+    i8 = _topk_i8_case(gen, N_KEYS, (256, 64, 16, 1, 1024), rising_bq=256)
+    i8_5m = _topk_i8_case(gen, 5_000_000, (256, 1), codes_on_card=True)
+    rows["topk_i8"] = i8["Bq=256"]
+    rows["topk_i8 shapes"] = {
+        **{f"N=1048576 {what}": r for what, r in i8.items()},
+        **{f"N=5000000 {what}": r for what, r in i8_5m.items()}}
     rows["tiny"] = _tiny_case(gen)
     log("phase kernels ok")
 
@@ -1332,7 +1391,10 @@ KERNELS = {
              "bioscan_clip_tpu/ops/topk_pallas.py:185"),
     "topk_default": ("cuda", "bioscan_clip_tpu_torch/csrc/topk_sm90.cu",
                      "bioscan_clip_tpu/ops/topk_pallas.py:185"),
-    "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+    # K5 at widths that are a multiple of 128 runs the sm90 body (elsewhere,
+    # and where topk.I8_MMA_WINS measured it faster, the mma.sync body of
+    # csrc/topk.cu)
+    "topk_i8": ("cuda", "bioscan_clip_tpu_torch/csrc/topk_i8_sm90.cu",
                 "bioscan_clip_tpu/ops/topk_pallas.py:253"),
     # K1m on bf16 at head dim 64 and 8 <= N <= 160 runs the same sm90 body
     # (fp32, N < 8 and other shapes, the bodies of csrc/mha_fwd.cu)
@@ -1350,7 +1412,8 @@ KERNELS = {
 KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect", "data_tools"),
                "mha": ("serving", "insect", "data_tools"),
                "topk": ("serving", "insect", "data_tools"),
-               "topk_i8": ("eval",),
+               "topk_i8": ("eval", "serving", "streaming", "insect",
+                           "data_tools", "train_cl"),
                "topk_default": ("eval",),
                "mha_dropout": ("training", "graphs", "insect"),
                "mha_bwd": ("training", "graphs", "insect"),
@@ -1381,6 +1444,10 @@ def launch_counts():
             "topk_sm90": topk.topk.sm90_launches,
             "topk_mma": topk.topk.mma_launches,
             "topk_i8": topk.topk_i8.launches,
+            "topk_i8_sm90": topk.topk_i8.sm90_launches,
+            "topk_i8_mma": topk.topk_i8.mma_launches,
+            "topk_i8_plan_sm90": sum(_K5_PLANS["sm90"].values()),
+            "topk_i8_plan_mma": sum(_K5_PLANS["mma"].values()),
             "mm_only": topk.mm_only.launches,
             "tiny": topk.tiny.launches}
 
@@ -1458,6 +1525,56 @@ def _k4_on_sm90(what, counts):
                              f"mma {mma}")
 
 
+# K5's plans since the last reset_counts(), as `topk.plan_i8` chose them
+# for topk_i8's launches: {body: {(Bq, N, D): count}}
+_K5_PLANS = {"sm90": {}, "mma": {}}
+
+
+def _tally_k5_plans():
+    """Wrap `topk.plan_i8` so that every plan it chooses for a launch (no
+    `body` given) is tallied in _K5_PLANS by body and shape; what the plan
+    sent to each body is then held against where the launch counters say
+    K5 ran."""
+    from bioscan_clip_tpu_torch.ops import topk
+
+    plan_i8 = topk.plan_i8
+    if getattr(plan_i8, "tallied", False):
+        return
+
+    def tallied(bq, n, k, d=768, sms=topk.H100_SMS, body=None):
+        plan = plan_i8(bq, n, k, d, sms, body)
+        if body is None:
+            shapes = _K5_PLANS[plan.body]
+            shapes[(bq, n, d)] = shapes.get((bq, n, d), 0) + 1
+        return plan
+
+    tallied.tallied = True
+    topk.plan_i8 = tallied
+
+
+def _k5_on_its_bodies(what, counts, launched=True):
+    """Every K5 launch of a path ran on the body its plan chose: as many
+    launches on the Hopper body (`topk_i8.sm90_launches`) and on the
+    mma.sync body (`topk_i8.mma_launches`) as `topk.plan_i8` sent to each
+    (`topk_i8_plan_*`, from `_K5_PLANS`, whose shapes since the last
+    reset_counts() are logged); the two add up to K5's launches, and with
+    `launched` K5 ran and the Hopper body did."""
+    k5, sm90, mma = (counts["topk_i8"], counts["topk_i8_sm90"],
+                     counts["topk_i8_mma"])
+    sent = (counts["topk_i8_plan_sm90"], counts["topk_i8_plan_mma"])
+    shapes = {body: {f"Bq={bq} N={n} D={d}": c
+                     for (bq, n, d), c in sorted(got.items())}
+              for body, got in _K5_PLANS.items()}
+    log(f"  {what}: K5 launches {k5}, on the sm90 body "
+        f"(topk_i8.sm90_launches) {sm90}, on the mma.sync body "
+        f"(topk_i8.mma_launches) {mma}; plan_i8 sent {sent[0]} to sm90 "
+        f"and {sent[1]} to mma.sync, the shapes of its last run: {shapes}")
+    if (sm90 + mma != k5 or (sm90, mma) != sent
+            or (launched and sm90 <= 0)):
+        raise AssertionError(f"{what}: K5 launches {k5}, sm90 {sm90}, "
+                             f"mma {mma}, plans {sent}")
+
+
 def _plain_fns():
     from bioscan_clip_tpu_torch.ops import attention, topk
 
@@ -1490,6 +1607,10 @@ def reset_counts():
     topk.topk.default_launches = 0
     topk.topk.sm90_launches = 0
     topk.topk.mma_launches = 0
+    topk.topk_i8.sm90_launches = 0
+    topk.topk_i8.mma_launches = 0
+    for shapes in _K5_PLANS.values():
+        shapes.clear()
     for fn in _plain_fns():
         fn.calls = 0
 
@@ -1693,6 +1814,7 @@ def phase_serving():
     _vit_on_sm90("serving", counts)
     _k2_on_its_bodies("serving", counts)
     _k4_on_sm90("serving", counts)
+    _k5_on_its_bodies("serving", counts)
     missing = [name for name in ("mha_packed", "mha", "topk", "topk_i8")
                if counts[name] <= 0]
     if missing:
@@ -2058,6 +2180,7 @@ def phase_eval():
     _vit_on_sm90("eval", counts)
     _k2_on_its_bodies("eval", counts)
     _k4_on_sm90("eval", counts)
+    _k5_on_its_bodies("eval", counts)
     want = ("mha_packed", "mha", "topk", "topk_default", "topk_i8")
     if any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"eval: launches {counts}, plain {plain}")
@@ -2800,6 +2923,7 @@ def phase_train_cl():
     _k2_on_its_bodies("train_cl", counts)
     _k3_on_sm90("train_cl", counts)
     _k4_on_sm90("train_cl", counts)
+    _k5_on_its_bodies("train_cl", counts, launched=False)
 
     # ---- outside the CLI: remat, GradCache against the plain step
     from bioscan_clip_tpu_torch.train.loop import (
@@ -3370,6 +3494,7 @@ def phase_insect():
     _k2_on_its_bodies("insect", counts)
     _k3_on_sm90("insect", counts)
     _k4_on_sm90("insect", counts)
+    _k5_on_its_bodies("insect", counts, launched=False)
     if not (math.isfinite(vit_loss) and math.isfinite(joint_loss)
             and all(math.isfinite(x) for x in cl_losses)):
         raise AssertionError(f"insect: losses {vit_loss}, {joint_loss}, "
@@ -4217,6 +4342,7 @@ def phase_streaming():
         raise AssertionError(f"streaming: launches {counts}")
     log(f"  launches on the streamed and sharded searches: {counts}")
     _k4_on_sm90("streaming", counts)
+    _k5_on_its_bodies("streaming", counts)
     log(f"phase streaming ok: {differ} fp32 rows differ from the resident "
         "search, each only by near-ties")
     return counts
@@ -4741,6 +4867,7 @@ def phase_data_tools():
         raise AssertionError(f"data_tools: launches {counts}, plain {plain}")
     _k2_on_its_bodies("data_tools", counts)
     _k4_on_sm90("data_tools", counts)
+    _k5_on_its_bodies("data_tools", counts, launched=False)
     del model
     torch.cuda.empty_cache()
     log("phase data_tools ok")
@@ -4771,6 +4898,7 @@ def main(argv=None) -> int:
     path_counts = {}
     phase_device()
     phase_build()
+    _tally_k5_plans()
     if "kernels" in phases:
         phase_kernels(rows)
     if "serving" in phases:
@@ -4842,6 +4970,21 @@ def main(argv=None) -> int:
                     "bound_ms", "max_abs_err")}
                 for key in (("barcodebert b24", "bert-small")
                             if name == "mha" else ("bert-small",))}
+        if name == "topk_i8":  # K5's two bodies, its other shapes
+            path = path_counts.get(KERNEL_PATH[name][0], {})
+            kernels[-1]["sm90_launches"] = path.get("topk_i8_sm90")
+            kernels[-1]["mma_launches"] = path.get("topk_i8_mma")
+            kernels[-1]["launches_by_body"] = {
+                p: {b: path_counts[p].get(f"topk_i8_{b}")
+                    for b in ("sm90", "mma")}
+                for p in KERNEL_PATH[name] if p in path_counts}
+            for key in ("body", "sm90_ms", "mma_ms"):
+                kernels[-1][key] = r.get(key)
+            kernels[-1]["shapes"] = {
+                case: {k: row.get(k) for k in (
+                    "body", "ms", "sm90_ms", "mma_ms", "plain_ms",
+                    "library_ms", "bound_ms", "max_abs_err")}
+                for case, row in rows.get("topk_i8 shapes", {}).items()}
         if name in ("topk", "topk_default"):  # K4's two bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get("topk_sm90")

@@ -241,8 +241,9 @@ def run_cli(path, out_dir, rank):
             "fingerprint": _fingerprint(state.model)}
 
 
-def worker(rank, port, path, out_path, out_dir):
-    """One rank of the pair: every mode, results to `out_path`."""
+def worker(rank, port, path, out_path, out_dir, only=None):
+    """One rank of the pair: every mode (or the one mode `only`), results
+    to `out_path`."""
     from bioscan_clip_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
@@ -254,6 +255,11 @@ def worker(rank, port, path, out_path, out_dir):
     mesh = create_mesh({"data": W})
     mine = slice(rank * (B // W), (rank + 1) * (B // W))
     res = {}
+    if only == "loader":
+        res["loader"] = train("plain", loader_batches(path, rank, W), mesh)
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+        return
     for mode in ("plain", "gradcache", "accum"):
         res[mode] = train(mode, [_rows(host_batch(s), mine)
                                  for s in range(STEPS)], mesh)
@@ -275,13 +281,9 @@ def _free_port() -> int:
     return port
 
 
-@pytest.fixture(scope="module")
-def pair(tmp_path_factory):
-    """Both ranks' results, and the fixture path they read."""
-    from test_torch_train_loader import synthetic_dataset
-
-    path = synthetic_dataset()
-    tmp = tmp_path_factory.mktemp("mp")
+def _run_pair(path, tmp, *only):
+    """Both ranks' results over the fixture at `path` (every mode, or the
+    mode of `only`)."""
     port = _free_port()
     path_var = os.pathsep.join([REPO, os.path.join(REPO, "tests"),
                                 os.environ.get("PYTHONPATH", "")])
@@ -291,7 +293,7 @@ def pair(tmp_path_factory):
         outs.append(tmp / f"rank{rank}.json")
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(rank), str(port),
-             path, str(outs[-1]), str(tmp)],
+             path, str(outs[-1]), str(tmp), *only],
             env=env, cwd=str(tmp), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE))
     try:
@@ -303,7 +305,17 @@ def pair(tmp_path_factory):
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    return [json.loads(o.read_text()) for o in outs], path, tmp
+    return [json.loads(o.read_text()) for o in outs]
+
+
+@pytest.fixture(scope="module")
+def pair(tmp_path_factory):
+    """Both ranks' results, and the fixture path they read."""
+    from test_torch_train_loader import synthetic_dataset
+
+    path = synthetic_dataset()
+    tmp = tmp_path_factory.mktemp("mp")
+    return _run_pair(path, tmp), path, tmp
 
 
 @pytest.mark.parametrize("mode", ["plain", "gradcache", "accum", "loader",
@@ -313,20 +325,47 @@ def test_two_processes_train_as_one(pair, mode):
     if mode in ("classifier", "joint"):
         ref_losses, ref_fp = train_classifier(
             mode, [host_batch(s) for s in range(STEPS)])
-    elif mode == "loader":  # the two shards in rank order
-        parts = [loader_batches(path, r, W) for r in range(W)]
-        batches = [{k: _cat([p[i][k] for p in parts])
-                    for k in ("image_u8", "dna", "language", "labels")}
-                   for i in range(STEPS)]
-        ref_losses, ref_fp = train("plain", batches)
+    elif mode == "loader":
+        ref_losses, ref_fp = _loader_reference(path)
     else:
         ref_losses, ref_fp = train(mode, [host_batch(s)
                                           for s in range(STEPS)])
+    _same_training(results, mode, ref_losses, ref_fp)
+
+
+def _loader_reference(path):
+    """One process trained on the two loader shards in rank order."""
+    parts = [loader_batches(path, r, W) for r in range(W)]
+    batches = [{k: _cat([p[i][k] for p in parts])
+                for k in ("image_u8", "dna", "language", "labels")}
+               for i in range(STEPS)]
+    return train("plain", batches)
+
+
+def _same_training(results, mode, ref_losses, ref_fp):
     (l0, fp0), (l1, fp1) = results[0][mode], results[1][mode]
     np.testing.assert_allclose(l0, l1, rtol=1e-6)
     np.testing.assert_allclose(fp0, fp1, rtol=1e-6)
     np.testing.assert_allclose(l0, ref_losses, rtol=2e-5, atol=1e-6)
     np.testing.assert_allclose(fp0, ref_fp, rtol=2e-5)
+
+
+# other label sets of the fixture (`stable_hash` salts) for the loader
+# case: the two nearest its bound in a scan of 50 one-letter salts
+OTHER_LABEL_SALTS = (b"o", b"B")
+
+
+@pytest.mark.parametrize("salt", OTHER_LABEL_SALTS,
+                         ids=lambda s: s.decode())
+def test_two_processes_train_as_one_on_other_label_sets(tmp_path, salt):
+    """The loader case on fixtures whose stub label tokens (and so every
+    loss and gradient) differ: the two-process run stays within the
+    bounds on each."""
+    from test_torch_train_loader import synthetic_dataset
+
+    path = synthetic_dataset(salt)
+    _same_training(_run_pair(path, tmp_path, "loader"), "loader",
+                   *_loader_reference(path))
 
 
 def _cat(xs):
@@ -368,5 +407,4 @@ def test_micro_accumulation_needs_whole_microbatches_per_process():
 
 
 if __name__ == "__main__":
-    worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
-           sys.argv[5])
+    worker(int(sys.argv[1]), int(sys.argv[2]), *sys.argv[3:])

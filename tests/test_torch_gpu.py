@@ -41,11 +41,17 @@ bit-equal to its plain version, values and indices (exact integer dots times
 two scales in the same order, the same tie rule), at every query block of
 its plan and its ragged edge, k = 1, 21 and 64, widths 64 and 768, fewer
 keys than one tile, scores rising with the key index and duplicate blocks
-tied at the k-th place; the matmul-only control
+tied at the k-th place, on each body (the Hopper body of
+csrc/topk_i8_sm90.cu at each query block 16, 32, 64 and 128 and ring
+depth, with and without its seed, the mma.sync body of csrc/topk.cu), two
+launches bit-equal, each launch counted on its body, each body refusing a
+plan that is not its own; the
+matmul-only control
 (K6) int8 bit-equal, fp32 atol 1e-5 on unit vectors in both precisions (fp32
 sums of 768 products in another order); K7 exact.
 """
 
+import ctypes
 import dataclasses
 
 import pytest
@@ -815,12 +821,53 @@ def _codes(x):
 def _same_i8(q, keys, n_valid, k):
     qc, qs = _codes(q)
     kc, ks = _codes(keys)
-    before = topk.topk_i8.launches
+    return _same_codes(qc, qs, kc, ks, n_valid, k)
+
+
+def _same_codes(qc, qs, kc, ks, n_valid, k):
+    """K5 on the body its plan chooses, counted there, bit-equal to its
+    plain version, and a second launch bit-equal to the first. Returns the
+    kernel's (values, indices)."""
+    body = topk.plan_i8(qc.shape[0], kc.shape[0], k, qc.shape[1]).body
+    on_body = f"{body}_launches"
+    before = topk.topk_i8.launches, getattr(topk.topk_i8, on_body)
     v, i = topk.topk_i8(qc, qs, kc, ks, n_valid, k)
-    assert topk.topk_i8.launches == before + 1
+    v2, i2 = topk.topk_i8(qc, qs, kc, ks, n_valid, k)
+    assert (topk.topk_i8.launches,
+            getattr(topk.topk_i8, on_body)) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(v, v2) and torch.equal(i, i2)
     rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, n_valid, k)
     assert torch.equal(v, rv) and torch.equal(i, ri)
     return v, i
+
+
+def _each_i8_body(qc, qs, kc, ks, n_valid, k):
+    """Both bodies of K5 (and the Hopper body at each of its query blocks,
+    at its fewest and most ring stages as planned, and at the most with and
+    without the seed) bit-equal to the plain version."""
+    bq, d = qc.shape
+    n = kc.shape[0]
+    rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, n_valid, k)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plans = [topk.plan_i8(bq, n, k, d, sms, body="mma")]
+    if d % 128 == 0:
+        maxk = topk._maxk_i8(k)
+        for qb in topk._i8_sm90_blocks(maxk):
+            fit = [s for s in range(2, 9)
+                   if topk.i8_sm90_smem(qb, maxk, s) <= topk.MAX_SMEM]
+            plans += [topk.i8_sm90_plan(bq, n, k, sms, qb, s)
+                      for s in (fit[0], fit[-1])]
+            most = topk.i8_sm90_plan(bq, n, k, sms, qb, fit[-1])
+            plans += [dataclasses.replace(most, seed_groups=g)
+                      for g in (0, k)]
+    for plan in plans:
+        if plan.body == "mma":
+            v, i = topk._launch_i8_mma(qc, qs, kc, ks, n_valid, k, plan)
+        else:
+            v, i = topk._launch_i8_sm90(topk._i8_sm90_kernel(), qc, qs, kc,
+                                        ks, n_valid, k, plan)
+        assert torch.equal(v, rv) and torch.equal(i, ri), plan
+    return len(plans)
 
 
 @pytest.mark.parametrize("bq,k", [(1, 1), (37, 21), (130, 64)])
@@ -854,20 +901,113 @@ def keys_i8(gen):
     return _codes(torch.randn(20_000, 768, device="cuda", generator=gen))
 
 
-# every query block of K5's plan (16, 32, 64 rows) and its ragged edge,
-# at k = 1, 21 and 64 (lists of 8, 32 and 64 entries)
+# every query block of K5's plan and its ragged edge, at k = 1, 21 and 64
+# (lists of 8, 32 and 64 entries): the Hopper body's 16, 32, 64 and 128
+# rows past the crossing's key counts (`topk.I8_MMA_WINS`); and each
+# body at each of its query blocks, on 20,000 keys with n_valid 19,937
+# (19,937 % 128 = 97) and on 19,937 keys (a ragged last tile)
 @pytest.mark.parametrize("k", [1, 21, 64])
-@pytest.mark.parametrize("bq", [1, 15, 16, 17, 33, 64, 65, 256])
+@pytest.mark.parametrize("bq", [1, 15, 16, 17, 33, 64, 65, 129, 256, 257])
 def test_int8_topk_every_query_block(gen, keys_i8, bq, k):
     kc, ks = keys_i8
     qc, qs = _codes(torch.randn(bq, 768, device="cuda", generator=gen))
-    before = topk.topk_i8.launches
-    v, i = topk.topk_i8(qc, qs, kc, ks, 19_937, k)  # 19,937 % 128 = 97
-    assert topk.topk_i8.launches == before + 1
-    rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, 19_937, k)
+    _same_codes(qc, qs, kc, ks, 19_937, k)
+    plan = topk.plan_i8(bq, kc.shape[0], k)
+    assert plan.body == "sm90"
+    assert plan.qb == next((b for b in (16, 32, 64, 128) if b >= bq), 128)
+    assert _each_i8_body(qc, qs, kc, ks, 19_937, k) >= 3
+    kc, ks = kc[:19_937], ks[:19_937]
+    _each_i8_body(qc, qs, kc, ks, 19_937, k)
+
+
+# either side of the crossing's key counts (`topk.I8_MMA_WINS`): the
+# mma.sync body up to 16 queries while each key split walks one tile (at
+# most 16,896 keys on 132 SMs) and up to 32 from 12,288 keys; and the eval
+# job's searches (960 queries over 1,920 keys, too few for the seed, in
+# query blocks of 32; over 5,760 keys in blocks of 128)
+@pytest.mark.parametrize("n,bq,body,qb", [
+    (960, 16, "mma", 16), (12_288, 32, "mma", 32), (16_896, 1, "mma", 16),
+    (16_384, 33, "sm90", 64), (16_897, 16, "sm90", 16),
+    (1_920, 960, "sm90", 32), (5_760, 960, "sm90", 128)])
+def test_int8_topk_body_by_the_crossing(gen, n, bq, body, qb):
+    kc, ks = _codes(torch.randn(n, 768, device="cuda", generator=gen))
+    qc, qs = _codes(torch.randn(bq, 768, device="cuda", generator=gen))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = topk.plan_i8(bq, n, 21, 768, sms)
+    assert (plan.body, plan.qb) == (body, qb)
+    _same_codes(qc, qs, kc, ks, n, 21)
+    _same_codes(qc, qs, kc, ks, n - 97, 21)
+
+
+def test_int8_topk_plans_agree_with_the_libraries(gen):
+    """The Python plans' shared memory is each library's: csrc/topk.cu's
+    for the mma.sync body, csrc/topk_i8_sm90.cu's (and its seed's groups)
+    for the Hopper body."""
+    kern = topk._kernel()
+    for qb in (16, 32, 64):
+        for d in (64, 768, 1024):
+            for maxk in (8, 16, 32, 64):
+                assert kern.smem_i8(qb, d, maxk) == topk.i8_mma_smem(qb, d,
+                                                                     maxk)
+    sm90 = topk._i8_sm90_kernel()
+    tiles, stride = ctypes.c_int(), ctypes.c_int()
+    for n_valid in (97, 2_687, 2_688, 19_937, 1 << 20, 5_000_000):
+        for k in (1, 21, 64):
+            sm90.seed(n_valid, k, ctypes.byref(tiles), ctypes.byref(stride))
+            assert (tiles.value, stride.value) == topk.i8_seed(n_valid, k)
+    for qb in (16, 32, 64, 128):
+        for maxk in (8, 16, 32, 64):
+            for stages in range(2, 9):
+                assert sm90.smem(qb, maxk, stages) == topk.i8_sm90_smem(
+                    qb, maxk, stages)
+
+
+def test_int8_topk_sm90_refuses_a_plan_that_is_not_its_own(gen, keys_i8):
+    kc, ks = keys_i8
+    qc, qs = _codes(torch.randn(40, 768, device="cuda", generator=gen))
+    plan = topk.plan_i8(40, kc.shape[0], 21, body="sm90")
+    kern = topk._i8_sm90_kernel()
+    for bad in (dataclasses.replace(plan, smem=plan.smem + 1024),
+                dataclasses.replace(plan, qb=128),
+                dataclasses.replace(plan, splits=plan.splits + 1),
+                dataclasses.replace(plan, tiles_per_split=0),
+                dataclasses.replace(plan, n_cand=plan.n_cand - 1),
+                dataclasses.replace(plan, stages=9),
+                dataclasses.replace(plan, seed_groups=5)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            topk._launch_i8_sm90(kern, qc, qs, kc, ks, 19_937, 21, bad)
+    # no query block of 256 (its accumulators would spill)
+    wide = topk.i8_sm90_plan(40, kc.shape[0], 21, 132, 128, 2)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        topk._launch_i8_sm90(kern, qc, qs, kc, ks, 19_937, 21,
+                             dataclasses.replace(wide, qb=256))
+    with pytest.raises(ValueError, match="sm90"):
+        topk._launch_i8_sm90(kern, qc, qs, kc, ks, 19_937, 21,
+                             topk.plan_i8(40, kc.shape[0], 21, body="mma"))
+    v, i = topk._launch_i8_sm90(kern, qc, qs, kc, ks, 19_937, 21, plan)
+    rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, 19_937, 21)
     assert torch.equal(v, rv) and torch.equal(i, ri)
-    qb = topk.plan_i8(bq, kc.shape[0], 768, k, kc.device)[0]
-    assert qb == (16 if bq <= 16 else 32 if bq <= 32 else 64)
+
+
+def test_int8_topk_mma_refuses_a_plan_that_is_not_its_own(gen, keys_i8):
+    kc, ks = keys_i8
+    qc, qs = _codes(torch.randn(40, 768, device="cuda", generator=gen))
+    plan = topk.plan_i8(40, kc.shape[0], 21, body="mma")
+    for bad in (dataclasses.replace(plan, qb=128),
+                dataclasses.replace(plan, splits=plan.splits + 1),
+                dataclasses.replace(plan, splits=plan.splits + 2),
+                dataclasses.replace(plan, tiles_per_split=0),
+                # n_cand as the splits need, but the splits miss keys
+                dataclasses.replace(plan, splits=2, n_cand=40 * 21),
+                dataclasses.replace(plan, n_cand=plan.n_cand - 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            topk._launch_i8_mma(qc, qs, kc, ks, 19_937, 21, bad)
+    with pytest.raises(ValueError, match="mma"):
+        topk._launch_i8_mma(qc, qs, kc, ks, 19_937, 21,
+                            topk.plan_i8(40, kc.shape[0], 21, body="sm90"))
+    v, i = topk._launch_i8_mma(qc, qs, kc, ks, 19_937, 21, plan)
+    rv, ri = topk.topk_i8_reference(qc, qs, kc, ks, 19_937, 21)
+    assert torch.equal(v, rv) and torch.equal(i, ri)
 
 
 @pytest.mark.parametrize("d", [64, 768])
@@ -900,13 +1040,11 @@ def test_int8_topk_scores_rising_with_the_key_index(gen):
     qc, qs = _codes(torch.cat([u + noise[:20], -u + noise[20:]]))
     for k in (1, 21, 64):
         for bq in (1, 16, 40):
-            v, i = topk.topk_i8(qc[:bq], qs[:bq], kc, ks, n - 3, k)
-            rv, ri = topk.topk_i8_reference(qc[:bq], qs[:bq], kc, ks, n - 3,
-                                            k)
-            assert torch.equal(v, rv) and torch.equal(i, ri)
+            v, i = _same_codes(qc[:bq], qs[:bq], kc, ks, n - 3, k)
             assert i[0].tolist() == list(range(n - 4, n - 4 - k, -1))
             if bq == 40:
                 assert i[39].tolist() == list(range(k))
+        _each_i8_body(qc, qs, kc, ks, n - 3, k)
 
 
 def test_int8_topk_duplicate_blocks_tie_at_the_threshold(gen):

@@ -8,6 +8,7 @@ the host train augmentation's frames under `train_crop`)."""
 import atexit
 import contextlib
 import functools
+import hashlib
 import os
 import shutil
 import sys
@@ -33,21 +34,38 @@ def without_transformers():
         yield
 
 
-def build_fixture(path, **kw) -> str:
+def stable_hash(s: str, salt: bytes = b"") -> int:
+    """A hash of `s` that is the same in every process: Python's str hash
+    is salted per process (PYTHONHASHSEED). Another `salt` gives another
+    hash."""
+    digest = hashlib.blake2b(s.encode(), digest_size=8, key=salt).digest()
+    return int.from_bytes(digest, "little", signed=True)
+
+
+def build_fixture(path, salt: bytes = b"", **kw) -> str:
     """`tests/fixtures.build_synthetic_dataset` without the import of
-    `transformers`."""
-    with without_transformers():
+    `transformers`. Its stub label tokens (the JAX writer's hash of each
+    label string) come from `stable_hash` under `salt`: with Python's
+    salted hash they, and every loss and gradient trained on them, changed
+    from one test run to the next."""
+    from bioscan_clip_tpu.data import hdf5 as jax_hdf5
+
+    with without_transformers(), pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_hdf5, "hash", functools.partial(stable_hash,
+                                                       salt=salt),
+                   raising=False)
         return str(build_synthetic_dataset(path, **kw))
 
 
 @functools.lru_cache(maxsize=None)
-def synthetic_dataset() -> str:
-    """The synthetic HDF5 fixture (4 species x 6), built once per process;
+def synthetic_dataset(salt: bytes = b"") -> str:
+    """The synthetic HDF5 fixture (4 species x 6), its label tokens hashed
+    under `salt`, built once per process and salt;
     tests/test_torch_{train_cl,distributed,eval}.py read it too."""
     d = tempfile.mkdtemp(prefix="bscan_train_")
     atexit.register(shutil.rmtree, d, True)
-    return build_fixture(os.path.join(d, "synthetic.hdf5"), n_classes=4,
-                         per_class=6)
+    return build_fixture(os.path.join(d, "synthetic.hdf5"), salt,
+                         n_classes=4, per_class=6)
 
 
 @pytest.fixture(scope="module")
