@@ -17,10 +17,12 @@ Counterpart of bioscan_clip_tpu/ops/attention.py:
 - `mha_bwd` (`_pallas_mha_bwd` :321, body `_attend_bwd_one_row` :212): K3,
   dq/dk/dv (+ dbias) with the probabilities and the dropout mask recomputed,
   and with an (N, N) score mask (`has_mask`, :363-367) K3m, the backward of
-  K1m, counted apart in `mha_bwd.mask_launches`; K3 on bf16 at head dim 64
-  and 33 <= N <= 272 without a mask or key bias runs `csrc/mha_bwd_sm90.cu`
-  (TMA and `wgmma`, by the plan of `plan_bwd`), counted also in
-  `mha_bwd.sm90_launches`.
+  K1m, counted apart in `mha_bwd.mask_launches`; on bf16 at head dim 64
+  without a key bias, K3 at 33 <= N <= 272 and K3m (no dropout) at
+  N <= 144 (but for `BWD_MASK_MMA_FROM`'s small N at large B) run
+  `csrc/mha_bwd_sm90.cu` (TMA and `wgmma`, by the plan of `plan_bwd`),
+  counted also in `mha_bwd.sm90_launches` and
+  `mha_bwd.mask_sm90_launches`.
 
 `mha_packed`, `mha` and `mha_dropout` call `torch.library` custom ops
 (`bscan::mha_packed`, `bscan::mha`, `bscan::mha_dropout`) with a registered
@@ -31,9 +33,10 @@ outputs are what a selective remat policy saves (`ATTENTION_OPS`, JAX's
 (`csrc/mha_fwd.cu`, `csrc/mha_bwd.cu`: bf16 on the tensor cores through
 `mma.sync`, the forward above N = 32; fp32 in FFMA; K1, K2, K2d and K3 on
 bf16 at head dim 64 and 33 <= N <= 272 (K2 and K2d from N = 1; K1m at
-8 <= N <= 160) without a mask (but K1m) and K3 without a key bias on
-`csrc/mha_fwd_sm90.cu` and `csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by the
-plans of `plan_packed_fwd`, `plan_split_fwd` and `plan_bwd`) or raises; on
+8 <= N <= 160, K3m at N <= 144) without a mask (but K1m and K3m) and
+K3 without a key bias on `csrc/mha_fwd_sm90.cu` and
+`csrc/mha_bwd_sm90.cu`, TMA and `wgmma`, by the plans of
+`plan_packed_fwd`, `plan_split_fwd` and `plan_bwd`) or raises; on
 a CPU tensor it runs its plain PyTorch version (`mha_reference`,
 `mha_bwd_reference`), which has the same contract. The bf16 kernels read
 q/k/v (and g) in 16-byte pieces, so those tensors must start 16-byte
@@ -47,9 +50,10 @@ ints or int64 tensors holding uint32 values.
 Each wrapper counts its kernel launches in `<wrapper>.launches` (those on
 the Hopper bodies also in `<wrapper>.sm90_launches`: `mha_packed`, `mha`,
 `mha_dropout`, `mha_bwd`; K2's and K2d's on the mma.sync body in
-`<wrapper>.mma_launches`); K1m's in `mha_packed.mask_launches`, those on the
-Hopper body also in `mha_packed.mask_sm90_launches`; the plain versions
-count their calls in `<function>.calls`.
+`<wrapper>.mma_launches`); K1m's in `mha_packed.mask_launches` and K3m's in
+`mha_bwd.mask_launches`, those on the Hopper bodies also in
+`mha_packed.mask_sm90_launches` and `mha_bwd.mask_sm90_launches`; the plain
+versions count their calls in `<function>.calls`.
 """
 
 from __future__ import annotations
@@ -272,18 +276,23 @@ def _sm90_kernel():
     return sm90_entry(_build.load("mha_fwd_sm90"))
 
 
-@functools.lru_cache(maxsize=None)
-def _bwd_sm90_kernel():
-    lib = _build.load("mha_bwd_sm90")
+def bwd_sm90_entry(lib):
+    """(lib, its `bscan_mha_bwd_sm90` with argtypes set): the C entry of a
+    library built from `csrc/mha_bwd_sm90.cu` (or a variant of it)."""
     fn = lib.bscan_mha_bwd_sm90
     fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_float]
         + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
         + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
            ctypes.c_int] + [ctypes.c_void_p] * 3
     )
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_sm90_kernel():
+    return bwd_sm90_entry(_build.load("mha_bwd_sm90"))
 
 
 # --- the forward's plan on the Hopper body (csrc/mha_fwd_sm90.cu,
@@ -440,6 +449,27 @@ def plan_split_fwd(b: int, n: int, heads: int, hd: int,
 # --- K3's plan on the Hopper body (csrc/mha_bwd_sm90.cu, `make_plan`) ----
 
 BWD_SM90_MIN_N, BWD_SM90_MAX_N = 33, 272
+# K3m's plan on the sm90 body: up to `kMaxMaskN` (each pass's two consumers'
+# 64 mask rows or columns of pad16(N) + 8 fp32 beside the stages fit a
+# block's 227 KB up to here; pass A at N = 160 would need 234,560 B), from
+# the body's least N (16 key rows), but for `BWD_MASK_MMA_FROM`
+BWD_SM90_MASK_MIN_N, BWD_SM90_MASK_MAX_N = 1, 144
+# Where the mma.sync passes of csrc/mha_bwd.cu beat K3m's sm90 body: (least
+# N, largest N, least B * heads), the mma.sync body faster at that B * heads
+# and at every larger one measured for some N of the range
+# (tools/sweep_k3_sm90.py --mask, causal mask, D = 768 and 12 heads,
+# B = 10-400, N = 1-144 as CUDA graph replays in two rounds; H100 at 700 W;
+# PERF.md section 6). Every cell left on the sm90 body measured faster or
+# within 2% (the 90th percentile of the spread between a cell's two
+# rounds). There a head's one 64-row tile leaves an item's second consumer
+# idle and a CTA walks more than one item once B * heads passes the 132
+# SMs, while the mma.sync passes run a CTA of a few warps for each (batch
+# row, head), many to an SM: at B = 64, N = 20 0.0288 ms against 0.0219;
+# from N = 31 up the sm90 body is no slower at every B measured (1.3-5x
+# faster from N = 33), and at the training path's B = 10 it is faster at
+# every N.
+BWD_MASK_MMA_FROM = ((1, 12, 12 * 12), (13, 16, 24 * 12), (17, 24, 40 * 12),
+                     (25, 28, 48 * 12), (29, 30, 56 * 12))
 _BWD_THREADS = 128 * _CONSUMERS  # two warpgroups; thread 0 also loads
 _STATS = 3                               # m, 1 / l, D of every query row
 
@@ -448,18 +478,21 @@ _STATS = 3                               # m, 1 / l, D of every query row
 class BwdPlan:
     """How `mha_bwd` runs (B, N, heads, head_dim) on the card.
 
-    `body` is "sm90" (`csrc/mha_bwd_sm90.cu`: bf16, head dim 64, 33 <= N
-    <= 272, no mask, no key bias), "mma" (the bf16 `mma.sync` passes of
-    `csrc/mha_bwd.cu`) or "ffma" (its fp32 passes). The other fields
-    describe the sm90 launches and are 0 for the other bodies: N padded to
-    16 (`key_rows`: K_h and V_h in pass A, Q_h and G_h in pass B), loaded in
-    `loads` TMA boxes of `box` rows per tensor; `tiles` 64-row tiles (query
-    tiles in pass A, key tiles in pass B); `rows` = 64 * tiles, the rows of
-    the (B, heads, 3, rows) statistics; `items` work items of either pass
-    (batch row, head, pair of tiles: one tile per consumer warpgroup; item
-    = (b * heads + h) * pairs + pair), CTA c taking items c, c + grid, ...;
-    `threads` a CTA's; `smem_a`, `smem_b` each pass's dynamic shared
-    memory a CTA."""
+    `body` is "sm90" (`csrc/mha_bwd_sm90.cu`: bf16, head dim 64, no key
+    bias; without a mask (K3) at 33 <= N <= 272, with an (N, N) mask (K3m,
+    no dropout) at 1 <= N <= 144), "mma" (the bf16
+    `mma.sync` passes of `csrc/mha_bwd.cu`) or "ffma" (its fp32 passes).
+    The other fields describe the sm90 launches and are 0 for the other
+    bodies: N padded to 16 (`key_rows`: K_h and V_h in pass A, Q_h and G_h
+    in pass B), loaded in `loads` TMA boxes of `box` rows per tensor;
+    `tiles` 64-row tiles (query tiles in pass A, key tiles in pass B);
+    `rows` = 64 * tiles, the rows of the (B, heads, 3, rows) statistics;
+    `items` work items of either pass (batch row, head, pair of tiles: one
+    tile per consumer warpgroup; item = (b * heads + h) * pairs + pair), CTA
+    c taking items c, c + grid, ...; `threads` a CTA's; `smem_a`, `smem_b`
+    each pass's dynamic shared memory a CTA (with a mask, each consumer's 64
+    staged mask rows (pass A) or columns (pass B) of `key_rows` + 8 fp32
+    besides)."""
 
     body: str
     b: int
@@ -478,32 +511,56 @@ class BwdPlan:
     smem_b: int = 0
 
 
+def bwd_sm90_plan(b: int, n: int, heads: int, masked: bool = False,
+                  sms: int = H100_SMS) -> BwdPlan:
+    """The sm90 body's launches at (B, N, heads), for any N it takes
+    (BWD_SM90_MIN_N <= N <= BWD_SM90_MAX_N; with `masked`, an (N, N) score
+    mask, 1 <= N <= BWD_SM90_MASK_MAX_N). `plan_bwd` chooses where it
+    runs."""
+    lo, hi = (1, BWD_SM90_MASK_MAX_N) if masked else (BWD_SM90_MIN_N,
+                                                      BWD_SM90_MAX_N)
+    if not lo <= n <= hi:
+        raise ValueError(f"the sm90 backward takes {lo} <= N <= {hi}"
+                         f"{' with a mask' if masked else ''}, not {n}")
+    key_rows = -(-n // 16) * 16
+    loads = 1 if key_rows <= _TMA_MAX_BOX else 2
+    tiles = -(-n // _TILE_ROWS)
+    rows = tiles * _TILE_ROWS
+    items = b * heads * -(-tiles // _CONSUMERS)
+    tiles_bytes = 2 * _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
+    stage_b = -(-(tiles_bytes + _STATS * rows * 4) // _ALIGN) * _ALIGN
+    extra = _CONSUMERS * mask_rows_bytes(key_rows) if masked else 0
+    grid = min(items, sms)
+    return BwdPlan(
+        "sm90", b, n, heads, key_rows, key_rows // loads, loads, tiles, rows,
+        items, grid, grid, _BWD_THREADS,
+        _ALIGN + _STAGES * tiles_bytes + _BARRIER_BYTES + extra,
+        _ALIGN + _STAGES * stage_b + _BARRIER_BYTES + extra)
+
+
 def plan_bwd(b: int, n: int, heads: int, hd: int, dtype=torch.bfloat16,
              packed: bool = True, masked: bool = False, biased: bool = False,
-             need_dbias: bool = False, sms: int = H100_SMS) -> BwdPlan:
+             need_dbias: bool = False, sms: int = H100_SMS, *,
+             dropout: bool = False) -> BwdPlan:
     """The body and launches of `mha_bwd` at (B, N, heads, head dim): the
-    sm90 body for bf16 at head dim 64 and 33 <= N <= 272 without a score
-    mask (K3m), a key bias or its gradient, in either layout (`packed`
-    qkv or split q/k/v); else the passes of `csrc/mha_bwd.cu` ("mma" for
-    bf16, "ffma" for fp32). `sms`: the card's SM count, the most
-    persistent CTAs of each pass."""
+    sm90 body for bf16 at head dim 64 without a key bias or its gradient,
+    in either layout (`packed` qkv or split q/k/v), at 33 <= N <= 272
+    without a score mask (K3, with or without `dropout`) and at
+    BWD_SM90_MASK_MIN_N <= N <= BWD_SM90_MASK_MAX_N with one (K3m, without
+    dropout), but where `BWD_MASK_MMA_FROM` measured the mma.sync body
+    faster; else the passes of `csrc/mha_bwd.cu` ("mma" for bf16, "ffma"
+    for fp32). `sms`: the card's SM count, the most persistent CTAs of each
+    pass."""
     del packed  # both layouts take the same plan
-    if (dtype == torch.bfloat16 and hd == SM90_HEAD_DIM and not masked
-            and not biased and not need_dbias
-            and BWD_SM90_MIN_N <= n <= BWD_SM90_MAX_N):
-        key_rows = -(-n // 16) * 16
-        loads = 1 if key_rows <= _TMA_MAX_BOX else 2
-        tiles = -(-n // _TILE_ROWS)
-        rows = tiles * _TILE_ROWS
-        items = b * heads * -(-tiles // _CONSUMERS)
-        tiles_bytes = 2 * _CONSUMERS * _TILE_BYTES + 2 * key_rows * _ROW_BYTES
-        stage_b = -(-(tiles_bytes + _STATS * rows * 4) // _ALIGN) * _ALIGN
-        grid = min(items, sms)
-        return BwdPlan(
-            "sm90", b, n, heads, key_rows, key_rows // loads, loads, tiles,
-            rows, items, grid, grid, _BWD_THREADS,
-            _ALIGN + _STAGES * tiles_bytes + _BARRIER_BYTES,
-            _ALIGN + _STAGES * stage_b + _BARRIER_BYTES)
+    if (dtype == torch.bfloat16 and hd == SM90_HEAD_DIM and not biased
+            and not need_dbias):
+        if not masked and BWD_SM90_MIN_N <= n <= BWD_SM90_MAX_N:
+            return bwd_sm90_plan(b, n, heads, sms=sms)
+        if (masked and not dropout
+                and BWD_SM90_MASK_MIN_N <= n <= BWD_SM90_MASK_MAX_N
+                and not any(lo <= n <= hi and b * heads >= rows
+                            for lo, hi, rows in BWD_MASK_MMA_FROM)):
+            return bwd_sm90_plan(b, n, heads, masked=True, sms=sms)
     return BwdPlan("mma" if dtype == torch.bfloat16 else "ffma", b, n, heads)
 
 
@@ -552,8 +609,9 @@ def _check_smem(name, need, n, hd, dev):
 
 
 def _launch_bwd_sm90(plan: BwdPlan, q, k, v, g, scale, drop,
-                     packed_qkv=None, scores=(None, None)):
-    """Both passes of K3's sm90 body; returns dqkv (packed) or (dq, dk,
+                     packed_qkv=None, scores=(None, None), mask=None):
+    """Both passes of K3's sm90 body (K3m with `mask`, the (N, N) fp32
+    score mask, under a masked plan); returns dqkv (packed) or (dq, dk,
     dv). `drop`: `_drop_args`' tuple; `scores`: the read-out pointers."""
     lib, fn = _bwd_sm90_kernel()
     dev = g.device
@@ -572,7 +630,8 @@ def _launch_bwd_sm90(plan: BwdPlan, q, k, v, g, scale, drop,
     rows, scalar, thr, kscale, on = drop
     with torch.cuda.device(dev):
         err = fn(
-            *ins, g.data_ptr(), *outs, stats.data_ptr(), plan.b, plan.n,
+            *ins, g.data_ptr(), None if mask is None else mask.data_ptr(),
+            *outs, stats.data_ptr(), plan.b, plan.n,
             plan.heads, SM90_HEAD_DIM, int(packed_qkv is not None),
             float(scale), plan.key_rows, plan.box, plan.loads, plan.tiles,
             plan.rows, plan.items, plan.grid_a, plan.grid_b, plan.smem_a,
@@ -583,10 +642,11 @@ def _launch_bwd_sm90(plan: BwdPlan, q, k, v, g, scale, drop,
     return dqkv if packed_qkv is not None else (dq, dk, dv)
 
 
-def bwd_sm90_scores(qkv, g, heads: int, scale=None):
-    """Test read-out of K3's sm90 body on a packed bf16 qkv at head dim 64
-    and 193 <= N <= 208, without dropout: (s_a, s_b, dqkv), s_a and s_b the
-    (B, heads, N, N) fp32 scaled scores q . k * scale as pass A (q in
+def bwd_sm90_scores(qkv, g, heads: int, scale=None, mask=None):
+    """Test read-out of K3's sm90 body on a packed bf16 qkv at head dim 64,
+    without dropout, at 193 <= N <= 208, or with an (N, N) fp32 score `mask`
+    (K3m) at 17 <= N <= 32 or 65 <= N <= 80: (s_a, s_b, dqkv), s_a and s_b
+    the (B, heads, N, N) fp32 scores q . k * scale (+ mask) as pass A (q in
     wgmma's A role) and pass B (k in the A role) formed them. Not counted
     in `mha_bwd`'s launches."""
     b, n, d3 = qkv.shape
@@ -595,15 +655,15 @@ def bwd_sm90_scores(qkv, g, heads: int, scale=None):
         scale = (d // heads) ** -0.5
     _check_cuda("bwd_sm90_scores", [qkv, g], torch.bfloat16)
     _check_aligned("bwd_sm90_scores", [qkv, g])
-    plan = plan_bwd(b, n, heads, d // heads, qkv.dtype)
+    plan = plan_bwd(b, n, heads, d // heads, qkv.dtype,
+                    masked=mask is not None)
     if plan.body != "sm90":
         raise ValueError(f"bwd_sm90_scores: (B={b}, N={n}) is not on the "
                          "sm90 body")
     s_a, s_b = (torch.full((b, heads, n, n), float("nan"),
                            device=qkv.device) for _ in range(2))
-    dqkv = _launch_bwd_sm90(plan, None, None, None, g, scale,
-                            _drop_args(0.0, None, b, qkv.device), qkv,
-                            (s_a.data_ptr(), s_b.data_ptr()))
+    dqkv = _launch_bwd_sm90(plan, None, None, None, g, scale, _NO_DROP, qkv,
+                            (s_a.data_ptr(), s_b.data_ptr()), mask)
     return s_a, s_b, dqkv
 
 
@@ -980,7 +1040,8 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     for a packed input. An (N, N) fp32 score `mask`, shared across the
     batch, makes it K3m (counted in `mha_bwd.mask_launches`). K3 with a
     key bias is counted also in `mha_bwd.bias_launches`, K3 on the sm90
-    body (`plan_bwd`) in `mha_bwd.sm90_launches`."""
+    body (`plan_bwd`) in `mha_bwd.sm90_launches`, K3m on it in
+    `mha_bwd.mask_sm90_launches`."""
     packed = packed_qkv is not None
     if packed:
         d = packed_qkv.shape[-1] // 3
@@ -1017,10 +1078,12 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     plan = plan_bwd(b, n, heads, d // heads, q.dtype, packed,
                     mask is not None, bias is not None,
-                    need_dbias and bias is not None, sm_count(idx))
-    if plan.body == "sm90":
-        out = _launch_bwd_sm90(plan, q, k, v, g, scale, drop, packed_qkv)
-        mha_bwd.sm90_launches += 1
+                    need_dbias and bias is not None, sm_count(idx),
+                    dropout=dropout_rate > 0)
+    sm90 = plan.body == "sm90"
+    if sm90:
+        out = _launch_bwd_sm90(plan, q, k, v, g, scale, drop, packed_qkv,
+                               mask=mask)
         if not packed:
             out = (*out, None)
     else:
@@ -1028,8 +1091,10 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
                           need_dbias, mask)
     if mask is not None:
         mha_bwd.mask_launches += 1
+        mha_bwd.mask_sm90_launches += int(sm90)
     else:
         mha_bwd.launches += 1
+        mha_bwd.sm90_launches += int(sm90)
         mha_bwd.bias_launches += int(bias is not None)
     return out
 
@@ -1037,4 +1102,5 @@ def mha_bwd(q, k, v, g, heads: int, bias=None, scale=None,
 mha_bwd.launches = 0
 mha_bwd.mask_launches = 0
 mha_bwd.sm90_launches = 0  # the K3 launches of `launches` on the sm90 body
+mha_bwd.mask_sm90_launches = 0  # K3m's of `mask_launches` on the sm90 body
 mha_bwd.bias_launches = 0  # the K3 launches of `launches` with a key bias

@@ -30,10 +30,24 @@ limit):
                           the flagship's, beside the mma.sync passes of
                           csrc/mha_bwd.cu (`ops.attention._launch_bwd`)
                           on the same inputs
-Exit 1 if a variant's output differs from as_built's. Needs a CUDA device
-and nvcc.
+Exit 1 if a variant's output differs from as_built's.
+
+--mask times K3m instead, no variant built: the package's sm90 body
+(`attention.bwd_sm90_plan(masked=True)`, forced below the plan's N) against
+the mma.sync passes of csrc/mha_bwd.cu, packed bf16 qkv at D = 768,
+h = 12 under OpenCLIP's causal mask, each at every N of --n and B of --b
+as replays of a CUDA graph of --reps calls, in turns (sm90, mma.sync,
+mma.sync, sm90). One row each:
+  {"crossing", "shape", "sm90_ms", "mma_ms", "max_diff"}
+                          crossing: the body `plan_bwd` gives the shape;
+                          sm90_ms, mma_ms: both turns' ms; max_diff: max
+                          |sm90 - mma.sync| over dqkv
+Exit 1 if the two bodies differ by more than 2e-2 * max(1, max |dqkv|).
+Needs a CUDA device and nvcc.
 
     python -m bioscan_clip_tpu_torch.tools.sweep_k3_sm90 [--reps 20]
+    python -m bioscan_clip_tpu_torch.tools.sweep_k3_sm90 --mask \
+        [--n 8,20,77] [--b 10,64]
 """
 
 from __future__ import annotations
@@ -149,14 +163,14 @@ VARIANTS = {
          "++i) {\n        turns.take();\n        turns.give();\n      }\n"
          "      if (tid == 0) mbar_arrive(empty);\n      continue;\n    }\n"
          "    const int j0"),
-        ("key_chunk<kChunk, DROP, READOUT>(dk, dv, a,",
-         "key_chunk<kChunk, DROP, READOUT>(dk, dv, turns, a,"),
-        ("key_chunk<1, DROP, READOUT>(dk, dv, a,",
-         "key_chunk<1, DROP, READOUT>(dk, dv, turns, a,"),
-        ("key_chunk<2, DROP, READOUT>(dk, dv, a,",
-         "key_chunk<2, DROP, READOUT>(dk, dv, turns, a,"),
-        ("key_chunk<3, DROP, READOUT>(dk, dv, a,",
-         "key_chunk<3, DROP, READOUT>(dk, dv, turns, a,"),
+        ("key_chunk<kChunk, DROP, MASK, READOUT>(dk, dv, a,",
+         "key_chunk<kChunk, DROP, MASK, READOUT>(dk, dv, turns, a,"),
+        ("key_chunk<1, DROP, MASK, READOUT>(dk, dv, a,",
+         "key_chunk<1, DROP, MASK, READOUT>(dk, dv, turns, a,"),
+        ("key_chunk<2, DROP, MASK, READOUT>(dk, dv, a,",
+         "key_chunk<2, DROP, MASK, READOUT>(dk, dv, turns, a,"),
+        ("key_chunk<3, DROP, MASK, READOUT>(dk, dv, a,",
+         "key_chunk<3, DROP, MASK, READOUT>(dk, dv, turns, a,"),
     ],
     "hash_skip": [
         ("#pragma unroll\n      for (int e = 0; e < 8 * KT; ++e) {\n        "
@@ -170,9 +184,10 @@ VARIANTS = {
         ("                                          int q0, int j0, int t,",
          "                                          int q0, int j0, int t, "
          "int g,"),
-        ("16 * kChunk * q, j0, t, bh,", "16 * kChunk * q, j0, t, g, bh,"),
-        ("stats, q0, j0,\n                                  t, bh,",
-         "stats, q0, j0,\n                                  t, g, bh,"),
+        ("stats, 16 * kChunk * q, j0, t,\n",
+         "stats, 16 * kChunk * q, j0, t, g,\n"),
+        ("q0, j0, t, bh, dbase, dseed, mask_j);",
+         "q0, j0, t, g, bh, dbase, dseed, mask_j);"),
     ],
     "chunks_32": [
         ("    for_chunks<KT, 0>([&](auto j0, auto wn) {",
@@ -226,16 +241,9 @@ def ptxas_lines(log: str) -> list[str]:
 
 
 def _library(lib):
-    fn = lib.bscan_mha_bwd_sm90
-    fn.argtypes = (
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_float]
-        + [ctypes.c_int] * 8 + [ctypes.c_longlong] * 2
-        + [ctypes.c_void_p, ctypes.c_uint, ctypes.c_uint, ctypes.c_float,
-           ctypes.c_int] + [ctypes.c_void_p] * 3)
-    fn.restype = ctypes.c_int
     lib.bscan_error_string.argtypes = [ctypes.c_int]
     lib.bscan_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return attention.bwd_sm90_entry(lib)
 
 
 @contextlib.contextmanager
@@ -272,6 +280,15 @@ def _flat(out):
     return out if torch.is_tensor(out) else torch.cat(out[:3], -1)
 
 
+def _ints(spec: str) -> list[int]:
+    """"1-3,8" -> [1, 2, 3, 8]."""
+    out = []
+    for part in spec.split(","):
+        lo, _, hi = part.partition("-")
+        out += range(int(lo), int(hi or lo) + 1)
+    return out
+
+
 def _pass_ms(fn, reps):
     """Card ms per call of pass A and of pass B (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
@@ -290,10 +307,55 @@ def _pass_ms(fn, reps):
     return out
 
 
+def mask_crossing(gen, ns, bs, reps, card) -> bool:
+    """K3m on the sm90 body against the mma.sync passes (see --mask);
+    False if the bodies disagree somewhere."""
+    from bioscan_clip_tpu_torch.models.openclip import causal_mask
+    from bioscan_clip_tpu_torch.tools.bench_k1 import graph_ms
+
+    d, heads = 768, 12
+    scale = (d // heads) ** -0.5
+    ok = True
+    for b in bs:
+        for n in ns:
+            qkv, (q, k, v) = _inputs(gen, b, n, d, True)
+            g = _inputs(gen, b, n, d, False)[1][0]
+            mask = causal_mask(n, "cuda")
+            plan = attention.bwd_sm90_plan(b, n, heads, masked=True)
+
+            def sm90():
+                return attention._launch_bwd_sm90(
+                    plan, None, None, None, g, scale, attention._NO_DROP,
+                    qkv, mask=mask)
+
+            def mma():
+                return attention._launch_bwd(q, k, v, g, heads, scale,
+                                             attention._NO_DROP,
+                                             packed_qkv=qkv, mask=mask)
+
+            ref = mma()
+            diff = (sm90().float() - ref.float()).abs().max().item()
+            ok &= diff <= 2e-2 * max(1.0, ref.float().abs().max().item())
+            times = [graph_ms(fn, reps) for fn in (sm90, mma, mma, sm90)]
+            print(json.dumps({
+                "crossing": attention.plan_bwd(b, n, heads, d // heads,
+                                               masked=True).body,
+                "shape": [b, n, d, heads], "sm90_ms": times[::3],
+                "mma_ms": times[1:3], "max_diff": diff, "device": card}),
+                flush=True)
+            del qkv, q, k, v, g, ref
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mask", action="store_true",
+                    help="K3m's crossing against the mma.sync body only")
+    ap.add_argument("--n", default=f"1-{attention.BWD_SM90_MASK_MAX_N}",
+                    help="--mask: N values, a list and ranges (1-144)")
+    ap.add_argument("--b", default="10,64", help="--mask: batch sizes")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("sweep_k3_sm90: needs a CUDA device", file=sys.stderr)
@@ -302,6 +364,10 @@ def main(argv=None) -> int:
         ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
     ).stdout.strip()
+    if args.mask:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        return 0 if mask_crossing(gen, _ints(args.n), _ints(args.b),
+                                  args.reps, card) else 1
     sources = {name: (text, _build.CSRC_DIR) for name, text in
                variant_sources((_build.CSRC_DIR / SOURCE).read_text())
                .items()}

@@ -23,8 +23,8 @@ Phases, in order; any failure exits non-zero:
             forward's Hopper body (K1, K2, K2d, K1m), with its shared
             memory and ptxas' advice, and
             one "K3
-            sm90 pass A key rows" / "K3 sm90 pass B" line per
-            instantiation of K3's)
+            sm90 pass A key rows" / "K3 sm90 pass B" / "K3m ... mask"
+            line per instantiation of K3's (and K3m's) Hopper body)
   kernels   each kernel against its plain PyTorch version at the shapes of
             its path (K1 bf16 on its sm90 body, TMA and wgmma, at ViT-B/16
             B = 8, 24, 256, 400 and ViT-L/14 B = 256, timed with SDPA as
@@ -42,7 +42,11 @@ Phases, in order; any failure exits non-zero:
             with its (N, N) mask staged in shared memory) and timed on
             both that sm90 body and the body of csrc/mha_fwd.cu beside
             SDPA with the float mask as CUDA graph replays; the masked
-            backward K3m at N = 77 and 20, K1 and K3 at ViT-L/14, K2d's
+            backward K3m bf16 on K3's sm90 body (the mask staged per
+            consumer) at B = 64, N = 77 and B = 10, N = 20, timed beside
+            the mma.sync body of csrc/mha_bwd.cu and SDPA's backward with
+            the float mask as CUDA graph replays, K1 and K3 at ViT-L/14,
+            K2d's
             keep mask read out bit for bit at N = 20, 64 and 133 on the
             plan's body, the sm90 body and csrc/mha_fwd.cu's, two K3
             launches bit-equal, K3
@@ -113,7 +117,9 @@ Phases, in order; any failure exits non-zero:
             frozen weights in bf16: 6 steps, a checkpoint saved after step 3
             (train.checkpoint) and restored into a fresh state that runs
             steps 4-6 again, equal to the uninterrupted run; K1, K1m, K2d,
-            K3 and K3m launched, K2 and no plain version
+            K3 and K3m launched, K2 and no plain version, every K3m launch
+            on K3's sm90 body (`mha_bwd.mask_sm90_launches`, as in
+            graphs)
   train_cl  the training entry point, cli/train_cl.run, at full width: the
             flagship at B=400, bf16, frozen weights in bf16, dropout 0.1,
             GradCache 4 x 100 (merged stage 1, gc_s1_chunk 200), the device
@@ -446,19 +452,24 @@ def phase_build():
                         f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
                         "bytes of dynamic shared memory")
                 k3 = re.search(r"mha_bwd_sm90_pass_(a|b)I(?:Li(\d+)E)?"
-                               r"Lb(\d)ELb(\d)E", fn)
-                if k3:  # K3's Hopper body: pass A by key rows, and pass B
+                               r"Lb(\d)ELb(\d)ELb(\d)E", fn)
+                if k3:  # K3's Hopper body (K3m's with the mask): pass A by
+                    # key rows, and pass B
+                    masked = k3[4] == "1"
                     what = (f"pass A key rows {16 * int(k3[2])}"
                             if k3[1] == "a" else "pass B")
-                    plan = attention.plan_bwd(
-                        1, 16 * int(k3[2]) if k3[2] else 272, 1, 64)
+                    top = (attention.BWD_SM90_MASK_MAX_N if masked
+                           else attention.BWD_SM90_MAX_N)
+                    plan = attention.bwd_sm90_plan(
+                        1, 16 * int(k3[2]) if k3[2] else top, 1, masked)
                     smem = plan.smem_a if k3[1] == "a" else plan.smem_b
-                    log(f"  K3 sm90 {what}"
+                    log(f"  K3{'m' if masked else ''} sm90 {what}"
                         f"{' dropout' if k3[3] == '1' else ''}"
-                        f"{' score read-out' if k3[4] == '1' else ''}: "
+                        f"{' mask' if masked else ''}"
+                        f"{' score read-out' if k3[5] == '1' else ''}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}; {smem} "
                         "bytes of dynamic shared memory" + (
-                            "" if k3[1] == "a" else " at most (N = 272)"))
+                            "" if k3[1] == "a" else f" at most (N = {top})"))
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
 
 
@@ -1159,19 +1170,24 @@ def _dropout_readout(b, n, heads, hd, dtype, seeds, rate):
 
 
 def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
-              with_bias=False, rate=0.0, causal=False):
+              with_bias=False, rate=0.0, causal=False, graphed=False):
     """K3 (K3m with `causal`: OpenCLIP's (N, N) -1e9 mask, packed) against
     its plain version: every gradient within tol * max(1, max |plain|);
     timed beside SDPA's backward with the same bias or float mask. A case
     that the plan (`plan_bwd`) puts on the sm90 body must count its launch
-    in `mha_bwd.sm90_launches`, and is also timed on the mma.sync body of
-    csrc/mha_bwd.cu (`mma_ms`, the body that shape took before the sm90
-    one)."""
+    in `mha_bwd.sm90_launches` (K3m's in `mha_bwd.mask_sm90_launches`), and
+    is also timed on the mma.sync body of csrc/mha_bwd.cu (`mma_ms`, the
+    body that shape took before the sm90 one). `graphed`: the kernel, the
+    mma.sync body and SDPA's backward timed as replays of a CUDA graph
+    (`tools/bench_k1.graph_ms`, `tools/bench_k3.grad_graph_ms`), as the
+    training step replays them."""
     import torch
     import torch.nn.functional as F
 
     from bioscan_clip_tpu_torch.models.openclip import causal_mask
     from bioscan_clip_tpu_torch.ops import attention
+    from bioscan_clip_tpu_torch.tools.bench_k1 import graph_ms
+    from bioscan_clip_tpu_torch.tools.bench_k3 import grad_graph_ms
 
     hd = d // heads
     if packed:
@@ -1198,12 +1214,14 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
         return attention.mha_bwd_reference(q, k, v, g, heads, **kw)
 
     sm90 = attention.plan_bwd(b, n, heads, hd, dtype, packed, causal,
-                              with_bias, with_bias).body == "sm90"
-    before = attention.mha_bwd.sm90_launches
+                              with_bias, with_bias,
+                              dropout=rate > 0).body == "sm90"
+    counter = "mask_sm90_launches" if causal else "sm90_launches"
+    before = getattr(attention.mha_bwd, counter)
     out = kernel()
-    if attention.mha_bwd.sm90_launches - before != int(sm90):
-        raise AssertionError(f"{name} B={b} N={n}: sm90 launches "
-                             f"{attention.mha_bwd.sm90_launches - before}, "
+    launched = getattr(attention.mha_bwd, counter) - before
+    if launched != int(sm90):
+        raise AssertionError(f"{name} B={b} N={n}: {counter} {launched}, "
                              f"the plan says {int(sm90)}")
     again = kernel()
     torch.cuda.synchronize()
@@ -1224,31 +1242,36 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
     def view(t):
         return t.detach().view(b, n, heads, hd).transpose(1, 2)
 
-    lq, lk, lv = (view(t).requires_grad_() for t in (q, k, v))
+    lqkv = tuple(view(t).requires_grad_() for t in (q, k, v))
     mask = None if bias is None else bias[:, None, None, :].to(dtype)
     if causal:
         mask = score_mask.to(dtype)
-    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
-                                        dropout_p=rate)
-    lg = view(g)
+
+    def sdpa(*x):
+        return F.scaled_dot_product_attention(*x, attn_mask=mask,
+                                              dropout_p=rate)
+
+    lo, lg = sdpa(*lqkv), view(g)
 
     es = torch.tensor([], dtype=dtype).element_size()
     n_bytes = (7 * b * n * d * es + (0 if bias is None else 2 * b * n * 4)
                + (n * n * 4 if causal else 0))
     dname = str(dtype).split(".")[-1]
     bms, by = bound_ms(n_bytes, 10 * b * heads * n * n * hd, dname)
+    timer = graph_ms if graphed else time_ms
     row = {
-        "ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=2),
-        "library_ms": time_ms(lambda: torch.autograd.grad(
-            lo, (lq, lk, lv), lg, retain_graph=True)),
+        "ms": timer(kernel), "plain_ms": time_ms(plain, reps=2),
+        "library_ms": (grad_graph_ms(sdpa, lqkv, lg) if graphed
+                       else time_ms(lambda: torch.autograd.grad(
+                           lo, lqkv, lg, retain_graph=True))),
         "bound_ms": bms, "bound_by": by, "max_abs_err": err,
     }
     mma = ""
     if sm90:
         drop = attention._drop_args(rate, seeds, b, q.device)
-        row["mma_ms"] = time_ms(lambda: attention._launch_bwd(
+        row["mma_ms"] = timer(lambda: attention._launch_bwd(
             q, k, v, g, heads, hd ** -0.5, drop,
-            packed_qkv=qkv if packed else None))
+            packed_qkv=qkv if packed else None, mask=score_mask))
         mma = f" (sm90 body; the mma.sync body {row['mma_ms']:.4f} ms)"
     log(f"  {name} {dname} B={b} N={n} D={d} h={heads}"
         f"{' bias+dbias' if with_bias else ''}"
@@ -1257,7 +1280,8 @@ def _bwd_case(name, b, n, d, heads, dtype, gen, packed=False,
         f"(tol {tol:g}), two launches bit-equal, kernel {row['ms']:.4f} ms"
         f"{mma}, plain "
         f"{row['plain_ms']:.4f} ms, sdpa backward {row['library_ms']:.4f} "
-        f"ms, bound {bms:.4f} ms ({by})")
+        f"ms, bound {bms:.4f} ms ({by})"
+        + (", card clock (CUDA graph)" if graphed else ""))
     return row
 
 
@@ -1338,14 +1362,19 @@ def phase_kernels(rows: dict):
                         packed=True, graphed=bf16)
         torch.cuda.empty_cache()
     # OpenCLIP training's backward shapes: K3m beside K1m (N = 77) and at
-    # the train path's WordPiece N = 20, B = 10; K3 at ViT-L/14
+    # the train path's WordPiece N = 20, B = 10, bf16 on the sm90 body and
+    # timed on the mma.sync body beside SDPA as graph replays; K3 at
+    # ViT-L/14
     for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
         r = _bwd_case("mha_bwd packed", OPENCLIP_BATCH, 77, 768, 12, dtype,
-                      gen, packed=True, causal=True)
-        if dtype == torch.bfloat16:
+                      gen, packed=True, causal=True, graphed=bf16)
+        if bf16:
             rows["mha_bwd_mask"] = r
-        _bwd_case("mha_bwd packed", OPENCLIP_TRAIN_BATCH, 20, 768, 12, dtype,
-                  gen, packed=True, causal=True)
+        r = _bwd_case("mha_bwd packed", OPENCLIP_TRAIN_BATCH, 20, 768, 12,
+                      dtype, gen, packed=True, causal=True, graphed=bf16)
+        if bf16:
+            rows["mha_bwd_mask b10"] = r
         for b in (OPENCLIP_TRAIN_BATCH, OPENCLIP_BATCH):
             r = _bwd_case("mha_bwd packed", b, 257, 1024, 16, dtype, gen,
                           packed=True)
@@ -1400,7 +1429,10 @@ KERNELS = {
     # (fp32, N < 8 and other shapes, the bodies of csrc/mha_fwd.cu)
     "mha_packed_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_fwd_sm90.cu",
                         "bioscan_clip_tpu/ops/attention.py:162"),
-    "mha_bwd_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd.cu",
+    # K3m on bf16 at head dim 64 and N <= 144 runs K3's sm90 body, but at
+    # the small N and large B of `attention.BWD_MASK_MMA_FROM` (those, fp32
+    # and other shapes, the passes of csrc/mha_bwd.cu)
+    "mha_bwd_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd_sm90.cu",
                      "bioscan_clip_tpu/ops/attention.py:363"),
     "mm_only": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
                 "tools/bench_topk_variants.py:78"),
@@ -1439,6 +1471,7 @@ def launch_counts():
             "mha_bwd_sm90": attention.mha_bwd.sm90_launches,
             "mha_bwd_bias": attention.mha_bwd.bias_launches,
             "mha_bwd_mask": attention.mha_bwd.mask_launches,
+            "mha_bwd_mask_sm90": attention.mha_bwd.mask_sm90_launches,
             "topk": topk.topk.launches,
             "topk_default": topk.topk.default_launches,
             "topk_sm90": topk.topk.sm90_launches,
@@ -1471,6 +1504,17 @@ def _k1m_on_sm90(what, counts):
         f"(mha_packed.mask_sm90_launches) {sm90}")
     if k1m <= 0 or sm90 != k1m:
         raise AssertionError(f"{what}: K1m launches {k1m}, sm90 {sm90}")
+
+
+def _k3m_on_sm90(what, counts):
+    """Every K3m launch of a bf16 OpenCLIP training path (the text tower's
+    backward at N = 20) ran on the body its plan (`plan_bwd`) chooses
+    there: K3's sm90 body (`mha_bwd.mask_sm90_launches`)."""
+    k3m, sm90 = counts["mha_bwd_mask"], counts["mha_bwd_mask_sm90"]
+    log(f"  {what}: K3m launches {k3m}, on the sm90 body "
+        f"(mha_bwd.mask_sm90_launches) {sm90}")
+    if k3m <= 0 or sm90 != k3m:
+        raise AssertionError(f"{what}: K3m launches {k3m}, sm90 {sm90}")
 
 
 def _k2_on_its_bodies(what, counts):
@@ -1603,6 +1647,7 @@ def reset_counts():
     attention.mha_dropout.mma_launches = 0
     attention.mha_bwd.mask_launches = 0
     attention.mha_bwd.sm90_launches = 0
+    attention.mha_bwd.mask_sm90_launches = 0
     attention.mha_bwd.bias_launches = 0
     topk.topk.default_launches = 0
     topk.topk.sm90_launches = 0
@@ -2357,6 +2402,16 @@ def _train_batch(rng, b, tiled=True):
     }
 
 
+# K3m's instantiations of K3's sm90 body (MASK set, no dropout), as the
+# profiler names kernels (demangled or not, lower case)
+K3M_SM90_PASS_A = tuple(
+    name for kt in range(1, 10) for name in (
+        f"mha_bwd_sm90_pass_a<{kt}, false, true",
+        f"mha_bwd_sm90_pass_aili{kt}elb0elb1e"))
+K3M_SM90_PASS_B = ("mha_bwd_sm90_pass_b<false, true",
+                   "mha_bwd_sm90_pass_bilb0elb1e")
+
+
 def _profile_step(state, step, batch):
     """Where one more train step's card time goes (torch.profiler, after
     the checked run): kernel time by group, and the card's busy share of
@@ -2366,7 +2421,9 @@ def _profile_step(state, step, batch):
 
     from bioscan_clip_tpu_torch.train.loop import device_batch
 
-    groups = (("K3 sm90 pass A", ("mha_bwd_sm90_pass_a",)),
+    groups = (("K3m sm90 pass A", K3M_SM90_PASS_A),
+              ("K3m sm90 pass B", K3M_SM90_PASS_B),
+              ("K3 sm90 pass A", ("mha_bwd_sm90_pass_a",)),
               ("K3 sm90 pass B", ("mha_bwd_sm90_pass_b",)),
               ("K3/K3m mha_bwd pass A (mma.sync, FFMA)", ("bwd_query_rows",)),
               ("K3/K3m mha_bwd pass B + C (mma.sync, FFMA)",
@@ -2608,6 +2665,7 @@ def phase_openclip_training():
         log(f"  launches on the OpenCLIP training path: {counts}; plain calls "
             f"{plain}")
         _k1m_on_sm90("openclip_training", counts)
+        _k3m_on_sm90("openclip_training", counts)
         _k2_on_its_bodies("openclip_training", counts)
         if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
             raise AssertionError(f"openclip_training: losses {losses}")
@@ -4050,6 +4108,7 @@ def phase_graphs():
             want += ("mha_packed_mask", "mha_packed_mask_sm90",
                      "mha_bwd_mask")
             _k1m_on_sm90(f"graphs {name}, the profiled call", row[5])
+            _k3m_on_sm90(f"graphs {name}, the profiled call", row[5])
         _want_launched(name, row[5], want)
         _vit_on_sm90(f"graphs {name}, the profiled call", row[5])
         _k2_on_its_bodies(f"graphs {name}, the profiled call", row[5])
@@ -4057,6 +4116,7 @@ def phase_graphs():
     _graph_train_cl(counts)
     _vit_on_sm90("graphs", counts)
     _k1m_on_sm90("graphs", counts)
+    _k3m_on_sm90("graphs", counts)
     _k2_on_its_bodies("graphs", counts)
     _k3_on_sm90("graphs", counts)
     log("  graphed against eager, ms per step (CUDA events), card busy % "
@@ -4949,9 +5009,11 @@ def main(argv=None) -> int:
             # the launches on sm90 bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
-        if name == "mha_packed_mask":  # K1m's bodies and other shapes
+        if name in ("mha_packed_mask", "mha_bwd_mask"):
+            # K1m's and K3m's launches on the sm90 bodies
             kernels[-1]["sm90_launches"] = path_counts.get(
                 KERNEL_PATH[name][0], {}).get(f"{name}_sm90")
+        if name == "mha_packed_mask":  # K1m's bodies and other shapes
             for key in ("body", "sm90_ms", "mma_ms"):
                 kernels[-1][key] = r.get(key)
             kernels[-1]["shapes"] = {
@@ -4996,6 +5058,11 @@ def main(argv=None) -> int:
                 key: {k: rows.get(f"mha_bwd {key}", {}).get(k) for k in (
                     "ms", "mma_ms", "library_ms", "bound_ms", "max_abs_err")}
                 for key in ("barcodebert", "vit-l14")}
+        if name == "mha_bwd_mask":  # K3m's mma.sync body, B = 10 at N = 20
+            kernels[-1]["mma_ms"] = r.get("mma_ms")
+            kernels[-1]["shapes"] = {"b10": {
+                k: rows.get(f"{name} b10", {}).get(k) for k in (
+                    "ms", "mma_ms", "library_ms", "bound_ms", "max_abs_err")}}
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,10 @@
 """K3's plan (`ops/attention.plan_bwd`) on the CPU.
 
 The sm90 body (`csrc/mha_bwd_sm90.cu`) runs only on the card; what
-surrounds it is here: which body a shape, dtype, mask, bias and bias
-gradient get, the padded rows and their TMA boxes, each pass's persistent
-walk over (batch row, head, tile), the shared memory, and that the plan's
-constants are the kernel's.
+surrounds it is here: which body a shape, dtype, mask, bias, dropout and
+bias gradient get, the padded rows and their TMA boxes, each pass's
+persistent walk over (batch row, head, tile), the shared memory (with K3m's
+staged mask too), and that the plan's constants are the kernel's.
 """
 
 import re
@@ -88,19 +88,131 @@ def test_shared_memory_fits_at_every_n(n):
     ({"packed": False}, "sm90"),
     ({"dtype": torch.float32}, "ffma"),
     ({"dtype": torch.float32, "masked": True}, "ffma"),
-    ({"masked": True}, "mma"),
+    ({"masked": True}, "sm90"),
     ({"biased": True}, "mma"),
     ({"biased": True, "need_dbias": True}, "mma"),
     ({"need_dbias": True}, "mma"),
+    ({"dropout": True}, "sm90"),
+    ({"masked": True, "dropout": True}, "mma"),
+    ({"masked": True, "biased": True}, "mma"),
 ])
-@pytest.mark.parametrize("n", [20, 77, 133, 197, 257])
+@pytest.mark.parametrize("n", [20, 77, 133, 145, 197, 257])
 def test_body_by_dtype_mask_and_bias(n, kw, body):
-    """bf16 at head dim 64 and 33 <= N <= 272 without a mask (K3m), a key
-    bias or its gradient: sm90; everything else keeps csrc/mha_bwd.cu."""
+    """bf16 at head dim 64 without a key bias or its gradient: sm90 at
+    33 <= N <= 272 without a mask (K3, with or without dropout), and with
+    an (N, N) mask (K3m, without dropout) at BWD_SM90_MASK_MIN_N <= N <=
+    BWD_SM90_MASK_MAX_N, OpenCLIP's N = 20 and 77 among them: past 144 the
+    two consumers' staged mask no longer fits beside the stages;
+    everything else keeps csrc/mha_bwd.cu."""
     plan = attention.plan_bwd(8, n, 12, 64, **kw)
-    if body == "sm90" and n <= 32:
+    lo, hi = ((attention.BWD_SM90_MASK_MIN_N, attention.BWD_SM90_MASK_MAX_N)
+              if kw.get("masked") else (33, 272))
+    if body == "sm90" and not lo <= n <= hi:
         body = "mma"
     assert plan.body == body
+    if kw.get("masked") and body == "sm90":
+        assert plan == attention.bwd_sm90_plan(8, n, 12, masked=True)
+
+
+@pytest.mark.parametrize("b", [1, 10])
+@pytest.mark.parametrize("n,body", [(1, "sm90"), (7, "sm90"), (8, "sm90"),
+                                    (20, "sm90"), (77, "sm90"),
+                                    (144, "sm90"), (145, "mma")])
+def test_masked_range_edges(n, body, b):
+    """At the training path's batch (B = 10, and below) K3m's plan takes
+    the sm90 body from N = 1 (16 key rows) to BWD_SM90_MASK_MAX_N (144),
+    each of its tiles once; the sm90 plan itself ends at 144."""
+    assert (attention.BWD_SM90_MASK_MIN_N,
+            attention.BWD_SM90_MASK_MAX_N) == (1, 144)
+    plan = attention.plan_bwd(b, n, 12, 64, masked=True)
+    assert plan.body == body
+    if body == "sm90":
+        assert _covers_once(plan, plan.grid_a, b, 12)
+        assert plan.grid_a == plan.grid_b == min(plan.items, 132)
+    else:
+        with pytest.raises(ValueError, match="with a mask"):
+            attention.bwd_sm90_plan(b, n, 12, masked=True)
+
+
+@pytest.mark.parametrize("n", list(range(1, 41)) + [77, 144])
+@pytest.mark.parametrize("b", [10, 12, 16, 20, 24, 28, 32, 40, 48, 56, 64,
+                               128, 400])
+def test_masked_body_by_the_crossing(b, n):
+    """`BWD_MASK_MMA_FROM`: the mma.sync passes at N <= 12 from B = 12
+    (more items than the 132 SMs), N 13-16 from 24, N 17-24 from 40,
+    N 25-28 from 48, N 29-30 from 56 (12 heads), where the crossing
+    measured them faster; the sm90 body everywhere else, OpenCLIP
+    training's B = 10 at every N and N = 77 at every B."""
+    mma = (n <= 12 and b >= 12 or 13 <= n <= 16 and b >= 24
+           or 17 <= n <= 24 and b >= 40 or 25 <= n <= 28 and b >= 48
+           or 29 <= n <= 30 and b >= 56)
+    plan = attention.plan_bwd(b, n, 12, 64, masked=True)
+    assert plan.body == ("mma" if mma else "sm90")
+    assert attention.plan_bwd(b, n, 12, 64).body == (
+        "sm90" if n >= 33 else "mma")  # K3's plan does not read the table
+
+
+@pytest.mark.parametrize("n", list(range(1, 145)))
+def test_masked_shared_memory_fits_at_every_n(n):
+    """Both passes' shared memory with the two consumers' staged mask (64
+    rows of pad16(N) + 8 fp32 each) fits the card at every N the masked
+    plan takes, 16-byte aligned after the barriers."""
+    plan = attention.bwd_sm90_plan(10, n, 12, masked=True)
+    bare = attention.bwd_sm90_plan(10, max(n, 33), 12)
+    extra = 2 * attention.mask_rows_bytes(plan.key_rows)
+    assert plan.smem_a <= SMEM_LIMIT and plan.smem_b <= SMEM_LIMIT
+    if n >= 33:
+        assert (plan.smem_a, plan.smem_b) == (bare.smem_a + extra,
+                                              bare.smem_b + extra)
+    assert extra == 2 * 64 * (plan.key_rows + 8) * 4 and extra % 16 == 0
+
+
+@pytest.mark.parametrize("n,smem_a,smem_b", [(20, 103_488, 105_536),
+                                             (77, 152_640, 156_736),
+                                             (144, 218_176, 224_320)])
+def test_shared_memory_at_the_masked_shapes(n, smem_a, smem_b):
+    """K3m's shared memory at OpenCLIP's N = 20 and 77 and at
+    BWD_SM90_MASK_MAX_N: K3's, and each pass's two consumers' mask rows or
+    columns, 2 * 64 * (pad16(N) + 8) * 4 B: the numbers the kernel's
+    source note gives. N = 160 (160 key rows) would need 234,560 B in pass
+    A, past the card's 232,448."""
+    plan = attention.plan_bwd(10, n, 12, 64, masked=True)
+    assert (plan.smem_a, plan.smem_b) == (smem_a, smem_b)
+    text = " ".join(SOURCE.read_text().split())
+    assert f"{smem_a:,} B at N = {n}" in text
+    assert f"{smem_b:,} B at N = {n}" in text
+    over = (1024 + 2 * (4 * 8192 + 2 * 160 * 128) + 64
+            + 2 * attention.mask_rows_bytes(160))
+    assert over == 234_560 > SMEM_LIMIT
+    assert f"pass A at N = 160 would need {over:,} B" in text
+
+
+def test_masked_instantiations_cover_the_masked_plans():
+    """The kernel instantiates pass A with the mask (`MASK`, without
+    dropout) at 1-9 16-row key units and refuses a mask past kMaxMaskN or
+    with dropout: the plan's BWD_SM90_MASK_MAX_N is that constant, every
+    masked plan's key rows (down to N = 1) lie within the instantiated
+    ones, and its mask stride is the source's."""
+    text = SOURCE.read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", text)[1])
+
+    top = const("kMaxMaskN")
+    assert top == attention.BWD_SM90_MASK_MAX_N
+    assert const("kMinMaskN") == 1 <= attention.BWD_SM90_MASK_MIN_N
+    assert "(masked && drop))" in text
+    assert "launch_a<KT, false, true, false>(m, a, grid, stream)" in text
+    assert "launch_b<false, true, false>(m, a, p.smem_b, grid_b, s)" in text
+    kts = {int(k) for k in re.findall(r"BSCAN_MASK_KT\((\d+)\)", text)}
+    masked = {attention.bwd_sm90_plan(8, n, 12, masked=True).key_rows // 16
+              for n in range(1, top + 1)}
+    assert masked == kts == set(range(1, -(-top // 16) + 1))
+    # the read-out's masked instantiations, at 80 and 32 key rows
+    assert "launch_a<5, false, true, true>" in text
+    assert "launch_a<2, false, true, true>" in text
+    assert re.search(r"mask_stride\(int key_rows\) \{\s+return key_rows \+ 8;",
+                     text)
 
 
 @pytest.mark.parametrize("hd", [32, 128])
@@ -146,6 +258,24 @@ def test_plan_constants_are_the_kernels():
     kts = [int(x) for x in re.findall(r"BSCAN_KT\((\d+)\)", text)]
     assert max(kts) == -(-attention.BWD_SM90_MAX_N // 16)
     assert min(kts) == -(-attention.BWD_SM90_MIN_N // 16)
+
+
+def test_cpu_tensors_with_a_mask_take_no_plan():
+    """On the CPU `mha_bwd(mask=)` runs the plain version: no K3m launch on
+    any body."""
+    from bioscan_clip_tpu_torch.models.openclip import causal_mask
+
+    qkv = torch.randn(2, 20, 3 * 128, dtype=torch.bfloat16)
+    g = torch.randn(2, 20, 128, dtype=torch.bfloat16)
+    counters = ("launches", "mask_launches", "sm90_launches",
+                "mask_sm90_launches")
+    before = [getattr(attention.mha_bwd, a) for a in counters]
+    calls = attention.mha_bwd_reference.calls
+    dqkv = attention.mha_bwd(None, None, None, g, 2, packed_qkv=qkv,
+                             mask=causal_mask(20))
+    assert dqkv.shape == qkv.shape
+    assert [getattr(attention.mha_bwd, a) for a in counters] == before
+    assert attention.mha_bwd_reference.calls == calls + 1
 
 
 def test_cpu_tensors_take_no_plan():

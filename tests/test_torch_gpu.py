@@ -21,7 +21,13 @@ mma.sync body where its plan measured that faster as K1; the attention
 backward (K3, and K3m with the mask) the same, scaled by max(1, max |plain|)
 per gradient; K3's sm90 body (bf16, head dim 64, 33 <= N <= 272, no mask,
 no key bias: TMA and wgmma) as K3, with one case where its dqkv must equal
-the plain version's bit for bit and one where its two passes' scores must.
+the plain version's bit for bit and one where its two passes' scores must;
+K3m on that body (bf16, head dim 64, 1 <= N <= 144 but where its plan
+measured the mma.sync body faster, no dropout, the mask's rows (pass A)
+and columns (pass B) staged in shared memory) as K3 under the causal mask,
+a dense random mask and a mask with whole -1e9 rows, on either side of
+the plan's crossing, with its two passes' masked scores bit-equal and a
+refused foreign plan.
 bf16 runs the tensor-core (mma.sync) bodies (the forward above N = 32),
 fp32 the FFMA ones; K2d's keep mask reads out bit for bit on the sm90 body
 and on the bodies of csrc/mha_fwd.cu, and two K3
@@ -1275,28 +1281,49 @@ def _close_grads(out, ref, tol):
         assert (o.float() - r.float()).abs().max().item() <= tol * scale
 
 
+def _k3m_case(gen, b, n, d, heads, dtype, mask, plan=None):
+    """K3m through `mha_bwd(mask=)` (or, under a forced sm90 `plan`, the
+    sm90 launch alone) against the plain version: (dqkv, its reference's
+    dq, dk, dv, the (K3 launches, K3m launches, K3m sm90 launches) it
+    counted)."""
+    qkv = torch.randn(b, n, 3 * d, device="cuda", generator=gen).to(dtype)
+    g = torch.randn(b, n, d, device="cuda", generator=gen).to(dtype)
+    counters = ("launches", "mask_launches", "mask_sm90_launches")
+    before = [getattr(attention.mha_bwd, a) for a in counters]
+    if plan is None:
+        dqkv = attention.mha_bwd(None, None, None, g, heads, packed_qkv=qkv,
+                                 mask=mask)
+    else:
+        dqkv = attention._launch_bwd_sm90(plan, None, None, None, g,
+                                          (d // heads) ** -0.5,
+                                          attention._NO_DROP, qkv, mask=mask)
+    torch.cuda.synchronize()
+    launched = tuple(getattr(attention.mha_bwd, a) - x
+                     for a, x in zip(counters, before))
+    ref = attention.mha_bwd_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                      qkv[..., 2 * d :], g, heads, mask=mask)
+    return dqkv, ref[:3], launched
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_masked_backward_kernel_matches_plain(gen, dtype, tol):
     """K3m at the OpenCLIP text shapes (the train path's N = 20, CLIP-BPE's
-    77) under the causal mask and a dense random fp32 mask, counted in
-    `mha_bwd.mask_launches` apart from K3; above the diagonal of the causal
-    mask the probabilities are exactly 0, so k and v of the last key get
-    gradient only from the last query row."""
+    77), the sm90 body's least N (8), one-tile and tile-boundary N (32, 33,
+    64) and its largest (BWD_SM90_MASK_MAX_N), under the causal mask, a
+    dense random fp32 mask and the causal mask with whole -1e9 rows (p
+    uniform over the N keys on both sides); counted in
+    `mha_bwd.mask_launches` apart from K3, and bf16 in
+    `mha_bwd.mask_sm90_launches` (K3's sm90 body), fp32 not (FFMA). Above
+    the diagonal of the causal mask the probabilities are exactly 0, so k
+    and v of the last key get gradient only from the last query row."""
     d = 768
-    for n, mask in ((20, causal_mask(20, "cuda")),
-                    (77, causal_mask(77, "cuda")),
-                    (77, torch.randn(77, 77, device="cuda", generator=gen))):
-        qkv = torch.randn(4, n, 3 * d, device="cuda", generator=gen).to(dtype)
-        g = torch.randn(4, n, d, device="cuda", generator=gen).to(dtype)
-        before = (attention.mha_bwd.launches, attention.mha_bwd.mask_launches)
-        dqkv = attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv,
-                                 mask=mask)
-        assert (attention.mha_bwd.launches,
-                attention.mha_bwd.mask_launches) == (before[0], before[1] + 1)
-        ref = attention.mha_bwd_reference(qkv[..., :d], qkv[..., d : 2 * d],
-                                          qkv[..., 2 * d :], g, 12, mask=mask)
-        _close_grads(dqkv.split(d, dim=-1), ref[:3], tol)
+    for n in (8, 20, 32, 33, 64, 77, attention.BWD_SM90_MASK_MAX_N):
+        for kind in ("causal", "dense", "rows"):
+            dqkv, ref, launched = _k3m_case(gen, 4, n, d, 12, dtype,
+                                            _score_mask(gen, kind, n))
+            assert launched == (0, 1, int(dtype == torch.bfloat16))
+            _close_grads(dqkv.split(d, dim=-1), ref, tol)
     causal = causal_mask(77, "cuda")
     qkv = torch.randn(2, 77, 3 * d, device="cuda", generator=gen).to(dtype)
     g = torch.zeros(2, 77, d, device="cuda", dtype=dtype)
@@ -1304,6 +1331,120 @@ def test_masked_backward_kernel_matches_plain(gen, dtype, tol):
     dqkv = attention.mha_bwd(None, None, None, g, 12, packed_qkv=qkv,
                              mask=causal)
     assert not dqkv[:, 76, d:].any()
+
+
+@pytest.mark.parametrize("b", [10, 64, 400])
+def test_k3m_sm90_body_at_openclip_batches(gen, b):
+    """The text tower's training batch (10), serving's 64 and more items
+    than the grid's CTAs, at N = 77 and 20 under the causal mask: on the
+    body its plan names (the sm90 body but at N = 20 from B = 40,
+    `BWD_MASK_MMA_FROM`), within 2e-2 * max(1, max |plain|) (one bf16 ulp
+    at |x| ~ 1 is 7.8e-3; y and ds * scale are rounded to bf16 on both
+    sides), a second launch bit-equal."""
+    d = 768
+    for n in (77, 20):
+        mask = causal_mask(n, "cuda")
+        sm90 = n == 77 or b == 10
+        assert (attention.plan_bwd(b, n, 12, 64, masked=True).body
+                == ("sm90" if sm90 else "mma"))
+        dqkv, ref, launched = _k3m_case(gen, b, n, d, 12, torch.bfloat16,
+                                        mask)
+        assert launched == (0, 1, int(sm90))
+        _close_grads(dqkv.split(d, dim=-1), ref, 2e-2)
+        qkv = torch.randn(b, n, 3 * d, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        g = torch.randn(b, n, d, device="cuda",
+                        generator=gen).to(torch.bfloat16)
+        first, again = (attention.mha_bwd(None, None, None, g, 12,
+                                          packed_qkv=qkv, mask=mask)
+                        for _ in range(2))
+        assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("b,n,body", [
+    (10, 1, "sm90"), (10, 12, "sm90"), (12, 1, "mma"), (12, 12, "mma"),
+    (20, 13, "sm90"), (24, 16, "mma"), (32, 24, "sm90"), (40, 20, "mma"),
+    (48, 28, "mma"), (56, 30, "mma"), (56, 31, "sm90")])
+def test_k3m_body_by_the_crossing(gen, b, n, body):
+    """Either side of `BWD_MASK_MMA_FROM` (the small N and large B where
+    the mma.sync passes measured faster) K3m launches the body its plan
+    names, within 2e-2 of the plain version; where that is mma.sync, the
+    sm90 body under a forced plan (16 key rows at N <= 16) agrees all the
+    same."""
+    d = 768
+    assert attention.plan_bwd(b, n, 12, 64, masked=True).body == body
+    mask = torch.randn(n, n, device="cuda", generator=gen)
+    dqkv, ref, launched = _k3m_case(gen, b, n, d, 12, torch.bfloat16, mask)
+    assert launched == (0, 1, int(body == "sm90"))
+    _close_grads(dqkv.split(d, dim=-1), ref, 2e-2)
+    if body == "mma":
+        dqkv, ref, _ = _k3m_case(gen, b, n, d, 12, torch.bfloat16, mask,
+                                 attention.bwd_sm90_plan(b, n, 12,
+                                                         masked=True))
+        _close_grads(dqkv.split(d, dim=-1), ref, 2e-2)
+
+
+@pytest.mark.parametrize("n", [20, 77])
+def test_k3m_sm90_passes_form_the_same_scores(gen, n):
+    """Pass B rebuilds p from pass A's m and 1 / l, so it must form each
+    masked score as pass A did: s read out of pass A (q in wgmma's A role,
+    the mask's rows staged) and of pass B (k in the A role, its columns
+    staged) at every (b, h, i, j), bit for bit; both within fp32 rounding
+    of q . k * scale + mask; the read-out launch's dqkv is the plain
+    launch's. A dense random mask, so that every entry counts."""
+    b, d, heads = 4, 768, 12
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    g = torch.randn(b, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = torch.randn(n, n, device="cuda", generator=gen)
+    s_a, s_b, dqkv = attention.bwd_sm90_scores(qkv, g, heads, mask=mask)
+    torch.cuda.synchronize()
+    qh, kh = (qkv[..., i * d:(i + 1) * d].float().view(b, n, heads, 64)
+              for i in range(2))
+    ref = torch.einsum("bnhd,bmhd->bhnm", qh, kh) * 0.125 + mask
+    assert (s_a - ref).abs().max().item() <= 1e-4 * max(
+        1.0, ref.abs().max().item())
+    assert torch.equal(s_a, s_b)
+    assert torch.equal(dqkv, attention.mha_bwd(None, None, None, g, heads,
+                                               packed_qkv=qkv, mask=mask))
+
+
+def test_k3m_sm90_body_refuses_a_foreign_plan(gen):
+    """The library refuses a masked launch under K3's plan (its shared
+    memory has no mask), K3's launch under the masked plan, a mask with
+    dropout, a plan whose items differ and a mask past
+    BWD_SM90_MASK_MAX_N: nothing is launched."""
+    b, n, d, heads = 2, 77, 768, 12
+    qkv = torch.randn(b, n, 3 * d, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    g = torch.randn(b, n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    mask = causal_mask(n, "cuda")
+    plan = attention.bwd_sm90_plan(b, n, heads, masked=True)
+    drop = attention._drop_args(0.1, 7, b, qkv.device)
+    for bad, kw in ((attention.bwd_sm90_plan(b, n, heads), dict(mask=mask)),
+                    (plan, {}),
+                    (plan, dict(mask=mask, drop=drop)),
+                    (dataclasses.replace(plan, items=plan.items + 1),
+                     dict(mask=mask))):
+        kw.setdefault("drop", attention._NO_DROP)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            attention._launch_bwd_sm90(bad, None, None, None, g, 0.125,
+                                       packed_qkv=qkv, **kw)
+    top = attention.BWD_SM90_MASK_MAX_N + 1
+    long = torch.randn(1, top, 3 * d, device="cuda",
+                       generator=gen).to(torch.bfloat16)
+    lg = torch.randn(1, top, d, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        attention._launch_bwd_sm90(attention.bwd_sm90_plan(1, top, heads),
+                                   None, None, None, lg, 0.125,
+                                   attention._NO_DROP, long,
+                                   mask=causal_mask(top, "cuda"))
+    dqkv = attention._launch_bwd_sm90(plan, None, None, None, g, 0.125,
+                                      attention._NO_DROP, qkv, mask=mask)
+    ref = attention.mha_bwd_reference(qkv[..., :d], qkv[..., d : 2 * d],
+                                      qkv[..., 2 * d :], g, heads, mask=mask)
+    _close_grads(dqkv.split(d, dim=-1), ref[:3], 2e-2)
 
 
 def test_gradients_flow_through_the_masked_kernels(gen):
