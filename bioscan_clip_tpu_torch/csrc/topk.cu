@@ -65,11 +65,17 @@
 // valid keys (index < n_valid) of Q . K^T, broadcast over 128 output
 // columns. Its pass 1 walks the key range as K4's ("high" and "default") or
 // K5's (int8) pass 1 does, with the same products, and keeps a running row
-// max in registers in place of the screen and lists; pass 2 takes the max
-// over the key splits. So K4's time minus K6's fp32 time, and K5's minus
-// K6's int8 time, is what the screen and lists cost. int8 is the exact
-// int32 dot converted to fp32, which equals the TPU's bf16 products of the
-// codes summed in fp32 (768 * 127^2 < 2^24). Bound: as K4 or K5.
+// max in registers in place of the screen and lists; pass 2
+// (topk_common.cuh `mm_only_pass2`) takes the max over the key splits. So
+// K4's time minus K6's fp32 time, and K5's minus K6's int8 time, at the
+// same walk and query block, is what the screen and lists cost. int8 is
+// the exact int32 dot converted to fp32, which equals the TPU's bf16
+// products of the codes summed in fp32 (768 * 127^2 < 2^24). Bound: as K4
+// or K5. From the plan's crossing up (`ops/topk.plan_mm_only`: 17 queries
+// in "high", every Bq in "default" and int8, at widths the Hopper bodies
+// take) K6 is the row-max launch (`ROWMAX`) of K4's and K5's Hopper bodies
+// (topk_sm90.cu, topk_i8_sm90.cu); the mma.sync walks below serve the
+// rest.
 //
 // K7 replaces `tiny` (same file, `_tiny_kernel`): x + 1 on (8, 128) fp32,
 // the launch-plus-sync floor of a call through this library.
@@ -712,7 +718,7 @@ __global__ void __cluster_dims__(1, CLUSTER, 1) __launch_bounds__(TPB, 2)
   cluster_emit<QB, MAXK>(L, q0, bq, k, cand_v, cand_i);
 }
 
-// ---- K6: the products with a row max --------------------------------------
+// ---- K6 on the mma.sync walks: the products with a row max ---------------
 
 // fp32: K4's walk and products (TERMS = 3 "high", 1 "default").
 template <int QB, int TERMS>
@@ -766,25 +772,6 @@ __global__ void __launch_bounds__(TPB, 2)
   rowmax_write<QB>(rm,
                    reinterpret_cast<float*>(smem_b + i8_ring_bytes(QB, d)),
                    blockIdx.x * QB, bq, part);
-}
-
-// K6's pass 2: one block of 128 threads per query row takes the max over
-// its `splits` partial maxima and writes it to all 128 output columns.
-__global__ void __launch_bounds__(128)
-    mm_only_pass2(const float* __restrict__ part, int splits,
-                  float* __restrict__ out) {
-  __shared__ float warp_m[4];
-  const int row = blockIdx.x;
-  float m = -INFINITY;
-  for (int s = threadIdx.x; s < splits; s += 128)
-    m = fmaxf(m, part[(long long)row * splits + s]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
-  __syncthreads();
-  m = fmaxf(fmaxf(warp_m[0], warp_m[1]), fmaxf(warp_m[2], warp_m[3]));
-  out[(long long)row * 128 + threadIdx.x] = m;
 }
 
 // ---- the launches ---------------------------------------------------------
@@ -929,29 +916,44 @@ long long bscan_topk_i8_smem(int qb, int d, int maxk) {
   return (long long)i8_smem(qb, d, maxk);
 }
 
-// K6. mode 0: q (bq, d) and keys (n, d) fp32, "high" (K4's six products);
-// mode 1: "default" (K4's one bf16 product); mode 2: int8 codes (K5's
-// products). d % 32 == 0 (fp32) or d % 64 == 0 (int8), 16-byte aligned
-// rows, 0 <= n_valid <= n; qb, splits and tiles_per_split from K4's plan
-// (fp32) or the plan of K5's mma.sync body (int8); part holds bq * splits
-// floats, out (bq, 128). A row with no valid key comes out -inf. Returns
+// The dynamic shared memory of K6's pass 1 on the mma.sync walks (mode 2:
+// int8 at width d; else fp32 in `terms` products), in bytes.
+long long bscan_mm_only_smem(int qb, int d, int mode) {
+  return (long long)((mode == 2 ? i8_ring_bytes(qb, d)
+                                : f32_work_bytes(qb, mode == 0 ? 3 : 1)) +
+                     sizeof(float) * 8 * qb);
+}
+
+// K6 on the mma.sync walks. mode 0: q (bq, d) and keys (n, d) fp32, "high"
+// (K4's six products); mode 1: "default" (K4's one bf16 product); mode 2:
+// int8 codes (K5's products). d % 32 == 0 (fp32) or d % 64 == 0 (int8),
+// 16-byte aligned rows, 0 <= n_valid <= n; the plan (`plan_mm_only` in
+// ops/topk.py, its mma body): the query block qb (16, 32 or 64), splits (a
+// multiple of CLUSTER, from the mma plans of K4 and K5) x tiles_per_split
+// covering the n / KT key tiles with no empty cluster, smem the bytes
+// `bscan_mm_only_smem` gives (at most 232,448); part holds bq * splits
+// floats, out (bq, 128). Otherwise it returns cudaErrorInvalidValue and
+// launches nothing. A row with no valid key comes out -inf. Returns
 // cudaError_t.
 int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
                   int n_valid, int mode, int qb, int splits,
-                  int tiles_per_split, float* part, float* out,
-                  void* stream) {
+                  int tiles_per_split, long long smem, float* part,
+                  float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_tiles = (n + KT - 1) / KT;
   if (n_valid < 0 || n_valid > n || bq < 1 || mode < 0 || mode > 2 ||
       (qb != 16 && qb != 32 && qb != 64) ||
-      d % (mode == 2 ? 64 : F32_DC) != 0 ||
-      (mode == 2 && i8_ring_bytes(qb, d) + sizeof(float) * 8 * qb > kMaxSmem))
+      d % (mode == 2 ? 64 : F32_DC) != 0 || splits < CLUSTER ||
+      splits % CLUSTER != 0 || tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split < n_tiles ||
+      (long long)(splits - CLUSTER) * tiles_per_split >= n_tiles ||
+      smem != bscan_mm_only_smem(qb, d, mode) || smem > (long long)kMaxSmem)
     return (int)cudaErrorInvalidValue;
   const dim3 grid1((bq + qb - 1) / qb, splits);
   cudaError_t err;
   if (mode == 2) {
     err = by_qb(qb, [&](auto qbc) {
       constexpr int QB = decltype(qbc)::value;
-      const size_t smem = i8_ring_bytes(QB, d) + sizeof(float) * 8 * QB;
       cudaError_t e = cudaFuncSetAttribute(
           mm_only_i8_pass1<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)smem);
@@ -965,8 +967,6 @@ int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
   } else {
     err = by_qb(qb, [&](auto qbc) {
       constexpr int QB = decltype(qbc)::value;
-      const int terms = mode == 0 ? 3 : 1;
-      const size_t smem = f32_work_bytes(QB, terms) + sizeof(float) * 8 * QB;
       auto kernel = mode == 0 ? mm_only_f32_pass1<QB, 3>
                               : mm_only_f32_pass1<QB, 1>;
       cudaError_t e = cudaFuncSetAttribute(

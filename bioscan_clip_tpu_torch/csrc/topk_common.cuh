@@ -256,6 +256,26 @@ cudaError_t launch_pass2(int bq, int n_cand, int k, const float* cand_v,
   return cudaGetLastError();
 }
 
+// K6's pass 2 (its walks in topk.cu, topk_sm90.cu and topk_i8_sm90.cu):
+// one block of 128 threads per query row takes the max over
+// its `splits` partial maxima and writes it to all 128 output columns.
+__global__ void __launch_bounds__(128)
+    mm_only_pass2(const float* __restrict__ part, int splits,
+                  float* __restrict__ out) {
+  __shared__ float warp_m[4];
+  const int row = blockIdx.x;
+  float m = -INFINITY;
+  for (int s = threadIdx.x; s < splits; s += 128)
+    m = fmaxf(m, part[(long long)row * splits + s]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) warp_m[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = fmaxf(fmaxf(warp_m[0], warp_m[1]), fmaxf(warp_m[2], warp_m[3]));
+  out[(long long)row * 128 + threadIdx.x] = m;
+}
+
 constexpr int kMaxDevices = 64;
 
 // The dynamic shared memory attribute of `kernel`, set once per card to the

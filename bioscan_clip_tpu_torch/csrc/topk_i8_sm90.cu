@@ -8,6 +8,8 @@
 //   `_merge_tile`'s running threshold), for query counts at or above the
 //   plan's crossing and widths that are a multiple of 128
 //   (`ops/topk.plan_i8`); elsewhere the mma.sync body of csrc/topk.cu runs.
+//   With ROWMAX, K6's int8 mode: `mm_only` (tools/bench_topk_variants.py
+//   :78, `_mm_only_kernel` :47), from `ops/topk.plan_mm_only`'s crossing.
 //
 // Contract: csrc/topk.cu's header (the K5 paragraph). Top-k over
 // keys[:n_valid] of the scores __fmul_rn(__fmul_rn(float(dot), q_scale),
@@ -54,7 +56,20 @@
 //   touches NQ / 4 queries) and the key's (two a tile a thread, plain loads
 //   issued as the tile starts: the engine's scales start at any row of a
 //   slab, not always 16-byte aligned). A query's buffer merges into its
-//   list by warp shuffles over registers (merge_row_shfl).
+//   list by warp shuffles over registers (merge_row_shfl). At a block of
+//   128 queries a flooded tile (scores rising with the key index pass whole
+//   tiles) first raises each query's threshold to the k-th largest of its
+//   32 strided group maxima (`raise_flooded`): about k appends a query and
+//   one merge, where 128 appends merged eight times. The walk carries its
+//   flood state from tile to tile and screens a flooded tile out of line
+//   (kFloodCarry): K4's vote, a barrier a tile, with the raise inline made
+//   random keys 3-18% slower here; smaller blocks keep the plain screen.
+// - ROWMAX (K6): the same walk and products with no scales, screen, lists
+//   or seed; a thread folds each tile's int32 dots into NQ / 32 running
+//   maxima (keys at n_valid and above masked), the warps' meet in the
+//   ring's first slot after the walk, and each (query, split) writes one
+//   maximum, converted to fp32 once; mm_only_pass2 reduces the splits.
+//   The ring takes the shared memory: seven stages at 128 queries.
 // - Seed: a first launch of this kernel (SEED) walks k disjoint groups of
 //   up to kSeedTiles whole tiles spread over keys[:n_valid] (grid: query
 //   blocks x k) and writes each query's best score in each group. The
@@ -117,6 +132,14 @@ __host__ __device__ constexpr long long smem_bytes(int nq, int maxk,
          (long long)lists_bytes(nq, maxk) + 4 * nq + kBarrierBytes;
 }
 
+// K6's pass 1 (ROWMAX): the ring and the barriers, no lists or scales
+__host__ __device__ constexpr long long rowmax_smem_bytes(int nq,
+                                                          int stages) {
+  return kAlign + (long long)stages * stage_bytes(nq) + kBarrierBytes;
+}
+static_assert(8 * 16 * 4 <= stage_bytes(16) && 8 * 128 * 4 <= stage_bytes(128),
+              "the warps' row maxima fit in the ring's first slot");
+
 // The seed's groups over keys[:n_valid]: group g walks `tiles` whole tiles
 // from tile g * stride; none when there are fewer than `groups` whole
 // tiles.
@@ -134,7 +157,8 @@ struct Args {
   const float* q_scale;
   const float* k_scale;
   const float* seed;  // (bq, groups) group bests, or null: no seed
-  float* part;        // SEED: the (bq, groups) group bests it writes
+  float* part;        // SEED: the (bq, groups) group bests it writes;
+                      // ROWMAX: the (bq, splits) partial row maxima
   float* cand_v;
   int* cand_i;
 };
@@ -291,22 +315,28 @@ __device__ __forceinline__ void wgmma_wait_all_but_one() {
 }
 
 // Pass 1 (and, SEED, the seed's launch, at MAXK = 8 whatever k is, in the
-// shared memory of pass 1's plan). Shared memory from the 1024-aligned
-// base: the ring (slot s at s * stage_bytes: the key box, the query box),
-// the lists (SEED: the warps' group bests, 8 NQ floats), the query block's
-// scales, then the barriers full[s] at 8 s and empty[s] at 64 + 8 s.
-template <int MAXK, int NQ, bool SEED>
+// shared memory of pass 1's plan; ROWMAX, K6's pass 1: the same walk and
+// products with a running row max of the int32 dots in place of the
+// scales, the screen and the lists, at MAXK = 8). Shared memory from the
+// 1024-aligned base: the ring (slot s at s * stage_bytes: the key box, the
+// query box), the lists (SEED: the warps' group bests, 8 NQ floats; none
+// in ROWMAX, whose warps' row maxima take the ring's first slot once the
+// walk is done), the query block's scales (none in ROWMAX), then the
+// barriers full[s] at 8 s and empty[s] at 64 + 8 s.
+template <int MAXK, int NQ, bool SEED, bool ROWMAX = false>
 __global__ void __launch_bounds__(kThreads, 1)
     topk_i8_sm90(const __grid_constant__ CUtensorMap tm_keys,
                  const __grid_constant__ CUtensorMap tm_q, const Args a) {
+  static_assert(!(SEED && ROWMAX), "one launch or the other");
   constexpr int kStage = stage_bytes(NQ);
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
   const uint32_t base = (raw + kAlign - 1) & ~(uint32_t)(kAlign - 1);
   const int stages = a.stages;
   const uint32_t lists = base + stages * kStage;
-  const uint32_t scales = lists + (uint32_t)lists_bytes(NQ, MAXK);
-  const uint32_t bars = scales + 4 * NQ;
+  const uint32_t scales =
+      lists + (ROWMAX ? 0u : (uint32_t)lists_bytes(NQ, MAXK));
+  const uint32_t bars = scales + (ROWMAX ? 0u : 4u * NQ);
   const int q0 = blockIdx.x * NQ;
   const int tile0 = blockIdx.y * a.tile_stride;
   const int tile1 = min((a.n_valid + kTileKeys - 1) / kTileKeys,
@@ -345,9 +375,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int g = lane >> 2, t4 = lane & 3;
   const Lists<NQ, MAXK> L{smem_raw + (lists - raw)};
   float* qs = reinterpret_cast<float*>(smem_raw + (scales - raw));
-  for (int i = tid; i < NQ; i += TPB)
-    qs[i] = q0 + i < a.bq ? a.q_scale[q0 + i] : 0.f;
-  if constexpr (!SEED) {
+  if constexpr (!ROWMAX) {
+    for (int i = tid; i < NQ; i += TPB)
+      qs[i] = q0 + i < a.bq ? a.q_scale[q0 + i] : 0.f;
+  }
+  if constexpr (!SEED && !ROWMAX) {
     // each query's list empty: entries (seed, INT_MAX), the seed the least
     // of its group bests (-inf without one), and its threshold there
     for (int i = tid; i < NQ; i += TPB) {
@@ -377,15 +409,21 @@ __global__ void __launch_bounds__(kThreads, 1)
   float best[SEED ? NQ / 2 : 1];  // SEED: the best score of each j
 #pragma unroll
   for (int i = 0; i < (SEED ? NQ / 2 : 1); ++i) best[i] = -INFINITY;
+  int rm[kRowMaxRegs<NQ>];  // ROWMAX: the running row maxima of the dots
+#pragma unroll
+  for (int u = 0; u < kRowMaxRegs<NQ>; ++u) rm[u] = INT_MIN;
   unsigned qvalid[(NQ / 2 + 31) / 32];  // the scores of queries below bq
   query_bits<NQ>(qvalid, q0, a.bq, t4);
+  bool flood = true;  // the screen's flooded-tile state
   const int n_tiles = n_chunks / cpt;
   for (int t = 0, c = 0; t < n_tiles; ++t) {
     // the scales of keys `key` and `key` + 8, loaded before the tile's
     // chunks are waited for
     const int key = (tile0 + t) * kTileKeys + r0;
-    const float ks0 = key < a.n_valid ? __ldg(a.k_scale + key) : 0.f;
-    const float ks1 = key + 8 < a.n_valid ? __ldg(a.k_scale + key + 8) : 0.f;
+    const float ks0 =
+        !ROWMAX && key < a.n_valid ? __ldg(a.k_scale + key) : 0.f;
+    const float ks1 =
+        !ROWMAX && key + 8 < a.n_valid ? __ldg(a.k_scale + key + 8) : 0.f;
     // the tile's chunks: each one's products issued once it has landed,
     // the previous one's slot freed once its products have completed (the
     // waits unconditional: a wgmma wait under a branch serializes them)
@@ -404,24 +442,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_acc(acc);
     __syncwarp();
     if (lane == 0) mbar_arrive(bars + 8 * kMaxStages + 8 * ((c - 1) % stages));
+    if constexpr (ROWMAX)
+      fold_rowmax<NQ>(rm, [&](int j) { return (int)acc[j]; },
+                      key < a.n_valid, key + 8 < a.n_valid, INT_MIN, lane);
     // each dot becomes its score in place: times its query's scale, then
     // its key's (the tile's next product overwrites the accumulators)
+    if constexpr (!ROWMAX) {
 #pragma unroll
-    for (int j = 0; j < NQ / 2; ++j)
-      acc[j] = __float_as_uint(__fmul_rn(
-          __fmul_rn(__int2float_rn((int)acc[j]),
-                    qs[8 * (j >> 2) + 2 * t4 + (j & 1)]),
-          (j & 2) ? ks1 : ks0));
+      for (int j = 0; j < NQ / 2; ++j)
+        acc[j] = __float_as_uint(__fmul_rn(
+            __fmul_rn(__int2float_rn((int)acc[j]),
+                      qs[8 * (j >> 2) + 2 * t4 + (j & 1)]),
+            (j & 2) ? ks1 : ks0));
+    }
     if constexpr (SEED) {
 #pragma unroll
       for (int j = 0; j < NQ / 2; ++j)
         if (key + 8 * ((j >> 1) & 1) < a.n_valid)
           best[j] = fmaxf(best[j], __uint_as_float(acc[j]));
-    } else {
-      screen_scores<NQ, MAXK, kMergeAt, true, Sync>(
+    } else if constexpr (!ROWMAX) {
+      screen_scores<NQ, MAXK, kMergeAt, NQ == 128 ? kFloodCarry : kFloodNone,
+                    true, Sync>(
           [&](int j) { return __uint_as_float(acc[j]); }, L, q0, a.bq, key,
-          a.n_valid, a.k, warp, lane, qvalid);
+          a.n_valid, a.k, warp, lane, flood, qvalid);
     }
+  }
+  if constexpr (ROWMAX) {
+    Sync::sync();  // every consumer is done with the ring
+    rowmax_write<NQ, Sync>(rm, reinterpret_cast<int*>(smem_raw + (base - raw)),
+                           INT_MIN, q0, a.bq, a.part, tid);
+    return;
   }
   if constexpr (SEED) {
     // the group's best of each query: over the thread's two keys, the
@@ -480,12 +530,12 @@ bool encode_i8(CUtensorMap* map, const void* codes, int rows, int d,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MAXK, int NQ, bool SEED>
+template <int MAXK, int NQ, bool SEED, bool ROWMAX = false>
 cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mq,
                    const Args& a, int splits, long long smem,
                    cudaStream_t stream) {
   static bool ready[kMaxDevices] = {};
-  const auto kernel = topk_i8_sm90<MAXK, NQ, SEED>;
+  const auto kernel = topk_i8_sm90<MAXK, NQ, SEED, ROWMAX>;
   cudaError_t err = allow_smem(ready, (const void*)kernel);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.bq + NQ - 1) / NQ, splits);
@@ -590,6 +640,70 @@ int bscan_topk_i8_sm90(const void* q, const float* q_scale, const void* keys,
     return launch_pass2<decltype(mkc)::value>(bq, splits * k, k, cand_v,
                                               cand_i, out_v, out_i, s);
   });
+}
+
+// The dynamic shared memory of K6's pass 1 on this walk
+// (topk_i8_sm90<8, nq, false, true>) at `stages` ring slots, in bytes.
+long long bscan_mm_only_i8_sm90_smem(int nq, int stages) {
+  return rowmax_smem_bytes(nq, stages);
+}
+
+// K6 on K5's Hopper walk: out (bq, 128) fp32, each row the maximum over
+// keys[:n_valid] of the exact int32 dots of the codes, converted to fp32
+// once (exact: 768 * 127^2 < 2^24), -inf where n_valid is 0. q (bq, d) and
+// keys (n, d) contiguous int8 codes, 16-byte aligned, d % 128 == 0, 0 <=
+// n_valid <= n; part: bq * splits floats. The plan (`plan_mm_only` in
+// ops/topk.py): the query block nq (16, 32, 64 or 128), splits x
+// tiles_per_split covering the n / 128 key tiles with no empty split, 2-8
+// ring stages, smem the bytes this library computes for them (at most
+// 232,448). Otherwise it returns cudaErrorInvalidValue and launches
+// nothing. No seed: pass 1 writes each (query, split)'s maximum, pass 2
+// (mm_only_pass2) each query's over the splits. Returns the cudaError_t of
+// the launches.
+int bscan_mm_only_i8_sm90(const void* q, const void* keys, int bq, int n,
+                          int d, int n_valid, int nq, int splits,
+                          int tiles_per_split, int stages, long long smem,
+                          float* part, float* out, void* stream) {
+  const int n_tiles = (n + kTileKeys - 1) / kTileKeys;
+  if (bq < 1 || n < 1 || d < kChunk || d % kChunk != 0 || n_valid < 0 ||
+      n_valid > n || (nq != 16 && nq != 32 && nq != 64 && nq != 128) ||
+      stages < kMinStages || stages > kMaxStages || splits < 1 ||
+      tiles_per_split < 1 ||
+      (long long)splits * tiles_per_split < n_tiles ||
+      (long long)(splits - 1) * tiles_per_split >= n_tiles ||
+      smem != rowmax_smem_bytes(nq, stages) || smem > (long long)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap mk, mq;
+  if (!encode_i8(&mk, keys, n, d, kTileKeys) ||
+      !encode_i8(&mq, q, bq, d, nq))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.bq = bq;
+  a.d = d;
+  a.n_valid = n_valid;
+  a.k = 1;
+  a.tiles_per_split = tiles_per_split;
+  a.tile_stride = tiles_per_split;
+  a.stages = stages;
+  a.groups = 0;
+  a.q_scale = nullptr;
+  a.k_scale = nullptr;
+  a.seed = nullptr;
+  a.part = part;
+  a.cand_v = nullptr;
+  a.cand_i = nullptr;
+  auto run = [&](auto nqc) -> cudaError_t {
+    return launch<8, decltype(nqc)::value, false, true>(mk, mq, a, splits,
+                                                        smem, s);
+  };
+  const cudaError_t err = nq == 16   ? run(Int<16>{})
+                          : nq == 32 ? run(Int<32>{})
+                          : nq == 64 ? run(Int<64>{})
+                                     : run(Int<128>{});
+  if (err != cudaSuccess) return (int)err;
+  mm_only_pass2<<<bq, 128, 0, s>>>(part, splits, out);
+  return (int)cudaGetLastError();
 }
 
 const char* bscan_error_string(int err) {

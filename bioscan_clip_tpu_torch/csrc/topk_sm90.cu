@@ -9,6 +9,8 @@
 //   precision, for query counts at or above the plan's crossing and widths
 //   that are a multiple of 64 (`ops/topk.plan_f32`); below the crossing
 //   the mma.sync body of csrc/topk.cu runs.
+//   With ROWMAX, K6's fp32 modes: `mm_only` (tools/bench_topk_variants.py
+//   :78, `_mm_only_kernel` :47), from `ops/topk.plan_mm_only`'s crossing.
 //
 // Contract: csrc/topk.cu's header. Top-k of Q . K^T over keys[:n_valid],
 // each row sorted descending, the smaller key index first among equal
@@ -57,7 +59,21 @@
 //   merged into the lists of topk_common.cuh, as csrc/topk.cu's screen_tile
 //   does for its fragments (pending bits, NQ / 2 a thread), but in two
 //   steps (loads and compares, then the appends of the few that pass) and
-//   with a query's merge deferred until its buffer is half full.
+//   with a query's merge deferred until its buffer is half full. A tile
+//   that floods (more than a quarter of some thread's scores reach their
+//   thresholds, as when scores rise with the key index: a vote, one
+//   barrier a tile, kFloodVote) first raises each query's threshold to the
+//   k-th largest of its 32 strided group maxima (topk_sm90_common.cuh
+//   `raise_flooded`), so it appends about k scores a query and merges
+//   once, not 128 and eight times.
+// - ROWMAX (K6): the same walk and products; after each tile a thread folds
+//   its scores into running row maxima (keys at n_valid and above masked to
+//   -inf) over its two key rows and, by shuffles, its warp's 8 row groups,
+//   so that it keeps NQ / 32 registers, not NQ / 2; at the end the 8 warps'
+//   maxima meet in the ring's first slot and each (query, split) writes one
+//   partial maximum, which mm_only_pass2 reduces over the splits. No lists,
+//   so the ring takes the shared memory: "default" three stages at 256
+//   queries, four at 128; "high" two at 128, four at 64.
 // - Each CTA writes its lists' first k entries as candidates (query, split,
 //   k), and pass 2 (topk_common.cuh) takes the top k of each query's.
 // No atomics in any sum and no order that depends on scheduling: two
@@ -67,7 +83,8 @@
 // them): shared memory 1 KB of alignment + stages x (32 KB of keys + TERMS x
 // NQ x 128 B of query pieces) + the lists, 4 NQ (2 MAXK + 2 BUF + 3) bytes,
 // + 64 B of barriers: "default" NQ = 256 (k <= 8) 2 stages, NQ = 128 3,
-// NQ = 64 4; "high" NQ = 128 2, NQ = 64 3. Registers: NQ / 2 fp32 scores a
+// NQ = 64 4; "high" NQ = 128 2, NQ = 64 3. ROWMAX: 1 KB + stages x the
+// stage + 64 B (`rowmax_smem_bytes`, `plan_mm_only`). Registers: NQ / 2 fp32 scores a
 // thread ("high" also a chunk's partial sums) and 4 k-steps of A fragments
 // (4 TERMS registers each); chip_smoke.py's build phase prints ptxas' count
 // and spills for every instantiation.
@@ -108,6 +125,15 @@ __host__ __device__ constexpr long long smem_bytes(int nq, int maxk,
          (long long)lists_bytes(nq, maxk) + kBarrierBytes;
 }
 
+// K6's pass 1 (ROWMAX): the ring and the barriers, no lists
+__host__ __device__ constexpr long long rowmax_smem_bytes(int nq, int terms,
+                                                          int stages) {
+  return kAlign + (long long)stages * stage_bytes(nq, terms) + kBarrierBytes;
+}
+static_assert(8 * 64 * 4 <= stage_bytes(64, 1) &&
+                  8 * 256 * 4 <= stage_bytes(256, 1),
+              "the warps' row maxima fit in the ring's first slot");
+
 // The depth (within a 64-deep chunk) that k-slot j of the chunk holds:
 // k-step j / 16, slot s = j % 16, lane t4 = (s % 8) / 2 of the key fragments.
 __host__ __device__ constexpr int slot_depth(int j) {
@@ -119,6 +145,7 @@ struct Args {
   int bq, d, n_valid, k, tiles_per_split, stages;
   float* cand_v;
   int* cand_i;
+  float* part;  // ROWMAX: the (bq, splits) partial row maxima
 };
 
 // The query pieces, once a call: pieces[t][r][j] = piece t of q[r][depth],
@@ -223,20 +250,25 @@ __device__ __forceinline__ void chunk_products(float (&acc)[NQ / 2],
 // screen_scores): acc[j] is the score of query 8 (j / 4) + 2 t4 + (j % 2)
 // of the block against key `key` + 8 ((j / 2) % 2), `key` the thread's
 // first key row of the tile (global). A query merges its buffer once it
-// holds kMergeAt scores.
+// holds kMergeAt scores; each tile votes whether it floods (kFloodVote).
 template <int NQ, int MAXK>
 __device__ __forceinline__ void screen(const float (&acc)[NQ / 2],
                                        const Lists<NQ, MAXK>& L, int q0,
                                        int bq, int key, int n_valid, int k,
                                        int warp, int lane) {
-  screen_scores<NQ, MAXK, kMergeAt>([&](int j) { return acc[j]; }, L, q0, bq,
-                                    key, n_valid, k, warp, lane);
+  bool flood;  // kFloodCarry's state, which a vote does not read
+  screen_scores<NQ, MAXK, kMergeAt, kFloodVote>(
+      [&](int j) { return acc[j]; }, L, q0, bq, key, n_valid, k, warp, lane,
+      flood);
 }
 
-// Pass 1. Shared memory from the 1024-aligned base: the ring (slot s at s *
-// stage_bytes: key box 0, key box 1, query piece tiles 0 .. TERMS - 1), the
-// lists, then the barriers full[s] at 8 s and empty[s] at 32 + 8 s.
-template <int MAXK, int NQ, int TERMS>
+// Pass 1 (ROWMAX: K6's pass 1, the same walk and products with a running
+// row max in place of the screen and lists). Shared memory from the
+// 1024-aligned base: the ring (slot s at s * stage_bytes: key box 0, key
+// box 1, query piece tiles 0 .. TERMS - 1), the lists (none in ROWMAX,
+// whose warps' row maxima take the ring's first slot once the walk is
+// done), then the barriers full[s] at 8 s and empty[s] at 32 + 8 s.
+template <int MAXK, int NQ, int TERMS, bool ROWMAX = false>
 __global__ void __launch_bounds__(TPB, 1)
     topk_f32_sm90(const __grid_constant__ CUtensorMap tm_keys,
                   const __grid_constant__ CUtensorMap tm_q, const Args a) {
@@ -246,7 +278,8 @@ __global__ void __launch_bounds__(TPB, 1)
   constexpr int kStage = stage_bytes(NQ, TERMS);
   const int stages = a.stages;
   const uint32_t lists = base + stages * kStage;
-  const uint32_t bars = lists + (uint32_t)lists_bytes(NQ, MAXK);
+  const uint32_t bars =
+      lists + (ROWMAX ? 0u : (uint32_t)lists_bytes(NQ, MAXK));
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int q0 = blockIdx.x * NQ;
@@ -262,7 +295,8 @@ __global__ void __launch_bounds__(TPB, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  const auto L = init_lists<NQ, MAXK>(smem_raw + (lists - raw));
+  Lists<NQ, MAXK> L{smem_raw + (lists - raw)};
+  if constexpr (!ROWMAX) L = init_lists<NQ, MAXK>(smem_raw + (lists - raw));
   __syncthreads();
 
   // thread 0: chunk c's keys and query pieces into slot c % stages, once
@@ -289,6 +323,9 @@ __global__ void __launch_bounds__(TPB, 1)
   float acc[NQ / 2];
 #pragma unroll
   for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
+  float rm[kRowMaxRegs<NQ>];  // ROWMAX: the running row maxima
+#pragma unroll
+  for (int u = 0; u < kRowMaxRegs<NQ>; ++u) rm[u] = -INFINITY;
   for (int c = 0; c < n_chunks; ++c) {
     if (tid == 0 && c + stages - 1 < n_chunks) load(c + stages - 1);
     const int s = c % stages;
@@ -298,11 +335,22 @@ __global__ void __launch_bounds__(TPB, 1)
     __syncwarp();
     if (lane == 0) mbar_arrive(bars + 32 + 8 * s);
     if (c % cpt == cpt - 1) {
-      screen<NQ, MAXK>(acc, L, q0, a.bq, (tile0 + c / cpt) * kTileKeys + r0,
-                       a.n_valid, a.k, warp, lane);
+      const int key = (tile0 + c / cpt) * kTileKeys + r0;
+      if constexpr (ROWMAX)
+        fold_rowmax<NQ>(rm, [&](int j) { return acc[j]; }, key < a.n_valid,
+                        key + 8 < a.n_valid, -INFINITY, lane);
+      else
+        screen<NQ, MAXK>(acc, L, q0, a.bq, key, a.n_valid, a.k, warp, lane);
 #pragma unroll
       for (int i = 0; i < NQ / 2; ++i) acc[i] = 0.f;
     }
+  }
+  if constexpr (ROWMAX) {
+    __syncthreads();  // every warp is done with the ring
+    rowmax_write<NQ, CtaBarrier>(
+        rm, reinterpret_cast<float*>(smem_raw + (base - raw)), -INFINITY,
+        q0, a.bq, a.part, tid);
+    return;
   }
   __syncthreads();  // every screen is done: merge what is buffered
   merge_buffers<NQ, MAXK>(L, 1, a.k, warp, lane);
@@ -338,12 +386,12 @@ bool encode_keys(CUtensorMap* map, const float* keys, int n, int d) {
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int MAXK, int NQ, int TERMS>
+template <int MAXK, int NQ, int TERMS, bool ROWMAX = false>
 cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mq,
                    const Args& a, int splits, long long smem,
                    cudaStream_t stream) {
   static bool ready[kMaxDevices] = {};
-  const auto kernel = topk_f32_sm90<MAXK, NQ, TERMS>;
+  const auto kernel = topk_f32_sm90<MAXK, NQ, TERMS, ROWMAX>;
   cudaError_t err = allow_smem(ready, (const void*)kernel);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.bq + NQ - 1) / NQ, splits);
@@ -414,6 +462,7 @@ int bscan_topk_f32_sm90(const float* q, const float* keys, void* pieces,
   a.stages = stages;
   a.cand_v = cand_v;
   a.cand_i = cand_i;
+  a.part = nullptr;
   err = by_nq(nq, [&](auto nqc) {
     return by_maxk<32>(k, [&](auto mkc) -> cudaError_t {
       constexpr int NQ = decltype(nqc)::value, MAXK = decltype(mkc)::value;
@@ -433,6 +482,75 @@ int bscan_topk_f32_sm90(const float* q, const float* keys, void* pieces,
     return launch_pass2<decltype(mkc)::value>(bq, splits * k, k, cand_v,
                                               cand_i, out_v, out_i, s);
   });
+}
+
+// The dynamic shared memory of K6's pass 1 on this walk
+// (topk_f32_sm90<8, nq, terms, true>) at `stages` ring slots, in bytes.
+long long bscan_mm_only_f32_sm90_smem(int nq, int terms, int stages) {
+  return rowmax_smem_bytes(nq, terms, stages);
+}
+
+// K6 on K4's Hopper walk: out (bq, 128) fp32, each row the maximum over
+// keys[:n_valid] of Q . K^T in K4's products (precision 0 "high": the six
+// bf16 products; 1 "default": one), -inf where n_valid is 0. q (bq, d) and
+// keys (n, d) contiguous fp32, 16-byte aligned, d % 64 == 0, 0 <= n_valid
+// <= n; pieces: (terms, bq, d) bf16 scratch; part: bq * splits floats. The
+// plan (`plan_mm_only` in ops/topk.py): the query block nq (64, 128 or
+// 256; at most 128 in "high"), splits x tiles_per_split covering the n /
+// 128 key tiles with no empty split, 2-4 ring stages, smem the bytes this
+// library computes for them (at most 232,448). Otherwise it returns
+// cudaErrorInvalidValue and launches nothing. Pass 1 writes each (query,
+// split)'s maximum; pass 2 (mm_only_pass2) takes each query's over the
+// splits. Returns the cudaError_t of the launches.
+int bscan_mm_only_f32_sm90(const float* q, const float* keys, void* pieces,
+                           int bq, int n, int d, int n_valid, int precision,
+                           int nq, int splits, int tiles_per_split,
+                           int stages, long long smem, float* part,
+                           float* out, void* stream) {
+  const int terms = precision == 1 ? 1 : 3;
+  const int n_tiles = (n + kTileKeys - 1) / kTileKeys;
+  if (bq < 1 || n < 1 || d < kChunk || d % kChunk != 0 || n_valid < 0 ||
+      n_valid > n || precision < 0 || precision > 1 ||
+      (nq != 64 && nq != 128 && nq != 256) || (terms == 3 && nq > 128) ||
+      stages < kMinStages || stages > kMaxStages || splits < 1 ||
+      tiles_per_split < 1 || (long long)splits * tiles_per_split < n_tiles ||
+      (long long)(splits - 1) * tiles_per_split >= n_tiles ||
+      smem != rowmax_smem_bytes(nq, terms, stages) ||
+      smem > (long long)kMaxSmem)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned short* pc = static_cast<unsigned short*>(pieces);
+  const int blocks = (int)(((long long)bq * d + 255) / 256);
+  if (terms == 1)
+    split_queries<1><<<blocks, 256, 0, s>>>(q, pc, bq, d);
+  else
+    split_queries<3><<<blocks, 256, 0, s>>>(q, pc, bq, d);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mk, mq;
+  if (!encode_keys(&mk, keys, n, d) ||
+      !encode(&mq, pieces, terms, bq, d, nq))
+    return (int)cudaErrorInvalidValue;
+  Args a;
+  a.bq = bq;
+  a.d = d;
+  a.n_valid = n_valid;
+  a.k = 1;
+  a.tiles_per_split = tiles_per_split;
+  a.stages = stages;
+  a.cand_v = nullptr;
+  a.cand_i = nullptr;
+  a.part = part;
+  err = by_nq(nq, [&](auto nqc) -> cudaError_t {
+    constexpr int NQ = decltype(nqc)::value;
+    if (terms == 1) return launch<8, NQ, 1, true>(mk, mq, a, splits, smem, s);
+    if constexpr (NQ <= 128)
+      return launch<8, NQ, 3, true>(mk, mq, a, splits, smem, s);
+    return cudaErrorInvalidValue;
+  });
+  if (err != cudaSuccess) return (int)err;
+  mm_only_pass2<<<bq, 128, 0, s>>>(part, splits, out);
+  return (int)cudaGetLastError();
 }
 
 const char* bscan_error_string(int err) {

@@ -29,7 +29,11 @@ version bit for bit.
 broadcast over 128 columns: K4's products ("high" or "default") or K5's
 (the exact integer dots of int8 codes, equal bit for bit to the plain
 version and to the TPU's bf16 products of the codes), with a row max in
-place of the screen and lists.
+place of the screen and lists. It runs on the walk `plan_mm_only` chooses:
+K4's and K5's Hopper bodies as a row-max launch (their `ROWMAX` flag: the
+same walk and products, no screen, lists or seed) from
+`MM_SM90_MIN_BQ[mode]` queries up at widths they take (fp32 a multiple of
+64, int8 of 128), else the `mma.sync` walks of `csrc/topk.cu`.
 
 K4 has two bodies on the card, chosen by `plan_f32`: the Hopper body
 (`csrc/topk_sm90.cu`: keys as `wgmma`'s M side split in registers, queries
@@ -50,8 +54,9 @@ over few keys where it measured faster (`I8_MMA_WINS`).
 ones, `topk.default_launches` the "default" ones, of either body;
 `topk.sm90_launches` those of K4's Hopper body, `topk.mma_launches` those
 of its `mma.sync` body; `topk_i8.sm90_launches` and `topk_i8.mma_launches`
-those of K5's two bodies), `<plain version>.calls` the plain versions'
-calls.
+those of K5's two bodies; `mm_only.sm90_launches` and
+`mm_only.mma_launches` those of K6 on the Hopper and `mma.sync` walks),
+`<plain version>.calls` the plain versions' calls.
 """
 
 from __future__ import annotations
@@ -195,9 +200,13 @@ def _kernel():
     smem_i8.restype = ctypes.c_longlong
     fn_mm = lib.bscan_mm_only
     fn_mm.argtypes = (
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 3
     )
     fn_mm.restype = ctypes.c_int
+    smem_mm = lib.bscan_mm_only_smem
+    smem_mm.argtypes = [ctypes.c_int] * 3
+    smem_mm.restype = ctypes.c_longlong
     smem_f32 = lib.bscan_topk_f32_smem
     smem_f32.argtypes = [ctypes.c_int] * 3
     smem_f32.restype = ctypes.c_int
@@ -205,8 +214,8 @@ def _kernel():
     fn_tiny.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
     fn_tiny.restype = ctypes.c_int
     return SimpleNamespace(lib=lib, topk=fn, topk_i8=fn_i8,
-                           smem_i8=smem_i8, mm_only=fn_mm, tiny=fn_tiny,
-                           smem_f32=smem_f32)
+                           smem_i8=smem_i8, mm_only=fn_mm, smem_mm=smem_mm,
+                           tiny=fn_tiny, smem_f32=smem_f32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -230,9 +239,19 @@ def sm90_entry(lib):
     depth = lib.bscan_topk_f32_sm90_slot_depth
     depth.argtypes = [ctypes.c_int]
     depth.restype = ctypes.c_int
+    fn_mm = lib.bscan_mm_only_f32_sm90
+    fn_mm.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 3
+    )
+    fn_mm.restype = ctypes.c_int
+    smem_mm = lib.bscan_mm_only_f32_sm90_smem
+    smem_mm.argtypes = [ctypes.c_int] * 3
+    smem_mm.restype = ctypes.c_longlong
     lib.bscan_error_string.argtypes = [ctypes.c_int]
     lib.bscan_error_string.restype = ctypes.c_char_p
-    return SimpleNamespace(lib=lib, topk=fn, smem=smem, slot_depth=depth)
+    return SimpleNamespace(lib=lib, topk=fn, smem=smem, slot_depth=depth,
+                           mm_only=fn_mm, smem_mm=smem_mm)
 
 
 @functools.lru_cache(maxsize=None)
@@ -256,9 +275,19 @@ def i8_sm90_entry(lib):
     seed = lib.bscan_topk_i8_sm90_seed
     seed.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
     seed.restype = None
+    fn_mm = lib.bscan_mm_only_i8_sm90
+    fn_mm.argtypes = (
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] * 8 + [ctypes.c_longlong]
+        + [ctypes.c_void_p] * 3
+    )
+    fn_mm.restype = ctypes.c_int
+    smem_mm = lib.bscan_mm_only_i8_sm90_smem
+    smem_mm.argtypes = [ctypes.c_int] * 2
+    smem_mm.restype = ctypes.c_longlong
     lib.bscan_error_string.argtypes = [ctypes.c_int]
     lib.bscan_error_string.restype = ctypes.c_char_p
-    return SimpleNamespace(lib=lib, topk=fn, smem=smem, seed=seed)
+    return SimpleNamespace(lib=lib, topk=fn, smem=smem, seed=seed,
+                           mm_only=fn_mm, smem_mm=smem_mm)
 
 
 # --- K4's plan (the launch checks of csrc/topk.cu's `bscan_topk_f32` and
@@ -709,7 +738,7 @@ topk_i8.sm90_launches = 0
 topk_i8.mma_launches = 0
 
 
-_MM_MODES = {"high": 0, "default": 1}
+MM_MODES = ("high", "default", "int8")
 
 
 def mm_only_reference(queries, keys, n_valid: int, int8: bool = False,
@@ -735,20 +764,128 @@ def mm_only_reference(queries, keys, n_valid: int, int8: bool = False,
 mm_only_reference.calls = 0
 
 
+# --- K6's plan (the launch checks of csrc/topk.cu's `bscan_mm_only`,
+# csrc/topk_sm90.cu's `bscan_mm_only_f32_sm90` and csrc/topk_i8_sm90.cu's
+# `bscan_mm_only_i8_sm90` refuse any other) --------------------------------
+
+# the crossing: fewer queries run the mma.sync walk (tools/bench_k4.py
+# --kernels k6, both walks at Bq = 1-64 over 1,048,576 keys, D = 768)
+MM_SM90_MIN_BQ = {"high": 17, "default": 1, "int8": 1}
+_MM_SM90_BLOCKS = {"high": (64, 128), "default": (64, 128, 256),
+                   "int8": _I8_SM90_BLOCKS}
+_MM_SM90_WIDTH = {"high": _SM90_CHUNK, "default": _SM90_CHUNK,
+                  "int8": _I8_SM90_CHUNK}
+_MM_SM90_STAGES = {"high": (2, 4), "default": (2, 4), "int8": _I8_SM90_STAGES}
+
+
+@dataclasses.dataclass(frozen=True)
+class MMPlan:
+    """How `mm_only` runs (Bq, N, D) in `mode` ("high", "default", "int8")
+    on the card.
+
+    `body`: "sm90" (the row-max launch of K4's `csrc/topk_sm90.cu` or K5's
+    `csrc/topk_i8_sm90.cu`) or "mma" (the `mma.sync` walks of
+    `csrc/topk.cu`). `qb`: the query block (wgmma's N on the sm90 walks;
+    16, 32 or 64 on the mma walks). The key axis: `splits` blocks of
+    `tiles_per_split` 128-key tiles, covering every tile of N once (the
+    mma walks' last cluster of two may hold an empty split). `stages`: ring
+    slots; `smem`: a pass-1 block's dynamic shared memory."""
+
+    body: str
+    qb: int
+    splits: int
+    tiles_per_split: int
+    stages: int
+    smem: int
+
+
+def mm_sm90_smem(qb: int, mode: str, stages: int) -> int:
+    """`rowmax_smem_bytes` of csrc/topk_sm90.cu (fp32) or
+    csrc/topk_i8_sm90.cu (int8): alignment, the ring and the barriers; the
+    warps' row maxima take the ring's first slot after the walk."""
+    if mode == "int8":
+        return (_I8_SM90_ALIGN + stages * (_KEY_TILE + qb) * _I8_SM90_CHUNK
+                + _I8_SM90_BARRIER_BYTES)
+    terms = 3 if mode == "high" else 1
+    return (_SM90_ALIGN + stages * (_SM90_KEY_BYTES + terms * qb * 2
+                                    * _SM90_CHUNK) + _SM90_BARRIER_BYTES)
+
+
+def mm_mma_smem(qb: int, d: int, mode: str) -> int:
+    """csrc/topk.cu `bscan_mm_only_smem`: the mma.sync walk's ring and
+    staged queries (`f32_work_bytes`, `i8_ring_bytes`) and 8 warps' row
+    maxima."""
+    if mode == "int8":
+        dc, stages = (64, 3) if qb == 64 else (128, 4)
+        work = qb * (d + 16) + stages * _KEY_TILE * (dc + 16)
+    else:
+        terms = 3 if mode == "high" else 1
+        stages = 3 if qb == 64 else 4
+        work = 4 * stages * (_KEY_TILE + qb) * 32 + 2 * terms * qb * 40
+    return work + 4 * 8 * qb
+
+
+def plan_mm_only(bq: int, n: int, d: int = 768, mode: str = "default",
+                 sms: int = H100_SMS, body: str | None = None) -> MMPlan:
+    """K6's walk and launch for Bq queries over N keys at width d in `mode`
+    on a card of `sms` SMs: the sm90 walk from MM_SM90_MIN_BQ[mode] queries
+    up at widths it takes (fp32 a multiple of 64, int8 of 128), its query
+    block the smallest of the mode's that holds Bq (else the largest), as
+    many ring stages as fit; else the mma walk, with the query block and
+    key splits of K4's or K5's mma plan. `body` overrides the choice."""
+    if mode not in MM_MODES:
+        raise ValueError(f"mm_only: mode {mode!r}, expected one of "
+                         f"{MM_MODES}")
+    if body is None:
+        body = ("sm90" if bq >= MM_SM90_MIN_BQ[mode]
+                and d % _MM_SM90_WIDTH[mode] == 0 else "mma")
+    if body == "mma":
+        p = (plan_i8(bq, n, 1, d, sms, body="mma") if mode == "int8" else
+             plan_f32(bq, n, 1, mode, d, sms, body="mma"))
+        return MMPlan("mma", p.qb, p.splits, p.tiles_per_split, p.stages,
+                      mm_mma_smem(p.qb, d, mode))
+    blocks = _MM_SM90_BLOCKS[mode]
+    qb = next((b for b in blocks if b >= bq), blocks[-1])
+    lo, hi = _MM_SM90_STAGES[mode]
+    stages = max(s for s in range(lo, hi + 1)
+                 if mm_sm90_smem(qb, mode, s) <= MAX_SMEM)
+    return mm_sm90_plan(bq, n, mode, sms, qb, stages)
+
+
+def mm_sm90_plan(bq: int, n: int, mode: str, sms: int, qb: int,
+                 stages: int) -> MMPlan:
+    """The sm90 walk's launch at query block `qb` and `stages` ring slots:
+    about one CTA per SM over the query blocks and key splits (as K4's and
+    K5's), every split holding at least one key tile."""
+    n_tiles = -(-n // _KEY_TILE)
+    q_blocks = -(-bq // qb)
+    want = min(max(sms // q_blocks, 1), n_tiles)
+    per_split = -(-n_tiles // want)
+    splits = -(-n_tiles // per_split)
+    return MMPlan("sm90", qb, splits, per_split, stages,
+                  mm_sm90_smem(qb, mode, stages))
+
+
+def _own_mm_plan(plan, body: str, what: str):
+    if not isinstance(plan, MMPlan) or plan.body != body:
+        raise ValueError(f"{what}: needs an MMPlan of the {body} walk, got "
+                         f"{plan!r}")
+
+
 def mm_only(queries, keys, n_valid: int, int8: bool = False,
             precision: str = "high"):
-    """K6, the top-k kernels' matmul-only control: K4's pass-1 walk and
-    products (fp32, in `precision`: "high" or "default") or K5's (int8
-    codes, exact either way), with a running row max in place of the screen
-    and lists. Returns (Bq, 128) fp32. The JAX version's `tile` and
-    `q_block` are Pallas grid parameters; this kernel's tiling is K4's or
-    K5's (their plans' query blocks x 128 keys, the key axis split across
-    blocks)."""
+    """K6, the top-k kernels' matmul-only control: K4's walk and products
+    (fp32, in `precision`: "high" or "default") or K5's (int8 codes, exact
+    either way), with a running row max in place of the screen and lists,
+    on the walk `plan_mm_only` chooses. Returns (Bq, 128) fp32. The JAX
+    version's `tile` and `q_block` are Pallas grid parameters; this
+    kernel's tiling is its plan's (query blocks x 128 keys, the key axis
+    split across blocks)."""
     n_valid = int(n_valid)
     n = keys.shape[0]
-    if precision not in _MM_MODES:
+    if precision not in ("high", "default"):
         raise ValueError(f"mm_only: precision {precision!r}, expected "
-                         f"{sorted(_MM_MODES)}")
+                         "'default' or 'high'")
     if not 0 <= n_valid <= n:
         raise ValueError(f"mm_only: need 0 <= n_valid ({n_valid}) <= N ({n})")
     if queries.device.type == "cpu":
@@ -759,30 +896,71 @@ def mm_only(queries, keys, n_valid: int, int8: bool = False,
     for name, t in (("queries", queries), ("keys", keys)):
         _check_2d(f"mm_only: {name}", t, dtype, dev)
     bq, d = queries.shape
-    if keys.shape[1] != d or d % step:
+    if keys.shape[1] != d or d % step or n < 1:
         raise ValueError(f"mm_only: widths {d} / {keys.shape[1]} must match "
-                         f"and be a multiple of {step}")
-    kern = _kernel()
-    if int8:
-        p = plan_i8(bq, n, 1, d, _device_sms(dev), body="mma")
+                         f"and be a multiple of {step}, over N >= 1 keys")
+    mode = "int8" if int8 else precision
+    plan = plan_mm_only(bq, n, d, mode, _device_sms(dev))
+    if plan.body == "sm90":
+        out = _launch_mm_sm90(queries, keys, n_valid, mode, plan)
+        mm_only.sm90_launches += 1
     else:
-        p = plan_f32(bq, n, 1, precision, d, _device_sms(dev), body="mma")
-    qb, splits, per_split = p.qb, p.splits, p.tiles_per_split
-    part = torch.empty(bq * splits, dtype=torch.float32, device=dev)
-    out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = kern.mm_only(
-            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
-            2 if int8 else _MM_MODES[precision], qb, splits, per_split,
-            part.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "mm_only launch")
+        out = _launch_mm_mma(queries, keys, n_valid, mode, plan)
+        mm_only.mma_launches += 1
     mm_only.launches += 1
     return out
 
 
+def _launch_mm_mma(queries, keys, n_valid, mode, plan: MMPlan):
+    """K6 on the mma.sync walks (csrc/topk.cu) under `plan`."""
+    _own_mm_plan(plan, "mma", "mm_only mma launch")
+    (bq, d), n, dev = queries.shape, keys.shape[0], queries.device
+    kern = _kernel()
+    part = torch.empty(bq * plan.splits, dtype=torch.float32, device=dev)
+    out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = kern.mm_only(
+            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
+            2 if mode == "int8" else PRECISIONS[mode], plan.qb, plan.splits,
+            plan.tiles_per_split, plan.smem, part.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    _build.check(kern.lib, err, "mm_only launch")
+    return out
+
+
+def _launch_mm_sm90(queries, keys, n_valid, mode, plan: MMPlan):
+    """K6 as the row-max launch of K4's Hopper body (fp32: the query
+    pieces into a scratch tensor first) or K5's (int8) under `plan`, then
+    the max over the key splits."""
+    _own_mm_plan(plan, "sm90", "mm_only sm90 launch")
+    (bq, d), n, dev = queries.shape, keys.shape[0], queries.device
+    part = torch.empty(bq * plan.splits, dtype=torch.float32, device=dev)
+    out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        if mode == "int8":
+            kern = _i8_sm90_kernel()
+            err = kern.mm_only(
+                queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
+                plan.qb, plan.splits, plan.tiles_per_split, plan.stages,
+                plan.smem, part.data_ptr(), out.data_ptr(), stream)
+        else:
+            kern = _sm90_kernel()
+            pieces = torch.empty((3 if mode == "high" else 1, bq, d),
+                                 dtype=torch.bfloat16, device=dev)
+            err = kern.mm_only(
+                queries.data_ptr(), keys.data_ptr(), pieces.data_ptr(), bq,
+                n, d, n_valid, PRECISIONS[mode], plan.qb, plan.splits,
+                plan.tiles_per_split, plan.stages, plan.smem,
+                part.data_ptr(), out.data_ptr(), stream)
+    _build.check(kern.lib, err, "mm_only sm90 launch")
+    return out
+
+
 mm_only.launches = 0
+mm_only.sm90_launches = 0
+mm_only.mma_launches = 0
 
 
 def tiny_reference(x):

@@ -13,9 +13,15 @@ Counterpart of tools/bench_topk_variants.py. Rows, one JSON object each:
   mm_only_i8      K6 int8: K5's pass-1 walk and products and a row max
   topk_i8         K5 (`ops.topk.topk_i8`) at max(k, 21), the engine's
                   oversampled k for an int8 search
+  screen_ms       what the screen and lists cost: K4's time minus K6
+                  "high"'s ("kernel": "k4") and K5's minus K6 int8's
+                  ("k5"), K6 timed at the same body and query block as the
+                  top-k kernel (on the card, under a forced plan where K6's
+                  own plan chooses another); "share" of the top-k time
 for each query count Bq of --bq. The JAX script sweeps Pallas grid
 parameters (`tile`, `q_block`); the port's kernels choose their own tiling
-(TILING below), which each row names, so the sweep runs over Bq.
+(their plans: TILING below), which each row names, so the sweep runs over
+Bq.
 
 Timing: CUDA events around --iters calls, each on its own query set (one
 distinct input per timed call, as the JAX script), after a warm-up call on
@@ -40,16 +46,26 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
-TILING = ("pass 1: 16, 32 or 64 queries from Bq x 128 keys per tile "
-          "(K6 on the mma.sync walks: the mma plans of ops.topk.plan_f32 "
-          "and ops.topk.plan_i8), key axis split over ~2 blocks per SM")
+TILING = ("pass 1: the plan's query block x 128 keys per tile (K6: "
+          "ops.topk.plan_mm_only, the row-max launch of K4's or K5's Hopper "
+          "body from MM_SM90_MIN_BQ queries up, else the mma.sync walks; "
+          "K4: plan_f32; K5: plan_i8), key axis split over about one block "
+          "per SM (two on the mma.sync walks)")
 I8_MIN_K = 21  # max(4k, k + 16) at the engine's default k = 5
 
 
-def query_block(bq: int) -> int:
-    """The query block of the mma.sync walks' plans (K6, K5) at width
-    768."""
-    return 16 if bq <= 16 else (32 if bq <= 32 else 64)
+def _k6_at(plan, bq, n, dim, mode, sms):
+    """K6's plan on the walk and at the query block of a top-k plan (K4's
+    F32Plan or K5's I8Plan): its own plan where that already matches, else
+    the sm90 walk forced to the block, with as many stages as fit."""
+    own = topk_ops.plan_mm_only(bq, n, dim, mode, sms, body=plan.body)
+    if own.qb == plan.qb or plan.body == "mma":
+        return own
+    lo, hi = topk_ops._MM_SM90_STAGES[mode]
+    stages = max(st for st in range(lo, hi + 1)
+                 if topk_ops.mm_sm90_smem(plan.qb, mode, st)
+                 <= topk_ops.MAX_SMEM)
+    return topk_ops.mm_sm90_plan(bq, n, mode, sms, plan.qb, stages)
 
 
 def _sync(device):
@@ -120,26 +136,36 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
 
     k_i8_eff = max(k, I8_MIN_K)
     n_tiles = -(-n_keys // 128)
+    sms = (topk_ops._device_sms(device) if device.type == "cuda"
+           else topk_ops.H100_SMS)
+
+    def k6(mode, plan):
+        return dict(variant="mm_only_i8" if mode == "int8" else
+                    "mm_only_f32", tiling=(
+                        f"K6's {plan.body} walk: {plan.qb} queries x 128 "
+                        "keys per tile (ops.topk.plan_mm_only)"),
+                    tiles=-(-bq // plan.qb) * n_tiles)
+
     for bq in bqs:
         if bq > queries:
             raise ValueError(f"--bq {bq} > --queries {queries}")
         qs = [tuple(t[:bq].contiguous() for t in s) for s in sets]
-        row = dict(base, queries=bq, tiling=TILING,
-                   tiles=-(-bq // query_block(bq)) * n_tiles)
+        row = dict(base, queries=bq, tiling=TILING)
         calls = []
         for prec in ("default", "high"):
-            calls.append((dict(variant="mm_only_f32", precision=prec),
-                          lambda v, p=prec: topk_ops.mm_only(
-                              v[0], keys, n_keys, precision=p)))
-        plan = topk_ops.plan_f32(bq, n_keys, k, "high", dim)
-        plan8 = topk_ops.plan_i8(bq, n_keys, k_i8_eff, dim)
+            calls.append((dict(k6(prec, topk_ops.plan_mm_only(
+                bq, n_keys, dim, prec, sms)), precision=prec),
+                lambda v, p=prec: topk_ops.mm_only(
+                    v[0], keys, n_keys, precision=p)))
+        plan = topk_ops.plan_f32(bq, n_keys, k, "high", dim, sms)
+        plan8 = topk_ops.plan_i8(bq, n_keys, k_i8_eff, dim, sms)
         calls += [
             (dict(variant="topk_f32", k=k, tiling=(
                 f"K4's {plan.body} body: {plan.qb} queries x 128 keys per "
                 "tile (ops.topk.plan_f32)"),
                 tiles=-(-bq // plan.qb) * n_tiles),
              lambda v: topk_ops.topk(v[0], keys, n_keys, k)),
-            (dict(variant="mm_only_i8"),
+            (k6("int8", topk_ops.plan_mm_only(bq, n_keys, dim, "int8", sms)),
              lambda v: topk_ops.mm_only(v[1], k_i8, n_keys, int8=True)),
             (dict(variant="topk_i8", k=k_i8_eff, tiling=(
                 f"K5's {plan8.body} body: {plan8.qb} queries x 128 keys per "
@@ -148,10 +174,36 @@ def probe_rows(n_keys=1 << 20, queries=1024, dim=768, k=5, bqs=(1, 64, 256,
              lambda v: topk_ops.topk_i8(v[1], v[2], k_i8, k_sc, n_keys,
                                         k_i8_eff)),
         ]
+        timed = {}
         for extra, fn in calls:
             ms = time_per_call(fn, qs, device)
             out = {**row, **extra}
+            timed[(extra["variant"], extra.get("precision"))] = (ms, out)
             yield dict(out, ms=ms, us_per_tile=1e3 * ms / out["tiles"])
+        # the screen's cost: the top-k kernel minus K6 at its body and query
+        # block
+        for kernel, top, mode, tplan, mine in (
+                ("k4", ("topk_f32", None), "high", plan,
+                 ("mm_only_f32", "high")),
+                ("k5", ("topk_i8", None), "int8", plan8,
+                 ("mm_only_i8", None))):
+            top_ms = timed[top][0]
+            kp = _k6_at(tplan, bq, n_keys, dim, mode, sms)
+            own = topk_ops.plan_mm_only(bq, n_keys, dim, mode, sms)
+            if device.type == "cpu" or kp == own:
+                k6_ms = timed[mine][0]
+            else:
+                launch = (topk_ops._launch_mm_sm90 if kp.body == "sm90"
+                          else topk_ops._launch_mm_mma)
+                k6_ms = time_per_call(
+                    lambda v, kp=kp, launch=launch: launch(
+                        v[1] if mode == "int8" else v[0],
+                        k_i8 if mode == "int8" else keys, n_keys, mode, kp),
+                    qs, device)
+            yield dict(base, queries=bq, variant="screen_ms", kernel=kernel,
+                       body=tplan.body, qb=tplan.qb, ms=top_ms - k6_ms,
+                       topk_ms=top_ms, mm_only_ms=k6_ms,
+                       share=(top_ms - k6_ms) / top_ms if top_ms else None)
 
 
 def main(argv=None, emit=print):

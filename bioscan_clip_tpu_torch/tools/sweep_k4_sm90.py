@@ -54,8 +54,8 @@ from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
 FADD = "constexpr int kFaddSteps = 4;"
 MERGE = "constexpr int kMergeAt = BUF / 2;"
-SCREEN = ("      screen<NQ, MAXK>(acc, L, q0, a.bq, (tile0 + c / cpt) * kTileKeys"
-          " + r0,\n                       a.n_valid, a.k, warp, lane);\n")
+SCREEN = ("        screen<NQ, MAXK>(acc, L, q0, a.bq, key, a.n_valid, a.k, "
+          "warp, lane);\n")
 HELPERS = "__device__ __forceinline__ float4 lds128"
 LOAD = ("  auto load = [&](int c) {\n"
         "    const int s = c % stages, use = c / stages;\n")

@@ -72,14 +72,16 @@ from bioscan_clip_tpu_torch.ops import topk as topk_ops
 
 CHUNK = "constexpr int kChunk = 128;"
 MERGE = "constexpr int kMergeAt = BUF / 2;"
-SHFL_SCREEN = "      screen_scores<NQ, MAXK, kMergeAt, true, Sync>(\n"
+SHFL_SCREEN = ("      screen_scores<NQ, MAXK, kMergeAt, NQ == 128 ? kFloodCarry "
+               ": kFloodNone,\n                    true, Sync>(\n")
 SHFL_FINAL = "  merge_buffers_shfl<NQ, MAXK>(L, 1, a.k, warp, lane);\n"
 # pass 1's screen of a tile: its scores formed in place and screened
 SCREEN = (
-    "      screen_scores<NQ, MAXK, kMergeAt, true, Sync>(\n"
+    "      screen_scores<NQ, MAXK, kMergeAt, NQ == 128 ? kFloodCarry : "
+    "kFloodNone,\n                    true, Sync>(\n"
     "          [&](int j) { return __uint_as_float(acc[j]); }, L, q0, a.bq, "
     "key,\n"
-    "          a.n_valid, a.k, warp, lane, qvalid);\n")
+    "          a.n_valid, a.k, warp, lane, flood, qvalid);\n")
 SCORES = "    // each dot becomes its score in place"
 STAGE = "  return (kTileKeys + nq) * kChunk;\n"
 LISTS = "  const uint32_t lists = base + stages * kStage;\n"
@@ -171,7 +173,7 @@ VARIANTS = {
     "products_only": PRODUCTS_ONLY,
     # K4's merge (topk_common.cuh merge_row: the buffer read from shared
     # memory in a loop for every entry's rank)
-    "merge_smem": [(SHFL_SCREEN, SHFL_SCREEN.replace("true", "false")),
+    "merge_smem": [(SHFL_SCREEN, SHFL_SCREEN.replace("true,", "false,")),
                    (SHFL_FINAL, SHFL_FINAL.replace("_shfl", ""))],
     "merge_any": [(MERGE, "constexpr int kMergeAt = 1;")],
     "merge_full": [(MERGE, "constexpr int kMergeAt = BUF;")],

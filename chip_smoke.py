@@ -17,7 +17,9 @@ Phases, in order; any failure exits non-zero:
             "K5 pass 1 MAXK= QB=" line per int8 top-k instantiation of the
             mma.sync body, one "K5 sm90 MAXK= NQ=" / "K5 sm90 seed NQ="
             line per instantiation of its Hopper body (pass 1, the seed's
-            launch), with its shared memory, one
+            launch), with its shared memory, one "K6 sm90 high|default|
+            int8 NQ=" line per row-max instantiation of those bodies
+            (K6), which must not spill, one
             "K1/K2 sm90 key rows" / "K2 ... bias" / "K2d ... [bias]
             dropout" / "K1m ... mask" line per instantiation of the
             forward's Hopper body (K1, K2, K2d, K1m), with its shared
@@ -65,7 +67,12 @@ Phases, in order; any failure exits non-zero:
             (two launches bit-equal) and on both bodies (the Hopper body
             of csrc/topk_i8_sm90.cu, the mma.sync body of csrc/topk.cu),
             each timed beside _int_mm + torch.topk; the
-            matmul-only control K6 and K7), with the kernel's, the plain
+            matmul-only control K6 in its three modes at Bq 1, 64, 256 and
+            1024 on the walk its plan chooses and on both walks (the
+            row-max launch of K4's or K5's Hopper body, the mma.sync walks
+            of csrc/topk.cu), timed beside (q @ k.T).amax (in bf16 for
+            "default": the cast before the timing and inside it) and
+            _int_mm + amax; and K7), with the kernel's, the plain
             version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
@@ -189,7 +196,9 @@ Phases, in order; any failure exits non-zero:
             search, the stream's copy rate and the copy hidden under the
             search
   probe     the port's top-k decomposition probe at Bq = 256 (K7, K6, K4,
-            K5 rows, bioscan_clip_tpu_torch/tools/bench_topk_variants.py)
+            K5 and screen_ms rows,
+            bioscan_clip_tpu_torch/tools/bench_topk_variants.py); every K6
+            launch on the Hopper walks (`mm_only.sm90_launches`)
   parity    the fp32 port on the card against the same model on the CPU:
             embeddings, then one train step (loss, gradients, AdamW); then
             the OpenCLIP towers at full width and 2 layers each, their
@@ -412,10 +421,20 @@ def phase_build():
                     log(f"  K4 pass 1 MAXK={k4[1]} QB={k4[2]} "
                         f"TERMS={k4[3]}: {ln.split(':', 1)[-1].strip()}; "
                         f"{spills}; {smem} bytes of dynamic shared memory")
-                k4s = re.search(r"topk_f32_sm90ILi(\d+)ELi(\d+)ELi(\d+)E",
-                                fn)
-                if k4s:  # K4's Hopper body, by list size, N and products
-                    maxk, nq, terms = (int(x) for x in k4s.groups())
+                k4s = re.search(r"topk_f32_sm90ILi(\d+)ELi(\d+)ELi(\d+)E"
+                                r"(?:Lb(\d)E)?", fn)
+                if k4s and k4s[4] == "1":  # K6 on K4's walk: row max
+                    nq, terms = int(k4s[2]), int(k4s[3])
+                    mode = "high" if terms == 3 else "default"
+                    smem = [topk_mod.mm_sm90_smem(nq, mode, st)
+                            for st in (2, 3, 4)]
+                    log(f"  K6 sm90 {mode} NQ={nq}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}; "
+                        f"{smem[0]} / {smem[1]} / {smem[2]} bytes of dynamic "
+                        "shared memory at 2 / 3 / 4 ring stages")
+                    _no_spill(f"K6 sm90 {mode} NQ={nq}", spills)
+                elif k4s:  # K4's Hopper body, by list size, N and products
+                    maxk, nq, terms = (int(x) for x in k4s.groups()[:3])
                     smem = [topk_mod.sm90_smem(nq, maxk, terms, s)
                             for s in (2, 3, 4)]
                     log(f"  K4 sm90 MAXK={maxk} NQ={nq} TERMS={terms}: "
@@ -426,9 +445,18 @@ def phase_build():
                 if k5:  # K5's mma.sync body, by list size and query block
                     log(f"  K5 pass 1 MAXK={k5[1]} QB={k5[2]}: "
                         f"{ln.split(':', 1)[-1].strip()}; {spills}")
-                k5s = re.search(r"topk_i8_sm90ILi(\d+)ELi(\d+)ELb(\d)E",
-                                fn)
-                if k5s:  # K5's Hopper body, by list size and N (and its
+                k5s = re.search(r"topk_i8_sm90ILi(\d+)ELi(\d+)ELb(\d)E"
+                                r"(?:Lb(\d)E)?", fn)
+                if k5s and k5s[4] == "1":  # K6 on K5's walk: row max
+                    nq = int(k5s[2])
+                    fit = [st for st in range(2, 9) if topk_mod.mm_sm90_smem(
+                        nq, "int8", st) <= topk_mod.MAX_SMEM]
+                    log(f"  K6 sm90 int8 NQ={nq}: "
+                        f"{ln.split(':', 1)[-1].strip()}; {spills}; "
+                        f"{topk_mod.mm_sm90_smem(nq, 'int8', fit[-1])} bytes "
+                        f"of dynamic shared memory at {fit[-1]} ring stages")
+                    _no_spill(f"K6 sm90 int8 NQ={nq}", spills)
+                elif k5s:  # K5's Hopper body, by list size and N (and its
                     # seed's launch)
                     maxk, nq = int(k5s[1]), int(k5s[2])
                     smem = [topk_mod.i8_sm90_smem(nq, maxk, s)
@@ -471,6 +499,14 @@ def phase_build():
                         "bytes of dynamic shared memory" + (
                             "" if k3[1] == "a" else f" at most (N = {top})"))
     log(f"phase build ok: {_build.sources()} in {secs:.1f} s")
+
+
+def _no_spill(what, spills):
+    """ptxas' stack line of an instantiation that must not spill."""
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                  spills)
+    if not m or m.groups() != ("0", "0"):
+        raise AssertionError(f"{what}: ptxas: {spills!r}")
 
 
 def _fwd_sm90_name(kt, bias, drop, mask):
@@ -829,21 +865,24 @@ def _topk_i8_case(gen, n, bqs, d=768, k=21, codes_on_card=False,
     return rows
 
 
-def _mm_only_case(gen, keys, bqs=(1, 256)):
+def _mm_only_case(gen, keys, bqs=(1, 64, 256, 1024)):
     """K6 against its plain version at each query count over `keys`: fp32
     "high" (K4's six bf16 products) and "default" within 1e-5 (unit
-    vectors, 768 products summed in another order), int8 bit for bit; timed
-    beside one library call: (q @ k.T).amax in fp32 ("high"), in bf16
-    ("default", operands cast before the timing), torch._int_mm + amax
-    (int8, Bq padded to 32 rows). Bounds: the bytes against the products on
-    the tensor cores (six for "high"). Returns the rows of fp32 "high" at
-    the largest Bq."""
+    vectors, 768 products summed in another order), int8 bit for bit; on
+    the walk its plan (`plan_mm_only`) chooses, and each walk under its own
+    plan (the row-max launch of K4's or K5's Hopper body, the mma.sync walk
+    of csrc/topk.cu); timed beside one library call: (q @ k.T).amax in fp32
+    ("high"), in bf16 ("default": the operands cast before the timing, and
+    with the cast inside it), torch._int_mm + amax (int8, Bq padded to 32
+    rows). Bounds: the bytes against the products on the tensor cores (six
+    for "high"). Returns {(mode, Bq): row}."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
 
     n, d = keys.shape
     dev = keys.device
+    sms = topk_mod._device_sms(dev)
     kc, _ = topk_mod.quantize_rows_i8_torch(keys)
     k16 = keys.to(torch.bfloat16)
     q_all = torch.randn(max(bqs), d, device=dev, generator=gen)
@@ -858,14 +897,19 @@ def _mm_only_case(gen, keys, bqs=(1, 256)):
         q16 = q.to(torch.bfloat16)
         cases = {
             "high": (q, keys, dict(), "bfloat16", 6,
-                     lambda: (q @ keys.T).amax(dim=1)),
+                     lambda: (q @ keys.T).amax(dim=1), None),
             "default": (q, keys, dict(precision="default"), "bfloat16", 1,
-                        lambda: (q16 @ k16.T).amax(dim=1)),
+                        lambda: (q16 @ k16.T).amax(dim=1),
+                        lambda: (q.to(torch.bfloat16)
+                                 @ keys.to(torch.bfloat16).T).amax(dim=1)),
             "int8": (qc, kc, dict(int8=True), "int8", 1,
-                     lambda: torch._int_mm(qp, kc.T)[:bq].amax(dim=1)),
+                     lambda: torch._int_mm(qp, kc.T)[:bq].amax(dim=1), None),
         }
-        for mode, (qq, kk, kw, dname, products, library) in cases.items():
+        for mode, (qq, kk, kw, dname, products, library,
+                   library_cast) in cases.items():
+            plan = topk_mod.plan_mm_only(bq, n, d, mode, sms)
             out = topk_mod.mm_only(qq, kk, n, **kw)
+            out2 = topk_mod.mm_only(qq, kk, n, **kw)
             torch.cuda.synchronize()
             ref = topk_mod.mm_only_reference(qq, kk, n, **kw)
             err = (out - ref).abs().max().item()
@@ -873,6 +917,24 @@ def _mm_only_case(gen, keys, bqs=(1, 256)):
             if not err <= tol:
                 raise AssertionError(f"mm_only {mode} Bq={bq}: max |kernel "
                                      f"- plain| {err} > {tol}")
+            if not torch.equal(out, out2):
+                raise AssertionError(f"mm_only {mode} Bq={bq}: two launches "
+                                     "differ")
+            walks = {}
+            for walk in ("sm90", "mma"):
+                wp = topk_mod.plan_mm_only(bq, n, d, mode, sms, body=walk)
+                launch = (topk_mod._launch_mm_sm90 if walk == "sm90"
+                          else topk_mod._launch_mm_mma)
+
+                def run(wp=wp, launch=launch):
+                    return launch(qq, kk, n, mode, wp)
+
+                werr = (run() - ref).abs().max().item()
+                if not werr <= tol:
+                    raise AssertionError(f"mm_only {mode} Bq={bq} on the "
+                                         f"{walk} walk: max |kernel - plain| "
+                                         f"{werr} > {tol}")
+                walks[walk] = (time_ms(run, reps=5, warmup=1), wp)
             lib_err = (library().float() - ref[:, 0]).abs().max().item()
             n_bytes = (n * d + bq * d) * qq.element_size() + bq * 128 * 4
             bms, by = bound_ms(n_bytes, 2 * products * bq * n * d, dname)
@@ -882,17 +944,29 @@ def _mm_only_case(gen, keys, bqs=(1, 256)):
                 "plain_ms": time_ms(lambda: topk_mod.mm_only_reference(
                     qq, kk, n, **kw), reps=2, warmup=1),
                 "library_ms": time_ms(library, reps=5, warmup=1),
+                "library_cast_ms": (time_ms(library_cast, reps=5, warmup=1)
+                                    if library_cast else None),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                "body": plan.body, "sm90_ms": walks["sm90"][0],
+                "mma_ms": walks["mma"][0], "qb": plan.qb,
+                "stages": plan.stages, "splits": plan.splits,
             }
             rows[(mode, bq)] = row
-            log(f"  mm_only {mode} Bq={bq} N={n} D={d}: err {err:.3g} (tol "
-                f"{tol:g}), kernel {row['ms']:.4f} ms, plain "
+            s90, mma = walks["sm90"], walks["mma"]
+            cast = (f", {row['library_cast_ms']:.4f} ms with the cast"
+                    if library_cast else "")
+            log(f"  mm_only {mode} Bq={bq} N={n} D={d}: plan {plan.body} "
+                f"walk: err {err:.3g} (tol {tol:g}), two launches bit-equal, "
+                f"{row['ms']:.4f} ms; sm90 walk {s90[0]:.4f} ms (N side "
+                f"{s90[1].qb}, {s90[1].splits} key splits, {s90[1].stages} "
+                f"stages), mma.sync walk {mma[0]:.4f} ms (query block "
+                f"{mma[1].qb}, {mma[1].splits} key splits); plain "
                 f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} "
-                f"ms (|library - plain| {lib_err:.3g}), bound {bms:.4f} ms "
-                f"({by})")
+                f"ms{cast} (|library - plain| {lib_err:.3g}), bound "
+                f"{bms:.4f} ms ({by})")
     del kc, k16
     torch.cuda.empty_cache()
-    return rows[("high", max(bqs))]
+    return rows
 
 
 def _tiny_case(gen):
@@ -1382,7 +1456,10 @@ def phase_kernels(rows: dict):
                 rows["mha_bwd vit-l14"] = r
         torch.cuda.empty_cache()
     keys, rows["topk"], rows["topk_default"] = _topk_case(gen)
-    rows["mm_only"] = _mm_only_case(gen, keys)
+    mm = _mm_only_case(gen, keys)
+    rows["mm_only"] = mm[("high", 256)]
+    rows["mm_only shapes"] = {f"{mode} Bq={bq}": r
+                              for (mode, bq), r in mm.items()}
     del keys
     torch.cuda.empty_cache()
     i8 = _topk_i8_case(gen, N_KEYS, (256, 64, 16, 1, 1024), rising_bq=256)
@@ -1434,7 +1511,10 @@ KERNELS = {
     # and other shapes, the passes of csrc/mha_bwd.cu)
     "mha_bwd_mask": ("cuda", "bioscan_clip_tpu_torch/csrc/mha_bwd_sm90.cu",
                      "bioscan_clip_tpu/ops/attention.py:363"),
-    "mm_only": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
+    # K6 from topk.MM_SM90_MIN_BQ[mode] queries up is the row-max launch of
+    # K4's (fp32) or K5's (int8) Hopper body; fewer queries, and widths
+    # those bodies do not take, the mma.sync walks of csrc/topk.cu
+    "mm_only": ("cuda", "bioscan_clip_tpu_torch/csrc/topk_sm90.cu",
                 "tools/bench_topk_variants.py:78"),
     "tiny": ("cuda", "bioscan_clip_tpu_torch/csrc/topk.cu",
              "tools/bench_topk_variants.py:118"),
@@ -1482,6 +1562,8 @@ def launch_counts():
             "topk_i8_plan_sm90": sum(_K5_PLANS["sm90"].values()),
             "topk_i8_plan_mma": sum(_K5_PLANS["mma"].values()),
             "mm_only": topk.mm_only.launches,
+            "mm_only_sm90": topk.mm_only.sm90_launches,
+            "mm_only_mma": topk.mm_only.mma_launches,
             "tiny": topk.tiny.launches}
 
 
@@ -1654,6 +1736,8 @@ def reset_counts():
     topk.topk.mma_launches = 0
     topk.topk_i8.sm90_launches = 0
     topk.topk_i8.mma_launches = 0
+    topk.mm_only.sm90_launches = 0
+    topk.mm_only.mma_launches = 0
     for shapes in _K5_PLANS.values():
         shapes.clear()
     for fn in _plain_fns():
@@ -2022,8 +2106,9 @@ def phase_probe():
     """The port's top-k decomposition probe
     (bioscan_clip_tpu_torch/tools/bench_topk_variants.py) over 1,048,576
     keys at Bq = 256: dispatch_floor (K7), mm_only (K6) fp32 default/high
-    and int8, topk_f32 (K4) and topk_i8 (K5), one distinct query set per
-    timed call. Returns the launch counts of this run."""
+    and int8, topk_f32 (K4) and topk_i8 (K5), and the screen's share (K4
+    minus K6, K5 minus K6), one distinct query set per timed call; every K6
+    launch on the Hopper walks. Returns the launch counts of this run."""
     import torch
 
     from bioscan_clip_tpu_torch.tools import bench_topk_variants
@@ -2039,6 +2124,14 @@ def phase_probe():
     if rc != 0 or any(counts[k] <= 0 for k in want) or any(plain.values()):
         raise AssertionError(f"probe: rc {rc}, launches {counts}, plain "
                              f"{plain}")
+    # at Bq = 256 every K6 launch (three modes) runs on the Hopper walks
+    log(f"  K6 launches {counts['mm_only']}, on the sm90 walks "
+        f"(mm_only.sm90_launches) {counts['mm_only_sm90']}, on mma.sync "
+        f"{counts['mm_only_mma']}")
+    if counts["mm_only_sm90"] != counts["mm_only"] or counts["mm_only_mma"]:
+        raise AssertionError(f"probe: K6 launches {counts['mm_only']}, sm90 "
+                             f"{counts['mm_only_sm90']}, mma "
+                             f"{counts['mm_only_mma']}")
     torch.cuda.empty_cache()
     log("phase probe ok")
     return counts
@@ -5058,6 +5151,22 @@ def main(argv=None) -> int:
                 key: {k: rows.get(f"mha_bwd {key}", {}).get(k) for k in (
                     "ms", "mma_ms", "library_ms", "bound_ms", "max_abs_err")}
                 for key in ("barcodebert", "vit-l14")}
+        if name == "mm_only":  # K6's two walks and its sources, all shapes
+            path = path_counts.get(KERNEL_PATH[name][0], {})
+            kernels[-1]["sources"] = [
+                "bioscan_clip_tpu_torch/csrc/topk_sm90.cu",
+                "bioscan_clip_tpu_torch/csrc/topk_i8_sm90.cu",
+                "bioscan_clip_tpu_torch/csrc/topk.cu"]
+            kernels[-1]["sm90_launches"] = path.get("mm_only_sm90")
+            kernels[-1]["mma_launches"] = path.get("mm_only_mma")
+            for key in ("body", "sm90_ms", "mma_ms"):
+                kernels[-1][key] = r.get(key)
+            kernels[-1]["shapes"] = {
+                case: {k: row.get(k) for k in (
+                    "body", "ms", "sm90_ms", "mma_ms", "plain_ms",
+                    "library_ms", "library_cast_ms", "bound_ms",
+                    "max_abs_err")}
+                for case, row in rows.get("mm_only shapes", {}).items()}
         if name == "mha_bwd_mask":  # K3m's mma.sync body, B = 10 at N = 20
             kernels[-1]["mma_ms"] = r.get("mma_ms")
             kernels[-1]["shapes"] = {"b10": {

@@ -51,10 +51,15 @@ tied at the k-th place, on each body (the Hopper body of
 csrc/topk_i8_sm90.cu at each query block 16, 32, 64 and 128 and ring
 depth, with and without its seed, the mma.sync body of csrc/topk.cu), two
 launches bit-equal, each launch counted on its body, each body refusing a
-plan that is not its own; the
-matmul-only control
-(K6) int8 bit-equal, fp32 atol 1e-5 on unit vectors in both precisions (fp32
-sums of 768 products in another order); K7 exact.
+plan that is not its own; and
+on both top-k kernels' Hopper bodies exactly k, k + 1 and 128 scores of
+one tile tied at the k-th place (the screen's raise of a flooded tile);
+the matmul-only control (K6) int8 bit-equal, fp32 atol 1e-5 on unit
+vectors in both precisions (fp32 sums of 768 products in another order),
+on the walk its plan chooses (counted there) and on each walk (the
+row-max launch of K4's or K5's Hopper body, the mma.sync walks), at every
+query block, over no key, one, fewer than a tile, and scores rising with
+the key index; K7 exact.
 """
 
 import ctypes
@@ -817,6 +822,41 @@ def test_topk_duplicate_keys_tie_at_the_threshold(gen, precision):
                                                            59_990)))[:k]
 
 
+def _tied_tile(gen, m, k):
+    """Keys whose scores against queries near w tie m times at the k-th
+    place inside one tile (keys 19,211 .. 19,211 + m - 1 of tile 150, all
+    0.5 w), under three higher keys in other tiles (0.9 w, 0.8 w, 0.7 w at
+    39,000, 100 and 25,000) and 40,000 low random ones; the queries: w and
+    129 rows near it. Each such tile floods (the raise of the screen), and
+    the top k is the three, then the tied keys by index."""
+    keys = 0.05 * _unit(torch.randn(40_000, 768, device="cuda",
+                                    generator=gen))
+    w = _unit(torch.randn(1, 768, device="cuda", generator=gen))
+    start = 150 * 128 + 11 if m < 128 else 150 * 128
+    keys[start:start + m] = 0.5 * w
+    for i, f in ((39_000, 0.9), (100, 0.8), (25_000, 0.7)):
+        keys[i] = f * w
+    q = _unit(torch.cat([w, w + 0.01 * torch.randn(
+        129, 768, device="cuda", generator=gen)]))
+    want = [39_000, 100, 25_000] + list(range(start, start + m))
+    return q, keys, want[:k]
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("tied", ["k", "k+1", "128"])
+def test_topk_scores_tied_in_one_tile_at_the_threshold(gen, tied,
+                                                         precision):
+    """Exactly k, k + 1 and 128 scores of one tile tie at the k-th place:
+    the smaller key indices win, on the raised screen."""
+    for k in (5, 20):
+        m = {"k": k, "k+1": k + 1, "128": 128}[tied]
+        q, keys, want = _tied_tile(gen, m, k)
+        for bq in (1, 130):
+            _, i = _same_f32(q[:bq].contiguous(), keys, 40_000, k,
+                             precision)
+            assert i[0].tolist() == want
+
+
 def _codes(x):
     """Per-row int8 codes and (N,) fp32 scales of a (N, D) card tensor."""
     codes, scales = topk.quantize_rows_i8(x.cpu().numpy())
@@ -1068,6 +1108,23 @@ def test_int8_topk_duplicate_blocks_tie_at_the_threshold(gen):
             assert i[0].tolist() == ([5] + list(range(1000, 1299)))[:k]
             assert i[1].tolist() == ([40_000] + list(range(59_900,
                                                            59_990)))[:k]
+
+
+@pytest.mark.parametrize("tied", ["k", "k+1", "128"])
+def test_int8_topk_scores_tied_in_one_tile_at_the_threshold(gen, tied):
+    """K5 on the same keys as K4's case: exactly k, k + 1 and 128 codes of
+    one tile tie at the k-th place (identical codes and scales), bit-equal
+    to the plain version on each body."""
+    for k in (5, 21):
+        m = {"k": k, "k+1": k + 1, "128": 128}[tied]
+        q, keys, want = _tied_tile(gen, m, k)
+        qc, qs = _codes(q)
+        kc, ks = _codes(keys)
+        for bq in (1, 40, 130):
+            _, i = _same_codes(qc[:bq], qs[:bq], kc, ks, 40_000, k)
+            assert i[0].tolist() == want
+        _each_i8_body(qc, qs, kc, ks, 40_000, k)
+
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
@@ -1489,24 +1546,81 @@ def test_masked_backward_rejects_a_malformed_mask(gen):
                               mask=bad)
 
 
-@pytest.mark.parametrize("bq", [1, 37, 130])
-def test_mm_only_kernel_matches_plain(gen, bq):
-    keys = torch.randn(50_000, 768, device="cuda", generator=gen)
-    keys /= keys.norm(dim=1, keepdim=True)
-    q = torch.randn(bq, 768, device="cuda", generator=gen)
-    q /= q.norm(dim=1, keepdim=True)
-    before = topk.mm_only.launches
+def _mm_each_walk(q, keys, n_valid, int8=False, precision="high"):
+    """K6 on the walk its plan chooses (counted there) and on each walk
+    under its own plan, against the plain version: fp32 within 1e-5, int8
+    bit for bit. Returns the planned launch's output."""
+    mode = "int8" if int8 else precision
+    bq, d = q.shape
+    body = topk.plan_mm_only(bq, keys.shape[0], d, mode).body
+    before = topk.mm_only.launches, getattr(topk.mm_only,
+                                            f"{body}_launches")
+    out = topk.mm_only(q, keys, n_valid, int8=int8, precision=precision)
+    assert (topk.mm_only.launches,
+            getattr(topk.mm_only, f"{body}_launches")) == (before[0] + 1,
+                                                         before[1] + 1)
+    ref = topk.mm_only_reference(q, keys, n_valid, int8=int8,
+                                 precision=precision)
+    assert out.shape == (bq, 128)
+    outs = [out]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for walk in ("sm90", "mma"):
+        plan = topk.plan_mm_only(bq, keys.shape[0], d, mode, sms, body=walk)
+        launch = (topk._launch_mm_sm90 if walk == "sm90"
+                  else topk._launch_mm_mma)
+        outs.append(launch(q, keys, n_valid, mode, plan))
+    for o in outs:
+        if int8:
+            assert torch.equal(o, ref)
+        else:  # -inf rows (no valid key) equal
+            torch.testing.assert_close(o, ref, atol=1e-5, rtol=0)
+    return out
+
+
+# K6 at every query block of its sm90 walk and its ragged edge (and on
+# the mma.sync walk below the crossing), over no key, one, fewer than a
+# tile and a ragged 49,001
+@pytest.mark.parametrize("n_valid", [0, 1, 127, 49_001])
+@pytest.mark.parametrize("bq", [1, 17, 130, 256, 1024])
+def test_mm_only_kernel_matches_plain(gen, bq, n_valid):
+    keys = _unit(torch.randn(50_000, 768, device="cuda", generator=gen))
+    q = _unit(torch.randn(bq, 768, device="cuda", generator=gen))
     for prec in ("high", "default"):
-        out = topk.mm_only(q, keys, 49_001, precision=prec)
-        ref = topk.mm_only_reference(q, keys, 49_001, precision=prec)
-        assert out.shape == (bq, 128)
-        assert (out - ref).abs().max().item() <= 1e-5
+        out = _mm_each_walk(q, keys, n_valid, precision=prec)
+        if n_valid == 0:
+            assert torch.isneginf(out).all()
     qc, _ = topk.quantize_rows_i8_torch(q)
     kc, _ = topk.quantize_rows_i8_torch(keys)
-    out = topk.mm_only(qc, kc, 49_001, int8=True)
-    assert torch.equal(out, topk.mm_only_reference(qc, kc, 49_001, int8=True))
-    assert topk.mm_only.launches == before + 3
-    assert torch.isneginf(topk.mm_only(q, keys, 0)).all()
+    out = _mm_each_walk(qc, kc, n_valid, int8=True)
+    assert torch.isneginf(out).all() == (n_valid == 0)
+    for mode in ("high", "default", "int8"):
+        plan = topk.plan_mm_only(bq, 50_000, 768, mode)
+        assert plan.body == ("sm90" if bq >= topk.MM_SM90_MIN_BQ[mode]
+                             else "mma")
+
+
+def test_mm_only_scores_rising_with_the_key_index(gen):
+    """Keys u * (1 + i / n): each query near u scores highest on the last
+    valid key, each near -u on the first, on both walks and in every
+    mode."""
+    n = 40_000
+    u = _unit(torch.randn(1, 768, device="cuda", generator=gen))
+    keys = (u * (1 + torch.arange(n, device="cuda",
+                                  dtype=torch.float32)[:, None] / n))
+    noise = 0.1 * torch.randn(256, 768, device="cuda", generator=gen)
+    q = _unit(torch.cat([u + noise[:128], -u + noise[128:]]))
+    for bq in (1, 130, 256):
+        qq = q[-bq:].contiguous() if bq == 1 else q[:bq].contiguous()
+        for prec in ("high", "default"):
+            out = _mm_each_walk(qq, keys, n - 3, precision=prec)
+            if prec == "high":  # the first or the last valid key's score
+                want = qq.double() @ keys[[0, n - 4]].double().T
+                assert ((out[:, 0].double() - want.amax(dim=1)).abs().max()
+                        .item() <= 1e-5)
+        uc, _ = topk.quantize_rows_i8_torch(u)
+        qc, _ = topk.quantize_rows_i8_torch(qq)
+        kc = uc.expand(n, 768).contiguous()
+        _mm_each_walk(qc, kc, n - 3, int8=True)
 
 
 def test_tiny_kernel_is_exact(gen):

@@ -171,16 +171,31 @@ def test_probe_rows_on_the_cpu(tmp_path):
     assert out.read_text().splitlines() == lines
     assert [r["variant"] for r in rows] == ["dispatch_floor"] + [
         "mm_only_f32", "mm_only_f32", "topk_f32", "mm_only_i8",
-        "topk_i8"] * 2
+        "topk_i8", "screen_ms", "screen_ms"] * 2
     assert set(rows[0]) == {"device", "keys", "dim", "variant", "ms",
                             "host_ms"}
     common = {"device", "keys", "dim", "queries", "tiling", "tiles",
               "variant", "ms", "us_per_tile"}
-    for r in rows[1:]:
+    timed = [r for r in rows[1:] if r["variant"] != "screen_ms"]
+    for r in timed:
         assert common <= set(r), r
         assert r["device"] == "cpu" and r["keys"] == 300
         assert r["ms"] >= 0
     assert [r["precision"] for r in rows[1:3]] == ["default", "high"]
     assert rows[3]["k"] == 5 and rows[5]["k"] == 21
-    assert [r["queries"] for r in rows[1::5]] == [1, 8]
+    assert [r["queries"] for r in rows[1::7]] == [1, 8]
     assert rows[1]["tiles"] == 3  # one query block x ceil(300 / 128) tiles
+    # K6's rows name its plan's walk: at width 64 the sm90 walk in
+    # "default" and int8 from one query, "high" on mma.sync below 17
+    assert rows[1]["tiling"].startswith("K6's sm90 walk: 64 queries")
+    assert rows[2]["tiling"].startswith("K6's mma walk: 16 queries")
+    # the screen's share: the top-k row minus K6's at its query block
+    for i in (6, 13):
+        k4, k5 = rows[i], rows[i + 1]
+        assert (k4["kernel"], k5["kernel"]) == ("k4", "k5")
+        assert k4["topk_ms"] == rows[i - 3]["ms"]
+        assert k4["mm_only_ms"] == rows[i - 4]["ms"]  # "high"
+        assert k5["topk_ms"] == rows[i - 1]["ms"]
+        assert k5["mm_only_ms"] == rows[i - 2]["ms"]
+        for r in (k4, k5):
+            assert r["ms"] == pytest.approx(r["topk_ms"] - r["mm_only_ms"])

@@ -31,7 +31,8 @@ def test_every_variant_edits_the_source():
     # K4's shared-memory merge in place of the shuffles, in the screen and
     # after the walk
     assert "merge_buffers_shfl<" not in texts["merge_smem"]
-    assert ("screen_scores<NQ, MAXK, kMergeAt, false, Sync>("
+    assert ("screen_scores<NQ, MAXK, kMergeAt, NQ == 128 ? kFloodCarry : "
+            "kFloodNone,\n                    false, Sync>("
             in texts["merge_smem"])
     assert "int bscan_clocks(" in texts["clocks"]
     assert texts["clocks"].count("clock64()") == 13
