@@ -1,7 +1,9 @@
 // Pieces shared by the attention forward (mha_fwd.cu) and backward
 // (mha_bwd.cu): dtype conversions, warp reductions, the dropout counter hash,
 // and the bf16 tensor-core pieces of the bf16 bodies (mma.sync, ldmatrix,
-// cp.async, the score epilogue).
+// cp.async, the score epilogue); and, for every csrc/*.cu (each includes
+// this file), `allow_smem`, which sets a kernel's shared-memory attributes
+// once per card.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -357,6 +359,46 @@ __device__ __forceinline__ void row_stats(float (&m)[2], float (&l)[2],
   }
   l[0] = quad_sum(l[0]);
   l[1] = quad_sum(l[1]);
+}
+
+// ---- host: a kernel's shared-memory attributes, once per card ----------
+
+constexpr int kMaxDevices = 64;
+constexpr long long kCardSmem = -1;  // `allow_smem`: all a block may have
+
+// Let `kernel` take up to `bytes` of dynamic shared memory and, with
+// `max_carveout`, ask for the largest shared-memory carveout, once per card.
+// `ready` is that kernel's own flags (a static beside its launch, one set per
+// instantiation), so every later launch on the card costs one cudaGetDevice
+// and no cudaFuncSetAttribute. `bytes` is the most the instantiation can ask
+// for at any shape it takes, so no later launch needs it raised; kCardSmem:
+// all that a block may have on this card (227 KB on Hopper; the kernels have
+// no static shared memory), for a kernel whose need grows with N up to what
+// its wrapper checks against that limit.
+inline cudaError_t allow_smem(bool (&ready)[kMaxDevices], const void* kernel,
+                              long long bytes, bool max_carveout = false) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (ready[dev]) return cudaSuccess;
+  if (bytes == kCardSmem) {
+    int most = 0;
+    err = cudaDeviceGetAttribute(
+        &most, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    bytes = most;
+  }
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess && max_carveout)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  ready[dev] = true;
+  return cudaSuccess;
 }
 
 }  // namespace bscan

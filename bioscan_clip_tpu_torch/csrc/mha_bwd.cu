@@ -694,14 +694,15 @@ long long smem_key_rows_mma(int n, int hd) {
          (long long)kMaxWarpsB * 2 * 16 * kTileStride * sizeof(bf16);
 }
 
-cudaError_t set_smem(const void* fn, long long bytes) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// Both passes' shared-memory attributes, once per card (`ready`: the
+// calling instantiation's flags, pass A's then pass B's): the most any N asks
+// for, and the largest carveout, so that several CTAs fit an SM.
+cudaError_t set_smem(bool (&ready)[2][bscan::kMaxDevices], const void* pass_a,
+                     const void* pass_b) {
+  cudaError_t err =
+      bscan::allow_smem(ready[0], pass_a, bscan::kCardSmem, true);
   if (err != cudaSuccess) return err;
-  // ask for the largest shared-memory carveout, so several CTAs fit an SM
-  return cudaFuncSetAttribute(fn,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
+  return bscan::allow_smem(ready[1], pass_b, bscan::kCardSmem, true);
 }
 
 cudaError_t launch_dbias(const BwdArgs& a, int b, cudaStream_t stream) {
@@ -715,11 +716,10 @@ template <int HD, bool HAS_MASK>
 cudaError_t launch_mma(const BwdArgs& a, int b, cudaStream_t stream) {
   const auto pass_a = bwd_query_rows_mma<HD, HAS_MASK>;
   const auto pass_b = bwd_key_rows_mma<HD, HAS_MASK>;
+  static bool ready[2][bscan::kMaxDevices] = {};
   const long long sa = smem_query_rows_mma(a.n, HD);
   const long long sb = smem_key_rows_mma(a.n, HD);
-  cudaError_t err = set_smem((const void*)pass_a, sa);
-  if (err != cudaSuccess) return err;
-  err = set_smem((const void*)pass_b, sb);
+  cudaError_t err = set_smem(ready, (const void*)pass_a, (const void*)pass_b);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.heads, b);
   pass_a<<<grid, 32 * bscan::mma_warps(a.n, kMaxWarpsA), sa, stream>>>(a);
@@ -738,11 +738,11 @@ cudaError_t launch(const BwdArgs& a, int b, cudaStream_t stream) {
   } else {
     const auto pass_a = bwd_query_rows<T, HD, HAS_MASK>;
     const auto pass_b = bwd_key_rows<T, HD, HAS_MASK>;
+    static bool ready[2][bscan::kMaxDevices] = {};
     const long long sa = smem_query_rows<T>(a.n, HD);
     const long long sb = smem_key_rows<T>(a.n, HD);
-    cudaError_t err = set_smem((const void*)pass_a, sa);
-    if (err != cudaSuccess) return err;
-    err = set_smem((const void*)pass_b, sb);
+    cudaError_t err =
+        set_smem(ready, (const void*)pass_a, (const void*)pass_b);
     if (err != cudaSuccess) return err;
     const dim3 grid((a.n + kRowsPerBlock - 1) / kRowsPerBlock, a.heads, b);
     pass_a<<<grid, kThreads, sa, stream>>>(a);

@@ -843,25 +843,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host: tensor maps and the launches ----------------------------------
 
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared memory attribute of `kernel`, set once per card
-// (`ready`: the calling launch function's own flags, one set per kernel).
-cudaError_t allow_smem(bool (&ready)[kMaxDevices], const void* kernel,
-                       long long bytes) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)bytes);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
-  return cudaSuccess;
-}
+using bscan::allow_smem;
+using bscan::kMaxDevices;
 
 struct Maps {
   // pass A: Q, G, dq in 64-row boxes, K_h, V_h in `box` rows;

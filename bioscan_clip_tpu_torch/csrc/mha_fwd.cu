@@ -307,15 +307,14 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v,
                        int n, int heads, long long row_stride,
                        long long batch_stride, float scale,
                        const Dropout& drop, cudaStream_t stream) {
+  static bool ready[2][bscan::kMaxDevices] = {};  // without, with a mask
   const long long smem = smem_mma(n, HD);
   const auto kernel =
       mask ? mha_fwd_mma<HD, true> : mha_fwd_mma<HD, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
+  // the most any N asks for, and the largest carveout, so that several
+  // CTAs fit an SM
+  cudaError_t err = bscan::allow_smem(
+      ready[mask != nullptr], (const void*)kernel, bscan::kCardSmem, true);
   if (err != cudaSuccess) return err;
   kernel<<<dim3(heads, b), 32 * bscan::mma_warps(n, kMmaMaxWarps), smem,
            stream>>>(
@@ -331,12 +330,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int n, int heads, long long row_stride,
                    long long batch_stride, float scale, const Dropout& drop,
                    cudaStream_t stream) {
+  static bool ready[2][bscan::kMaxDevices] = {};  // without, with a mask
   const size_t smem = (size_t)smem_ffma(n, HD);
   // K1m is its own instantiation, so K1, K2 and K2d carry no mask branch
   const auto kernel = mask ? mha_fwd_kernel<T, HD, true>
                            : mha_fwd_kernel<T, HD, false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t err = bscan::allow_smem(
+      ready[mask != nullptr], (const void*)kernel, bscan::kCardSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + kRowsPerBlock - 1) / kRowsPerBlock, heads, b);
   kernel<<<grid, kThreads, smem, stream>>>(

@@ -586,22 +586,12 @@ cudaError_t launch(const Maps& m, const Plan& p, int n, int heads, int grid,
   if constexpr (MASK && 16 * KT > bscan::pad16(kMaxMaskN)) {
     return cudaErrorInvalidValue;  // no mask instantiation past kMaxMaskN
   } else {
-    // the shared-memory attribute is set once per card for each
-    // instantiation
-    constexpr int kMaxDevices = 64;
-    static bool ready[kMaxDevices] = {};
-    int dev = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+    static bool ready[bscan::kMaxDevices] = {};
+    const auto kernel = mha_fwd_sm90<KT, BIAS, DROP, MASK>;
+    cudaError_t err = bscan::allow_smem(ready, (const void*)kernel,
+                                        smem_bytes(16 * KT, BIAS, MASK));
     if (err != cudaSuccess) return err;
-    if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!ready[dev]) {
-      err = cudaFuncSetAttribute(mha_fwd_sm90<KT, BIAS, DROP, MASK>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem_bytes(16 * KT, BIAS, MASK));
-      if (err != cudaSuccess) return err;
-      ready[dev] = true;
-    }
-    mha_fwd_sm90<KT, BIAS, DROP, MASK><<<grid, kThreads, p.smem, stream>>>(
+    kernel<<<grid, kThreads, p.smem, stream>>>(
         m.q, m.k, m.v, m.o, n, heads, p.q_tiles, p.items, p.kv_box,
         p.kv_loads, scale, add, drop);
     return cudaGetLastError();

@@ -78,7 +78,11 @@
 // rest.
 //
 // K7 replaces `tiny` (same file, `_tiny_kernel`): x + 1 on (8, 128) fp32,
-// the launch-plus-sync floor of a call through this library.
+// the launch-plus-sync floor of a call through this library. Its 8 KB take
+// the card a few nanoseconds at the bytes rate, so what bounds a call is the
+// host's launch path (`ops/_launch.py`) and the card's per-launch cost; the
+// body is one small grid of 16-byte loads and stores where both pointers
+// allow them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -89,6 +93,7 @@
 
 #include <limits.h>
 #include <math.h>
+#include <stdint.h>
 
 #include <type_traits>
 
@@ -789,10 +794,10 @@ cudaError_t launch_f32(const float* q, const float* keys, int bq, int n,
                        int d, int n_valid, int k, int splits,
                        int tiles_per_split, float* cand_v, int* cand_i,
                        float* out_v, int* out_i, cudaStream_t stream) {
+  static bool ready[kMaxDevices] = {};
   const int smem = (int)f32_smem(QB, MAXK, TERMS);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_f32_pass1<MAXK, QB, TERMS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = allow_smem(
+      ready, (const void*)topk_f32_pass1<MAXK, QB, TERMS>, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid1((bq + QB - 1) / QB, splits);
   topk_f32_pass1<MAXK, QB, TERMS><<<grid1, TPB, smem, stream>>>(
@@ -811,7 +816,8 @@ cudaError_t launch_i8(const signed char* q, const float* q_scale,
                       float* out_v, int* out_i, cudaStream_t stream) {
   static bool ready[kMaxDevices] = {};
   const int smem = (int)i8_smem(QB, d, MAXK);
-  cudaError_t err = allow_smem(ready, (const void*)topk_i8_pass1<MAXK, QB>);
+  cudaError_t err =
+      allow_smem(ready, (const void*)topk_i8_pass1<MAXK, QB>, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid1((bq + QB - 1) / QB, splits);
   topk_i8_pass1<MAXK, QB><<<grid1, TPB, smem, stream>>>(
@@ -823,11 +829,31 @@ cudaError_t launch_i8(const signed char* q, const float* q_scale,
                             out_v, out_i, stream);
 }
 
-// K7: o = x + 1 over n fp32 elements.
-__global__ void tiny_kernel(const float* __restrict__ x, float* __restrict__ o,
-                            int n) {
+// K7: o = x + 1 over n fp32 elements. VEC (x and o 16-byte aligned): a
+// thread takes four by one 16-byte load and store, the threads past n / 4 one
+// of the n % 4 left; else one each.
+constexpr int kTinyThreads = 256;
+
+template <bool VEC>
+__global__ void __launch_bounds__(kTinyThreads)
+    tiny_kernel(const float* __restrict__ x, float* __restrict__ o, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) o[i] = x[i] + 1.f;
+  if (VEC) {
+    const int n4 = n >> 2;
+    if (i < n4) {
+      float4 v = reinterpret_cast<const float4*>(x)[i];
+      v.x += 1.f;
+      v.y += 1.f;
+      v.z += 1.f;
+      v.w += 1.f;
+      reinterpret_cast<float4*>(o)[i] = v;
+      return;
+    }
+    const int j = 4 * n4 + (i - n4);
+    if (j < n) o[j] = x[j] + 1.f;
+  } else if (i < n) {
+    o[i] = x[i] + 1.f;
+  }
 }
 
 }  // namespace
@@ -954,9 +980,9 @@ int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
   if (mode == 2) {
     err = by_qb(qb, [&](auto qbc) {
       constexpr int QB = decltype(qbc)::value;
-      cudaError_t e = cudaFuncSetAttribute(
-          mm_only_i8_pass1<QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)smem);
+      static bool ready[kMaxDevices] = {};
+      cudaError_t e =
+          allow_smem(ready, (const void*)mm_only_i8_pass1<QB>, kMaxSmem);
       if (e != cudaSuccess) return e;
       mm_only_i8_pass1<QB><<<grid1, TPB, smem, s>>>(
           static_cast<const signed char*>(q),
@@ -967,10 +993,11 @@ int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
   } else {
     err = by_qb(qb, [&](auto qbc) {
       constexpr int QB = decltype(qbc)::value;
+      static bool ready[2][kMaxDevices] = {};  // mode 0, mode 1
       auto kernel = mode == 0 ? mm_only_f32_pass1<QB, 3>
                               : mm_only_f32_pass1<QB, 1>;
-      cudaError_t e = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaError_t e =
+          allow_smem(ready[mode], (const void*)kernel, kMaxSmem);
       if (e != cudaSuccess) return e;
       kernel<<<grid1, TPB, smem, s>>>(
           static_cast<const float*>(q), static_cast<const float*>(keys), bq,
@@ -986,8 +1013,15 @@ int bscan_mm_only(const void* q, const void* keys, int bq, int n, int d,
 // K7: o = x + 1 over n contiguous fp32 elements. Returns cudaError_t.
 int bscan_tiny(const float* x, float* o, int n, void* stream) {
   if (n < 1) return (int)cudaErrorInvalidValue;
-  tiny_kernel<<<(n + 1023) / 1024, 1024, 0,
-                static_cast<cudaStream_t>(stream)>>>(x, o, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((((uintptr_t)x | (uintptr_t)o) & 15) == 0) {
+    const int threads = n / 4 + n % 4;
+    tiny_kernel<true><<<(threads + kTinyThreads - 1) / kTinyThreads,
+                        kTinyThreads, 0, s>>>(x, o, n);
+  } else {
+    tiny_kernel<false><<<(n + kTinyThreads - 1) / kTinyThreads,
+                         kTinyThreads, 0, s>>>(x, o, n);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -23,6 +23,9 @@ constexpr int kPass2Threads = 128;
 
 constexpr size_t kMaxSmem = 232448;  // a block's shared memory on Hopper
 
+using bscan::allow_smem;
+using bscan::kMaxDevices;
+
 using bf16_t = bscan::bf16;
 
 __device__ __forceinline__ bool better(float av, int ai, float bv, int bi) {
@@ -274,25 +277,6 @@ __global__ void __launch_bounds__(128)
   __syncthreads();
   m = fmaxf(fmaxf(warp_m[0], warp_m[1]), fmaxf(warp_m[2], warp_m[3]));
   out[(long long)row * 128 + threadIdx.x] = m;
-}
-
-constexpr int kMaxDevices = 64;
-
-// The dynamic shared memory attribute of `kernel`, set once per card to the
-// most a CTA may take (`ready`: the calling launch function's own flags).
-inline cudaError_t allow_smem(bool (&ready)[kMaxDevices],
-                              const void* kernel) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!ready[dev]) {
-    err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-    if (err != cudaSuccess) return err;
-    ready[dev] = true;
-  }
-  return cudaSuccess;
 }
 
 template <int V>

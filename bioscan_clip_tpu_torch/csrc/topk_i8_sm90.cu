@@ -536,7 +536,7 @@ cudaError_t launch(const CUtensorMap& mk, const CUtensorMap& mq,
                    cudaStream_t stream) {
   static bool ready[kMaxDevices] = {};
   const auto kernel = topk_i8_sm90<MAXK, NQ, SEED, ROWMAX>;
-  cudaError_t err = allow_smem(ready, (const void*)kernel);
+  cudaError_t err = allow_smem(ready, (const void*)kernel, kMaxSmem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.bq + NQ - 1) / NQ, splits);
   kernel<<<grid, kThreads, smem, stream>>>(mk, mq, a);

@@ -67,6 +67,7 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import _build
 from bioscan_clip_tpu_torch.ops._device import H100_SMS, sm_count
+from bioscan_clip_tpu_torch.ops._launch import launch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
@@ -574,16 +575,13 @@ def _launch_sm90(ptrs, out, row_stride, plan: FwdPlan, scale, bias=None,
     dev = out.device
     _check_smem("mha sm90", plan.smem, plan.n, SM90_HEAD_DIM, dev)
     rows, scalar, thr, kscale, on = drop or _NO_DROP
-    with torch.cuda.device(dev):
-        err = fn(*ptrs, out.data_ptr(), row_stride,
-                 None if bias is None else bias.data_ptr(),
-                 None if mask is None else mask.data_ptr(),
-                 None if rows is None else rows.data_ptr(), scalar, thr,
-                 kscale, on, plan.b, plan.n, plan.heads, SM90_HEAD_DIM,
-                 float(scale), plan.key_rows, plan.kv_box, plan.kv_loads,
-                 plan.q_tiles, plan.items, plan.grid, plan.smem,
-                 torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "mha sm90 launch")
+    launch(lib, fn, "mha sm90 launch", out, *ptrs, out.data_ptr(),
+           row_stride, None if bias is None else bias.data_ptr(),
+           None if mask is None else mask.data_ptr(),
+           None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+           on, plan.b, plan.n, plan.heads, SM90_HEAD_DIM, float(scale),
+           plan.key_rows, plan.kv_box, plan.kv_loads, plan.q_tiles,
+           plan.items, plan.grid, plan.smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -628,17 +626,14 @@ def _launch_bwd_sm90(plan: BwdPlan, q, k, v, g, scale, drop,
     stats = torch.empty((plan.b, plan.heads, _STATS, plan.rows),
                         dtype=torch.float32, device=dev)
     rows, scalar, thr, kscale, on = drop
-    with torch.cuda.device(dev):
-        err = fn(
-            *ins, g.data_ptr(), None if mask is None else mask.data_ptr(),
-            *outs, stats.data_ptr(), plan.b, plan.n,
-            plan.heads, SM90_HEAD_DIM, int(packed_qkv is not None),
-            float(scale), plan.key_rows, plan.box, plan.loads, plan.tiles,
-            plan.rows, plan.items, plan.grid_a, plan.grid_b, plan.smem_a,
-            plan.smem_b, None if rows is None else rows.data_ptr(), scalar,
-            thr, kscale, on, *scores, torch.cuda.current_stream(dev)
-            .cuda_stream)
-    _build.check(lib, err, "mha_bwd sm90 launch")
+    launch(lib, fn, "mha_bwd sm90 launch", g,
+           *ins, g.data_ptr(), None if mask is None else mask.data_ptr(),
+           *outs, stats.data_ptr(), plan.b, plan.n, plan.heads,
+           SM90_HEAD_DIM, int(packed_qkv is not None), float(scale),
+           plan.key_rows, plan.box, plan.loads, plan.tiles, plan.rows,
+           plan.items, plan.grid_a, plan.grid_b, plan.smem_a, plan.smem_b,
+           None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+           on, *scores)
     return dqkv if packed_qkv is not None else (dq, dk, dv)
 
 
@@ -698,18 +693,15 @@ def _launch_bwd(q, k, v, g, heads, scale, drop, packed_qkv=None, bias=None,
         dbias = torch.empty((b, n), dtype=torch.float32, device=dev)
         part = torch.empty((b, heads, n), dtype=torch.float32, device=dev)
     rows, scalar, thr, kscale, on = drop
-    with torch.cuda.device(dev):
-        err = fn(
-            *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), *outs,
-            None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
-            None if part is None else part.data_ptr(),
-            b, n, heads, d // heads, row, n * row, row, n * row,
-            float(scale), _DTYPE_CODE[q.dtype],
-            None if rows is None else rows.data_ptr(), scalar, thr, kscale,
-            on, torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(lib, err, "mha_bwd launch")
+    launch(lib, fn, "mha_bwd launch", q,
+           *ins, g.data_ptr(), None if bias is None else bias.data_ptr(),
+           None if mask is None else mask.data_ptr(), *outs,
+           None if dbias is None else dbias.data_ptr(), stats.data_ptr(),
+           None if part is None else part.data_ptr(),
+           b, n, heads, d // heads, row, n * row, row, n * row,
+           float(scale), _DTYPE_CODE[q.dtype],
+           None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+           on)
     return dqkv if packed_qkv is not None else (dq, dk, dv, dbias)
 
 
@@ -761,17 +753,13 @@ def _launch_fwd(ptrs, out, b, n, heads, hd, row_stride, scale, dtype, bias,
     dev = out.device
     _check_smem("mha kernel", smem(n, hd, _DTYPE_CODE[dtype]), n, hd, dev)
     rows, scalar, thr, kscale, drop = _drop_args(rate, seed, b, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):  # a launch goes to the current card
-        err = fn(
-            *ptrs, None if bias is None else bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            b, n, heads, hd, row_stride, n * row_stride, float(scale),
-            _DTYPE_CODE[dtype],
-            None if rows is None else rows.data_ptr(), scalar, thr, kscale,
-            drop, stream,
-        )
-    _build.check(lib, err, "mha_fwd launch")
+    launch(lib, fn, "mha_fwd launch", out,
+           *ptrs, None if bias is None else bias.data_ptr(),
+           None if mask is None else mask.data_ptr(), out.data_ptr(),
+           b, n, heads, hd, row_stride, n * row_stride, float(scale),
+           _DTYPE_CODE[dtype],
+           None if rows is None else rows.data_ptr(), scalar, thr, kscale,
+           drop)
 
 
 def _check_cuda(name, tensors, dtype):

@@ -71,6 +71,7 @@ import torch
 
 from bioscan_clip_tpu_torch.ops import _build
 from bioscan_clip_tpu_torch.ops._device import H100_SMS, sm_count
+from bioscan_clip_tpu_torch.ops._launch import launch
 
 MAX_K = 32  # K4 keeps lists of up to 32 entries
 # K5 keeps lists of up to 64: the engine oversamples int8 searches to
@@ -603,15 +604,11 @@ def _launch_mma(queries, keys, n_valid, k, mode, plan: F32Plan):
     (bq, d), n, dev = queries.shape, keys.shape[0], queries.device
     kern = _kernel()
     cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
-    with torch.cuda.device(dev):  # a launch goes to the current card
-        err = kern.topk(
-            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
-            plan.qb, plan.splits, plan.tiles_per_split, plan.n_cand,
-            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "topk launch")
+    launch(kern.lib, kern.topk, "topk launch", queries,
+           queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid, k, mode,
+           plan.qb, plan.splits, plan.tiles_per_split, plan.n_cand,
+           cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+           out_i.data_ptr())
     return out_v, out_i
 
 
@@ -624,15 +621,11 @@ def _launch_sm90(kern, queries, keys, n_valid, k, precision, plan: F32Plan):
     pieces = torch.empty((1 if mode else 3, bq, d), dtype=torch.bfloat16,
                          device=dev)
     cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
-    with torch.cuda.device(dev):
-        err = kern.topk(
-            queries.data_ptr(), keys.data_ptr(), pieces.data_ptr(), bq, n, d,
-            n_valid, k, mode, plan.qb, plan.splits, plan.tiles_per_split,
-            plan.stages, plan.smem, plan.n_cand, cand_v.data_ptr(),
-            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "topk sm90 launch")
+    launch(kern.lib, kern.topk, "topk sm90 launch", queries,
+           queries.data_ptr(), keys.data_ptr(), pieces.data_ptr(), bq, n, d,
+           n_valid, k, mode, plan.qb, plan.splits, plan.tiles_per_split,
+           plan.stages, plan.smem, plan.n_cand, cand_v.data_ptr(),
+           cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr())
     return out_v, out_i
 
 
@@ -697,15 +690,11 @@ def _launch_i8_mma(q_i8, q_scales, keys_i8, k_scales, n_valid, k,
     (bq, d), n, dev = q_i8.shape, keys_i8.shape[0], q_i8.device
     kern = _kernel()
     cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
-    with torch.cuda.device(dev):
-        err = kern.topk_i8(
-            q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
-            k_scales.data_ptr(), bq, n, d, n_valid, k, plan.qb, plan.splits,
-            plan.tiles_per_split, plan.n_cand, cand_v.data_ptr(),
-            cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "topk_i8 launch")
+    launch(kern.lib, kern.topk_i8, "topk_i8 launch", q_i8,
+           q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
+           k_scales.data_ptr(), bq, n, d, n_valid, k, plan.qb, plan.splits,
+           plan.tiles_per_split, plan.n_cand, cand_v.data_ptr(),
+           cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr())
     return out_v, out_i
 
 
@@ -720,16 +709,13 @@ def _launch_i8_sm90(kern, q_i8, q_scales, keys_i8, k_scales, n_valid, k,
     cand_v, cand_i, out_v, out_i = _outputs(bq, k, plan.n_cand, dev)
     part = torch.empty(bq * plan.seed_groups, dtype=torch.float32,
                        device=dev)
-    with torch.cuda.device(dev):
-        err = kern.topk(
-            q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
-            k_scales.data_ptr(), bq, n, d, n_valid, k, plan.qb, plan.splits,
-            plan.tiles_per_split, plan.stages, plan.smem, plan.n_cand,
-            plan.seed_groups, part.data_ptr() if plan.seed_groups else None,
-            cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
-            out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "topk_i8 sm90 launch")
+    launch(kern.lib, kern.topk, "topk_i8 sm90 launch", q_i8,
+           q_i8.data_ptr(), q_scales.data_ptr(), keys_i8.data_ptr(),
+           k_scales.data_ptr(), bq, n, d, n_valid, k, plan.qb, plan.splits,
+           plan.tiles_per_split, plan.stages, plan.smem, plan.n_cand,
+           plan.seed_groups, part.data_ptr() if plan.seed_groups else None,
+           cand_v.data_ptr(), cand_i.data_ptr(), out_v.data_ptr(),
+           out_i.data_ptr())
     return out_v, out_i
 
 
@@ -918,14 +904,10 @@ def _launch_mm_mma(queries, keys, n_valid, mode, plan: MMPlan):
     kern = _kernel()
     part = torch.empty(bq * plan.splits, dtype=torch.float32, device=dev)
     out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = kern.mm_only(
-            queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
-            2 if mode == "int8" else PRECISIONS[mode], plan.qb, plan.splits,
-            plan.tiles_per_split, plan.smem, part.data_ptr(),
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    _build.check(kern.lib, err, "mm_only launch")
+    launch(kern.lib, kern.mm_only, "mm_only launch", queries,
+           queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
+           2 if mode == "int8" else PRECISIONS[mode], plan.qb, plan.splits,
+           plan.tiles_per_split, plan.smem, part.data_ptr(), out.data_ptr())
     return out
 
 
@@ -937,24 +919,21 @@ def _launch_mm_sm90(queries, keys, n_valid, mode, plan: MMPlan):
     (bq, d), n, dev = queries.shape, keys.shape[0], queries.device
     part = torch.empty(bq * plan.splits, dtype=torch.float32, device=dev)
     out = torch.empty((bq, 128), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        if mode == "int8":
-            kern = _i8_sm90_kernel()
-            err = kern.mm_only(
-                queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
-                plan.qb, plan.splits, plan.tiles_per_split, plan.stages,
-                plan.smem, part.data_ptr(), out.data_ptr(), stream)
-        else:
-            kern = _sm90_kernel()
-            pieces = torch.empty((3 if mode == "high" else 1, bq, d),
-                                 dtype=torch.bfloat16, device=dev)
-            err = kern.mm_only(
-                queries.data_ptr(), keys.data_ptr(), pieces.data_ptr(), bq,
-                n, d, n_valid, PRECISIONS[mode], plan.qb, plan.splits,
-                plan.tiles_per_split, plan.stages, plan.smem,
-                part.data_ptr(), out.data_ptr(), stream)
-    _build.check(kern.lib, err, "mm_only sm90 launch")
+    if mode == "int8":
+        kern = _i8_sm90_kernel()
+        launch(kern.lib, kern.mm_only, "mm_only sm90 launch", queries,
+               queries.data_ptr(), keys.data_ptr(), bq, n, d, n_valid,
+               plan.qb, plan.splits, plan.tiles_per_split, plan.stages,
+               plan.smem, part.data_ptr(), out.data_ptr())
+    else:
+        kern = _sm90_kernel()
+        pieces = torch.empty((3 if mode == "high" else 1, bq, d),
+                             dtype=torch.bfloat16, device=dev)
+        launch(kern.lib, kern.mm_only, "mm_only sm90 launch", queries,
+               queries.data_ptr(), keys.data_ptr(), pieces.data_ptr(), bq,
+               n, d, n_valid, PRECISIONS[mode], plan.qb, plan.splits,
+               plan.tiles_per_split, plan.stages, plan.smem,
+               part.data_ptr(), out.data_ptr())
     return out
 
 
@@ -973,18 +952,17 @@ tiny_reference.calls = 0
 
 
 def tiny(x):
-    """K7: x + 1 on an fp32 array (the probe's (8, 128)): one launch, the
-    floor of a call through this library."""
-    if x.device.type == "cpu":
+    """K7: x + 1 on an fp32 array (the probe's (8, 128)): one launch through
+    `ops/_launch.launch`, the floor of a call through this library."""
+    if x.is_cpu:
         return tiny_reference(x)
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.numel() < 1:
+    n = x.numel()
+    if x.dtype is not torch.float32 or not x.is_contiguous() or n < 1:
         raise ValueError("tiny: needs a non-empty contiguous fp32 tensor")
     kern = _kernel()
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = kern.tiny(x.data_ptr(), out.data_ptr(), x.numel(),
-                        torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(kern.lib, err, "tiny launch")
+    launch(kern.lib, kern.tiny, "tiny launch", x, x.data_ptr(),
+           out.data_ptr(), n)
     tiny.launches += 1
     return out
 

@@ -72,8 +72,9 @@ Phases, in order; any failure exits non-zero:
             row-max launch of K4's or K5's Hopper body, the mma.sync walks
             of csrc/topk.cu), timed beside (q @ k.T).amax (in bf16 for
             "default": the cast before the timing and inside it) and
-            _int_mm + amax; and K7), with the kernel's, the plain
-            version's and one library call's time
+            _int_mm + amax; and K7, also per node of a CUDA graph
+            beside torch.add's, the card's own floor of a launch), with
+            the kernel's, the plain version's and one library call's time
   serving   the flagship model at full width (random seeded weights, bf16)
             behind cli/serve.build_service over 1,048,576 resident keys:
             handle_request for dna, text, embedding and embed_images, and
@@ -971,11 +972,14 @@ def _mm_only_case(gen, keys, bqs=(1, 64, 256, 1024)):
 
 def _tiny_case(gen):
     """K7 against x + 1, exact; its time per launch in a pipelined run
-    (CUDA events) beside the plain version's and one `torch.add`'s, and one
-    call plus a synchronize on the host clock."""
+    (CUDA events) beside the plain version's and one `torch.add`'s, one
+    call plus a synchronize on the host clock, and the card's own floor:
+    K7 and `torch.add` per node of a CUDA graph of 100 captured calls
+    (`tools/bench_k7.graph_ms`)."""
     import torch
 
     from bioscan_clip_tpu_torch.ops import topk as topk_mod
+    from bioscan_clip_tpu_torch.tools.bench_k7 import graph_ms
 
     x = torch.randn(8, 128, device="cuda", generator=gen)
     out = topk_mod.tiny(x)
@@ -995,11 +999,16 @@ def _tiny_case(gen):
                                warmup=10),
            "library_ms": time_ms(lambda: torch.add(x, 1.0), reps=100,
                                  warmup=10),
+           "host_ms": sorted(host)[len(host) // 2],
+           "graph_ms": graph_ms(lambda: topk_mod.tiny(x), 100),
+           "library_graph_ms": graph_ms(lambda: torch.add(x, 1.0), 100),
            "bound_ms": bms, "bound_by": by, "max_abs_err": err}
     log(f"  tiny (8, 128): exact, kernel {row['ms']:.4f} ms per launch "
-        f"pipelined, {sorted(host)[len(host) // 2]:.4f} ms median per call "
-        f"+ synchronize (host clock), plain {row['plain_ms']:.4f} ms, "
-        f"torch.add {row['library_ms']:.4f} ms, bound {bms:.2e} ms ({by})")
+        f"pipelined, {row['host_ms']:.4f} ms median per call + synchronize "
+        f"(host clock), {row['graph_ms']:.4f} ms per node of a CUDA graph; "
+        f"plain {row['plain_ms']:.4f} ms, torch.add {row['library_ms']:.4f} "
+        f"ms ({row['library_graph_ms']:.4f} ms a graph node), bound "
+        f"{bms:.2e} ms ({by})")
     return row
 
 
@@ -5167,6 +5176,9 @@ def main(argv=None) -> int:
                     "library_ms", "library_cast_ms", "bound_ms",
                     "max_abs_err")}
                 for case, row in rows.get("mm_only shapes", {}).items()}
+        if name == "tiny":  # K7's host and graphed floors, torch.add's
+            for key in ("host_ms", "graph_ms", "library_graph_ms"):
+                kernels[-1][key] = r.get(key)
         if name == "mha_bwd_mask":  # K3m's mma.sync body, B = 10 at N = 20
             kernels[-1]["mma_ms"] = r.get("mma_ms")
             kernels[-1]["shapes"] = {"b10": {

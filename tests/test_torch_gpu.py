@@ -59,7 +59,9 @@ vectors in both precisions (fp32 sums of 768 products in another order),
 on the walk its plan chooses (counted there) and on each walk (the
 row-max launch of K4's or K5's Hopper body, the mma.sync walks), at every
 query block, over no key, one, fewer than a tile, and scores rising with
-the key index; K7 exact.
+the key index; K7 exact: on its 16-byte and its one-float body (ragged
+sizes, a base 4 bytes off), on a side stream, and captured in a CUDA graph
+on a side stream and replayed on new inputs.
 """
 
 import ctypes
@@ -1630,6 +1632,56 @@ def test_tiny_kernel_is_exact(gen):
     assert topk.tiny.launches == before + 1
 
 
+@pytest.mark.parametrize("n", [1, 3, 4, 1024, 1027, 4099, 70_001])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_tiny_kernel_is_exact_at_ragged_sizes_and_offsets(gen, n, offset):
+    """Offset 0: the 16-byte body (n % 4 left to single floats); 1 and 2:
+    a base 4 or 8 bytes off a 16-byte boundary, the one-float body."""
+    x = torch.randn(n + offset, device="cuda", generator=gen)[offset:]
+    assert torch.equal(topk.tiny(x), x + 1.0)
+
+
+def test_tiny_kernel_launches_on_the_current_side_stream(gen):
+    """Under `torch.cuda.stream(s)` K7 is enqueued on s: its input is
+    written on s after a long sleep, so a launch on another stream would
+    read the zeros written before."""
+    x = torch.randn(8, 128, device="cuda", generator=gen)
+    staged = torch.zeros_like(x)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        torch.cuda._sleep(50_000_000)
+        staged.copy_(x)
+        out = topk.tiny(staged)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(out, x + 1.0)
+
+
+def test_tiny_kernel_captured_in_a_graph_replays_new_inputs(gen):
+    """K7 captured in a CUDA graph (its capture stream is a side stream),
+    then replayed on inputs copied into the captured one: each replay's
+    output is exactly its input + 1; the capture counts one launch, the
+    replays none."""
+    static_x = torch.zeros(8, 128, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        topk.tiny(static_x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = topk.tiny.launches
+    with torch.cuda.graph(graph):
+        static_out = topk.tiny(static_x)
+    assert topk.tiny.launches == before + 1
+    for _ in range(3):
+        x = torch.randn(8, 128, device="cuda", generator=gen)
+        static_x.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, x + 1.0)
+    assert topk.tiny.launches == before + 1
+
+
 def test_eot_pooling_takes_the_first_maximum_on_the_card(gen):
     """The OpenCLIP text tower pools at `argmax(token_ids)`; on the card, as
     on the CPU and in JAX, ties go to the first maximum."""
@@ -1908,8 +1960,10 @@ def test_streamed_search_equals_resident_search(gen):
 
 def test_kernels_and_sharded_search_on_cards_not_current(gen):
     """One process searching keys sharded over several cards: each launch
-    goes to its tensor's card, not the current one. K1 and K4 on tensors of
-    the last card, with cuda:0 current, match their plain versions; keys
+    goes to its tensor's card, not the current one. K7, K1 and K4 on
+    tensors of the last card, with cuda:0 current, match their plain
+    versions (K7 exactly, also on a side stream of that card), cuda:0
+    staying current; keys
     sharded over the cards (the last card first) give the search on
     cuda:0, resident and streamed, fp32 "high" and "default" values atol
     1e-5 and indices up to near-ties within 1e-5, int8 under "none" bit
@@ -1924,6 +1978,17 @@ def test_kernels_and_sharded_search_on_cards_not_current(gen):
         pytest.skip("needs two CUDA devices")
     torch.cuda.set_device(0)
     last = torch.device("cuda", cards - 1)
+    xt = torch.randn(8, 128, device="cuda", generator=gen).to(last)
+    out = topk.tiny(xt)
+    assert out.device == last and torch.cuda.current_device() == 0
+    assert torch.equal(out, xt + 1.0)
+    side = torch.cuda.Stream(device=last)
+    side.wait_stream(torch.cuda.current_stream(last))
+    with torch.cuda.stream(side):
+        out = topk.tiny(xt)
+    torch.cuda.current_stream(last).wait_stream(side)
+    assert torch.equal(out, xt + 1.0)
+    assert torch.cuda.current_device() == 0
     x = torch.randn(8, 197, 3 * 768, device="cuda", generator=gen).to(last)
     out = attention.mha_packed(x, 12)
     ref = attention.mha_reference(x[..., :768], x[..., 768:1536],
