@@ -26,10 +26,10 @@ SPLIT_NAMES = [
 
 
 def write_split_features(path, split_dict):
-    import h5py
+    from bioscan_clip_tpu_torch.data import h5file
 
-    with h5py.File(path, "w") as f:
-        str_dt = h5py.string_dtype()
+    str_dt = h5file.STRING
+    with h5file.File(path, "w") as f:
         labels = split_dict["label_list"]
         for lvl in ("order", "family", "genus", "species"):
             f.create_dataset(

@@ -18,7 +18,9 @@ strings tokenized with BERT-small at max_length 20 (:281-285; `--vocab`
 or $BSCAN_BERT_VOCAB for the native WordPiece, else the cached HF
 tokenizer, else it raises: the JAX CLI's `--allow-stub-tokens` is not
 copied). A psutil RAM watchdog aborts above 90% (:126-138). pandas and
-psutil are imported inside the functions that need them.
+psutil are imported inside the functions that need them; the file is
+written by `data/hdf5.write_split_hdf5` through the port's own
+`data/h5file.py`, without h5py.
 
     python -m bioscan_clip_tpu_torch.cli.generate_hdf5 --metadata META.tsv \
         --image-dir DIR --output OUT.hdf5 [--flavor bioscan_1m|bioscan_5m]

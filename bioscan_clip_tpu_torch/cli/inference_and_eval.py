@@ -38,9 +38,9 @@ FEATURE_TYPES = [
 
 
 def save_feature_cache(path, labels_path, seen, unseen, keys):
-    import h5py
+    from bioscan_clip_tpu_torch.data import h5file
 
-    with h5py.File(path, "w") as f:
+    with h5file.File(path, "w") as f:
         for name, split in (("seen", seen), ("unseen", unseen), ("key", keys)):
             g = f.create_group(name)
             for ft in FEATURE_TYPES:
@@ -59,10 +59,10 @@ def save_feature_cache(path, labels_path, seen, unseen, keys):
 
 
 def load_feature_cache(path, labels_path):
-    import h5py
+    from bioscan_clip_tpu_torch.data import h5file
 
     seen, unseen, keys = {}, {}, {}
-    with h5py.File(path, "r") as f:
+    with h5file.File(path, "r") as f:
         for name, split in (("seen", seen), ("unseen", unseen), ("key", keys)):
             for ft in FEATURE_TYPES:
                 if ft in f[name]:

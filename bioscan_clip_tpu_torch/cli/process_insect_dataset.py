@@ -4,9 +4,8 @@ INSECT_metadata.csv + per-image INSECT_images.hdf5.
 A copy of bioscan_clip_tpu/cli/process_insect_dataset.py (the reference's
 data/INSECT/process_insect_dataset.py:11-103). The HDF5 holds one uint8
 dataset of JPEG bytes per image id under the group "images", which
-`data/insect.InsectLoader` reads. scipy, pandas and h5py are imported
-inside the functions that need them (the card's machine lacks the last
-two).
+`data/insect.InsectLoader` reads, written by the port's `data/h5file.py`.
+scipy and pandas are imported inside the functions that need them.
 
     python -m bioscan_clip_tpu_torch.cli.process_insect_dataset
         [--res101 res101.mat] [--att-splits att_splits.mat]
@@ -58,9 +57,9 @@ def save_images_hdf5(image_root, species, file_names, out_hdf5):
     """Per-image byte datasets under group 'images', keyed by file name
     (process_insect_dataset.py:11-29): images/<species>/<id>.jpg, else
     .JPG."""
-    import h5py
+    from bioscan_clip_tpu_torch.data import h5file
 
-    with h5py.File(out_hdf5, "w") as hf:
+    with h5file.File(out_hdf5, "w") as hf:
         g = hf.create_group("images")
         for sp, fn in zip(species, file_names):
             path = os.path.join(image_root, "images", sp, fn + ".jpg")

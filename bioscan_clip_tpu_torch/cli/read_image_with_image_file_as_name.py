@@ -2,8 +2,9 @@
 HDF5 and save the decoded image.
 
 A copy of bioscan_clip_tpu/cli/read_image_with_image_file_as_name.py (the
-reference's scripts/read_image_with_image_file_as_name.py). h5py and PIL
-are imported inside the functions that need them.
+reference's scripts/read_image_with_image_file_as_name.py). The split
+file is read by the port's `data/h5file.py`; PIL is imported inside the
+function that needs it.
 
     python -m bioscan_clip_tpu_torch.cli.read_image_with_image_file_as_name
         --hdf5 FILE --name PROCESSID_OR_IMAGE_FILE [--out IMAGE]
@@ -18,10 +19,11 @@ import io
 def find_record(hdf5_path, name):
     """(split, JPEG bytes, 4-level labels) of the first record named `name`
     (its processid in 5M files, image_file in 1M), or three Nones."""
-    import h5py
     import numpy as np
 
-    with h5py.File(hdf5_path, "r") as f:
+    from bioscan_clip_tpu_torch.data import h5file
+
+    with h5file.File(hdf5_path, "r") as f:
         for split in f.keys():
             g = f[split]
             key = "processid" if "processid" in g else "image_file"

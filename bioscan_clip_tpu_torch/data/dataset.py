@@ -21,11 +21,12 @@ def get_bin_labels(split: str, hdf5_path: str, tsv_path: str) -> np.ndarray:
     """BIN-URI group ids for positive-pair mining (reference
     dataset.py:75-94): the metadata TSV filtered to the split's sampleids,
     each record's `uri` mapped to a dense id in first-appearance order.
-    h5py and pandas are imported here only."""
-    import h5py
+    pandas is imported here only."""
     import pandas as pd
 
-    with h5py.File(hdf5_path, "r") as f:
+    from bioscan_clip_tpu_torch.data import h5file
+
+    with h5file.File(hdf5_path, "r") as f:
         sample_ids = [s.decode("utf-8") for s in f[split]["sampleid"][:]]
     df = pd.read_csv(tsv_path, sep="\t")
     uris = df[df["sampleid"].isin(sample_ids)]["uri"].tolist()

@@ -9,7 +9,8 @@ test fixtures use. Schema: per-split groups
 holding `image` (padded JPEG byte rows) + `image_mask` (byte lengths),
 `barcode`, `order/family/genus/species`, `sampleid`, `processid` (5M) /
 `image_file` (1M), and pre-tokenized `language_tokens_{input_ids,
-token_type_ids,attention_mask}`. `h5py` is imported when a file is opened.
+token_type_ids,attention_mask}`. Files are read and written by the port's
+own `data/h5file.py`, which needs no h5py.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 
+from bioscan_clip_tpu_torch.data import h5file
 from bioscan_clip_tpu_torch.data.tokenizers import (
     build_label_strings,
     tokenize_dna_batch,
@@ -29,10 +31,8 @@ LEVELS = ["order", "family", "genus", "species"]
 
 def get_len_dict(args) -> dict:
     """Split name -> record count (reference dataset.py:278-288)."""
-    import h5py
-
     out = {}
-    with h5py.File(hdf5_path_for(args), "r") as f:
+    with h5file.File(hdf5_path_for(args), "r") as f:
         for split in f.keys():
             out[split] = len(f[split]["image"])
     return out
@@ -47,8 +47,10 @@ def hdf5_path_for(args) -> str:
 
 class SplitReader:
     """Reader over one split group with batch (sorted-index) fancy reads:
-    h5py needs increasing indices, so each read sorts, dedups and inverts
-    the permutation, which also makes the disk access sequential."""
+    each read sorts, dedups and inverts the permutation (as the JAX
+    package's reader must, for h5py's increasing indices), which also
+    makes the disk access sequential. Safe to read from many threads:
+    `h5file` reads by `os.preadv`."""
 
     def __init__(self, path: str, split: str):
         self.path = path
@@ -58,9 +60,7 @@ class SplitReader:
     @property
     def group(self):
         if self._file is None:  # opened lazily, once per reader
-            import h5py
-
-            self._file = h5py.File(self.path, "r", libver="latest")
+            self._file = h5file.File(self.path, "r")
         return self._file[self.split]
 
     def close(self):
@@ -76,10 +76,9 @@ class SplitReader:
         idx = np.asarray(idx)
         order = np.argsort(idx, kind="stable")
         uniq, inv = np.unique(idx[order], return_inverse=True)
-        out = ds[uniq][inv]
         unsort = np.empty_like(order)
         unsort[order] = np.arange(len(order))
-        return out[unsort]
+        return ds[uniq][inv[unsort]]  # one gather: rows can be 29.6 KB
 
     def read_images_bytes(self, idx) -> list:
         """Raw JPEG byte strings of the given rows."""
@@ -145,9 +144,7 @@ def write_split_hdf5(
     `allow_stub_tokens` (ids from Python's per-process salted `hash()`) is
     not copied.
     """
-    import h5py
-
-    with h5py.File(path, "w") as f:
+    with h5file.File(path, "w") as f:
         for split, rec in splits.items():
             g = f.create_group(split)
             imgs = rec["images"]
@@ -162,11 +159,9 @@ def write_split_hdf5(
             g.create_dataset("image", data=arr)
             g.create_dataset("image_mask", data=mask)
 
-            str_dt = h5py.string_dtype()
-
             def strings(name, values):
                 g.create_dataset(name, data=np.array(values, dtype=object),
-                                 dtype=str_dt)
+                                 dtype=h5file.STRING)
 
             strings("barcode", rec["barcode"])
             for lvl in LEVELS:

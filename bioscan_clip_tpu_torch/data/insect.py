@@ -12,7 +12,7 @@ A copy of bioscan_clip_tpu/data/insect.py on the port's loader machinery:
   falls back to `hash()` ids that change from process to process when no
   tokenizer loads, this raises;
 - images live in a per-id HDF5 (`INSECT_images.hdf5`, group 'images');
-  h5py is imported when the first batch is read;
+  opened by the port's `data/h5file.py` when the first batch is read;
 - eval batches carry host eval-parity float images under "image"
   (`eval_parity`, the default), or uint8 frames resized to shorter side 256
   under "image_u8", a frame of another shape resized with cv2 to the
@@ -131,9 +131,9 @@ class InsectLoader(PrefetchLoader):
 
     def _open_images(self):
         if self._images is None:
-            import h5py
+            from bioscan_clip_tpu_torch.data import h5file
 
-            self._images = h5py.File(self.image_hdf5_path, "r")["images"]
+            self._images = h5file.File(self.image_hdf5_path, "r")["images"]
         return self._images
 
     def __len__(self):

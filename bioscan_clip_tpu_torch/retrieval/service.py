@@ -86,9 +86,9 @@ class RetrievalService:
                     feature_type: str = "encoded_image_feature", **kw):
         """Build from an `extract_embedding` export (per-level label
         datasets + per-modality feature datasets)."""
-        import h5py
+        from bioscan_clip_tpu_torch.data import h5file
 
-        with h5py.File(export_hdf5, "r") as f:
+        with h5file.File(export_hdf5, "r") as f:
             if feature_type not in f:
                 raise KeyError(
                     f"{feature_type!r} not in {export_hdf5} "

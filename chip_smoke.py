@@ -158,7 +158,7 @@ Phases, in order; any failure exits non-zero:
             K4 launched, no plain version
   data_tools
             the slice's tools that need none of the packages the card's
-            machine lacks (h5py, matplotlib, sklearn, libjpeg):
+            machine lacks (matplotlib, sklearn, libjpeg):
             utils/flops' counts per sample against FLOPS_PER_SAMPLE;
             data/splits.create_splits over 200,000 records of 4,000
             long-tailed species, get_species_taxo_labels over that table,
@@ -170,6 +170,23 @@ Phases, in order; any failure exits non-zero:
             results.csv (retrieval/report.py, 96 keys, 48 seen and 48
             unseen records) through cli/flatten_csv, one row per (metric,
             value column); K1, K2 and K4 launched, no plain version
+  files     the file-fed entry points at full width (the flagship, random
+            seeded weights, bf16), every HDF5 read and written by the
+            port's own data/h5file.py (h5py is never imported): the 5M
+            flavour's split file (JPEGs encoded on the host, rows padded to
+            generate_hdf5_file_5m.py's 29,598 bytes; 1,920 keys, 960 seen,
+            960 unseen, 1,200 train records) written by data/hdf5.
+            write_split_hdf5; cli/inference_and_eval from it in "high" and
+            from its embedding cache in "default" and int8, embeddings
+            bit-equal and sweeps equal to the same records fed from memory;
+            cli/train_cl from it at B=400, 2 epochs of 3 steps, losses
+            bit-equal to in-memory loaders; cli/extract_embedding's exports
+            and HTTP /search from RetrievalService.from_export equal to the
+            memory-fed keys'; InsectLoader over an image store written by
+            process_insect_dataset.save_images_hdf5 equal to the in-memory
+            records; the file's write seconds, the reader's MB/s and the
+            loader's samples/s from the file and from memory; K1, K2, K2d,
+            K3, K4 and K5 launched, no plain version
   distributed
             the distributed train step over a 1-rank NCCL group on the
             card (parallel/distributed.py, parallel/mesh.py): the flagship
@@ -240,8 +257,8 @@ FLOPS_PER_SAMPLE = {"plain": 118467084288.0, "gradcache": 177601994752.0,
                     "joint_full": 175586697216.0}
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
               "training", "openclip_training", "train_cl", "insect",
-              "data_tools", "distributed", "graphs", "streaming", "probe",
-              "parity")
+              "data_tools", "files", "distributed", "graphs", "streaming",
+              "probe", "parity")
 
 
 def log(msg: str) -> None:
@@ -1530,14 +1547,15 @@ KERNELS = {
 }
 # the main paths that launch each kernel: the first gives its `launches`
 # in that line, every one its count in `launches_by_path`
-KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect", "data_tools"),
-               "mha": ("serving", "insect", "data_tools"),
-               "topk": ("serving", "insect", "data_tools"),
+KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect", "data_tools",
+                              "files"),
+               "mha": ("serving", "insect", "data_tools", "files"),
+               "topk": ("serving", "insect", "data_tools", "files"),
                "topk_i8": ("eval", "serving", "streaming", "insect",
-                           "data_tools", "train_cl"),
-               "topk_default": ("eval",),
-               "mha_dropout": ("training", "graphs", "insect"),
-               "mha_bwd": ("training", "graphs", "insect"),
+                           "data_tools", "train_cl", "files"),
+               "topk_default": ("eval", "files"),
+               "mha_dropout": ("training", "graphs", "insect", "files"),
+               "mha_bwd": ("training", "graphs", "insect", "files"),
                "mha_packed_mask": ("openclip", "graphs"),
                "mha_bwd_mask": ("openclip_training", "graphs"),
                "mm_only": ("probe",), "tiny": ("probe",)}
@@ -2923,8 +2941,9 @@ def phase_train_cl():
     (256, 341) uint8 frames, 2 epochs of 3 steps, the eval phase after each
     (480 keys, 240 seen, 240 unseen records), `last`, `best` and
     `config.yaml` under the repo's git-ignored build/. The loaders are in
-    memory (the card's machine has no h5py): `load_dataloader` in the CLI's
-    namespace gives them. Checks: finite losses; frozen weights unchanged,
+    memory (tiled frames, whose loss moves; the files phase runs the CLI
+    from a split file): `load_dataloader` in the CLI's namespace gives
+    them. Checks: finite losses; frozen weights unchanged,
     adapters and heads moved; the files written; a second run resumed from
     `last` as it stood after epoch 0 repeats epoch 1's losses bit for bit;
     K1, K2d, K3, K2 and K4 launched and no plain version. Then, outside the
@@ -3228,8 +3247,8 @@ def _insect_mats(root, rng):
 def _insect_split(ins, split, rng, frames=True):
     """One INSECT split as `InsectLoader` builds it, from the .mat files
     (`data/insect.py`), with tiled (256, 341) uint8 frames in place of the
-    HDF5's JPEGs (the card's machine has no h5py or decoder): a record
-    dict for `_take` / `_batches`."""
+    HDF5's JPEGs (`frames`; the files phase reads an image store): a
+    record dict for `_take` / `_batches`."""
     from bioscan_clip_tpu_torch.data.insect import (
         load_insect_mat,
         species_list_to_input_string_list,
@@ -5036,6 +5055,510 @@ def phase_data_tools():
     return counts
 
 
+# ---------------------------------------------------------------- files
+
+# the 5M HDF5 script's row width: every JPEG zero-padded to MAX_LEN bytes
+# (the reference's scripts/generate_hdf5_file_5m.py:21)
+MAX_LEN = 29_598
+# the splits the 5M flagship (dataset bioscan_5m, using_train_seen_for_
+# pre_train) reads that no check of this phase measures: extract_embedding
+# extracts them, one eval batch each
+FILE_SMALL_SPLITS = ("seen_keys", "test_seen", "test_unseen", "unseen_keys")
+FILE_TRAIN_SPLIT = "no_split_and_seen_train"
+FILE_JPEG_QUALITY = 75  # ~18-22 KB a 256 x 341 frame, inside MAX_LEN
+
+
+def _jpeg_encoder():
+    """(encode(frame) -> JPEG bytes, its library): cv2 where it imports,
+    else PIL. The decode is data/transforms.decode_jpeg's (cv2, else PIL).
+    Without either the phase fails: it never feeds frames around the
+    file."""
+    import numpy as np
+
+    try:
+        import cv2
+    except ImportError:
+        cv2 = None
+    if cv2 is not None:
+        def encode(frame):
+            ok, buf = cv2.imencode(
+                ".jpg", np.ascontiguousarray(frame[:, :, ::-1]),
+                [cv2.IMWRITE_JPEG_QUALITY, FILE_JPEG_QUALITY])
+            if not ok:
+                raise AssertionError("files: cv2.imencode failed")
+            return buf.tobytes()
+        return encode, f"cv2 {cv2.__version__}"
+    try:
+        import io
+
+        from PIL import Image, __version__ as pil_version
+    except ImportError as e:
+        raise AssertionError(
+            "files: neither cv2 nor PIL imports on this machine: no JPEG "
+            "codec for the split file") from e
+
+    def encode_pil(frame):
+        buf = io.BytesIO()
+        Image.fromarray(frame).save(buf, format="JPEG",
+                                    quality=FILE_JPEG_QUALITY)
+        return buf.getvalue()
+    return encode_pil, f"PIL {pil_version}"
+
+
+def _file_jpegs(gen, n, pool, encode):
+    """n JPEGs of distinct smooth (256, 341) frames made on the card: a
+    random 9 x 12 colour grid, bicubic-upsampled, plus a random 16 x 16
+    texture tile at +-24 repeated; encoded on the host."""
+    import torch
+    import torch.nn.functional as F
+
+    h, w = EVAL_FRAME
+    out = []
+    for s in range(0, n, 512):
+        m = min(512, n - s)
+        grid = torch.randint(0, 256, (m, 3, 9, 12), generator=gen).float()
+        tile = torch.randint(-24, 25, (m, 3, 16, 16), generator=gen).float()
+        base = F.interpolate(grid.cuda(), size=(h, w), mode="bicubic",
+                             align_corners=False)
+        tex = tile.cuda().repeat(1, 1, -(-h // 16), -(-w // 16))[
+            :, :, :h, :w]
+        frames = ((base + tex).clamp(0, 255).round().to(torch.uint8)
+                  .permute(0, 2, 3, 1).contiguous().cpu().numpy())
+        out += list(pool.map(encode, frames))
+    return out
+
+
+def _file_records(rng, gen, n, pool, encode, like=None, snps=0):
+    """`_eval_records`' barcodes, text and labels with JPEGs of
+    `_file_jpegs` in place of its frames."""
+    rec = _eval_records(rng, n, (16, 16), like=like, snps=snps)
+    rec.pop("image_u8")
+    rec["jpegs"] = _file_jpegs(gen, n, pool, encode)
+    return rec
+
+
+def _as_split(rec):
+    """A record dict as write_split_hdf5 takes a split (5M flavour)."""
+    labels = rec["label_dicts"]
+    out = {lvl: [d[lvl] for d in labels]
+           for lvl in ("order", "family", "genus", "species")}
+    out.update(images=rec["jpegs"], barcode=rec["barcodes"],
+               processid=rec["ids"], sampleid=rec["ids"],
+               language_tokens=rec["language"])
+    return out
+
+
+class _MemorySplit:
+    """A split's records held in memory, in SplitReader's contract (what
+    BioscanLoader reads a split through): the memory feed that the
+    file-fed runs are held against."""
+
+    def __init__(self, rec):
+        self.rec = rec
+
+    def __len__(self):
+        return len(self.rec["jpegs"])
+
+    def read_images_bytes(self, idx):
+        return [self.rec["jpegs"][i] for i in idx]
+
+    def read_dna_tokens(self, idx):
+        import numpy as np
+
+        return self.rec["dna"][np.asarray(idx)]
+
+    def read_language_tokens(self, idx):
+        import numpy as np
+
+        return {k: v[np.asarray(idx)] for k, v in self.rec["language"].items()}
+
+    def read_label_dicts(self, idx):
+        return [self.rec["label_dicts"][i] for i in idx]
+
+    def read_ids(self, idx):
+        return [self.rec["ids"][i] for i in idx]
+
+
+def _files_args(root, path, **tpu):
+    """The 5M flagship's config over the split file at `path`."""
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+
+    mc = dict(FLAGSHIP, dataset="bioscan_5m", batch_size=TRAIN_BATCH,
+              epochs=TRAIN_CL_EPOCHS, evaluation_period=1,
+              using_train_seen_for_pre_train=True, num_workers=8,
+              model_output_name="files")
+    # uint8 frames center-cropped on the host and cast on the card (the
+    # device eval transform), not the host eval-parity resize: the phase
+    # checks the files, not the host's float transform
+    tpu = dict({"eval_host_parity_resize": False}, **tpu)
+    cfg = {"model_config": mc, "project_root_path": str(root),
+           "bioscan_5m_data": {"path_to_hdf5_data": str(path)},
+           "model_output_dir": "ckpt", "save_ckpt": False,
+           "debug_flag": False, "activate_wandb": False,
+           "save_inference": False, "load_inference": False,
+           "device": "cuda",
+           "inference_and_eval_setting": {"eval_on": "val",
+                                          "k_list": [1, 3, 5],
+                                          "retrieval_precision": "high"},
+           "tpu": tpu}
+    return ConfigNode(cfg)
+
+
+def _loss_lines(lines):
+    return [ln for ln in lines if re.match(r"epoch \d+ losses ", ln)]
+
+
+def phase_files():
+    """The file-fed entry points at full width, as a user runs them: the
+    port's data/hdf5.write_split_hdf5 writes a 5M-flavour split HDF5 under
+    the git-ignored build/ (JPEGs encoded on the host from frames made on
+    the card, each zero-padded to the 5M HDF5 script's MAX_LEN of 29,598
+    bytes; 1,920 keys, 960 seen and 960 unseen records, the 1,200 of
+    train_cl's 2 epochs of 3 steps at B = 400, and one eval batch in each
+    other split), and every read of it goes through the port's own
+    data/h5file.py. Then, the flagship with random seeded weights in bf16:
+    cli/inference_and_eval from the file (its own loaders, eval batches of
+    24, the host eval-parity transform) in "high", then twice more from
+    its embedding cache (load_inference) in "default" and int8 (uint8
+    frames center-cropped on the host, the device eval transform); the
+    cached embeddings bit-equal to the same records fed from memory (the
+    CLI's loaders reading the records in memory: the same decoded frames
+    through extract_features), each sweep equal to the memory-fed sweep;
+    cli/train_cl from the file (plain steps, the eval phase after each
+    epoch) with per-step losses bit-equal to the same run on loaders
+    reading the records in memory (no eval there); cli/extract_embedding's
+    nine exports, and RetrievalService.from_export answering HTTP /search
+    for 64 barcodes as a service over the memory-fed keys does;
+    process_insect_dataset.save_images_hdf5 writing an INSECT image store
+    of 1,000 JPEG files that InsectLoader reads into the batches of the
+    in-memory records. Numbers: the file's size and write seconds, the
+    reader's MB/s, BioscanLoader samples/s from the file and from memory,
+    each beside the card's name and power limit. K1, K2, K2d, K3, K4 (high
+    and default) and K5 launched, no plain version, and h5py never
+    imported. Returns the launch counts of the phase."""
+    import os
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    import bioscan_clip_tpu_torch.models.clip as clip_mod
+    from bioscan_clip_tpu_torch.cli import extract_embedding, train_cl
+    from bioscan_clip_tpu_torch.cli import inference_and_eval as eval_cli
+    from bioscan_clip_tpu_torch.cli.process_insect_dataset import (
+        save_images_hdf5,
+    )
+    from bioscan_clip_tpu_torch.config.core import ConfigNode
+    from bioscan_clip_tpu_torch.data.dataset import construct_dataloader
+    from bioscan_clip_tpu_torch.data.hdf5 import SplitReader, write_split_hdf5
+    from bioscan_clip_tpu_torch.data.insect import (
+        InsectLoader,
+        load_insect_mat,
+    )
+    from bioscan_clip_tpu_torch.data.pipeline import BioscanLoader
+    from bioscan_clip_tpu_torch.data.transforms import (
+        decode_jpeg,
+        host_resize_shorter,
+    )
+    from bioscan_clip_tpu_torch.retrieval.report import (
+        inference_and_print_result,
+    )
+    from bioscan_clip_tpu_torch.retrieval.service import RetrievalService
+    from bioscan_clip_tpu_torch.train.loop import extract_features
+
+    torch.cuda.empty_cache()
+    card = card_line()
+    log("  " + card)
+    encode, codec = _jpeg_encoder()
+    log(f"  JPEG encode {codec} (quality {FILE_JPEG_QUALITY}); decode "
+        "data/transforms.decode_jpeg (cv2, else PIL)")
+    # absolute: the CLIs run in a folder of their own (the logs/ of
+    # their report)
+    root = Path("build").resolve() / "chip_smoke_files"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    path = root / "BIOSCAN_5M_synthetic.hdf5"
+    rng = np.random.default_rng(24)
+    gen = torch.Generator().manual_seed(24)
+    pool = ThreadPoolExecutor(16)
+    cwd = os.getcwd()
+    try:
+        t = time.perf_counter()
+        recs = {"all_keys": _file_records(rng, gen, N_EVAL_KEYS, pool,
+                                          encode)}
+        keys = recs["all_keys"]
+        recs["val_seen"] = _file_records(
+            rng, gen, N_EVAL_SEEN, pool, encode,
+            like=_take(keys, np.arange(N_EVAL_SEEN)))
+        recs["val_unseen"] = _file_records(
+            rng, gen, N_EVAL_UNSEEN, pool, encode, snps=4,
+            like=_take(keys, np.arange(N_EVAL_KEYS - N_EVAL_UNSEEN,
+                                       N_EVAL_KEYS)))
+        recs[FILE_TRAIN_SPLIT] = _file_records(
+            rng, gen, TRAIN_BATCH * TRAIN_CL_STEPS, pool, encode)
+        for split in FILE_SMALL_SPLITS:
+            recs[split] = _file_records(rng, gen, EVAL_BATCH, pool, encode)
+        n_rec = sum(len(r["jpegs"]) for r in recs.values())
+        sizes = [len(j) for r in recs.values() for j in r["jpegs"]]
+        log(f"  {n_rec} records, JPEGs {min(sizes)}-{max(sizes)} bytes "
+            f"(mean {np.mean(sizes):.0f}): made and encoded in "
+            f"{time.perf_counter() - t:.1f} s")
+        if max(sizes) > MAX_LEN:
+            raise AssertionError(f"files: a JPEG of {max(sizes)} bytes "
+                                 f"passes MAX_LEN {MAX_LEN}")
+        t = time.perf_counter()
+        write_split_hdf5(str(path), {s: _as_split(r)
+                                     for s, r in recs.items()},
+                         max_image_bytes=MAX_LEN, dataset_flavor="bioscan_5m")
+        write_s = time.perf_counter() - t
+        size = path.stat().st_size
+        log(f"  write_split_hdf5: {size / 1e6:.1f} MB, {len(recs)} splits, "
+            f"{n_rec} rows of {MAX_LEN} bytes, in {write_s:.2f} s "
+            f"({size / 1e6 / write_s:.0f} MB/s; host clock; {card})")
+
+        # the reader's row takes and the loader, from the file and memory:
+        # three passes over the train split's rows in shuffled takes of a
+        # batch, the rows' bytes over the host clock (warm: the file was
+        # just written), through the dataset (h5file's row take) and
+        # through SplitReader.read_images_bytes (its sort, dedup and
+        # unsort, the masks, a bytes object a row)
+        reader = SplitReader(str(path), FILE_TRAIN_SPLIT)
+        want = recs[FILE_TRAIN_SPLIT]["jpegs"]
+        rows = len(want)
+        takes = {"dataset rows": [], "read_images_bytes": []}
+        for p in range(3):
+            order = np.random.default_rng(p).permutation(rows)
+            batches = [order[s:s + TRAIN_BATCH]
+                       for s in range(0, rows, TRAIN_BATCH)]
+            t = time.perf_counter()
+            for idx in batches:
+                reader.group["image"][np.sort(idx)]
+            takes["dataset rows"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            got = [reader.read_images_bytes(idx) for idx in batches]
+            takes["read_images_bytes"].append(time.perf_counter() - t)
+            if [j for g in got for j in g] != [want[i] for i in order]:
+                raise AssertionError("files: the reader's rows differ from "
+                                     "the records written")
+        log(f"  row takes, {rows} shuffled rows in takes of {TRAIN_BATCH}, "
+            "MB/s of rows in passes 1-3: " + "; ".join(
+                f"{k} " + ", ".join(f"{rows * MAX_LEN / 1e6 / s:.0f}"
+                                    for s in v)
+                for k, v in takes.items())
+            + f" (warm; host clock; {card})")
+        reader.close()
+        rates = {}
+        for feed in ("file", "memory", "file again"):
+            loader = BioscanLoader(str(path), FILE_TRAIN_SPLIT, TRAIN_BATCH,
+                                   for_training=True, shuffle=True,
+                                   decode_threads=16)
+            if feed == "memory":
+                loader.reader = _MemorySplit(recs[FILE_TRAIN_SPLIT])
+            t = time.perf_counter()
+            n = sum(len(b["labels"]) for b in loader)
+            rates[feed] = n / (time.perf_counter() - t)
+        log(f"  BioscanLoader (train, B={TRAIN_BATCH}, uint8 frames, 16 "
+            "decode threads), samples/s: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in rates.items())
+            + f" (host clock; {card})")
+
+        reset_counts()  # the file-fed paths' launches are counted from here
+        # ---- the eval job from the file, then from its cache
+        args = _files_args(root, path)
+        real_load = clip_mod.load_clip_model
+        built = {}
+
+        def load_once(*a, **kw):
+            if "model" not in built:
+                built["model"] = real_load(*a, **kw)
+            return built["model"]
+
+        run_dir = root / "run"
+        run_dir.mkdir()
+        os.chdir(run_dir)  # the report's logs/ folder
+        clip_mod.load_clip_model = load_once
+        file_sweeps = {}
+        try:
+            for precision in ("high", "default", "int8"):
+                args.inference_and_eval_setting["retrieval_precision"] = (
+                    precision)
+                args["load_inference"] = precision != "high"
+                lines = []
+                t = time.perf_counter()
+                file_sweeps[precision] = eval_cli.run(args, out=lines.append)
+                torch.cuda.synchronize()
+                log(f"  inference_and_eval {precision}"
+                    + (" from the split file" if precision == "high" else
+                       " from its embedding cache (load_inference)")
+                    + f": {time.perf_counter() - t:.1f} s; {lines[0]!r}")
+            t = time.perf_counter()
+            extract_embedding.run(args, out=lambda *_: None)
+            log(f"  extract_embedding: nine exports in "
+                f"{time.perf_counter() - t:.1f} s")
+        finally:
+            clip_mod.load_clip_model = real_load
+            os.chdir(cwd)
+        model = built.pop("model")
+        folder = (root / "extracted_embedding" / "bioscan_5m" / "files")
+        cached = eval_cli.load_feature_cache(
+            str(folder / "extracted_feature_from_val_split.hdf5"),
+            str(folder / "labels_val.json"))
+
+        # the same records fed from memory through the CLI's own loaders
+        def memory_loader(split):
+            loader = construct_dataloader(args, split)
+            loader.reader = _MemorySplit(recs[split])
+            return loader
+
+        t = time.perf_counter()
+        memory = [extract_features(model, memory_loader("all_keys"),
+                                   for_key_set=True),
+                  extract_features(model, memory_loader("val_seen")),
+                  extract_features(model, memory_loader("val_unseen"))]
+        log(f"  memory-fed extraction: {time.perf_counter() - t:.1f} s")
+        for name, got, ref in zip(("keys", "seen", "unseen"),
+                                  (cached[2], cached[0], cached[1]), memory):
+            arrays = [k for k, v in ref.items() if isinstance(v, np.ndarray)]
+            same = all(np.array_equal(got[k], ref[k]) and
+                       got[k].dtype == ref[k].dtype for k in arrays)
+            log(f"  {name}: the file-fed embeddings (read back from the "
+                f"cache) bit-equal to the memory-fed ones: {same} "
+                f"({', '.join(sorted(arrays))}; {len(ref['label_list'])} "
+                "records)")
+            if not same or got["label_list"] != ref["label_list"]:
+                raise AssertionError(f"files: {name} embeddings or labels "
+                                     "differ from the memory-fed run")
+        for precision in ("high", "default", "int8"):
+            sweep_args = ConfigNode({
+                "model_config": dict(FLAGSHIP),
+                "inference_and_eval_setting": {
+                    "retrieval_precision": precision}})
+            mem = inference_and_print_result(
+                memory[0], memory[1], memory[2], args=sweep_args,
+                k_list=[1, 3, 5], device="cuda", out=lambda *_: None)
+            same = mem == file_sweeps[precision]
+            acc = mem[0]["encoded_image_feature"]["encoded_image_feature"]
+            log(f"  sweep {precision}: from the file == from memory: {same} "
+                f"(seen top-1 species image->image "
+                f"{acc['seen']['micro_acc'][1]['species']:.4f})")
+            if not same:
+                raise AssertionError(f"files: the {precision} sweep from "
+                                     "the file differs from memory's")
+
+        # ---- serving from the export
+        export = folder / "extracted_features_of_all_keys.hdf5"
+        served = RetrievalService.from_export(
+            model, str(export), feature_type="encoded_dna_feature",
+            device="cuda")
+        in_memory = RetrievalService(
+            model, keys=memory[0]["encoded_dna_feature"],
+            key_labels=memory[0]["label_list"], device="cuda")
+        body = {"dna": recs["val_unseen"]["barcodes"][:64], "k": 5}
+        a, _ = _http_round_trip(served, body)
+        b, _ = _http_round_trip(in_memory, body)
+        log(f"  /search from the export ({export.stat().st_size / 1e6:.1f} "
+            f"MB) == from the memory-fed keys: {a == b}")
+        if a != b:
+            raise AssertionError("files: /search from the export differs")
+        del served, in_memory, model, memory, cached
+        torch.cuda.empty_cache()
+
+        # ---- train_cl from the file, then from memory
+        losses = {}
+        real_loaders = train_cl.load_dataloader
+
+        def in_memory_loaders(a, **kw):
+            out = real_loaders(a, **kw)
+            for loader in out:
+                loader.reader = _MemorySplit(recs[loader.split])
+            return out
+
+        try:
+            for feed in ("file", "memory"):
+                train_cl.load_dataloader = (real_loaders if feed == "file"
+                                            else in_memory_loaders)
+                lines = []
+                t = time.perf_counter()
+                train_cl.run(_files_args(
+                    root / feed, path, frozen_dtype="bfloat16",
+                    max_steps_per_epoch=TRAIN_CL_STEPS),
+                    out=lines.append, skip_final_eval=feed == "memory")
+                torch.cuda.synchronize()
+                losses[feed] = _loss_lines(lines)
+                epochs = [ln for ln in lines if re.match(r"epoch \d+: ", ln)]
+                evals = ("the eval phase after each" if feed == "file"
+                         else "no eval")
+                log(f"  train_cl from {feed}: {time.perf_counter() - t:.1f} "
+                    f"s ({TRAIN_CL_EPOCHS} epochs of {TRAIN_CL_STEPS} steps "
+                    f"at B={TRAIN_BATCH}, {evals}); {epochs}")
+        finally:
+            train_cl.load_dataloader = real_loaders
+        log(f"  train_cl losses from the file {losses['file']}; bit-equal "
+            f"to memory's: {losses['file'] == losses['memory']}")
+        if (len(losses["file"]) != TRAIN_CL_EPOCHS
+                or losses["file"] != losses["memory"]):
+            raise AssertionError(f"files: train_cl losses {losses}")
+
+        # ---- the INSECT image store
+        (root / "insect").mkdir()
+        ins = _insect_mats(root / "insect", rng)
+        ids, _, species = load_insect_mat(
+            ins["path_to_att_splits_mat"], ins["path_to_res_101_mat"], "all")
+        jpegs = _file_jpegs(gen, len(ids), pool, encode)
+        for sp, name, data in zip(species, ids, jpegs):
+            d = root / "insect" / "images" / sp
+            d.mkdir(parents=True, exist_ok=True)
+            (d / f"{name}.jpg").write_bytes(data)
+        store = root / "insect" / "INSECT_images.hdf5"
+        t = time.perf_counter()
+        save_images_hdf5(str(root / "insect"), species, ids, str(store))
+        store_s = time.perf_counter() - t
+        ins["path_to_image_hdf5"] = str(store)
+        iargs = ConfigNode({"model_config": {"batch_size": FT_BATCH},
+                            "insect_data": ins})
+        got = list(InsectLoader(iargs, "all", eval_parity=False,
+                                vocab_path=ins["vocab"]))
+        rec = _insect_split(ins, "all", rng, frames=False)
+        rec["image_u8"] = np.stack(list(pool.map(
+            lambda j: host_resize_shorter(decode_jpeg(j), 256), jpegs)))
+        ref = _eval_loader(rec, FT_BATCH).batches
+        same = len(got) == len(ref) and all(
+            a.keys() == b.keys() and all(
+                (a[k] == b[k]) if isinstance(a[k], list) else
+                all(np.array_equal(a[k][kk], b[k][kk]) for kk in a[k])
+                if isinstance(a[k], dict) else np.array_equal(a[k], b[k])
+                for k in a) for a, b in zip(got, ref))
+        log(f"  INSECT: save_images_hdf5 of {len(ids)} JPEG files "
+            f"({store.stat().st_size / 1e6:.1f} MB) in {store_s:.2f} s; "
+            f"InsectLoader's {len(got)} batches == the in-memory records': "
+            f"{same}")
+        if not same:
+            raise AssertionError("files: InsectLoader's batches differ")
+    finally:
+        os.chdir(cwd)
+        pool.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+    counts, plain = launch_counts(), plain_calls()
+    log(f"  launches on the files path: {counts}; plain calls {plain}")
+    _vit_on_sm90("files", counts)
+    _k2_on_its_bodies("files", counts)
+    _k3_on_sm90("files", counts)
+    _k4_on_sm90("files", counts)
+    _k5_on_its_bodies("files", counts)
+    want = ("mha_packed", "mha", "mha_dropout", "mha_bwd", "topk",
+            "topk_default", "topk_i8")
+    if any(counts[k] <= 0 for k in want) or any(plain.values()):
+        raise AssertionError(f"files: launches {counts}, plain {plain}")
+    if "h5py" in sys.modules:
+        raise AssertionError("files: h5py was imported")
+    log("phase files ok: h5py never imported")
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5079,6 +5602,8 @@ def main(argv=None) -> int:
         path_counts["insect"] = phase_insect()
     if "data_tools" in phases:
         path_counts["data_tools"] = phase_data_tools()
+    if "files" in phases:
+        path_counts["files"] = phase_files()
     if "distributed" in phases:
         path_counts["distributed"] = phase_distributed()
     if "graphs" in phases:

@@ -56,6 +56,18 @@ def test_no_forbidden_imports():
     assert not bad, bad
 
 
+def test_no_module_imports_h5py():
+    """The card's machine has no h5py: the port reads and writes HDF5
+    through its own data/h5file.py, and no module of it, nor
+    chip_smoke.py, imports h5py, not even inside a function."""
+    files = sorted((ROOT / "bioscan_clip_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert ROOT / "bioscan_clip_tpu_torch/data/h5file.py" in files
+    bad = [f"{p.relative_to(ROOT)}:{line}" for p in files
+           for mod, line in _imported_roots(p) if mod == "h5py"]
+    assert not bad, bad
+
+
 def test_import_leaves_jax_out():
     code = (
         "import importlib, pkgutil, sys\n"
