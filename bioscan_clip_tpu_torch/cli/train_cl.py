@@ -16,7 +16,9 @@ optional learnable logit scale, frozen weights in bf16 under bf16 compute
 (`tpu.max_steps_per_epoch` bounds them), then the train step:
 - `tpu.accum_steps` > 1: GradCache (`tpu.accum_mode: gradcache`, with
   `tpu.gradcache_merged` (default on), `gc_s1_image_batch`, `gc_s1_chunk`
-  and `gc_cache_aug`) or per-microbatch accumulation (`micro`);
+  and `gc_cache_aug`) or per-microbatch accumulation (`micro`, at any
+  `accum_steps` that divides the global batch; over several processes a
+  microbatch may span them);
 - else the plain step.
 `tpu.steps_per_call` K > 1 runs K steps per call, the plain or GradCache
 step (`train.loop.make_scan_train_step`, `make_gradcache_train_step(
@@ -97,7 +99,10 @@ def make_step(args, model, dtype, out=print, mesh=None):
     mode adds ColorJitter to the train augmentation. With
     `steps_per_call_of(args)` K > 1 it is a scan step of K steps per call
     (`train.loop.make_scan_train_step`, or GradCache's with
-    `steps_per_call=K`), CUDA graphs on the card."""
+    `steps_per_call=K`), CUDA graphs on the card. `accum_mode: micro`
+    takes any `accum_steps` that divides the global batch (the processes'
+    rows together), a microbatch spanning processes where their count
+    does not divide it (`train.loop.make_accum_train_step`)."""
     from bioscan_clip_tpu_torch.models.clip import load_clip_model
     from bioscan_clip_tpu_torch.train.loop import (
         make_accum_train_step,

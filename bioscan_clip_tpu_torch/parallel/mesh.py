@@ -168,13 +168,19 @@ def replicate_module(module: torch.nn.Module, mesh: Optional[Mesh]):
     return module
 
 
-def gather_rows(x, mesh: Mesh):
+def gather_rows(x, mesh: Mesh, counts=None):
     """all_gather of every process's (b, ...) rows -> (size * b, ...) in
     rank order, without gradient (cached embeddings, labels, top-k
-    candidates)."""
+    candidates). `counts`: the rows each process holds, in rank order, when
+    they differ (`x` holds counts[mesh.index], 0 for a process with none):
+    every part is padded to the most and the padding dropped."""
+    counts = counts or (x.shape[0],) * mesh.size
+    pad = max(counts) - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
     dist.all_gather(parts, x.contiguous(), group=mesh.group)
-    return torch.cat(parts)
+    return torch.cat([p[:c] for p, c in zip(parts, counts)])
 
 
 class _GatherRows(torch.autograd.Function):
@@ -184,20 +190,21 @@ class _GatherRows(torch.autograd.Function):
     gradient and sums nothing across processes."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.rows = slice(mesh.index * x.shape[0],
-                         (mesh.index + 1) * x.shape[0])
-        return gather_rows(x, mesh)
+    def forward(ctx, x, mesh, counts):
+        counts = counts or (x.shape[0],) * mesh.size
+        start = sum(counts[:mesh.index])
+        ctx.rows = slice(start, start + counts[mesh.index])
+        return gather_rows(x, mesh, counts)
 
     @staticmethod
     def backward(ctx, g):
-        return g[ctx.rows], None
+        return g[ctx.rows], None, None
 
 
-def gather_rows_grad(x, mesh: Mesh):
+def gather_rows_grad(x, mesh: Mesh, counts=None):
     """The ClipLoss all_gather of the reference (loss_func.py:58-91):
     `gather_rows`, differentiable in this process's rows."""
-    return _GatherRows.apply(x, mesh)
+    return _GatherRows.apply(x, mesh, counts)
 
 
 def all_reduce_sum(tensors, mesh: Mesh):

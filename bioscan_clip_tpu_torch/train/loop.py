@@ -56,6 +56,7 @@ import collections
 import math
 import os
 import time
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -370,6 +371,53 @@ def _micro_rows(total: int, accum_steps: int):
     return _row_slices(total, total // accum_steps, "accum_steps")
 
 
+class Microbatch(NamedTuple):
+    """One microbatch of a step over the processes: `rows`, this process's
+    rows of it (a slice of its own batch; None when it holds none);
+    `global_rows`, its rows of the global batch; `counts`, the rows each
+    process holds of it, in rank order."""
+
+    rows: Optional[slice]
+    global_rows: slice
+    counts: Tuple[int, ...]
+
+    @property
+    def holders(self) -> Tuple[int, ...]:
+        return tuple(r for r, c in enumerate(self.counts) if c)
+
+    @property
+    def spans(self) -> bool:
+        return len(self.holders) > 1
+
+
+def micro_layout(world: int, rank: int, b: int, accum_steps: int):
+    """The `accum_steps` microbatches of a global batch of world * b rows
+    in rank order, process r holding global rows [r * b, (r + 1) * b), as
+    process `rank` sees them: microbatch j is global rows [j * m,
+    (j + 1) * m), m = world * b / accum_steps (JAX loop.py:292-296).
+    Raises when accum_steps does not divide the global batch."""
+    out = []
+    for g in _micro_rows(world * b, accum_steps):
+        counts = tuple(max(0, min(g.stop, (r + 1) * b) - max(g.start, r * b))
+                       for r in range(world))
+        first = max(g.start - rank * b, 0)
+        out.append(Microbatch(
+            slice(first, first + counts[rank]) if counts[rank] else None,
+            g, counts))
+    return out
+
+
+def _gather_micro(embs: dict, mesh, counts):
+    """A spanning microbatch's embeddings gathered over the processes in
+    one padded all_gather, the towers side by side; differentiable in this
+    process's rows."""
+    names = [k for k, v in embs.items() if v is not None]
+    full = gather_rows_grad(torch.cat([embs[k] for k in names], dim=1),
+                            mesh, counts)
+    parts = full.split([embs[k].shape[1] for k in names], dim=1)
+    return {**embs, **dict(zip(names, parts))}
+
+
 def make_accum_train_step(model, accum_steps: int,
                           logit_scale: float = LOGIT_SCALE,
                           openclip_norm: bool = False, remat: bool = False,
@@ -383,43 +431,76 @@ def make_accum_train_step(model, accum_steps: int,
     row seeds and augmentation, so `accum_steps=1` is the plain step.
     Returns the mean of the microbatch losses.
 
-    Over `mesh`, microbatch i is global rows [i * B / n, (i + 1) * B / n)
-    (JAX loop.py:292-296): with n a multiple of the processes W, each
-    microbatch lies on one process, which runs its n / W microbatches with
-    no exchange; the gradients and losses are then summed over the
-    processes. Any other ratio raises: a microbatch would straddle two
-    processes."""
+    Over `mesh`, microbatch j is global rows [j * B / n, (j + 1) * B / n)
+    of the global batch of B rows (JAX loop.py:292-296), for any n that
+    divides B; `micro_layout` gives each process its rows of each. A
+    microbatch on one process runs there with no exchange. One that spans
+    processes: each holder embeds its rows, every process joins one
+    padded gather of them (a process that holds none sends no rows; the
+    gathers go in microbatch order, the same on every process), and every
+    holder takes the loss over the gathered rows, its backward keeping
+    this process's rows of the gradient. That loss and the learnable
+    logit scale's gradient count once: the lowest-ranked holder keeps
+    them, the others detach the scale. The gradients and losses are then
+    summed over the processes. With n a multiple of the processes nothing
+    spans, and the step makes no gather."""
     check = _state_check(model, disable_lora)
     mesh = data_axis(mesh)
     world = 1 if mesh is None else mesh.size
-    if accum_steps % world:
-        raise ValueError(
-            f"accum_mode=micro over {world} processes needs accum_steps a "
-            f"multiple of {world} (got {accum_steps}): each microbatch "
-            "must lie on one process")
+    rank = 0 if mesh is None else mesh.index
 
     def train_step(state, batch, step_seed):
         check(state)
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         labels = batch["labels"]
-        b = labels.shape[0]
+        layout = micro_layout(world, rank, labels.shape[0], accum_steps)
         inputs = step_inputs(mesh, batch, step_seed, color_jitter)
         seeds, aug = _row_seeds(mesh, batch, inputs["seed"]), inputs["aug"]
+        spans = any(mb.spans for mb in layout)
+        if spans:
+            global_labels = gather_rows(labels, mesh)
+        mine = [j for j, mb in enumerate(layout) if mb.rows is not None]
         total = torch.zeros((), device=labels.device)
-        _micro_rows(b * world, accum_steps)  # checks the global batch
-        for rows in _micro_rows(b, accum_steps // world):
+        # no rows at this process's embeddings' width: its part of the
+        # gathers of the spanning microbatches it holds no rows of
+        blank = None
+        for j in mine:
+            mb = layout[j]
             embs, _ = embed_train(
-                model, batch_rows(batch, rows), batch_rows(seeds, rows),
-                aug_rows(aug, rows),
+                model, batch_rows(batch, mb.rows), batch_rows(seeds, mb.rows),
+                aug_rows(aug, mb.rows),
                 openclip_norm=openclip_norm, color_jitter=color_jitter,
                 remat=remat)
+            scale = logit_scale_value(model, logit_scale)
+            keeps = rank == mb.holders[0]
+            mb_labels = labels[mb.rows]
+            if spans and blank is None:
+                blank = torch.cat([v.detach()[:0] for v in embs.values()
+                                   if v is not None], dim=1)
+                for other in layout[:j]:  # before this process's rows
+                    if other.spans:
+                        gather_rows(blank, mesh, other.counts)
+            if mb.spans:
+                embs = _gather_micro(embs, mesh, mb.counts)
+                mb_labels = global_labels[mb.global_rows]
+                if not keeps and torch.is_tensor(scale):
+                    scale = scale.detach()
             loss = multimodal_contrastive_loss(
-                embs, labels[rows],
-                logit_scale_value(model, logit_scale)) / accum_steps
+                embs, mb_labels, scale) / accum_steps
             loss.backward()
-            total = total + loss.detach()
+            if keeps:
+                total = total + loss.detach()
+        for other in layout[mine[-1] + 1:]:
+            if other.spans:
+                gather_rows(blank, mesh, other.counts)
         if mesh is not None:
+            scale_p = getattr(model, "logit_scale", None)
+            if (isinstance(scale_p, torch.Tensor) and scale_p.requires_grad
+                    and scale_p.grad is None):
+                # it kept no microbatch's loss: a zero gradient, so that
+                # every process sums the same tensors
+                scale_p.grad = torch.zeros_like(scale_p)
             _sum_gradients(model, mesh, skip=())
             all_reduce_sum([total], mesh)
         state.apply_gradients()

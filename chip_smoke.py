@@ -136,9 +136,12 @@ Phases, in order; any failure exits non-zero:
             keys, 240 seen, 240 unseen), last/best/config.yaml under the
             git-ignored build/, a resume from `last` after epoch 0 with
             epoch 1's losses bit-equal; K1, K2d, K3, K2 and K4 launched, no
-            plain version; then one step under remat "full" and "dots" and
-            the GradCache step against the plain step (gradients, ms, peak
-            memory), and the train augmentation card vs CPU
+            plain version; a run under micro accumulation 4 x 100
+            (accum_mode: micro), 1 epoch of 3 steps, its launches as the
+            path train_cl_micro; then one step under remat "full" and
+            "dots" and the GradCache step against the plain step
+            (gradients, ms, peak memory), and the train augmentation card
+            vs CPU
   insect    the INSECT path and the supervised fine-tunes at full width
             (random seeded weights, bf16), from in-memory loaders in
             InsectLoader's contract ((256, 341) uint8 frames; the .mat
@@ -190,11 +193,13 @@ Phases, in order; any failure exits non-zero:
   distributed
             the distributed train step over a 1-rank NCCL group on the
             card (parallel/distributed.py, parallel/mesh.py): the flagship
-            at B=400, the plain step and GradCache 4 x 100 over the mesh
-            bit-equal to the steps without it (losses, gradients, the
-            parameters after 3 AdamW steps); ms per step and the NCCL
-            kernels' card time; remat "dots" launches no attention forward
-            in the backward
+            at B=400, the plain step, GradCache 4 x 100 and micro
+            accumulation 4 x 100 over the mesh bit-equal to the steps
+            without it (losses, gradients, the parameters after 3 AdamW
+            steps); ms per step and the NCCL kernels' card time; micro
+            accumulation of one microbatch bit-equal to the plain step, and
+            micro 4 x 100's peak memory beside the plain step's; remat
+            "dots" launches no attention forward in the backward
   graphs    K train steps per call as CUDA graphs (train/graphs.py):
             the flagship at B=400 (plain K=4 in two calls, GradCache
             4 x 100 K=4, remat "full" K=2, the plain step over a 1-rank
@@ -1548,14 +1553,16 @@ KERNELS = {
 # the main paths that launch each kernel: the first gives its `launches`
 # in that line, every one its count in `launches_by_path`
 KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect", "data_tools",
-                              "files"),
+                              "files", "train_cl_micro", "distributed"),
                "mha": ("serving", "insect", "data_tools", "files"),
                "topk": ("serving", "insect", "data_tools", "files"),
                "topk_i8": ("eval", "serving", "streaming", "insect",
                            "data_tools", "train_cl", "files"),
                "topk_default": ("eval", "files"),
-               "mha_dropout": ("training", "graphs", "insect", "files"),
-               "mha_bwd": ("training", "graphs", "insect", "files"),
+               "mha_dropout": ("training", "graphs", "insect", "files",
+                               "train_cl_micro", "distributed"),
+               "mha_bwd": ("training", "graphs", "insect", "files",
+                           "train_cl_micro", "distributed"),
                "mha_packed_mask": ("openclip", "graphs"),
                "mha_bwd_mask": ("openclip_training", "graphs"),
                "mm_only": ("probe",), "tiny": ("probe",)}
@@ -2861,10 +2868,10 @@ def _train_cl_batch(rng, b, frame_hw=EVAL_FRAME):
             "labels": np.arange(b)}
 
 
-def _train_cl_args(root, **tpu):
+def _train_cl_args(root, epochs=TRAIN_CL_EPOCHS, **tpu):
     from bioscan_clip_tpu_torch.config.core import ConfigNode
 
-    mc = dict(FLAGSHIP, batch_size=TRAIN_BATCH, epochs=TRAIN_CL_EPOCHS,
+    mc = dict(FLAGSHIP, batch_size=TRAIN_BATCH, epochs=epochs,
               evaluation_period=1, model_output_name="train_cl")
     return ConfigNode({
         "model_config": mc, "project_root_path": str(root),
@@ -2946,11 +2953,15 @@ def phase_train_cl():
     them. Checks: finite losses; frozen weights unchanged,
     adapters and heads moved; the files written; a second run resumed from
     `last` as it stood after epoch 0 repeats epoch 1's losses bit for bit;
-    K1, K2d, K3, K2 and K4 launched and no plain version. Then, outside the
-    CLI: one step at B = 400 under per-layer remat ("full", "dots") against
-    the step without it; the GradCache step's gradients against the plain
-    step's; the device augmentation on the card against the CPU. Returns
-    the launch counts of the first CLI run."""
+    K1, K2d, K3, K2 and K4 launched and no plain version. A third run, one
+    epoch of 3 steps under micro accumulation 4 x 100 (`accum_mode:
+    micro`): finite losses, frozen weights unchanged and adapters moved,
+    `last` written, K1, K2d and K3 launched and no plain version. Then,
+    outside the CLI: one step at B = 400 under per-layer remat ("full",
+    "dots") against the step without it; the GradCache step's gradients
+    against the plain step's; the device augmentation on the card against
+    the CPU. Returns the launch counts of the first CLI run and of the
+    micro run."""
     import math
     import shutil
     from pathlib import Path
@@ -3078,6 +3089,38 @@ def phase_train_cl():
             f"{first[1]}: bit-equal {again == first[1]}")
         del state2
         built.clear()
+        torch.cuda.empty_cache()
+
+        micro_lines = []
+        margs = _train_cl_args(root / "micro", epochs=1,
+                               accum_steps=TRAIN_CL_ACCUM, accum_mode="micro",
+                               max_steps_per_epoch=TRAIN_CL_STEPS)
+        reset_counts()  # the micro run's launches are counted from here
+        t = time.perf_counter()
+        mstate, _ = train_cl.run(margs, out=micro_lines.append)
+        torch.cuda.synchronize()
+        micro_s = time.perf_counter() - t
+        micro_counts, micro_plain = launch_counts(), plain_calls()
+        micro_losses = losses_of(micro_lines, 0)
+        params = dict(built["model"].named_parameters())
+        init = built["init"]
+        micro_moved = [n for n, lab in mstate.labels.items()
+                       if lab == "frozen" and not torch.equal(
+                           params[n], init[n].to(params[n].dtype))]
+        micro_still = [n for n, lab in mstate.labels.items()
+                       if lab != "frozen" and torch.equal(params[n], init[n])]
+        wait_for_checkpoints()
+        micro_last = Path(next(ln for ln in micro_lines if ln.startswith(
+            "Last ckpt: "))[len("Last ckpt: "):]).exists()
+        log(f"  train_cl micro {TRAIN_CL_ACCUM} x "
+            f"{TRAIN_BATCH // TRAIN_CL_ACCUM}: {micro_s:.1f} s for 1 epoch "
+            f"of {TRAIN_CL_STEPS} steps and its eval; "
+            f"{[ln for ln in micro_lines if re.match(r'epoch 0: ', ln)]}; "
+            f"losses {micro_losses}; `last` written {micro_last}")
+        log(f"  launches on the micro path: {micro_counts}; plain calls "
+            f"{micro_plain}")
+        del mstate, params, init
+        built.clear()
     finally:
         train_cl.load_dataloader = real_loaders
         clip_mod.load_clip_model = real_load
@@ -3103,6 +3146,18 @@ def phase_train_cl():
     _k3_on_sm90("train_cl", counts)
     _k4_on_sm90("train_cl", counts)
     _k5_on_its_bodies("train_cl", counts, launched=False)
+    if not all(math.isfinite(x) for x in micro_losses):
+        raise AssertionError(f"train_cl micro: losses {micro_losses}")
+    if micro_moved or micro_still or not micro_last:
+        raise AssertionError(f"train_cl micro: frozen moved "
+                             f"{micro_moved[:3]}, trainable still "
+                             f"{micro_still[:3]}, `last` written {micro_last}")
+    if (any(micro_counts[k] <= 0 for k in want[:3])
+            or any(micro_plain.values())):
+        raise AssertionError(f"train_cl micro: launches {micro_counts}, "
+                             f"plain {micro_plain}")
+    _k2_on_its_bodies("train_cl micro", micro_counts)
+    _k3_on_sm90("train_cl micro", micro_counts)
 
     # ---- outside the CLI: remat, GradCache against the plain step
     from bioscan_clip_tpu_torch.train.loop import (
@@ -3170,7 +3225,7 @@ def phase_train_cl():
     if not err <= 1e-5:
         raise AssertionError(f"train_transform card vs cpu: {err}")
     log("phase train_cl ok")
-    return counts
+    return counts, micro_counts
 
 
 # ---------------------------------------------------------------- insect
@@ -3790,14 +3845,16 @@ def phase_distributed():
     (parallel/distributed.py, tcp://localhost), its mesh
     (parallel/mesh.create_mesh), the flagship at full width, B = 400,
     frozen weights in bf16, dropout 0.1, (256, 341) frames through the
-    device augmentation. The plain step and GradCache 4 x 100 (merged stage
-    1, gc_s1_chunk 200) over the mesh, with the embeddings gathered and the
-    gradients all-reduced through NCCL, against the same steps without a
-    mesh: losses, the last step's gradients and the parameters after three
-    AdamW steps bit for bit. Then per-layer remat "dots" over the mesh: its
-    backward launches K3 and no attention forward (K1, K2d). The group is
-    torn down at the end. Returns the launch counts of the distributed
-    steps."""
+    device augmentation. The plain step, GradCache 4 x 100 (merged stage
+    1, gc_s1_chunk 200) and micro accumulation 4 x 100 over the mesh, with
+    the embeddings gathered and the gradients all-reduced through NCCL,
+    against the same steps without a mesh: losses, the last step's
+    gradients and the parameters after three AdamW steps bit for bit.
+    Without a mesh, micro accumulation of one microbatch against the plain
+    step, bit for bit, and its peak memory at 4 x 100 beside the plain
+    step's. Then per-layer remat "dots" over the mesh: its backward
+    launches K3 and no attention forward (K1, K2d). The group is torn down
+    at the end. Returns the launch counts of the distributed steps."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3810,6 +3867,7 @@ def phase_distributed():
     )
     from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
     from bioscan_clip_tpu_torch.train.loop import (
+        make_accum_train_step,
         make_gradcache_train_step,
         make_train_step,
     )
@@ -3833,13 +3891,19 @@ def phase_distributed():
                                  f"{dist.get_backend()}, mesh {mesh}")
         args = ConfigNode({"model_config": dict(FLAGSHIP)})
         batch = _train_cl_batch(np.random.default_rng(11), TRAIN_BATCH)
-        cases = (("plain", make_train_step, {}),
-                 (f"GradCache {TRAIN_CL_ACCUM} x "
-                  f"{TRAIN_BATCH // TRAIN_CL_ACCUM}",
+        micro = TRAIN_BATCH // TRAIN_CL_ACCUM
+        # (name, step, its arguments, FLOPs of a sample: micro accumulation
+        # does the plain step's work)
+        cases = (("plain", make_train_step, {}, "plain"),
+                 (f"GradCache {TRAIN_CL_ACCUM} x {micro}",
                   make_gradcache_train_step,
                   dict(accum_steps=TRAIN_CL_ACCUM,
-                       s1_chunk=TRAIN_CL_S1_CHUNK, merged=True)))
-        for name, factory, kw in cases:
+                       s1_chunk=TRAIN_CL_S1_CHUNK, merged=True),
+                  "gradcache"),
+                 (f"micro {TRAIN_CL_ACCUM} x {micro}", make_accum_train_step,
+                  dict(accum_steps=TRAIN_CL_ACCUM), "plain"))
+        peaks = {}  # peak GiB of each case without a mesh
+        for name, factory, kw, flops in cases:
             runs, kept = [], []
             for axis in (None, mesh):
                 if axis is not None:
@@ -3856,6 +3920,9 @@ def phase_distributed():
                 runs.append((losses, grads, params))
                 kept.append((state, step, b, peak))
             (l0, g0, p0), (l1, g1, p1) = runs
+            if name == "plain":
+                plain_run = runs[0]  # against micro accumulation of one
+            peaks[name] = kept[0][3]
             bad = [n for n in g0 if not torch.equal(g0[n], g1[n])]
             bad += [n for n in p0 if not torch.equal(p0[n], p1[n])]
             if l0 != l1 or bad:
@@ -3890,10 +3957,30 @@ def phase_distributed():
                        f"kernels {nccl:.3f} ms ({100 * nccl / busy:.3f}% "
                        "of busy)"))
                 _mfu(f"distributed {name} {what}",
-                     float(np.median(ms[which])), TRAIN_BATCH,
-                     "plain" if name == "plain" else "gradcache")
+                     float(np.median(ms[which])), TRAIN_BATCH, flops)
             del kept, state, step, b
             torch.cuda.empty_cache()
+        # micro accumulation of one microbatch is the plain step
+        l1, g1, _, _, state, _, _ = _step_grads(
+            args, batch, make_accum_train_step, reps=3, accum_steps=1)
+        p1 = {n: p.detach() for n, p in state.model.named_parameters()
+              if p.requires_grad}
+        l0, g0, p0 = plain_run
+        bad = [n for n in g0 if not torch.equal(g0[n], g1[n])]
+        bad += [n for n in p0 if not torch.equal(p0[n], p1[n])]
+        if l0 != l1 or bad:
+            raise AssertionError(f"distributed micro 1 x {TRAIN_BATCH}: "
+                                 f"losses {l1} vs the plain step's {l0}; "
+                                 f"differing tensors {bad[:5]}")
+        log(f"  micro 1 x {TRAIN_BATCH} without a mesh: losses, {len(g0)} "
+            f"gradients and {len(p0)} parameters after 3 AdamW steps "
+            "bit-equal to the plain step's")
+        log(f"  peak memory without a mesh at B={TRAIN_BATCH}: micro "
+            f"{TRAIN_CL_ACCUM} x {micro} "
+            f"{peaks[f'micro {TRAIN_CL_ACCUM} x {micro}']:.2f} GiB, the "
+            f"plain step {peaks['plain']:.2f} GiB ({card_line()})")
+        del state, plain_run, p1, g1
+        torch.cuda.empty_cache()
         # the repaired fault: remat "dots" saves the attention outputs
         rargs = ConfigNode({"model_config": dict(FLAGSHIP), "tpu": {
             "remat": True, "remat_policy": "dots"}})
@@ -5597,7 +5684,8 @@ def main(argv=None) -> int:
     if "openclip_training" in phases:
         path_counts["openclip_training"] = phase_openclip_training()
     if "train_cl" in phases:
-        path_counts["train_cl"] = phase_train_cl()
+        path_counts["train_cl"], path_counts["train_cl_micro"] = (
+            phase_train_cl())
     if "insect" in phases:
         path_counts["insect"] = phase_insect()
     if "data_tools" in phases:

@@ -5,10 +5,13 @@ cli/train_cl.py). The JAX counterpart is tests/test_multiprocess.py.
 
 One worker pair (this file run as a script) covers every mode in one
 spawn: the plain step, GradCache with a chunked stage 1, micro
-accumulation at n = 4 over W = 2, the plain step fed by the loader's
+accumulation at n = 4 over W = 2 (each microbatch on one process) and at
+n = 1 (one microbatch held by both), the plain step fed by the loader's
 process-strided shards, the supervised fine-tune's classifier and joint
 steps (every weight trainable, train/fine_tuning.py), the sharded search,
-and the CLI. The model is a
+and the CLI. Three processes (W = 3, a global batch of 12, n = 2: parts
+of 4, 2 + 2 and 4 rows, rank 1 in both microbatches) run micro
+accumulation alone, against one process on the same 12 rows. The model is a
 tiny tri-modal one (1-layer towers, width 32, dropout 0.1, perturbed
 adapters, a learnable logit scale) fed uint8 frames that take the device
 train augmentation, so every per-row draw is sliced from the global
@@ -37,6 +40,7 @@ from test_torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, W, STEPS, SEED = 16, 2, 2, 0x5EED
+B3 = 12  # the global batch of the three-process run
 
 
 def tiny_model(lora_rank=2, **_):
@@ -114,6 +118,10 @@ def _factory(mode, model, mesh):
                                               mesh=mesh)
     if mode == "accum":
         return loop.make_accum_train_step(model, 4, mesh=mesh)
+    if mode == "accum_span":  # one microbatch over both processes
+        return loop.make_accum_train_step(model, 1, mesh=mesh)
+    if mode == "accum_three":  # W = 3: microbatches of 6 over parts of 4
+        return loop.make_accum_train_step(model, 2, mesh=mesh)
     return loop.make_train_step(model, mesh=mesh)
 
 
@@ -241,26 +249,34 @@ def run_cli(path, out_dir, rank):
             "fingerprint": _fingerprint(state.model)}
 
 
-def worker(rank, port, path, out_path, out_dir, only=None):
-    """One rank of the pair: every mode (or the one mode `only`), results
-    to `out_path`."""
+def worker(rank, port, world, path, out_path, out_dir, only=None):
+    """One rank of `world` processes: every mode (or the one mode `only`),
+    results to `out_path`."""
     from bioscan_clip_tpu_torch.parallel.distributed import (
         maybe_initialize_distributed,
     )
     from bioscan_clip_tpu_torch.parallel.mesh import create_mesh
 
+    world = int(world)
     os.environ.update(BSCAN_COORDINATOR=f"localhost:{port}",
-                      BSCAN_NUM_PROCESSES=str(W), BSCAN_PROCESS_ID=str(rank))
-    assert maybe_initialize_distributed(device="cpu") == (rank, W)
-    mesh = create_mesh({"data": W})
+                      BSCAN_NUM_PROCESSES=str(world),
+                      BSCAN_PROCESS_ID=str(rank))
+    assert maybe_initialize_distributed(device="cpu") == (rank, world)
+    mesh = create_mesh({"data": world})
     mine = slice(rank * (B // W), (rank + 1) * (B // W))
     res = {}
-    if only == "loader":
-        res["loader"] = train("plain", loader_batches(path, rank, W), mesh)
+    if only in ("loader", "accum_three"):
+        if only == "loader":
+            res["loader"] = train("plain", loader_batches(path, rank, W),
+                                  mesh)
+        else:
+            part = slice(rank * (B3 // world), (rank + 1) * (B3 // world))
+            res[only] = train(only, [_rows(host_batch(s, B3), part)
+                                     for s in range(STEPS)], mesh)
         with open(out_path, "w") as f:
             json.dump(res, f)
         return
-    for mode in ("plain", "gradcache", "accum"):
+    for mode in ("plain", "gradcache", "accum", "accum_span"):
         res[mode] = train(mode, [_rows(host_batch(s), mine)
                                  for s in range(STEPS)], mesh)
     res["loader"] = train("plain", loader_batches(path, rank, W), mesh)
@@ -281,19 +297,19 @@ def _free_port() -> int:
     return port
 
 
-def _run_pair(path, tmp, *only):
-    """Both ranks' results over the fixture at `path` (every mode, or the
-    mode of `only`)."""
+def _run_pair(path, tmp, *only, world=W):
+    """Every rank's results over the fixture at `path` (every mode, or the
+    mode of `only`), `world` processes (the pair by default)."""
     port = _free_port()
     path_var = os.pathsep.join([REPO, os.path.join(REPO, "tests"),
                                 os.environ.get("PYTHONPATH", "")])
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=path_var)
     procs, outs = [], []
-    for rank in range(W):
+    for rank in range(world):
         outs.append(tmp / f"rank{rank}.json")
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), str(rank), str(port),
-             path, str(outs[-1]), str(tmp), *only],
+             str(world), path, str(outs[-1]), str(tmp), *only],
             env=env, cwd=str(tmp), stdout=subprocess.PIPE,
             stderr=subprocess.PIPE))
     try:
@@ -318,8 +334,9 @@ def pair(tmp_path_factory):
     return _run_pair(path, tmp), path, tmp
 
 
-@pytest.mark.parametrize("mode", ["plain", "gradcache", "accum", "loader",
-                                  "classifier", "joint"])
+@pytest.mark.parametrize("mode", ["plain", "gradcache", "accum",
+                                  "accum_span", "loader", "classifier",
+                                  "joint"])
 def test_two_processes_train_as_one(pair, mode):
     results, path, _ = pair
     if mode in ("classifier", "joint"):
@@ -343,9 +360,10 @@ def _loader_reference(path):
 
 
 def _same_training(results, mode, ref_losses, ref_fp):
-    (l0, fp0), (l1, fp1) = results[0][mode], results[1][mode]
-    np.testing.assert_allclose(l0, l1, rtol=1e-6)
-    np.testing.assert_allclose(fp0, fp1, rtol=1e-6)
+    l0, fp0 = results[0][mode]
+    for res in results[1:]:
+        np.testing.assert_allclose(l0, res[mode][0], rtol=1e-6)
+        np.testing.assert_allclose(fp0, res[mode][1], rtol=1e-6)
     np.testing.assert_allclose(l0, ref_losses, rtol=2e-5, atol=1e-6)
     np.testing.assert_allclose(fp0, ref_fp, rtol=2e-5)
 
@@ -391,16 +409,21 @@ def test_two_process_search_and_cli(pair):
     assert len(runs) == 1  # one run folder, rank 0's
 
 
-def test_micro_accumulation_needs_whole_microbatches_per_process():
-    """n = 3 microbatches over W = 2 processes would cut one in two: it
-    raises, as does a train step over several devices of one process."""
+def test_three_processes_micro_accumulation_spans_processes(tmp_path):
+    """W = 3 processes of 4 rows, n = 2 microbatches of 6: rank 1 holds 2
+    rows of each, so both span processes and their gathers carry unequal
+    parts; the run equals one process on the 12 rows in rank order."""
+    ref = train("accum_three", [host_batch(s, B3) for s in range(STEPS)])
+    _same_training(_run_pair("", tmp_path, "accum_three", world=3),
+                   "accum_three", *ref)
+
+
+def test_a_train_step_over_several_devices_of_one_process_raises():
+    """A train step takes one device per process (one process per card)."""
     from bioscan_clip_tpu_torch.parallel.mesh import Mesh
     from bioscan_clip_tpu_torch.train import loop
 
     model = tiny_model()
-    pair_axis = Mesh((torch.device("cpu"),), 2, 0, group=object())
-    with pytest.raises(ValueError, match="multiple of 2"):
-        loop.make_accum_train_step(model, 3, mesh=pair_axis)
     one_process = Mesh((torch.device("cpu"),) * 2, 2)
     with pytest.raises(ValueError, match="one process per card"):
         loop.make_train_step(model, mesh=one_process)
