@@ -228,6 +228,25 @@ Phases, in order; any failure exits non-zero:
             embeddings and one train step (K3m on the card); then the
             fine-tunes' classifier and joint steps (ViT-B/16 and
             BarcodeBERT at 2 layers, every weight trainable, B=8)
+  trace     the port's tracer (bioscan_clip_tpu_torch/tools:
+            trace_train_step, trace_extract, profile_towers,
+            profile_train_step) in process at full width: the flagship's
+            plain step at B=400 eager and graphed (2 steps a call),
+            GradCache 4 x 100, micro accumulation 4 x 100, remat "full",
+            the ViT-B/16 and joint INSECT fine-tunes at B=200, extraction
+            at B=256 and at the eval job's 24, one /search of 64 barcodes
+            over 1,048,576 keys, the towers at B=256 and the fused and
+            graphed steps at B=400; one JSON line each (card time by
+            category and kernel group, the union busy share, the idle gaps
+            by host op, kernel events beside the wrappers' counters, the
+            card's name and power limit); fails if busy exceeds the wall
+            time, the categories miss the leaf total, a group shows fewer
+            kernel events than its counters launched, or the graphed call
+            lacks a kernel group of the eager step
+
+Every profiled step (training, openclip_training, train_cl, distributed,
+graphs) reports the card's busy time as the union of its intervals over all
+streams (tools/trace_train_step.aggregate), not the sum of kernel times.
 
 Every flagship step time (training, train_cl, insect, distributed, graphs)
 and the eval phase's extraction rate has an MFU line beside it: utils/flops'
@@ -263,7 +282,7 @@ FLOPS_PER_SAMPLE = {"plain": 118467084288.0, "gradcache": 177601994752.0,
 ALL_PHASES = ("device", "build", "kernels", "serving", "openclip", "eval",
               "training", "openclip_training", "train_cl", "insect",
               "data_tools", "files", "distributed", "graphs", "streaming",
-              "probe", "parity")
+              "probe", "parity", "trace")
 
 
 def log(msg: str) -> None:
@@ -1553,16 +1572,18 @@ KERNELS = {
 # the main paths that launch each kernel: the first gives its `launches`
 # in that line, every one its count in `launches_by_path`
 KERNEL_PATH = {"mha_packed": ("serving", "graphs", "insect", "data_tools",
-                              "files", "train_cl_micro", "distributed"),
-               "mha": ("serving", "insect", "data_tools", "files"),
-               "topk": ("serving", "insect", "data_tools", "files"),
+                              "files", "train_cl_micro", "distributed",
+                              "trace"),
+               "mha": ("serving", "insect", "data_tools", "files", "trace"),
+               "topk": ("serving", "insect", "data_tools", "files",
+                        "trace"),
                "topk_i8": ("eval", "serving", "streaming", "insect",
                            "data_tools", "train_cl", "files"),
                "topk_default": ("eval", "files"),
                "mha_dropout": ("training", "graphs", "insect", "files",
-                               "train_cl_micro", "distributed"),
+                               "train_cl_micro", "distributed", "trace"),
                "mha_bwd": ("training", "graphs", "insect", "files",
-                           "train_cl_micro", "distributed"),
+                           "train_cl_micro", "distributed", "trace"),
                "mha_packed_mask": ("openclip", "graphs"),
                "mha_bwd_mask": ("openclip_training", "graphs"),
                "mm_only": ("probe",), "tiny": ("probe",)}
@@ -2529,65 +2550,32 @@ def _train_batch(rng, b, tiled=True):
     }
 
 
-# K3m's instantiations of K3's sm90 body (MASK set, no dropout), as the
-# profiler names kernels (demangled or not, lower case)
-K3M_SM90_PASS_A = tuple(
-    name for kt in range(1, 10) for name in (
-        f"mha_bwd_sm90_pass_a<{kt}, false, true",
-        f"mha_bwd_sm90_pass_aili{kt}elb0elb1e"))
-K3M_SM90_PASS_B = ("mha_bwd_sm90_pass_b<false, true",
-                   "mha_bwd_sm90_pass_bilb0elb1e")
-
-
 def _profile_step(state, step, batch):
     """Where one more train step's card time goes (torch.profiler, after
-    the checked run): kernel time by group, and the card's busy share of
-    the step's wall time."""
+    the checked run, aggregated by tools/trace_train_step.aggregate):
+    kernel time by group and category, and the card's busy share of the
+    step's wall time (CUDA events): the union of the card's intervals over
+    all streams, beside the sum of kernel times it replaced."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
+    from bioscan_clip_tpu_torch.tools.trace_train_step import traced_call
     from bioscan_clip_tpu_torch.train.loop import device_batch
 
-    groups = (("K3m sm90 pass A", K3M_SM90_PASS_A),
-              ("K3m sm90 pass B", K3M_SM90_PASS_B),
-              ("K3 sm90 pass A", ("mha_bwd_sm90_pass_a",)),
-              ("K3 sm90 pass B", ("mha_bwd_sm90_pass_b",)),
-              ("K3/K3m mha_bwd pass A (mma.sync, FFMA)", ("bwd_query_rows",)),
-              ("K3/K3m mha_bwd pass B + C (mma.sync, FFMA)",
-               ("bwd_key_rows", "dbias_sum_heads")),
-              ("K1/K1m/K2d mha_fwd", ("mha_fwd_kernel", "mha_fwd_mma",
-                                      "mha_fwd_sm90")),
-              ("GEMM (cuBLAS)", ("gemm", "nvjet", "xmma", "cutlass")))
     b = device_batch(batch, "cuda")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, b, 0x600D5EED)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    total, others = {}, []
-    for ev in prof.key_averages():
-        # kernel events only: an operator's own entry repeats its kernels
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = ev.device_time_total / 1e3
-        name = next((g for g, keys in groups
-                     if any(k in ev.key.lower() for k in keys)),
-                    "other kernels")
-        total[name] = total.get(name, 0.0) + ms
-        if name == "other kernels":
-            others.append((ms, ev.count, ev.key[:90]))
-    busy = sum(total.values())
-    if busy <= 0:
+    _, wall_ms, agg = traced_call(lambda: step(state, b, 0x600D5EED),
+                                  torch.device("cuda"))
+    busy, leaves = agg["busy_ms"], agg["leaf_total_ms"]
+    if busy is None:
         log("  profiled step: the profiler shows no card time (not measured)")
         return
-    parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)"
-                      for k, v in sorted(total.items(), key=lambda kv: -kv[1]))
+    parts = ", ".join(f"{k} {v:.1f} ms ({100 * v / leaves:.1f}%)"
+                      for k, v in agg["per_category_ms"].items())
     log(f"  profiled step: wall {wall_ms:.1f} ms, card busy {busy:.1f} ms "
-        f"({100 * busy / wall_ms:.1f}%): {parts}")
-    for ms, count, key in sorted(others, reverse=True)[:8]:
-        log(f"    other: {ms:.1f} ms in {count} launches of {key}")
+        f"({100 * busy / wall_ms:.1f}%, the union of the card's intervals; "
+        f"the sum of kernel times {leaves:.1f} ms, "
+        f"{100 * leaves / wall_ms:.1f}%): {parts}")
+    for key, ms in list(agg["top_ops_ms"].items())[:8]:
+        log(f"    top: {ms:.1f} ms in {key}")
 
 
 def phase_training():
@@ -3817,26 +3805,17 @@ def _free_port() -> int:
 
 
 def _nccl_ms(step, state, batch, seed):
-    """One more step under torch.profiler -> (wall ms, card ms in NCCL
-    kernels, card busy ms), or Nones where the profiler shows no card
-    time."""
+    """One more step under torch.profiler -> (wall ms by CUDA events, card
+    ms in NCCL kernels, card busy ms: the union of the card's intervals),
+    or Nones where the profiler shows no card time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step(state, batch, seed)
-        torch.cuda.synchronize()
-        wall = 1e3 * (time.perf_counter() - t0)
-    nccl = busy = 0.0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        busy += ev.device_time_total / 1e3
-        if "nccl" in ev.key.lower():
-            nccl += ev.device_time_total / 1e3
+    from bioscan_clip_tpu_torch.tools.trace_train_step import traced_call
+
+    _, wall, agg = traced_call(lambda: step(state, batch, seed),
+                               torch.device("cuda"))
+    busy = agg["busy_ms"]
+    nccl = agg["per_category_ms"].get("collective", 0.0)
     return wall, (nccl if busy else None), (busy or None)
 
 
@@ -4020,12 +3999,6 @@ def phase_distributed():
 
 # graphs phase: K train steps per call as CUDA graphs (train/graphs.py)
 GRAPH_K = 4
-# kernel names in a profiler trace: the attention forwards (K1, K2 and K2d
-# on the sm90 body; K1m, BarcodeBERT's K2d at B = 400 and the rest on the
-# bodies of csrc/mha_fwd.cu) and
-# the backward's passes (K3, K3m)
-FWD_KERNELS = ("mha_fwd_sm90", "mha_fwd_mma", "mha_fwd_kernel")
-BWD_KERNELS = ("mha_bwd_sm90", "bwd_query_rows", "bwd_key_rows")
 
 
 def _graph_schedule(step):
@@ -4053,30 +4026,19 @@ def _trainable_state(state):
 
 def _profile_call(scan, state, stacked, seeds):
     """One more graphed call under torch.profiler -> (state, wall ms by CUDA
-    events, card busy ms or None, the kernel names seen)."""
+    events, card busy ms (the union of the card's intervals) or None, the
+    hand-written kernel groups seen (tools/trace_train_step.GROUPS))."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    ev = (torch.cuda.Event(enable_timing=True),
-          torch.cuda.Event(enable_timing=True))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        ev[0].record()
-        state, _ = scan(state, stacked, seeds)
-        ev[1].record()
-        torch.cuda.synchronize()
-    busy, names, api = 0.0, set(), []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy += e.device_time_total / 1e3
-            names.add(e.key)
-        elif e.key.startswith("cuda"):  # the runtime calls the host made
-            api.append((e.cpu_time_total / 1e3, e.count, e.key))
-    top = ", ".join(f"{key} {ms:.1f} ms in {n}"
-                    for ms, n, key in sorted(api, reverse=True)[:4])
+    from bioscan_clip_tpu_torch.tools.trace_train_step import traced_call
+
+    (state, _), wall, agg = traced_call(
+        lambda: scan(state, stacked, seeds), torch.device("cuda"))
+    api = [(ms, key) for key, ms in agg["host_self_ms"].items()
+           if key.startswith("cuda")]  # the runtime calls the host made
+    top = ", ".join(f"{key} {ms:.1f} ms" for ms, key in api[:4])
     log(f"    host time in CUDA runtime calls during the call: {top}")
-    return state, ev[0].elapsed_time(ev[1]), (busy or None), names
+    return state, wall, agg["busy_ms"], set(agg["launches"] or ())
 
 
 def _graph_case(what, model, eager_step, scan_step, calls, seeds, counts,
@@ -4175,11 +4137,11 @@ def _graph_case(what, model, eager_step, scan_step, calls, seeds, counts,
         + f"; peak {eager_peak:.2f} GiB eager, {graph_peak:.2f} GiB graphed "
         f"(max_memory_allocated); launches in that call {replayed}; one "
         f"replay captures {captured}")
-    fwd = sorted(n for n in names if any(k_ in n for k_ in FWD_KERNELS))
-    bwd = sorted(n for n in names if any(k_ in n for k_ in BWD_KERNELS))
-    sm90 = [n for n in fwd if "mha_fwd_sm90" in n]
-    log(f"    kernels in the replayed call's trace: forward {fwd[:4]}, "
-        f"backward {bwd[:4]}; K1's sm90 body {sm90}; plain calls {plain}")
+    fwd = sorted(g for g in names if " fwd " in g)
+    bwd = sorted(g for g in names if " bwd " in g)
+    sm90 = [g for g in fwd if "fwd sm90" in g]
+    log(f"    kernel groups in the replayed call's trace: forward {fwd}, "
+        f"backward {bwd}; K1's sm90 body {sm90}; plain calls {plain}")
     if not fwd or not bwd or not sm90 or any(plain.values()):
         raise AssertionError(f"graphs {what}: trace forward {fwd}, backward "
                              f"{bwd}, plain {plain}")
@@ -5646,6 +5608,89 @@ def phase_files():
     return counts
 
 
+# the trace phase's paths: (tool, arguments, the wrappers' counters that
+# must move in the traced call; None for the profile tools, which trace
+# nothing). The plain step runs eager (--scan 1) and graphed (--scan 2).
+TRACE_PATHS = (
+    ("trace_train_step", ["--batch", "400", "--scan", "1",
+                          "--remat-policy", "none"],
+     ("mha_packed.launches", "mha_dropout.launches", "mha_bwd.launches")),
+    ("trace_train_step", ["--batch", "400", "--scan", "2",
+                          "--remat-policy", "none"],
+     ("mha_packed.launches", "mha_dropout.launches", "mha_bwd.launches")),
+    ("trace_train_step", ["--batch", "400", "--scan", "1",
+                          "--remat-policy", "none", "--mode", "gradcache"],
+     ("mha_packed.launches", "mha_dropout.launches", "mha_bwd.launches")),
+    ("trace_train_step", ["--batch", "400", "--scan", "1",
+                          "--remat-policy", "none", "--mode", "micro"],
+     ("mha_packed.launches", "mha_dropout.launches", "mha_bwd.launches")),
+    ("trace_train_step", ["--batch", "400", "--scan", "1",
+                          "--remat-policy", "full"],
+     ("mha_packed.launches", "mha_dropout.launches", "mha_bwd.launches")),
+    ("trace_train_step", ["--step", "finetune-image"],
+     ("mha_packed.launches", "mha_bwd.launches")),
+    ("trace_train_step", ["--step", "finetune-joint"],
+     ("mha_packed.launches", "mha_dropout.launches", "mha_bwd.launches")),
+    ("trace_extract", ["--batch", "256", "--steps", "4"],
+     ("mha_packed.launches", "mha.launches")),
+    ("trace_extract", ["--batch", "24", "--steps", "4"],
+     ("mha_packed.launches", "mha.launches")),
+    ("trace_extract", ["--search"], ("mha.launches", "topk.launches")),
+    ("profile_towers", ["--batch", "256", "--steps", "8"], None),
+    ("profile_train_step", ["--variant", "fused", "--batch", "400",
+                            "--steps", "4"], None),
+    ("profile_train_step", ["--variant", "flat", "--batch", "400",
+                            "--steps", "4"], None),
+)
+
+
+def phase_trace():
+    """The port's tracer on the flagship's paths at full width (random
+    seeded weights, bf16): each tool of bioscan_clip_tpu_torch/tools
+    (trace_train_step, trace_extract, profile_towers, profile_train_step)
+    run in this process on the paths of TRACE_PATHS, its JSON line printed
+    on a line of its own. A traced line fails if its union busy time
+    exceeds its wall time, its categories do not sum to its leaf total
+    within 0.1 ms, a kernel group shows fewer kernel events than the
+    wrappers' counters launched there (tools/trace_train_step.check), or a
+    counter its path must move did not; the graphed plain call must show
+    every hand-written kernel group its eager step launched; no plain
+    version runs. Returns the launch counts of the phase."""
+    import importlib
+
+    from bioscan_clip_tpu_torch.tools.trace_train_step import check
+
+    t0 = time.perf_counter()
+    reset_counts()
+    lines = []
+    for name, argv, want in TRACE_PATHS:
+        tool = importlib.import_module(f"bioscan_clip_tpu_torch.tools.{name}")
+        t = time.perf_counter()
+        out = tool.main(argv, emit=log)
+        log(f"  {name} {' '.join(argv)}: {time.perf_counter() - t:.1f} s")
+        lines.append(out)
+        if want is None:
+            continue
+        bad = check(out["agg"], out["counters"])
+        bad += [f"{c} did not move" for c in want
+                if out["counters"].get(c, 0) <= 0]
+        if bad:
+            raise AssertionError(f"trace {name} {argv}: {bad}")
+    eager, graphed = lines[0]["agg"]["launches"], lines[1]["agg"]["launches"]
+    missing = sorted(set(eager) - set(graphed))
+    log(f"  the plain step's hand-written kernel groups: eager {sorted(eager)}"
+        f", graphed {sorted(graphed)}")
+    if missing:
+        raise AssertionError(f"trace: the graphed call lacks {missing}")
+    counts = launch_counts()
+    plain = plain_calls()
+    if any(plain.values()):
+        raise AssertionError(f"trace: plain versions ran: {plain}")
+    log(f"  launches on the trace path: {counts}")
+    log(f"phase trace ok in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(ALL_PHASES),
@@ -5702,6 +5747,8 @@ def main(argv=None) -> int:
         path_counts["probe"] = phase_probe()
     if "parity" in phases:
         phase_parity()
+    if "trace" in phases:
+        path_counts["trace"] = phase_trace()
     log(f"elapsed {time.perf_counter() - t0:.1f} s")
     by_path = {name: {path: path_counts[path].get(name) for path in paths
                       if path in path_counts}

@@ -33,7 +33,8 @@ def test_no_forbidden_imports():
     names = {p.relative_to(ROOT).as_posix() for p in files}
     # the OpenCLIP slices' modules, the probe, the training CLI with its
     # loader and logger, the parallel layer, and the INSECT, fine-tune and
-    # BZSL modules with their CLIs are among those checked
+    # BZSL modules with their CLIs, and the tracer's four tools are among
+    # those checked
     assert {f"bioscan_clip_tpu_torch/{m}.py" for m in (
         "models/openclip", "models/mlp", "models/heads",
         "data/clip_tokenizer", "tools/bench_topk_variants",
@@ -48,11 +49,24 @@ def test_no_forbidden_imports():
         "utils/flops", "data/splits", "data/native_io", "cli/generate_hdf5",
         "cli/process_insect_dataset", "cli/get_species_taxo_labels",
         "cli/flatten_csv", "cli/read_image_with_image_file_as_name",
-        "cli/loading_speed_test", "utils/viz", "interop/torch_export")
+        "cli/loading_speed_test", "utils/viz", "interop/torch_export",
+        "tools/trace_train_step", "tools/trace_extract",
+        "tools/profile_towers", "tools/profile_train_step")
     } <= names
     bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}"
            for p in files for mod, line in _imported_roots(p)
            if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_the_port_imports_no_top_level_script():
+    """No module of the port imports chip_smoke.py, the JAX package's
+    top-level tools/, bench.py or __graft_entry__.py: the tracer's tools
+    keep their own copies of what they take from them."""
+    files = sorted((ROOT / "bioscan_clip_tpu_torch").rglob("*.py"))
+    bad = [f"{p.relative_to(ROOT)}:{line} imports {mod}" for p in files
+           for mod, line in _imported_roots(p)
+           if mod in ("chip_smoke", "tools", "bench", "__graft_entry__")]
     assert not bad, bad
 
 
@@ -135,6 +149,14 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
     assert resolve_device("cpu").type == "cpu"
     assert RetrievalService(MultiModalCLIP(), device="cpu").info()[
         "backend"] == "cpu"
+    # the tracer's tools run on the card unless --cpu is given
+    import importlib
+
+    for name in ("trace_train_step", "trace_extract", "profile_towers",
+                 "profile_train_step"):
+        tool = importlib.import_module(f"bioscan_clip_tpu_torch.tools.{name}")
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main([], emit=print)
 
 
 @pytest.mark.parametrize("name", [
